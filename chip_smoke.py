@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path and its MoE SFT train step once on
-one NVIDIA card.
+"""Drive the PyTorch port's serving path, its MoE SFT train step and its
+SFT entry point once on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--breakdown]
 
 Phases, each printed on its own line; any failure raises and the script
 exits non-zero with no result line:
@@ -21,15 +21,29 @@ exits non-zero with no result line:
    cut to 4 layers, random f32 masters from the seed, 4 steps on one packed
    8192-token row of 5 documents; loss, grad norm, lr, step time, tokens/s
    and peak memory per step; launch counters of its kernels against the
-   counts the step implies; one profiled step.
+   counts the step implies; one profiled step;
+6. the fused CE kernels (#8-#10) at N = 2 x 8192, H = 1024, V = 151936
+   and at an odd shape, with times and peak memory; then flash at B2 with
+   16/8 heads and the grouped GEMMs at 16 experts (moe_heavy's shapes);
+7. sft: the `sft` CLI's `main(["--config", recipes/sft_moe_heavy.py])` in a
+   temporary directory: bench.py's moe_heavy config at full width and depth
+   (fused CE, remat "save_attn_residuals"), 6 steps through `Trainer.fit`;
+   its tracker (6 finite steps, a falling loss, none skipped), its final
+   checkpoint (size, save seconds), steady step ms, tokens/s and peak
+   memory; the exact launch count of every kernel over the run; one
+   profiled step. With `--breakdown`, also where one step's memory and
+   time go under the recipe, under remat "full", and with the chunked CE
+   in place of the fused one (a diagnostic: off by default).
 
-Then a JSON line of the kernels, the card's name and power limit, and last
+Between phases it frees what the last one held and checks that nothing
+large stays allocated, so each peak is the phase's own. Then a JSON line of the kernels, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Needs a CUDA card; fails without one.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -59,6 +73,20 @@ TRAIN_LOSS1 = (11.4, 13.4)
 TRAIN_LAYERS = 4
 TRAIN_STEPS = 4
 SEQ = 8192
+# fused CE (see tests/test_torch_kernels.py): lse and label_logit are f32
+# sums of the same bf16 products in another order; dh and dw round the
+# coefficient and the result to bf16 (GG_RTOL, relative to the largest entry)
+CE_STAT_ATOL = 1e-3
+# sft phase: the moe_heavy recipe, 2 rows of 8192 per step, 6 steps; the
+# step-1 CE of a random model is ln(V) + sigma^2 / 2 for logits of std
+# 0.02 * sqrt(1024): 11.93 + 0.20 = 12.1
+SFT_RECIPE = "xtuner_tpu_torch/recipes/sft_moe_heavy.py"
+SFT_ROWS = 2
+SFT_STEPS = 6
+SFT_LAYERS = 10
+SFT_LOSS1 = (11.4, 13.0)
+# what may stay allocated between phases (the kernels' small device buffers)
+RELEASED_GIB = 1.0
 
 MAX_NEW = 32
 
@@ -419,6 +447,252 @@ def phase_train_kernels(torch, seed: int) -> list[dict]:
     return rows
 
 
+def _peak_ms(torch, fn, iters: int = 3) -> tuple[float, float]:
+    """(ms per call from CUDA events, peak device memory of one call above
+    what was allocated before it, in GiB)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    return cuda_ms(fn, iters=iters, warmup=1), peak
+
+
+def phase_ce_kernels(torch, seed: int) -> list[dict]:
+    """The fused CE kernels (#8-#10) against their plain versions: at the
+    moe_heavy step's N = 2 x 8192, H = 1024, V = 151936 with 5% ignored
+    labels, then at odd shapes (N not a multiple of the 128-row tile, V
+    below one tile; a ragged vocab tail). The backward is checked under
+    several cotangents: both terms; g_lse alone, so that dh and dW are the
+    softmax part alone and the bound is relative to its own scale (with
+    both, the label term's entries dominate dW at V = 151936, where p is
+    ~1/V); g_lab alone. CUDA-event times and the peak memory of each call,
+    kernel and plain, under the first cotangents of each shape."""
+    import numpy as np
+
+    from xtuner_tpu_torch.ops import fused_ce as fc
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    rng = np.random.default_rng(seed + 2)
+    rows = []
+
+    def ce_inputs(n, v, hd, ignored):
+        h = torch.randn((n, hd), generator=g, device=dev).bfloat16()
+        w = (torch.randn((v, hd), generator=g, device=dev) * 0.02).bfloat16()
+        keep = torch.tensor(rng.random(n) >= ignored, device=dev)
+        labels = torch.tensor(rng.integers(0, v, n), dtype=torch.int32, device=dev)
+        labels = torch.where(keep, labels, 0).to(torch.int32).contiguous()
+        g_lse = torch.where(keep, torch.rand((n,), generator=g, device=dev), 0.0).contiguous()
+        g_lab = torch.where(keep, -torch.rand((n,), generator=g, device=dev), 0.0).contiguous()
+        return h, w, labels, g_lse, g_lab
+
+    main_n = SFT_ROWS * SEQ
+    for n, v, hd, cotangents in ((main_n, 151936, 1024, ("both", "g_lse")),
+                                 (1000, 100, 128, ("g_lab", "both")),
+                                 (300, 5000, 256, ("g_lse",))):
+        h, w, labels, g_lse_all, g_lab_all = ce_inputs(n, v, hd, 0.05)
+        lse, lab = fc.ce_fwd(h, w, labels)
+        ref_lse, ref_lab = fc.ce_fwd_plain(h, w, labels)
+        stat_err = max(_abs(lse, ref_lse), _abs(lab, ref_lab))
+        shape = f"N{n}xH{hd}xV{v}"
+        if not stat_err <= CE_STAT_ATOL:
+            raise AssertionError(f"ce_fwd disagrees with its plain version at {shape}: "
+                                 f"lse/label {stat_err} (<= {CE_STAT_ATOL})")
+        for cot in cotangents:
+            g_lse = torch.zeros_like(g_lse_all) if cot == "g_lab" else g_lse_all
+            g_lab = torch.zeros_like(g_lab_all) if cot == "g_lse" else g_lab_all
+            args = (h, w, labels, ref_lse, g_lse, g_lab)
+            dh_k, dh_p = fc.ce_dh(*args), fc.ce_dh_plain(*args)
+            dh_abs, dh_rel = _abs(dh_k, dh_p), _rel(dh_k, dh_p)
+            del dh_k, dh_p
+            dw_k, dw_p = fc.ce_dw(*args), fc.ce_dw_plain(*args)
+            dw_abs, dw_rel = _abs(dw_k, dw_p), _rel(dw_k, dw_p)
+            del dw_k, dw_p
+            torch.cuda.synchronize()
+            say("kernel", name="ce_bwd", shape=shape, ignored=0.05, cotangents=cot,
+                dh_err=f"{dh_abs:.3e}", dh_rel=f"{dh_rel:.3e}", dw_err=f"{dw_abs:.3e}",
+                dw_rel=f"{dw_rel:.3e}")
+            if not (dh_rel <= GG_RTOL and dw_rel <= GG_RTOL):
+                raise AssertionError(f"ce_dh / ce_dw disagree with their plain versions at "
+                                     f"{shape}, cotangents {cot}: dh {dh_rel}, dw {dw_rel} "
+                                     f"(<= {GG_RTOL})")
+            if cot != cotangents[0]:
+                continue
+            timed = {
+                "ce_fwd": (lambda: fc.ce_fwd(h, w, labels),
+                           lambda: fc.ce_fwd_plain(h, w, labels), stat_err,
+                           "xtuner_tpu/ops/fused_ce.py:47"),
+                "ce_dh": (lambda: fc.ce_dh(*args), lambda: fc.ce_dh_plain(*args), dh_abs,
+                          "xtuner_tpu/ops/fused_ce.py:98"),
+                "ce_dw": (lambda: fc.ce_dw(*args), lambda: fc.ce_dw_plain(*args), dw_abs,
+                          "xtuner_tpu/ops/fused_ce.py:123"),
+            }
+            for name, (kern, plain, err, replaces) in timed.items():
+                ms, peak = _peak_ms(torch, kern)
+                pms, ppeak = _peak_ms(torch, plain)
+                flops = 2 * n * v * hd * (1 if name == "ce_fwd" else 2)
+                say("kernel", name=name, shape=shape, cotangents=cot, err=f"{err:.3e}",
+                    ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}", tflops=f"{flops / ms / 1e9:.1f}",
+                    peak_gib=f"{peak:.3f}", plain_peak_gib=f"{ppeak:.3f}")
+                if n == main_n:
+                    rows.append({"name": name, "route": "cuda",
+                                 "source": "xtuner_tpu_torch/csrc/fused_ce.cu",
+                                 "replaces": replaces, "path": "sft", "max_abs_err": err,
+                                 "ms": ms, "plain_ms": pms})
+        del h, w, labels, g_lse, g_lab, g_lse_all, g_lab_all, lse, lab, ref_lse, ref_lab, args
+    return rows
+
+
+def phase_moe_heavy_kernels(torch, seed: int) -> list[dict]:
+    """The train step's flash and grouped kernels at the new shapes the
+    moe_heavy step gives them: flash (max-free forward, dq, dk/dv) at B2
+    L8192 with 16/8 heads (GQA group 2) and the grouped GEMMs at 16
+    experts, M = 16384 x top-8."""
+    import numpy as np
+
+    from xtuner_tpu_torch.ops.attention import flash as fl
+    from xtuner_tpu_torch.ops.bf16_grouped import (grouped_gemm_bf16, grouped_gemm_bf16_dw,
+                                                   grouped_gemm_dw_plain, grouped_gemm_plain)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    rng = np.random.default_rng(seed + 3)
+    rows = []
+
+    # ---- flash at B2 L8192 Hq16 Hkv8: forward (max-free), dq, dk/dv
+    b, l, hq, hkv, d = SFT_ROWS, SEQ, 16, 8, 128
+    seg = torch.cat([_segments(torch, doc_lengths(rng, l, 4, int(rng.integers(50, 300))),
+                               l, dev) for _ in range(b)])
+
+    def normed(hh):
+        x = torch.randn((b, l, hh, d), generator=g, device=dev)
+        return (x * (d ** 0.5) / x.norm(dim=-1, keepdim=True)).bfloat16()
+
+    q, k = normed(hq), normed(hkv)
+    v = torch.randn((b, l, hkv, d), generator=g, device=dev).bfloat16()
+    bound = torch.tensor(d ** 0.5, device=dev)
+    scale = d ** -0.5
+    out, lse = fl.flash_attention(q, k, v, seg, max_logit=bound)
+    ref_out, ref_lse = fl.flash_attention_plain(q, k, v, seg, scale, max_free=True)
+    valid = seg != 0
+    out_err = _abs(out[valid], ref_out[valid])
+    lse_t = lse.transpose(1, 2)
+    lse_err = _abs(lse_t[valid], ref_lse.transpose(1, 2)[valid])
+    pad_ok = bool((out[~valid] == 0).all()) and \
+        bool((lse_t[~valid] == torch.tensor(fl.BIG_LSE, dtype=torch.float32)).all())
+    del ref_out, ref_lse, lse_t
+    do = torch.randn(q.shape, generator=g, device=dev).bfloat16()
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq, rdq = (fl.flash_dq(q, k, v, seg, lse, delta, do, scale),
+               fl.flash_dq_plain(q, k, v, seg, lse, delta, do, scale))
+    dq_err, dq_rel = _abs(dq, rdq), _rel(dq, rdq)
+    del dq, rdq
+    (dk, dv), (rdk, rdv) = (fl.flash_dkv(q, k, v, seg, lse, delta, do, scale),
+                            fl.flash_dkv_plain(q, k, v, seg, lse, delta, do, scale))
+    dkv_err = max(_abs(dk, rdk), _abs(dv, rdv))
+    dkv_rel = max(_rel(dk, rdk), _rel(dv, rdv))
+    del dk, dv, rdk, rdv
+    f_ms = cuda_ms(lambda: fl.flash_attention(q, k, v, seg, max_logit=bound), iters=5)
+    f_plain = cuda_ms(lambda: fl.flash_attention_plain(q, k, v, seg, scale, max_free=True),
+                      iters=2, warmup=1)
+    dq_ms = cuda_ms(lambda: fl.flash_dq(q, k, v, seg, lse, delta, do, scale), iters=5)
+    dq_plain = cuda_ms(lambda: fl.flash_dq_plain(q, k, v, seg, lse, delta, do, scale),
+                       iters=2, warmup=1)
+    dkv_ms = cuda_ms(lambda: fl.flash_dkv(q, k, v, seg, lse, delta, do, scale), iters=5)
+    dkv_plain = cuda_ms(lambda: fl.flash_dkv_plain(q, k, v, seg, lse, delta, do, scale),
+                        iters=2, warmup=1)
+    shape = f"B{b}xL{l}xHq{hq}xHkv{hkv}xD{d}"
+    say("kernel", name="flash_fwd_max_free", shape=shape, out_err=f"{out_err:.3e}",
+        lse_err=f"{lse_err:.3e}", pad_rows_ok=pad_ok, ms=f"{f_ms:.4f}",
+        plain_ms=f"{f_plain:.4f}")
+    say("kernel", name="flash_dq", shape=shape, err=f"{dq_err:.3e}", rel=f"{dq_rel:.3e}",
+        ms=f"{dq_ms:.4f}", plain_ms=f"{dq_plain:.4f}")
+    say("kernel", name="flash_dkv", shape=shape, err=f"{dkv_err:.3e}", rel=f"{dkv_rel:.3e}",
+        ms=f"{dkv_ms:.4f}", plain_ms=f"{dkv_plain:.4f}")
+    if not (out_err <= FLASH_OUT_ATOL and lse_err <= FLASH_LSE_ATOL and pad_ok
+            and dq_rel <= FLASH_GRAD_RTOL and dkv_rel <= FLASH_GRAD_RTOL):
+        raise AssertionError(f"flash kernels disagree at {shape}: out {out_err} "
+                             f"(<= {FLASH_OUT_ATOL}), lse {lse_err} (<= {FLASH_LSE_ATOL}), "
+                             f"padding rows ok {pad_ok}, dq {dq_rel}, dk/dv {dkv_rel} "
+                             f"(<= {FLASH_GRAD_RTOL})")
+    src = "xtuner_tpu_torch/csrc/"
+    rows += [{"name": "flash_fwd_max_free", "route": "cuda", "source": src + "flash_fwd.cu",
+              "replaces": "xtuner_tpu/ops/attention/flash.py:82", "path": "sft",
+              "max_abs_err": max(out_err, lse_err), "ms": f_ms, "plain_ms": f_plain},
+             {"name": "flash_dq", "route": "cuda", "source": src + "flash_bwd.cu",
+              "replaces": "xtuner_tpu/ops/attention/flash.py:199", "path": "sft",
+              "max_abs_err": dq_err, "ms": dq_ms, "plain_ms": dq_plain},
+             {"name": "flash_dkv", "route": "cuda", "source": src + "flash_bwd.cu",
+              "replaces": "xtuner_tpu/ops/attention/flash.py:303", "path": "sft",
+              "max_abs_err": dkv_err, "ms": dkv_ms, "plain_ms": dkv_plain}]
+    del q, k, v, do, out, lse, delta
+
+    # ---- grouped GEMMs at E16, M = 16384 x top-8, gate|up K1024/N1536 and
+    # down K768/N1024
+    e, hid, f = 16, 1024, 768
+    m = SFT_ROWS * SEQ * 8
+    sizes = torch.tensor(rng.multinomial(m, rng.dirichlet(np.full(e, 2.0))),
+                         dtype=torch.int32, device=dev)
+    x = torch.randn((m, hid), generator=g, device=dev).bfloat16()
+    w_gu = (torch.randn((e, hid, 2 * f), generator=g, device=dev) * 0.02).bfloat16()
+    w_dn = (torch.randn((e, f, hid), generator=g, device=dev) * 0.02).bfloat16()
+    hmid = torch.randn((m, f), generator=g, device=dev).bfloat16()
+    dy_gu = torch.randn((m, 2 * f), generator=g, device=dev).bfloat16()
+    dy_dn = torch.randn((m, hid), generator=g, device=dev).bfloat16()
+    cases = [
+        ("grouped_gemm_nn", lambda: grouped_gemm_bf16(x, w_gu, sizes),
+         lambda: grouped_gemm_plain(x, w_gu, sizes)),
+        ("grouped_gemm_nn", lambda: grouped_gemm_bf16(hmid, w_dn, sizes),
+         lambda: grouped_gemm_plain(hmid, w_dn, sizes)),
+        ("grouped_gemm_nt", lambda: grouped_gemm_bf16(dy_gu, w_gu, sizes, transpose_rhs=True),
+         lambda: grouped_gemm_plain(dy_gu, w_gu, sizes, transpose_rhs=True)),
+        ("grouped_gemm_nt", lambda: grouped_gemm_bf16(dy_dn, w_dn, sizes, transpose_rhs=True),
+         lambda: grouped_gemm_plain(dy_dn, w_dn, sizes, transpose_rhs=True)),
+        ("grouped_gemm_dw", lambda: grouped_gemm_bf16_dw(x, dy_gu, sizes, e),
+         lambda: grouped_gemm_dw_plain(x, dy_gu, sizes, e)),
+        ("grouped_gemm_dw", lambda: grouped_gemm_bf16_dw(hmid, dy_dn, sizes, e),
+         lambda: grouped_gemm_dw_plain(hmid, dy_dn, sizes, e)),
+    ]
+    by_name: dict = {}
+    for name, kern, plain in cases:
+        got, want = kern(), plain()
+        err, rel = _abs(got, want), _rel(got, want)
+        del got, want
+        ms = cuda_ms(kern, iters=5)
+        pms = cuda_ms(plain, iters=3, warmup=1)
+        say("kernel", name=name, m=m, experts=e, err=f"{err:.3e}", rel=f"{rel:.3e}",
+            ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}")
+        if not rel <= (DW_RTOL if name.endswith("dw") else GG_RTOL):
+            raise AssertionError(f"{name} disagrees with its plain version at E16: {rel}")
+        row = by_name.setdefault(name, {
+            "name": name, "route": "cuda", "source": src + "grouped_gemm.cu",
+            "replaces": ("xtuner_tpu/ops/bf16_grouped.py:174" if name.endswith("dw")
+                         else "xtuner_tpu/ops/bf16_grouped.py:62"), "path": "sft",
+            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["ms"] += ms
+        row["plain_ms"] += pms
+    rows += list(by_name.values())
+    del x, w_gu, w_dn, hmid, dy_gu, dy_dn
+    fl.reset_launches()
+    return rows
+
+
+def release(torch, phase: str) -> None:
+    """Free what a phase left behind, so that the next phase's peak memory
+    is its own: collect reference cycles (the serving phase's engine holds
+    its own timed methods), return cached blocks, and fail if more than
+    RELEASED_GIB stays allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2**30
+    say("memory", after=phase, allocated_gib=f"{left:.3f}")
+    if left > RELEASED_GIB:
+        raise AssertionError(f"{left:.3f} GiB still allocated after the {phase} phase")
+
+
 class _Timed:
     """Wraps an engine step method: host clock around the call, ending in a
     device synchronize, so the time is device work plus launch overhead."""
@@ -588,14 +862,16 @@ def phase_train(torch, seed: int, smi: str) -> dict:
     from xtuner_tpu_torch.model.registry import get_model_config
     from xtuner_tpu_torch.ops.attention import flash as fl
     from xtuner_tpu_torch.ops import bf16_grouped as bg
+    from xtuner_tpu_torch.parallel.mesh import MeshConfig
 
     dev = torch.device("cuda")
     cfg = get_model_config("qwen3-moe-30b-a3")
     full_layers = cfg.num_hidden_layers
     cfg.num_hidden_layers = TRAIN_LAYERS
     eng = TrainEngine(cfg, AdamWConfig(lr=1e-4),
-                      LRConfig(lr_type="constant", warmup_steps=1), TRAIN_STEPS,
-                      compute_dtype=torch.bfloat16, remat="full", device=dev)
+                      LRConfig(lr_type="constant", warmup_steps=1),
+                      MeshConfig(param_dtype="bfloat16", remat_policy="full"), TRAIN_STEPS,
+                      device=dev)
     n = eng.num_params
     say("train", model="qwen3-moe-30b-a3", layers=f"{TRAIN_LAYERS}/{full_layers}",
         reason=repr(f"f32 master + grad + Adam m and v take 16 B/param: "
@@ -664,6 +940,166 @@ def phase_train(torch, seed: int, smi: str) -> dict:
     return launches
 
 
+def phase_sft(torch, smi: str, breakdown: bool) -> dict:
+    """The port's SFT entry point as a user runs it: the `sft` CLI's
+    `main(["--config", <moe_heavy recipe>])` in a temporary working
+    directory, 6 steps at full width and depth. Reads its tracker and its
+    final checkpoint, and counts every kernel launch of the run."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from xtuner_tpu_torch.checkpoint.torch_io import TrainCheckpointManager
+    from xtuner_tpu_torch.ops import bf16_grouped as bg
+    from xtuner_tpu_torch.ops import fused_ce as fc
+    from xtuner_tpu_torch.ops.attention import flash as fl
+    from xtuner_tpu_torch.train.cli import sft
+
+    recipe = str(Path(__file__).resolve().parent / SFT_RECIPE)
+    save_s: list = []
+    real_save = TrainCheckpointManager.save
+
+    def timed_save(self, *a, **kw):
+        t0 = time.perf_counter()
+        real_save(self, *a, **kw)
+        save_s.append(time.perf_counter() - t0)
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="xt_sft_") as tmp:
+        os.chdir(tmp)
+        TrainCheckpointManager.save = timed_save
+        try:
+            fl.reset_launches()
+            bg.reset_launches()
+            fc.reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer = sft.main(["--config", recipe])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {**train_launches(torch), "ce_fwd": fc.ce_fwd.launches,
+                        "ce_dh": fc.ce_dh.launches, "ce_dw": fc.ce_dw.launches}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        finally:
+            TrainCheckpointManager.save = real_save
+            os.chdir(cwd)
+        work = Path(tmp) / trainer.cfg.work_dir / trainer.cfg.exp_name
+        recs = [json.loads(x) for x in (work / "tracker.jsonl").read_text().splitlines()]
+        step_dir = work / "checkpoints" / f"step-{SFT_STEPS}"
+        committed = (step_dir / "train_state.json").exists()
+        ckpt_gib = sum(p.stat().st_size for p in step_dir.iterdir()) / 2**30 \
+            if step_dir.exists() else 0.0
+        cfg = trainer.cfg.model_cfg
+        say("sft", recipe=SFT_RECIPE, params=trainer.engine.num_params,
+            layers=cfg.num_hidden_layers, hidden=cfg.hidden_size,
+            heads=f"{cfg.attention.num_attention_heads}/{cfg.attention.num_key_value_heads}",
+            experts=f"{cfg.n_routed_experts}/top{cfg.num_experts_per_tok}",
+            moe_inter=cfg.moe_intermediate_size, vocab=cfg.vocab_size,
+            ce=cfg.lm_loss_cfg.mode, remat=trainer.engine.remat,
+            compute=str(trainer.engine.compute_dtype), wall_s=f"{wall:.3f}")
+        for r in recs:
+            say("sft", step=r["step"], loss=f"{r['reduced_llm_loss']:.5f}",
+                grad_norm=f"{r['grad_norm']:.5f}", lr=f"{r['lr']:.3e}",
+                tokens=int(r["consumed_tokens"]), step_ms=f"{1e3 * r['step_time']:.1f}",
+                tgs=f"{r['tgs']:.1f}", data_ms=f"{1e3 * r['data_time']:.2f}",
+                skipped=int(r["skipped"]))
+        steady = recs[1:]
+        step_s = sum(r["step_time"] for r in steady) / len(steady)
+        tokens = sum(r["consumed_tokens"] for r in steady) / len(steady)
+        per = SFT_STEPS * SFT_LAYERS
+        want = {"flash_fwd": 0, "flash_fwd_max_free": per, "flash_dq": per, "flash_dkv": per,
+                "grouped_gemm_nn": 4 * per, "grouped_gemm_nt": 2 * per,
+                "grouped_gemm_dw": 2 * per, "ce_fwd": SFT_STEPS, "ce_dh": SFT_STEPS,
+                "ce_dw": SFT_STEPS}
+        say("sft", launches=launches, expected=want, steady_step_ms=f"{1e3 * step_s:.1f}",
+            steady_tok_s=f"{tokens / step_s:.1f}",
+            pack_positions_s=f"{SFT_ROWS * SEQ / step_s:.1f}", peak_gib=f"{peak:.3f}",
+            ckpt_committed=committed, ckpt_gib=f"{ckpt_gib:.3f}",
+            save_s=",".join(f"{s:.3f}" for s in save_s), card=repr(smi))
+        losses = [r["reduced_llm_loss"] for r in recs]
+        norms = [r["grad_norm"] for r in recs]
+        if len(recs) != SFT_STEPS or [r["step"] for r in recs] != list(range(1, SFT_STEPS + 1)):
+            raise AssertionError(f"tracker.jsonl has steps {[r['step'] for r in recs]}")
+        if not all(np.isfinite(losses + norms)):
+            raise AssertionError(f"non-finite loss or grad norm: {losses}, {norms}")
+        if not SFT_LOSS1[0] <= losses[0] <= SFT_LOSS1[1]:
+            raise AssertionError(f"step-1 loss {losses[0]} outside {SFT_LOSS1}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"loss did not fall over {SFT_STEPS} steps: {losses}")
+        if any(r["skipped"] for r in recs):
+            raise AssertionError("a step was skipped")
+        if not committed:
+            raise AssertionError(f"no committed checkpoint at {step_dir}")
+        if launches != want:
+            raise AssertionError(f"kernel launches {launches} != what 6 steps imply {want}")
+
+        batch = next(iter(trainer.dataloader))
+        profile_window(torch, "sft_step", lambda: trainer.engine.train_step(batch, SFT_STEPS + 1),
+                       top=16)
+        if breakdown:
+            sft_memory(torch, trainer.engine, batch, smi)
+        trainer.dataloader.close()
+    return launches
+
+
+def sft_memory(torch, eng, batch, smi: str) -> None:
+    """Where the moe_heavy step's device memory and time go: under the
+    recipe (remat "save_attn_residuals", fused CE), under remat "full", and
+    with the plain chunked CE in place of the fused kernels. For each, the
+    state resident between steps, what the forward holds for the backward,
+    the forward's and the backward's peaks and the gradients, with forward
+    and backward times from CUDA events (the second of two runs). One
+    micro-batch, as the recipe's step (A = 1)."""
+    from xtuner_tpu_torch.data_proto import SequenceContext
+
+    gib = 2**30
+    mb = {k: v[0] for k, v in eng._to_device(batch).items()}
+    seq_ctx = SequenceContext(mb["input_ids"], mb["segment_ids"], mb["position_ids"])
+    denom = mb["loss_weights"].float().sum()
+    ce_cfg = eng.model.cfg.lm_loss_cfg
+    recipe_mode = ce_cfg.mode
+    try:
+        for remat, mode in ((eng.remat, recipe_mode), ("full", recipe_mode),
+                            (eng.remat, "chunk")):
+            ce_cfg.mode = mode
+            for _ in range(2):
+                for p in eng._leaves:
+                    p.grad = None
+                torch.cuda.synchronize()
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0, t1, t2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+                t0.record()
+                out = eng.model.loss(eng._train_tree, seq_ctx, mb["shifted_labels"],
+                                     mb["loss_weights"], denom,
+                                     compute_dtype=eng.compute_dtype, remat=remat)
+                total = out.total_loss()
+                t1.record()
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated() - resident
+                fwd_peak = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                total.backward()
+                t2.record()
+                torch.cuda.synchronize()
+                bwd_peak = torch.cuda.max_memory_allocated()
+                grads = sum(p.grad.numel() * p.grad.element_size() for p in eng._leaves
+                            if p.grad is not None)
+                del out, total
+            say("sft", step_variant=f"remat={remat},ce={mode}",
+                resident_gib=f"{resident / gib:.3f}", held_for_backward_gib=f"{held / gib:.3f}",
+                fwd_peak_gib=f"{fwd_peak / gib:.3f}", bwd_peak_gib=f"{bwd_peak / gib:.3f}",
+                grads_gib=f"{grads / gib:.3f}", fwd_ms=f"{t0.elapsed_time(t1):.1f}",
+                bwd_ms=f"{t1.elapsed_time(t2):.1f}", card=repr(smi))
+    finally:
+        ce_cfg.mode = recipe_mode
+        for p in eng._leaves:
+            p.grad = None
+
+
 def profile_window(torch, name: str, fn, top: int = 8) -> None:
     """Wall time, device-busy time (sum of kernel durations), kernel count,
     device time by kind (the port's kernels, cuBLAS GEMMs, the rest) and
@@ -704,6 +1140,9 @@ def profile_window(torch, name: str, fn, top: int = 8) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--breakdown", action="store_true",
+                    help="also break one SFT step's memory and time down by remat "
+                         "policy and CE mode")
     args = ap.parse_args()
     import torch
 
@@ -719,8 +1158,14 @@ def main() -> int:
     kernels = phase_kernels(torch, args.seed)
     kernels += phase_train_kernels(torch, args.seed)
     launches = {"serve": phase_engine(torch, args.seed, smi)}
-    torch.cuda.empty_cache()
+    release(torch, "serve")
     launches["train"] = phase_train(torch, args.seed, smi)
+    release(torch, "train")
+    kernels += phase_ce_kernels(torch, args.seed)
+    release(torch, "ce_kernels")
+    kernels += phase_moe_heavy_kernels(torch, args.seed)
+    release(torch, "moe_heavy_kernels")
+    launches["sft"] = phase_sft(torch, smi, args.breakdown)
     for kern in kernels:
         kern["launches"] = launches[kern["path"]][kern["name"]]
     say("done", total_s=f"{time.perf_counter() - t_start:.3f}")

@@ -41,6 +41,10 @@ FLASH_GRAD_RTOL = 2e-2
 # only in summation order
 GG_RTOL = 1e-2
 DW_RTOL = 1e-4
+# fused CE: lse and label_logit are f32 sums of the same bf16 products in
+# another order; dh and dw round the coefficient and the result to bf16
+# (the grouped GEMMs' bound, relative to the largest entry)
+CE_STAT_ATOL = 1e-3
 
 
 @pytest.fixture
@@ -68,6 +72,7 @@ def _packed(dev, b, l, hq, hkv, docs, pad, seed=0):
 
 @pytest.mark.parametrize("b,l,hq,hkv,docs,pad", [
     (1, 1024, 32, 8, 1, 24),   # the slice's prefill: 1000 tokens in a 1024 bucket
+    (2, 1024, 16, 8, 6, 40),   # moe_heavy's heads: B2, 16/8 (group 2)
     (2, 200, 4, 2, 3, 7),      # packed documents, ragged tile edge
     (1, 64, 4, 4, 1, 0),       # one tile, no GQA
     (1, 77, 8, 2, 2, 60),      # mostly padding
@@ -164,6 +169,7 @@ def test_flash_max_free_variant_matches_plain(cuda, bound, max_free):
 
 @pytest.mark.parametrize("b,l,hq,hkv,docs,pad", [
     (1, 512, 8, 2, 3, 40),     # packed documents, padded tail, GQA 4
+    (2, 1024, 16, 8, 6, 40),   # moe_heavy's heads: B2, 16/8 (group 2)
     (2, 200, 4, 2, 2, 7),      # L not a multiple of 64, GQA 2
     (1, 64, 4, 4, 1, 0),       # one tile, no GQA
     (1, 77, 8, 1, 2, 60),      # mostly padding, one kv head
@@ -214,6 +220,9 @@ def _grouped(dev, m, c, e, k, n, sizes, seed=0):
     (1024, 256, 128, [0, 1024, 0, 0]),        # one expert with all rows
     (1000, 128, 224, [37, 300, 1, 600]),      # ragged M and N edges
     (700, 96, 64, [200, 0, 0, 400]),          # rows past the last group -> 0
+    (8192, 1024, 1536, [300, 700, 0, 1200, 500, 400, 600, 100,  # moe_heavy gate|up: E16
+                        800, 900, 200, 500, 300, 400, 292, 500]),
+    (8192, 768, 1024, [512] * 16),            # moe_heavy down: E16
 ])
 def test_grouped_gemm_kernels_match_plain(cuda, m, k, n, sizes):
     e = len(sizes)
@@ -251,6 +260,69 @@ def test_grouped_linear_grads_match_plain(cuda):
     assert _rel_err(wl.grad, wr.grad) <= GG_RTOL
 
 
+def _ce_inputs(dev, n, v, hd, ignored=0.05, seed=0):
+    """h, w as the model feeds them (unit-RMS rows times a 0.02 init, so
+    logits of std ~0.02 sqrt(H)); labels with `ignored` of the rows clamped
+    to 0 and given zero cotangents, as `_fused_ce` does."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn((n, hd), generator=g, device=dev).bfloat16()
+    w = (torch.randn((v, hd), generator=g, device=dev) * 0.02).bfloat16()
+    labels = torch.randint(0, v, (n,), generator=g, device=dev, dtype=torch.int32)
+    keep = torch.rand((n,), generator=g, device=dev) >= ignored
+    labels = torch.where(keep, labels, torch.zeros_like(labels))
+    g_lse = torch.where(keep, torch.rand((n,), generator=g, device=dev), 0.0)
+    g_lab = torch.where(keep, -torch.rand((n,), generator=g, device=dev), 0.0)
+    return h, w, labels, g_lse.contiguous(), g_lab.contiguous()
+
+
+@pytest.mark.parametrize("n,v,hd,cotangents", [
+    (16384, 151936, 1024, "both"),  # the moe_heavy step: 2 rows of 8192, Qwen's vocab
+    # g_lse alone: dh and dw are the softmax part alone, held to their own
+    # scale (with both, the label term's entries dominate dw at p ~ 1/V)
+    (16384, 151936, 1024, "g_lse"),
+    (1000, 100, 128, "both"),       # N not a multiple of 128, V < one tile
+    (1000, 100, 128, "g_lab"),
+    (300, 5000, 256, "g_lab"),      # ragged vocab tail
+    (300, 5000, 256, "g_lse"),
+])
+def test_fused_ce_kernels_match_plain(cuda, n, v, hd, cotangents):
+    from xtuner_tpu_torch.ops import fused_ce as fc
+
+    h, w, labels, g_lse, g_lab = _ce_inputs(cuda, n, v, hd)
+    if cotangents == "g_lab":
+        g_lse = torch.zeros_like(g_lse)
+    if cotangents == "g_lse":
+        g_lab = torch.zeros_like(g_lab)
+    fc.reset_launches()
+    lse, lab = fc.ce_fwd(h, w, labels)
+    ref_lse, ref_lab = fc.ce_fwd_plain(h, w, labels)
+    assert (lse - ref_lse).abs().max().item() <= CE_STAT_ATOL
+    assert (lab - ref_lab).abs().max().item() <= CE_STAT_ATOL
+    dh = fc.ce_dh(h, w, labels, ref_lse, g_lse, g_lab)
+    dw = fc.ce_dw(h, w, labels, ref_lse, g_lse, g_lab)
+    torch.cuda.synchronize()
+    assert (fc.ce_fwd.launches, fc.ce_dh.launches, fc.ce_dw.launches) == (1, 1, 1)
+    assert dh.dtype == dw.dtype == torch.bfloat16 and dw.shape == w.shape
+    assert _rel_err(dh, fc.ce_dh_plain(h, w, labels, ref_lse, g_lse, g_lab)) <= GG_RTOL
+    assert _rel_err(dw, fc.ce_dw_plain(h, w, labels, ref_lse, g_lse, g_lab)) <= GG_RTOL
+
+
+def test_fused_ce_autograd_matches_plain_autograd(cuda):
+    from xtuner_tpu_torch.ops import fused_ce as fc
+
+    h, w, labels, g_lse, g_lab = _ce_inputs(cuda, 700, 3000, 256, seed=5)
+    grads = []
+    # the kernels on bf16 leaves; autograd through the plain forward in f32
+    for fn, dtype in ((fc.ce_stats_vh, torch.bfloat16), (fc.ce_fwd_plain, torch.float32)):
+        hl = h.to(dtype).detach().clone().requires_grad_(True)
+        wl = w.to(dtype).detach().clone().requires_grad_(True)
+        lse, lab = fn(hl, wl, labels)
+        ((lse * g_lse).sum() + (lab * g_lab).sum()).backward()
+        grads.append((hl.grad, wl.grad))
+    for got, want in zip(*grads):
+        assert _rel_err(got, want) <= GG_RTOL
+
+
 def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q, k, v, seg = _packed(cuda, 1, 64, 4, 2, 1, 0)
     lse = torch.zeros((1, 4, 64), device=cuda)
@@ -271,3 +343,14 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
         grouped_gemm_bf16_dw(x.T.contiguous().T, x, gs, 2)
     with pytest.raises(ValueError, match="do not fit"):
         grouped_gemm_bf16(x, w, gs, transpose_rhs=True)
+    from xtuner_tpu_torch.ops import fused_ce as fc
+
+    h, w, labels, g_lse, g_lab = _ce_inputs(cuda, 64, 300, 128)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fc.ce_fwd(h.float(), w, labels)
+    with pytest.raises(ValueError, match="int32"):
+        fc.ce_fwd(h, w, labels.long())
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fc.ce_fwd(h[:, :64].contiguous(), w[:, :64].contiguous(), labels)
+    with pytest.raises(ValueError, match="contiguous"):
+        fc.ce_dw(h, w.T.contiguous().T, labels, g_lse, g_lse, g_lab)

@@ -42,6 +42,7 @@ from xtuner_tpu_torch.model.registry import get_model_config
 from xtuner_tpu_torch.module.attention import MHAConfig as TMHA
 from xtuner_tpu_torch.module.params import params_from_numpy, tree_paths
 from xtuner_tpu_torch.module.router import NoAuxRouterConfig
+from xtuner_tpu_torch.parallel.mesh import MeshConfig as TMesh
 
 TOL = 1e-5
 CURVE_RTOL = 1e-4
@@ -121,9 +122,12 @@ def test_ce_loss_matches_jax(mode, chunk):
 
 
 def test_ce_fused_mode_raises():
-    with pytest.raises(NotImplementedError, match="#8-#10"):
-        tce.ce_loss(torch.zeros(1, 2, 4), torch.zeros(4, 8), torch.zeros(1, 2, dtype=torch.long),
-                    torch.ones(1, 2), 2.0, tce.CELossConfig(mode="fused"))
+    """Fused mode runs (tests/test_torch_fused_ce.py); what still raises in
+    it is a head bias, which JAX routes to the chunk path."""
+    with pytest.raises(NotImplementedError, match="bias"):
+        tce.ce_loss(torch.zeros(1, 2, 128), torch.zeros(128, 8),
+                    torch.zeros(1, 2, dtype=torch.long), torch.ones(1, 2), 2.0,
+                    tce.CELossConfig(mode="fused"), lm_head_b=torch.zeros(8))
 
 
 @pytest.mark.parametrize("reduction", ["token", "sample", "square"])
@@ -247,14 +251,14 @@ def test_unported_moe_options_raise():
     _, tcfg = _cfgs()
     tcfg.router = NoAuxRouterConfig()
     with pytest.raises(NotImplementedError, match=r"\[moe\]"):
-        TEngine(tcfg, toptim.AdamWConfig(), toptim.LRConfig(), 2, device="cpu")
+        TEngine(tcfg, toptim.AdamWConfig(), toptim.LRConfig(), TMesh(), 2, device="cpu")
     jcfg, tcfg = _cfgs()
     params = params_from_numpy(jax.tree.map(
         np.asarray, j_init_params(jcfg.build().param_specs(), jax.random.key(0))), tcfg, "cpu")
     with pytest.raises(NotImplementedError, match="train-slice"):
         tcfg.build().loss(params, TSeq.from_input_ids(np.ones((1, 8), np.int32)),
                           torch.zeros(1, 8, dtype=torch.long), torch.ones(1, 8), 8.0,
-                          compute_dtype=torch.float32, remat="save_attn_residuals")
+                          compute_dtype=torch.float32, remat="dots")
 
 
 # ------------------------------------------------------------- 5-step curve
@@ -269,8 +273,8 @@ def test_train_engine_curve_matches_jax():
     jeng = JEngine(jcfg, joptim.AdamWConfig(**ocfg), joptim.LRConfig(**lcfg), mesh_cfg, 5,
                    mesh=build_mesh(mesh_cfg, jax.devices()[:1]))
     jeng.init_random(0)
-    teng = TEngine(tcfg, toptim.AdamWConfig(**ocfg), toptim.LRConfig(**lcfg), 5,
-                   compute_dtype=torch.float32, remat="full", device="cpu")
+    teng = TEngine(tcfg, toptim.AdamWConfig(**ocfg), toptim.LRConfig(**lcfg),
+                   TMesh(param_dtype="float32", remat_policy="full"), 5, device="cpu")
     teng.load_params(params_from_numpy(jax.tree.map(np.asarray, jeng.params), tcfg, "cpu"))
     keys = ("total_loss", "reduced_llm_loss", "consumed_tokens", "grad_norm", "lr", "maxvio",
             "skipped")

@@ -12,7 +12,9 @@ semantics, which `torch.optim.AdamW` does not share:
   skipped step does not advance the count.
 
 The schedules are optax's, written out as plain functions of the step.
-Muon raises ([muon], Queue 1).
+`AdamW.state_dict` / `load_state_dict` carry the moments and the count
+for checkpoints. `MuonConfig` exists so configs translate; an engine
+built with it raises ([muon], Queue 1).
 """
 
 from __future__ import annotations
@@ -35,6 +37,25 @@ class AdamWConfig:
     weight_decay: float = 0.01
     max_grad_norm: float = 1.0
     # skip the step if the grad norm exceeds this; None = only non-finite skip
+    skip_grad_norm_threshold: Optional[float] = None
+
+
+@dataclass
+class MuonConfig:
+    """The JAX MuonConfig's fields, so configs translate; building an
+    engine with it raises ([muon])."""
+
+    type: Literal["muon"] = "muon"
+    lr: float = 0.02
+    momentum: float = 0.95
+    nesterov: bool = True
+    ns_steps: int = 5
+    adjust_lr: Literal["rms_norm", "spectral_norm", "none"] = "rms_norm"
+    adamw_lr: float = 1e-5
+    adamw_betas: tuple[float, float] = (0.9, 0.999)
+    adamw_eps: float = 1e-8
+    weight_decay: float = 0.01
+    max_grad_norm: float = 1.0
     skip_grad_norm_threshold: Optional[float] = None
 
 
@@ -134,3 +155,22 @@ class AdamW:
             p.add_(u, alpha=-lr)
         self.count = t
         return lr
+
+    def state_dict(self) -> dict:
+        """The optimizer state (optax's `count`, `mu`, `nu`): the moment
+        buffers themselves, not copies."""
+        return {"count": self.count, "m": list(self.m), "v": list(self.v)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a `state_dict()` in place (shapes must match)."""
+        for name in ("m", "v"):
+            if len(state[name]) != len(self.params):
+                raise ValueError(f"optimizer state {name!r} has {len(state[name])} "
+                                 f"buffers, the model {len(self.params)}")
+            for dst, src in zip(getattr(self, name), state[name]):
+                if tuple(src.shape) != tuple(dst.shape):
+                    raise ValueError(f"optimizer state {name!r}: shape {tuple(src.shape)} "
+                                     f"!= {tuple(dst.shape)}")
+                dst.copy_(src)
+        self.count = int(state["count"])

@@ -2,6 +2,7 @@
 optimizer step over a gradient-accumulation batch (counterpart:
 `xtuner_tpu/engine/train_engine.py`).
 
+The constructor takes what `Trainer` passes, as the JAX one does.
 `init_random(seed)` draws f32 masters from a `torch.Generator`;
 `train_step(batch, step)` takes an (A, B, L) packed batch: A micro-batches,
 each one forward/backward with the loss denominator summed over the whole
@@ -30,6 +31,7 @@ from ..config.optim import AdamW, AdamWConfig, LRConfig, _decay_mask, build_lr_s
 from ..data_proto import SequenceContext
 from ..model.dense import num_layers
 from ..module.params import count_params, init_params, tree_map
+from ..parallel.mesh import MeshConfig
 
 
 def _leaf_views(master: dict):
@@ -53,20 +55,28 @@ def _leaf_views(master: dict):
 
 
 class TrainEngine:
+    """JAX's constructor: `TrainEngine(model_cfg, optim_cfg, lr_cfg,
+    mesh_cfg, total_steps)`; the compute dtype and the remat policy come
+    from `mesh_cfg` (`parallel/mesh.py`), the device from `device` (the
+    card when there is one)."""
+
     def __init__(self, model_cfg, optim_cfg: AdamWConfig, lr_cfg: LRConfig,
-                 total_steps: int, *, compute_dtype=torch.bfloat16, remat: str = "full",
-                 device=None):
+                 mesh_cfg: MeshConfig, total_steps: int, *, device=None):
         router = getattr(model_cfg, "router", None)
         if router is not None and getattr(router, "router_type", "") == "noaux":
             raise not_ported("the noaux router's post-step bias update", "moe")
         if getattr(model_cfg, "lora_cfg", None) is not None:
             raise not_ported("LoRA training", "lora")
+        if getattr(optim_cfg, "type", "adamw") != "adamw":
+            raise not_ported(f"optimizer {optim_cfg.type!r}", "muon")
+        mesh_cfg.check_ported()
         self.model_cfg = model_cfg
         self.optim_cfg = optim_cfg
+        self.mesh_cfg = mesh_cfg
         self.model = model_cfg.build()
         self.specs = self.model.param_specs()
-        self.compute_dtype = compute_dtype
-        self.remat = remat
+        self.compute_dtype = mesh_cfg.compute_dtype
+        self.remat = mesh_cfg.remat
         self.device = torch.device(device if device is not None else
                                    ("cuda" if torch.cuda.is_available() else "cpu"))
         self.lr_schedule = build_lr_schedule(optim_cfg, lr_cfg, total_steps)
@@ -89,6 +99,15 @@ class TrainEngine:
         self._leaves = [v for v, _ in pairs]
         self.optimizer = AdamW(self._leaves, [d for _, d in pairs], self.optim_cfg,
                                self.lr_schedule)
+
+    @property
+    def opt_state(self) -> dict:
+        """The AdamW state (`config/optim.py::AdamW.state_dict`)."""
+        return self.optimizer.state_dict()
+
+    @opt_state.setter
+    def opt_state(self, state: dict) -> None:
+        self.optimizer.load_state_dict(state)
 
     def _to_device(self, batch: dict) -> dict:
         return {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in batch.items()}

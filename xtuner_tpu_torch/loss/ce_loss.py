@@ -9,8 +9,11 @@ held for the backward: each chunk runs under `torch.utils.checkpoint` and
 its logits are recomputed in the backward, as the JAX `@jax.checkpoint`
 chunk body does. Logits are f32 from compute-dtype operands.
 
-`mode="fused"` is TPU kernels #8-#10 (`ops/fused_ce.py`), ROADMAP Queue 2,
-not ported yet: it raises.
+`mode="fused"` routes as the JAX package does: without a head bias and at
+a hidden size that is a multiple of 128 it runs `_fused_ce`, the CE
+statistics of `ops/fused_ce.py` (TPU kernels #8-#10, Hopper kernels on a
+card) over the vocab-major head; otherwise the chunk/eager path. The
+mesh-sharded variant of `_fused_ce` waits for the parallelism item.
 """
 
 from __future__ import annotations
@@ -95,6 +98,20 @@ def _chunk_ce(h_c, w, lab_c, ignore_idx: int):
     return _ce_from_logits(lm_logits(h_c, w), lab_c, ignore_idx)
 
 
+def _fused_ce(hidden, lm_head_w, labels, ignore_idx: int):
+    """Per-token CE from the fused statistics (JAX `_fused_ce` without a
+    mesh). Ignored rows are clamped to label 0 and masked by the `where`,
+    so their cotangents are zero. `lm_head_w` (H, V) is the tied `embed.T`
+    or the untied head; `ce_lse_and_label` reads the tied one as the
+    (V, H) embedding it is, with no transpose or pad copy."""
+    from ..ops.fused_ce import ce_lse_and_label
+
+    valid = labels != ignore_idx
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    lse, lab = ce_lse_and_label(hidden, lm_head_w, safe)
+    return torch.where(valid, lse - lab, torch.zeros_like(lse))
+
+
 def ce_loss(hidden: torch.Tensor, lm_head_w: torch.Tensor, shifted_labels: torch.Tensor,
             loss_weights: torch.Tensor, global_denom, cfg: CELossConfig, lm_head_b=None):
     """hidden: (B, L, H) compute dtype; lm_head_w: (H, V);
@@ -108,10 +125,9 @@ def ce_loss(hidden: torch.Tensor, lm_head_w: torch.Tensor, shifted_labels: torch
     hidden = hidden.reshape(n, h)
     labels = shifted_labels.reshape(n)
     weights = loss_weights.reshape(n).float()
-    if cfg.mode == "fused":
-        raise not_ported('CELossConfig(mode="fused") (TPU kernels #8-#10, '
-                         'ops/fused_ce.py)', "train-slice")
-    if cfg.mode == "eager" or n <= cfg.chunk_size:
+    if cfg.mode == "fused" and h % 128 == 0:
+        ce = _fused_ce(hidden, lm_head_w, labels, cfg.ignore_idx)
+    elif cfg.mode == "eager" or n <= cfg.chunk_size:
         ce = _ce_from_logits(lm_logits(hidden, lm_head_w), labels, cfg.ignore_idx)
     else:
         parts = []

@@ -4,10 +4,8 @@ The parameter tree (`param_specs`), `lm_head_weight`, and the training
 `forward`/`loss`. Decoder layers are stored stacked with a leading L dim,
 as in the JAX tree; a layer stack may also be given as a list of per-layer
 dicts (what the engine trains on, so each layer's gradient is its own
-tensor). Remat "full" wraps each layer in
-`torch.utils.checkpoint(use_reentrant=False)`, the counterpart of the JAX
-`jax.checkpoint` around the scanned layer; "none" runs plain; the
-selective policies (`save_attn_residuals`, ...) raise ([train-slice]).
+tensor). Remat "full", "none" and "save_attn_residuals" are ported
+(`remat_wrap`); the other selective policies raise ([train-slice]).
 The serving layer loop lives in `model/generate.py` and
 `model/paged_generate.py`.
 """
@@ -19,7 +17,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import not_ported
 from ..loss.ce_loss import ce_loss
-from ..module.attention import MHAConfig, mha_forward, mha_param_specs
+from ..module.attention import MHAConfig, mha_attend, mha_out, mha_param_specs, mha_qkv
 from ..module.mlp import mlp_forward, mlp_param_specs
 from ..module.params import ParamSpec, cast_tree, stack_specs, tree_map
 from ..module.rope import _rope_dim, rope_cos_sin
@@ -27,12 +25,37 @@ from ..ops.rms_norm import rms_norm
 from .base import ModelOutputs, TransformerConfig
 
 
-def remat_wrap(fn, remat: str):
-    """The layer function under the remat policy `remat`."""
+def remat_wrap(pre, attend, post, remat: str):
+    """A decoder layer `(x, lp) -> post(x, attend(*pre(x, lp)), lp)` under
+    the remat policy `remat` (JAX `model/dense.py::_remat_policy`).
+
+    `pre` is norm, projections, qk-norm and rope, returning (q, k, v,
+    max_logit); `attend` is the flash attention; `post` is the output
+    projection, residual, norm and the MLP or MoE block.
+
+    - "none": plain autograd;
+    - "full": the whole layer under `torch.utils.checkpoint`, recomputed in
+      the backward (flash forward included), as `jax.checkpoint` around the
+      scanned layer;
+    - "save_attn_residuals": `pre` and `post` are two checkpoint regions and
+      the flash autograd Function runs between them, outside both, so it
+      keeps its residuals (q, k, v, out, lse) and the backward never re-runs
+      the flash forward; everything else is recomputed. JAX saves the same
+      names (attn_q/k/v, attn_res_out, attn_lse, attn_out).
+
+    The other named policies raise ([train-slice])."""
+    def layer(x, lp):
+        return post(x, attend(*pre(x, lp)), lp)
+
     if remat == "none":
-        return fn
+        return layer
     if remat == "full":
-        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+        return lambda x, lp: checkpoint(layer, x, lp, use_reentrant=False)
+    if remat == "save_attn_residuals":
+        def split(x, lp):
+            qkv = checkpoint(pre, x, lp, use_reentrant=False)
+            return checkpoint(post, x, attend(*qkv), lp, use_reentrant=False)
+        return split
     raise not_ported(f"remat policy {remat!r}", "train-slice")
 
 
@@ -110,20 +133,38 @@ class Dense:
         cfg = self.cfg
         return cfg.sliding_window if cfg.use_sliding_window else None
 
-    def _attn_mlp_prelude(self, x, lp, cos, sin, segment_ids, window):
-        """norm -> attention -> residual -> norm; returns (x, normed h)."""
+    def _attn_in(self, x, lp, cos, sin, compute_dtype):
+        """The layer up to the flash kernel: input norm, projections,
+        qk-norm, rope -> (q, k, v, max_logit)."""
         cfg = self.cfg
-        zc = cfg.rms_norm_type == "zero_centered"
-        h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps, zc)
-        h = mha_forward(lp["attn"], cfg.attention, h, cos, sin, segment_ids,
-                        window=window, fp8_cfg=cfg.float8_cfg)
-        x = x + h
-        return x, rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps, zc)
+        h = rms_norm(x, lp["input_norm"].to(compute_dtype), cfg.rms_norm_eps,
+                     cfg.rms_norm_type == "zero_centered")
+        return mha_qkv(cast_tree(lp["attn"], compute_dtype), cfg.attention, h, cos, sin,
+                       window=self._window(), fp8_cfg=cfg.float8_cfg)
 
-    def _layer_forward(self, x, lp, cos, sin, segment_ids, compute_dtype):
+    def _attn_out(self, x, o, lp):
+        """o-proj -> residual -> norm; `lp` already in the compute dtype.
+        Returns (x, normed h)."""
+        cfg = self.cfg
+        x = x + mha_out(lp["attn"], cfg.attention, o)
+        return x, rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps,
+                           cfg.rms_norm_type == "zero_centered")
+
+    def _dense_post(self, x, o, lp, compute_dtype):
         lp = cast_tree(lp, compute_dtype)
-        x, h = self._attn_mlp_prelude(x, lp, cos, sin, segment_ids, self._window())
+        x, h = self._attn_out(x, o, lp)
         return x + mlp_forward(lp["mlp"], h, self.cfg.hidden_act)
+
+    def _layer_fn(self, post, cos, sin, segment_ids, compute_dtype, remat: str):
+        """One decoder layer `(x, lp) -> post(x, attention out, lp)` under
+        the remat policy."""
+        def pre(x, lp):
+            return self._attn_in(x, lp, cos, sin, compute_dtype)
+
+        def attend(q, k, v, max_logit):
+            return mha_attend(self.cfg.attention, q, k, v, segment_ids, max_logit)
+
+        return remat_wrap(pre, attend, post, remat)
 
     def _embed_and_rope(self, params, seq_ctx, compute_dtype):
         self.check_ported()
@@ -143,11 +184,9 @@ class Dense:
     def forward(self, params, seq_ctx, compute_dtype=torch.bfloat16, remat: str = "full"):
         """-> final hidden states (B, L, H) in compute dtype."""
         x, cos, sin, seg = self._embed_and_rope(params, seq_ctx, compute_dtype)
-
-        def layer_fn(x, lp):
-            return self._layer_forward(x, lp, cos, sin, seg, compute_dtype)
-
-        layer_fn = remat_wrap(layer_fn, remat)
+        layer_fn = self._layer_fn(
+            lambda x, o, lp: self._dense_post(x, o, lp, compute_dtype),
+            cos, sin, seg, compute_dtype, remat)
         stack = params["layers"]
         for i in range(num_layers(stack)):
             x = layer_fn(x, layer_params(stack, i))

@@ -3,7 +3,10 @@
 `MoEConfig`, `MoE.param_specs`, the MoE layer forward (attention, then the
 routed expert MLP of `module/moe_layer.py`, plus shared experts), the
 training `forward` and `loss` with the balancing and z losses, the
-`first_k_dense_replace` dense stack, and the Qwen3-MoE presets.
+`first_k_dense_replace` dense stack, and the Qwen3-MoE presets. Each
+layer runs under the remat policy of `model/dense.py::remat_wrap`; a tied
+head reaches the CE as `embed.T`, which `mode="fused"` reads as the
+vocab-major embedding it is.
 
 Not ported yet: multi-token prediction, the per-layer window pattern,
 deepstack injection and routing replay ([moe]), HF interop
@@ -26,7 +29,7 @@ from ..module.moe_layer import expert_mlp_param_specs, moe_mlp_forward
 from ..module.params import ParamSpec, cast_tree, stack_specs
 from ..module.router import GreedyRouterConfig, RouterConfig, router_param_specs
 from .base import ModelOutputs
-from .dense import Dense, DenseConfig, layer_params, num_layers, remat_wrap
+from .dense import Dense, DenseConfig, layer_params, num_layers
 
 
 @dataclass
@@ -96,11 +99,13 @@ class MoE(Dense):
         return specs
 
     # ------------------------------------------------------------------
-    def _moe_layer_forward(self, x, lp, cos, sin, segment_ids, valid, compute_dtype):
-        """-> (x, balancing loss, z loss, expert load (E,))."""
+    def _moe_post(self, x, o, lp, valid, compute_dtype):
+        """The MoE layer after the flash kernel: o-proj, residual, norm,
+        routed experts (+ shared) -> (x, balancing loss, z loss, expert
+        load (E,))."""
         cfg = self.cfg
         lp = cast_tree(lp, compute_dtype)
-        x, h = self._attn_mlp_prelude(x, lp, cos, sin, segment_ids, self._window())
+        x, h = self._attn_out(x, o, lp)
         moe_out, r, load = moe_mlp_forward(
             lp["experts"], lp["router"], cfg.router, h,
             num_experts=cfg.n_routed_experts, top_k=cfg.num_experts_per_tok,
@@ -118,17 +123,15 @@ class MoE(Dense):
         x, cos, sin, seg = self._embed_and_rope(params, seq_ctx, compute_dtype)
         valid = (seg != 0).reshape(-1)
         if "dense_layers" in params:
-            def dense_fn(x, lp):
-                return self._layer_forward(x, lp, cos, sin, seg, compute_dtype)
-
-            dense_fn = remat_wrap(dense_fn, remat)
+            dense_fn = self._layer_fn(
+                lambda x, o, lp: self._dense_post(x, o, lp, compute_dtype),
+                cos, sin, seg, compute_dtype, remat)
             for i in range(num_layers(params["dense_layers"])):
                 x = dense_fn(x, layer_params(params["dense_layers"], i))
 
-        def moe_fn(x, lp):
-            return self._moe_layer_forward(x, lp, cos, sin, seg, valid, compute_dtype)
-
-        moe_fn = remat_wrap(moe_fn, remat)
+        moe_fn = self._layer_fn(
+            lambda x, o, lp: self._moe_post(x, o, lp, valid, compute_dtype),
+            cos, sin, seg, compute_dtype, remat)
         bals, zls, loads = [], [], []
         stack = params["moe_layers"]
         for i in range(num_layers(stack)):

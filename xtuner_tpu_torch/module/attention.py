@@ -1,9 +1,13 @@
 """Multi-head (GQA) attention (counterpart: `xtuner_tpu/module/attention.py`).
 
-`mha_forward` is the training attention over packed rows: projections,
-qk-norm with its proven max-logit bound (which lets the flash forward run
-its max-free variant), partial rotary, and the differentiable flash
-attention of `ops/attention/flash.py` (the Hopper kernels on a card).
+The training attention over packed rows (JAX `mha_forward`) is
+`mha_qkv`, `mha_attend` and `mha_out` in a row: projections, qk-norm with
+its proven max-logit bound (which lets the flash forward run its max-free
+variant), partial rotary; the differentiable flash attention of
+`ops/attention/flash.py` (the Hopper kernels on a card); the output
+projection. The model calls the three itself, so that the remat policy
+"save_attn_residuals" can checkpoint the first and the last apart and
+run the flash kernel between them once.
 
 `mha_cached_forward` is ported for the prefill the paged engine runs: a
 whole right-padded prompt at `cache_len = 0`. Its attention is causal over
@@ -114,17 +118,17 @@ def project_qkv(p: dict, cfg: MHAConfig, x, cos, sin):
     return q, k, v
 
 
-def mha_forward(p: dict, cfg: MHAConfig, x, cos, sin, segment_ids,
-                window: Optional[int] = None, lora_scaling: float = 1.0, fp8_cfg=None):
-    """x: (B, L, hidden) -> (B, L, hidden); segment_ids (B, L) int32,
-    0 = padding."""
+def mha_qkv(p: dict, cfg: MHAConfig, x, cos, sin, window: Optional[int] = None,
+            lora_scaling: float = 1.0, fp8_cfg=None):
+    """The training attention before the flash kernel: x (B, L, hidden) ->
+    contiguous q (B, L, Hq, D), k, v (B, L, Hkv, D) and the max-logit
+    bound (None without qk-norm)."""
     if window:
         raise not_ported("sliding-window attention", "serve-rest")
     if fp8_cfg is not None and getattr(fp8_cfg, "enabled", True):
         raise not_ported("fp8 projections", "float8")
     if lora_scaling != 1.0 or any(k.startswith("lora") for k in p["q_proj"]):
         raise not_ported("LoRA projections", "lora")
-    b, l, _ = x.shape
     q, k, v = project_qkv(p, cfg, x, cos, sin)
     max_logit = None
     if cfg.qk_norm:
@@ -135,8 +139,20 @@ def mha_forward(p: dict, cfg: MHAConfig, x, cos, sin, segment_ids,
         if cfg.rms_norm_type == "zero_centered":
             gq, gk = 1.0 + gq, 1.0 + gk
         max_logit = cfg.head_dim ** 0.5 * gq.abs().max() * gk.abs().max()
-    o, _ = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), segment_ids,
-                           scale=cfg.head_dim ** -0.5, max_logit=max_logit)
+    return q.contiguous(), k.contiguous(), v.contiguous(), max_logit
+
+
+def mha_attend(cfg: MHAConfig, q, k, v, segment_ids, max_logit=None):
+    """The differentiable flash attention: (B, L, Hq, D) in q.dtype. Its
+    autograd Function keeps q, k, v, out and lse for the backward."""
+    o, _ = flash_attention(q, k, v, segment_ids, scale=cfg.head_dim ** -0.5,
+                           max_logit=max_logit)
+    return o
+
+
+def mha_out(p: dict, cfg: MHAConfig, o):
+    """o (B, L, Hq, D) -> the output projection (B, L, hidden)."""
+    b, l = o.shape[:2]
     return linear(o.reshape(b, l, cfg.q_dim()), p["o_proj"])
 
 

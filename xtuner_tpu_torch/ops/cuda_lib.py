@@ -53,6 +53,11 @@ SIGNATURES = {
     "xt_grouped_gemm_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, dy, offsets, dw, M, E, K, N, stream
     "xt_grouped_gemm_dw_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # h, w, labels, lse, label_logit, N, V, H, stream
+    "xt_ce_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # h, w, labels, lse, g_lse, g_lab, f32 partials, out, N, V, H, splits,
+    # dw (0: dh, 1: dw), stream
+    "xt_ce_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
