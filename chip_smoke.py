@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving path, its MoE SFT train step and its
-SFT entry point once on one NVIDIA card.
+SFT entry point, in bf16 and in tile-wise fp8, once on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--breakdown]
 
@@ -12,7 +12,9 @@ exits non-zero with no result line:
 2. kernel build (nvcc, one process per source in xtuner_tpu_torch/csrc/,
    all started together);
 3. each hand-written kernel against its plain PyTorch version on the card,
-   at the shapes its path gives it and at odd shapes, with times;
+   at the shapes its path gives it and at odd shapes, with times, the
+   least time the card could take (`least_ms`) and the time of the one
+   PyTorch call that computes the same function, where there is one;
 4. serving: `PagedGenerator.generate` on Qwen3-8B at full width and depth
    with random bf16 weights from the seed; 6 requests on 4 slots (one GRPO
    group of two); launch counters of its kernels; a teacher-forced re-check
@@ -25,6 +27,8 @@ exits non-zero with no result line:
 6. the fused CE kernels (#8-#10) at N = 2 x 8192, H = 1024, V = 151936
    and at an odd shape, with times and peak memory; then flash at B2 with
    16/8 heads and the grouped GEMMs at 16 experts (moe_heavy's shapes);
+   then the fp8 kernels (#11-#13) at every moe_heavy fp8 shape and odd ones,
+   in both operand-type variants;
 7. sft: the `sft` CLI's `main(["--config", recipes/sft_moe_heavy.py])` in a
    temporary directory: bench.py's moe_heavy config at full width and depth
    (fused CE, remat "save_attn_residuals"), 6 steps through `Trainer.fit`;
@@ -33,10 +37,15 @@ exits non-zero with no result line:
    memory; the exact launch count of every kernel over the run; one
    profiled step. With `--breakdown`, also where one step's memory and
    time go under the recipe, under remat "full", and with the chunked CE
-   in place of the fused one (a diagnostic: off by default).
+   in place of the fused one (a diagnostic: off by default);
+8. sft_fp8: the same with `recipes/sft_moe_heavy_fp8.py` (bench.py's fp8
+   row): step-1 loss within 2% of the bf16 run's, the exact launches of
+   the fp8 kernels and none of the bf16 grouped GEMMs, and one profiled
+   step with the quantise passes' device time apart.
 
 Between phases it frees what the last one held and checks that nothing
-large stays allocated, so each peak is the phase's own. Then a JSON line of the kernels, the card's name and power limit, and last
+large stays allocated, so each peak is the phase's own. Then a JSON line
+of the kernels, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Needs a CUDA card; fails without one.
 """
 
@@ -85,8 +94,27 @@ SFT_ROWS = 2
 SFT_STEPS = 6
 SFT_LAYERS = 10
 SFT_LOSS1 = (11.4, 13.0)
+# sft_fp8 phase: the same run with tile-wise fp8; its step-1 loss within 2%
+# of the bf16 run's from the same seed and data (the bound of JAX's
+# test_moe_model_level_fp8_parity)
+SFT_FP8_RECIPE = "xtuner_tpu_torch/recipes/sft_moe_heavy_fp8.py"
+SFT_FP8_LOSS1_RTOL = 0.02
+# fp8 GEMMs vs their plain versions (see tests/test_torch_kernels.py): the
+# same exact fp8 products, bf16 outputs rounded once (relative to the
+# largest entry), f32 outputs (the wgrad) only in another order; and the
+# mean relative error of the fp8 product against the unquantised bf16 one,
+# the bound of JAX's fp8 tests
+FP8_RTOL = 1e-2
+FP8_DW_RTOL = 2e-3
+FP8_VS_BF16_MEAN = 0.06
 # what may stay allocated between phases (the kernels' small device buffers)
 RELEASED_GIB = 1.0
+# the least time the card could take (NVIDIA H100 SXM data sheet, dense):
+# operations over the peak rate of their type, bytes (each input read once,
+# each output written once) over the memory rate; the larger of the two
+PEAK_BF16 = 989e12
+PEAK_FP8 = 1979e12
+HBM_BYTES_S = 3.35e12
 
 MAX_NEW = 32
 
@@ -143,8 +171,12 @@ def phase_build() -> None:
     so, nvcc_s = cuda_lib.build()
     cuda_lib.load()
     log = so.with_suffix(".log")
-    ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln or "spill" in ln] if log.exists() else []
+    ptxas = []
+    for ln in (log.read_text().splitlines() if log.exists() else []):
+        if "Compiling entry function" in ln:  # the mangled name, cut to what tells kernels apart
+            ptxas.append("kernel " + ln.split("'")[1].split("_cu_")[-1][:60])
+        elif "registers" in ln or "spill" in ln:
+            ptxas.append(ln.strip())
     say("build", library=so.name, nvcc_s=f"{nvcc_s:.3f}",
         total_s=f"{time.perf_counter() - t0:.3f}")
     for ln in ptxas:
@@ -213,15 +245,24 @@ def phase_kernels(torch, seed: int) -> list[dict]:
     if not (d_err <= PAGED_ATOL and finite):
         raise AssertionError(f"paged decode kernel disagrees with its plain version: "
                              f"{d_err} (<= {PAGED_ATOL}), finite {finite}")
+    f_lib, f_why = sdpa_ms(torch, q, k, v, seg)
+    active = [n + 1 for n in lens if n]  # keys each active slot reads (cache + this token)
+    say("kernel", name="library", flash_fwd_sdpa_ms=f_lib, why=repr(f_why),
+        paged_decode="none: no PyTorch call reads a block-table KV cache")
     return [
         {"name": "flash_fwd", "route": "cuda", "source": "xtuner_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "xtuner_tpu/ops/attention/flash.py:82", "path": "serve", "launches": 0,
-         "max_abs_err": max(out_err, lse_err), "ms": f_ms, "plain_ms": f_plain},
+         "max_abs_err": max(out_err, lse_err), "ms": f_ms, "plain_ms": f_plain,
+         **least_ms(4 * causal_pairs(torch, seg) * hq * d, flash_bytes(q, k), PEAK_BF16),
+         "library_ms": f_lib},
         {"name": "paged_decode", "route": "cuda",
          "source": "xtuner_tpu_torch/csrc/paged_decode.cu",
          "replaces": "xtuner_tpu/ops/attention/paged_decode.py:66", "path": "serve",
          "launches": 0,
-         "max_abs_err": d_err, "ms": p_ms, "plain_ms": p_plain},
+         "max_abs_err": d_err, "ms": p_ms, "plain_ms": p_plain,
+         **least_ms(4 * sum(active) * hq * d,
+                 4 * sum(active) * hkv * d + len(lens) * hq * d * (2 + 4), PEAK_BF16),
+         "library_ms": None},
     ]
 
 
@@ -248,6 +289,152 @@ def _rel(got, want) -> float:
 
 def _abs(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
+
+
+def least_ms(flops: float, nbytes: float, peak: float) -> dict:
+    """The least time the card could take for work of `flops` operations
+    at `peak` and `nbytes` of traffic at HBM_BYTES_S, and which binds."""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def add_bound(row: dict, b: dict) -> None:
+    """Sum the bounds of the calls a row's time sums; `bound_by` is the
+    one that binds the larger part."""
+    parts = row.setdefault("_bound_parts", {"operations": 0.0, "bytes": 0.0})
+    parts[b["bound_by"]] += b["bound_ms"]
+    row["bound_ms"] = parts["operations"] + parts["bytes"]
+    row["bound_by"] = max(parts, key=parts.get)
+
+
+def library_ms(torch, fn, iters: int = 5):
+    """CUDA-event ms of one PyTorch call that computes a kernel's function
+    (its yardstick; the port never calls it), or (None, why) where PyTorch
+    refuses it."""
+    try:
+        return cuda_ms(fn, iters=iters, warmup=1), "ok"
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        return None, f"{type(e).__name__}: {str(e).strip().splitlines()[0][:160]}"
+
+
+def block_causal_mask(torch, seg):
+    """(B, 1, L, L) bool: causal within a document (padding rows attend
+    to earlier padding, so that no row is empty)."""
+    l = seg.shape[-1]
+    causal = torch.ones((l, l), dtype=torch.bool, device=seg.device).tril()
+    return ((seg[:, :, None] == seg[:, None, :]) & causal)[:, None]
+
+
+def causal_pairs(torch, seg) -> int:
+    """(query, key) pairs on the documents' causal triangles (segment 0,
+    padding, excluded)."""
+    total = 0
+    for row in seg.cpu():
+        ids, counts = torch.unique_consecutive(row, return_counts=True)
+        total += sum(n * (n + 1) // 2 for i, n in zip(ids.tolist(), counts.tolist()) if i)
+    return total
+
+
+def sdpa_ms(torch, q, k, v, seg, do=None, iters: int = 5):
+    """`scaled_dot_product_attention` with the block-diagonal causal mask
+    and GQA on the flash kernels' (B, L, H, D) inputs: the forward, or with
+    `do` the backward (one call giving dq, dk and dv together)."""
+    import torch.nn.functional as F
+
+    mask = block_causal_mask(torch, seg)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if do is None:
+        return library_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), iters)
+    leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+    o = F.scaled_dot_product_attention(*leaves, attn_mask=mask, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    return library_ms(torch, lambda: torch.autograd.grad(o, leaves, dot, retain_graph=True),
+                      iters)
+
+
+def flash_bytes(q, k, out_like: int = 1) -> int:
+    """q, k, v read once (bf16), out written (bf16) and lse (f32)."""
+    b, l, hq, d = q.shape
+    hkv = k.shape[2]
+    return 2 * b * l * d * (hq + 2 * hkv) + out_like * 2 * b * l * hq * d + 4 * b * hq * l
+
+
+def grouped_mm_ms(torch, x, w, sizes, kind: str):
+    """`torch._grouped_mm` on the grouped GEMMs' inputs: nn, nt (w
+    transposed) or dw (x^T dy over ragged rows, bf16 out where the kernel
+    writes f32)."""
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    if kind == "nn":
+        return library_ms(torch, lambda: torch._grouped_mm(x, w, offs=offs))
+    if kind == "nt":
+        return library_ms(torch, lambda: torch._grouped_mm(x, w.transpose(1, 2), offs=offs))
+    return library_ms(torch, lambda: torch._grouped_mm(x.t(), w, offs=offs))
+
+
+def grouped_cases(x, hmid, w_gu, w_dn, dy_gu, dy_dn, sizes, e) -> list:
+    """The bf16 grouped GEMMs one MoE layer runs (gate|up and down; forward
+    nn, dgrad nt, wgrad dw): (kernel, which, kernel call, plain call, the
+    library call's inputs, operations, bytes)."""
+    from xtuner_tpu_torch.ops.bf16_grouped import (grouped_gemm_bf16, grouped_gemm_bf16_dw,
+                                                   grouped_gemm_dw_plain, grouped_gemm_plain)
+
+    cases = []
+    for which, xin, w, dy in (("gate|up", x, w_gu, dy_gu), ("down", hmid, w_dn, dy_dn)):
+        m, kk = xin.shape
+        nn_ = w.shape[2]
+        flops = 2 * m * kk * nn_
+        wb = 2 * e * kk * nn_
+        cases += [
+            ("grouped_gemm_nn", which, lambda xin=xin, w=w: grouped_gemm_bf16(xin, w, sizes),
+             lambda xin=xin, w=w: grouped_gemm_plain(xin, w, sizes), (xin, w, "nn", sizes), flops,
+             2 * m * kk + wb + 2 * m * nn_),
+            ("grouped_gemm_nt", which,
+             lambda dy=dy, w=w: grouped_gemm_bf16(dy, w, sizes, transpose_rhs=True),
+             lambda dy=dy, w=w: grouped_gemm_plain(dy, w, sizes, transpose_rhs=True),
+             (dy, w, "nt", sizes), flops, 2 * m * nn_ + wb + 2 * m * kk),
+            ("grouped_gemm_dw", which,
+             lambda xin=xin, dy=dy: grouped_gemm_bf16_dw(xin, dy, sizes, e),
+             lambda xin=xin, dy=dy: grouped_gemm_dw_plain(xin, dy, sizes, e),
+             (xin, dy, "dw", sizes), flops, 2 * m * kk + 2 * m * nn_ + 4 * e * kk * nn_),
+        ]
+    return cases
+
+
+def grouped_rows(torch, path: str, cases, m: int, e: int, iters: int,
+                 plain_iters: int) -> list[dict]:
+    """Each grouped GEMM against its plain version and `torch._grouped_mm`;
+    one row per kernel: the worst error of its GEMMs, the times and bounds
+    summed over the two GEMMs the layer runs it on."""
+    by_name: dict = {}
+    for name, which, kern, plain, (a, b_, kind, sz), flops, nbytes in cases:
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err, rel = _abs(got, want), _rel(got, want)
+        del got, want
+        ms = cuda_ms(kern, iters=iters)
+        pms = cuda_ms(plain, iters=plain_iters, warmup=1)
+        lib, why = grouped_mm_ms(torch, a, b_, sz, kind)
+        say("kernel", name=name, gemm=which, m=m, experts=e, err=f"{err:.3e}",
+            rel=f"{rel:.3e}", ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}", library_ms=lib,
+            why=repr(why), tflops=f"{flops / ms / 1e9:.1f}",
+            plain_tflops=f"{flops / pms / 1e9:.1f}")
+        if not rel <= (DW_RTOL if name.endswith("dw") else GG_RTOL):
+            raise AssertionError(f"{name} ({which}) disagrees with its plain version: {rel}")
+        row = by_name.setdefault(name, {
+            "name": name, "route": "cuda", "source": "xtuner_tpu_torch/csrc/grouped_gemm.cu",
+            "replaces": ("xtuner_tpu/ops/bf16_grouped.py:174" if name.endswith("dw")
+                         else "xtuner_tpu/ops/bf16_grouped.py:62"), "path": path,
+            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["ms"] += ms
+        row["plain_ms"] += pms
+        row["library_ms"] = None if lib is None or row["library_ms"] is None \
+            else row["library_ms"] + lib
+        add_bound(row, least_ms(flops, nbytes, PEAK_BF16))
+    return list(by_name.values())
 
 
 def phase_train_kernels(torch, seed: int) -> list[dict]:
@@ -305,10 +492,14 @@ def phase_train_kernels(torch, seed: int) -> list[dict]:
         raise AssertionError(f"max-free flash disagrees with its plain version: out "
                              f"{mf_out_err} (<= {FLASH_OUT_ATOL}), lse {mf_lse_err} "
                              f"(<= {FLASH_LSE_ATOL}), padding rows ok {mf_pad_ok}")
+    pairs = causal_pairs(torch, seg)
+    lib_fwd, why_fwd = sdpa_ms(torch, q, k, v, seg)
     rows.append({"name": "flash_fwd_max_free", "route": "cuda",
                  "source": "xtuner_tpu_torch/csrc/flash_fwd.cu",
                  "replaces": "xtuner_tpu/ops/attention/flash.py:82", "path": "train",
-                 "max_abs_err": mf_err, "ms": mf_ms, "plain_ms": mf_plain})
+                 "max_abs_err": mf_err, "ms": mf_ms, "plain_ms": mf_plain,
+                 **least_ms(4 * pairs * hq * d, flash_bytes(q, k), PEAK_BF16),
+                 "library_ms": lib_fwd})
 
     do = torch.randn(q.shape, generator=g, device=dev).bfloat16()
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
@@ -327,20 +518,28 @@ def phase_train_kernels(torch, seed: int) -> list[dict]:
     dkv_ms = cuda_ms(lambda: fl.flash_dkv(q, k, v, seg, lse, delta, do, scale), iters=10)
     dkv_plain = cuda_ms(lambda: fl.flash_dkv_plain(q, k, v, seg, lse, delta, do, scale),
                         iters=3, warmup=1)
+    lib_bwd, why_bwd = sdpa_ms(torch, q, k, v, seg, do)
     say("kernel", name="flash_dq", shape=f"B{b}xL{l}xHq{hq}xHkv{hkv}xD{d}",
         err=f"{dq_err:.3e}", rel=f"{dq_rel:.3e}", ms=f"{dq_ms:.4f}", plain_ms=f"{dq_plain:.4f}")
     say("kernel", name="flash_dkv", shape=f"B{b}xL{l}xHq{hq}xHkv{hkv}xD{d}",
         err=f"{dkv_err:.3e}", rel=f"{dkv_rel:.3e}", ms=f"{dkv_ms:.4f}",
         plain_ms=f"{dkv_plain:.4f}")
+    say("kernel", name="library", shape=f"B{b}xL{l}xHq{hq}xHkv{hkv}xD{d}",
+        sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd, why=repr(f"{why_fwd}; {why_bwd}"))
+    bwd_in = flash_bytes(q, k, out_like=2) + 4 * b * hq * l  # q, k, v, do; lse, delta
     if not (dq_rel <= FLASH_GRAD_RTOL and dkv_rel <= FLASH_GRAD_RTOL):
         raise AssertionError(f"flash backward kernels disagree with their plain versions: "
                              f"dq {dq_rel}, dk/dv {dkv_rel} (<= {FLASH_GRAD_RTOL})")
     rows += [{"name": "flash_dq", "route": "cuda", "source": "xtuner_tpu_torch/csrc/flash_bwd.cu",
               "replaces": "xtuner_tpu/ops/attention/flash.py:199", "path": "train",
-              "max_abs_err": dq_err, "ms": dq_ms, "plain_ms": dq_plain},
+              "max_abs_err": dq_err, "ms": dq_ms, "plain_ms": dq_plain,
+              **least_ms(6 * pairs * hq * d, bwd_in + 2 * b * l * hq * d, PEAK_BF16),
+              "library_ms": lib_bwd},
              {"name": "flash_dkv", "route": "cuda", "source": "xtuner_tpu_torch/csrc/flash_bwd.cu",
               "replaces": "xtuner_tpu/ops/attention/flash.py:303", "path": "train",
-              "max_abs_err": dkv_err, "ms": dkv_ms, "plain_ms": dkv_plain}]
+              "max_abs_err": dkv_err, "ms": dkv_ms, "plain_ms": dkv_plain,
+              **least_ms(8 * pairs * hq * d, bwd_in + 4 * b * l * hkv * d, PEAK_BF16),
+              "library_ms": lib_bwd}]
     del q, k, v, do, out, lse, delta, dq, dk, dv
 
     # gradients end to end against autograd through the plain forward; the
@@ -375,46 +574,8 @@ def phase_train_kernels(torch, seed: int) -> list[dict]:
     hmid = torch.randn((m, f), generator=g, device=dev).bfloat16()
     dy_gu = torch.randn((m, 2 * f), generator=g, device=dev).bfloat16()
     dy_dn = torch.randn((m, hid), generator=g, device=dev).bfloat16()
-    cases = [
-        ("grouped_gemm_nn", "gate|up", lambda: grouped_gemm_bf16(x, w_gu, sizes),
-         lambda: grouped_gemm_plain(x, w_gu, sizes), 2 * m * hid * 2 * f),
-        ("grouped_gemm_nn", "down", lambda: grouped_gemm_bf16(hmid, w_dn, sizes),
-         lambda: grouped_gemm_plain(hmid, w_dn, sizes), 2 * m * f * hid),
-        ("grouped_gemm_nt", "gate|up", lambda: grouped_gemm_bf16(dy_gu, w_gu, sizes,
-                                                                 transpose_rhs=True),
-         lambda: grouped_gemm_plain(dy_gu, w_gu, sizes, transpose_rhs=True), 2 * m * hid * 2 * f),
-        ("grouped_gemm_nt", "down", lambda: grouped_gemm_bf16(dy_dn, w_dn, sizes,
-                                                              transpose_rhs=True),
-         lambda: grouped_gemm_plain(dy_dn, w_dn, sizes, transpose_rhs=True), 2 * m * f * hid),
-        ("grouped_gemm_dw", "gate|up", lambda: grouped_gemm_bf16_dw(x, dy_gu, sizes, e),
-         lambda: grouped_gemm_dw_plain(x, dy_gu, sizes, e), 2 * m * hid * 2 * f),
-        ("grouped_gemm_dw", "down", lambda: grouped_gemm_bf16_dw(hmid, dy_dn, sizes, e),
-         lambda: grouped_gemm_dw_plain(hmid, dy_dn, sizes, e), 2 * m * f * hid),
-    ]
-    by_name: dict = {}
-    for name, which, kern, plain, flops in cases:
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        err, rel = _abs(got, want), _rel(got, want)
-        del got, want
-        ms = cuda_ms(kern, iters=10)
-        pms = cuda_ms(plain, iters=5, warmup=1)
-        say("kernel", name=name, gemm=which, m=m, experts=e, err=f"{err:.3e}",
-            rel=f"{rel:.3e}", ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
-            tflops=f"{flops / ms / 1e9:.1f}", plain_tflops=f"{flops / pms / 1e9:.1f}")
-        if not rel <= (DW_RTOL if name.endswith("dw") else GG_RTOL):
-            raise AssertionError(f"{name} ({which}) disagrees with its plain version: {rel}")
-        row = by_name.setdefault(name, {
-            "name": name, "route": "cuda", "source": "xtuner_tpu_torch/csrc/grouped_gemm.cu",
-            "replaces": ("xtuner_tpu/ops/bf16_grouped.py:174" if name.endswith("dw")
-                         else "xtuner_tpu/ops/bf16_grouped.py:62"), "path": "train",
-            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
-        # one row per kernel: the error is the worst of its GEMMs, the times
-        # are the sum of the two GEMMs the layer runs it on
-        row["max_abs_err"] = max(row["max_abs_err"], err)
-        row["ms"] += ms
-        row["plain_ms"] += pms
-    rows += list(by_name.values())
+    rows += grouped_rows(torch, "train", grouped_cases(
+        x, hmid, w_gu, w_dn, dy_gu, dy_dn, sizes, e), m, e, iters=10, plain_iters=5)
     del x, w_gu, w_dn, hmid, dy_gu, dy_dn
 
     # odd shapes: empty experts, one expert with every row, rows past the
@@ -537,10 +698,19 @@ def phase_ce_kernels(torch, seed: int) -> list[dict]:
                     ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}", tflops=f"{flops / ms / 1e9:.1f}",
                     peak_gib=f"{peak:.3f}", plain_peak_gib=f"{ppeak:.3f}")
                 if n == main_n:
+                    ins = 2 * n * hd + 2 * v * hd + 4 * n  # h, w, labels
+                    nbytes = {"ce_fwd": ins + 8 * n,  # lse, label logit out
+                              "ce_dh": ins + 12 * n + 2 * n * hd,  # lse, g_lse, g_lab; dh
+                              "ce_dw": ins + 12 * n + 2 * v * hd}[name]
                     rows.append({"name": name, "route": "cuda",
                                  "source": "xtuner_tpu_torch/csrc/fused_ce.cu",
                                  "replaces": replaces, "path": "sft", "max_abs_err": err,
-                                 "ms": ms, "plain_ms": pms})
+                                 "ms": ms, "plain_ms": pms,
+                                 **least_ms(flops, nbytes, PEAK_BF16),
+                                 # no one PyTorch call computes lse and the label
+                                 # logit, or their gradients, without the (N, V)
+                                 # logits: library none
+                                 "library_ms": None})
         del h, w, labels, g_lse, g_lab, g_lse_all, g_lab_all, lse, lab, ref_lse, ref_lab, args
     return rows
 
@@ -553,8 +723,6 @@ def phase_moe_heavy_kernels(torch, seed: int) -> list[dict]:
     import numpy as np
 
     from xtuner_tpu_torch.ops.attention import flash as fl
-    from xtuner_tpu_torch.ops.bf16_grouped import (grouped_gemm_bf16, grouped_gemm_bf16_dw,
-                                                   grouped_gemm_dw_plain, grouped_gemm_plain)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 3)
@@ -611,6 +779,12 @@ def phase_moe_heavy_kernels(torch, seed: int) -> list[dict]:
         ms=f"{dq_ms:.4f}", plain_ms=f"{dq_plain:.4f}")
     say("kernel", name="flash_dkv", shape=shape, err=f"{dkv_err:.3e}", rel=f"{dkv_rel:.3e}",
         ms=f"{dkv_ms:.4f}", plain_ms=f"{dkv_plain:.4f}")
+    pairs = causal_pairs(torch, seg)
+    lib_fwd, why_fwd = sdpa_ms(torch, q, k, v, seg)
+    lib_bwd, why_bwd = sdpa_ms(torch, q, k, v, seg, do)
+    say("kernel", name="library", shape=shape, sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd,
+        why=repr(f"{why_fwd}; {why_bwd}"))
+    bwd_in = flash_bytes(q, k, out_like=2) + 4 * b * hq * l
     if not (out_err <= FLASH_OUT_ATOL and lse_err <= FLASH_LSE_ATOL and pad_ok
             and dq_rel <= FLASH_GRAD_RTOL and dkv_rel <= FLASH_GRAD_RTOL):
         raise AssertionError(f"flash kernels disagree at {shape}: out {out_err} "
@@ -620,13 +794,18 @@ def phase_moe_heavy_kernels(torch, seed: int) -> list[dict]:
     src = "xtuner_tpu_torch/csrc/"
     rows += [{"name": "flash_fwd_max_free", "route": "cuda", "source": src + "flash_fwd.cu",
               "replaces": "xtuner_tpu/ops/attention/flash.py:82", "path": "sft",
-              "max_abs_err": max(out_err, lse_err), "ms": f_ms, "plain_ms": f_plain},
+              "max_abs_err": max(out_err, lse_err), "ms": f_ms, "plain_ms": f_plain,
+              **least_ms(4 * pairs * hq * d, flash_bytes(q, k), PEAK_BF16), "library_ms": lib_fwd},
              {"name": "flash_dq", "route": "cuda", "source": src + "flash_bwd.cu",
               "replaces": "xtuner_tpu/ops/attention/flash.py:199", "path": "sft",
-              "max_abs_err": dq_err, "ms": dq_ms, "plain_ms": dq_plain},
+              "max_abs_err": dq_err, "ms": dq_ms, "plain_ms": dq_plain,
+              **least_ms(6 * pairs * hq * d, bwd_in + 2 * b * l * hq * d, PEAK_BF16),
+              "library_ms": lib_bwd},
              {"name": "flash_dkv", "route": "cuda", "source": src + "flash_bwd.cu",
               "replaces": "xtuner_tpu/ops/attention/flash.py:303", "path": "sft",
-              "max_abs_err": dkv_err, "ms": dkv_ms, "plain_ms": dkv_plain}]
+              "max_abs_err": dkv_err, "ms": dkv_ms, "plain_ms": dkv_plain,
+              **least_ms(8 * pairs * hq * d, bwd_in + 4 * b * l * hkv * d, PEAK_BF16),
+              "library_ms": lib_bwd}]
     del q, k, v, do, out, lse, delta
 
     # ---- grouped GEMMs at E16, M = 16384 x top-8, gate|up K1024/N1536 and
@@ -641,43 +820,190 @@ def phase_moe_heavy_kernels(torch, seed: int) -> list[dict]:
     hmid = torch.randn((m, f), generator=g, device=dev).bfloat16()
     dy_gu = torch.randn((m, 2 * f), generator=g, device=dev).bfloat16()
     dy_dn = torch.randn((m, hid), generator=g, device=dev).bfloat16()
-    cases = [
-        ("grouped_gemm_nn", lambda: grouped_gemm_bf16(x, w_gu, sizes),
-         lambda: grouped_gemm_plain(x, w_gu, sizes)),
-        ("grouped_gemm_nn", lambda: grouped_gemm_bf16(hmid, w_dn, sizes),
-         lambda: grouped_gemm_plain(hmid, w_dn, sizes)),
-        ("grouped_gemm_nt", lambda: grouped_gemm_bf16(dy_gu, w_gu, sizes, transpose_rhs=True),
-         lambda: grouped_gemm_plain(dy_gu, w_gu, sizes, transpose_rhs=True)),
-        ("grouped_gemm_nt", lambda: grouped_gemm_bf16(dy_dn, w_dn, sizes, transpose_rhs=True),
-         lambda: grouped_gemm_plain(dy_dn, w_dn, sizes, transpose_rhs=True)),
-        ("grouped_gemm_dw", lambda: grouped_gemm_bf16_dw(x, dy_gu, sizes, e),
-         lambda: grouped_gemm_dw_plain(x, dy_gu, sizes, e)),
-        ("grouped_gemm_dw", lambda: grouped_gemm_bf16_dw(hmid, dy_dn, sizes, e),
-         lambda: grouped_gemm_dw_plain(hmid, dy_dn, sizes, e)),
-    ]
-    by_name: dict = {}
-    for name, kern, plain in cases:
-        got, want = kern(), plain()
-        err, rel = _abs(got, want), _rel(got, want)
-        del got, want
-        ms = cuda_ms(kern, iters=5)
-        pms = cuda_ms(plain, iters=3, warmup=1)
-        say("kernel", name=name, m=m, experts=e, err=f"{err:.3e}", rel=f"{rel:.3e}",
-            ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}")
-        if not rel <= (DW_RTOL if name.endswith("dw") else GG_RTOL):
-            raise AssertionError(f"{name} disagrees with its plain version at E16: {rel}")
-        row = by_name.setdefault(name, {
-            "name": name, "route": "cuda", "source": src + "grouped_gemm.cu",
-            "replaces": ("xtuner_tpu/ops/bf16_grouped.py:174" if name.endswith("dw")
-                         else "xtuner_tpu/ops/bf16_grouped.py:62"), "path": "sft",
-            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
-        row["max_abs_err"] = max(row["max_abs_err"], err)
-        row["ms"] += ms
-        row["plain_ms"] += pms
-    rows += list(by_name.values())
+    rows += grouped_rows(torch, "sft", grouped_cases(
+        x, hmid, w_gu, w_dn, dy_gu, dy_dn, sizes, e), m, e, iters=5, plain_iters=3)
     del x, w_gu, w_dn, hmid, dy_gu, dy_dn
     fl.reset_launches()
     return rows
+
+
+def routed_sizes(torch, rng, tokens: int, experts: int, topk: int, empty: int, dev):
+    """(E,) int32 group sizes of a top-k routing of `tokens` random router
+    logits over `experts`, expert `empty` given no token."""
+    logits = torch.tensor(rng.standard_normal((tokens, experts)), dtype=torch.float32)
+    logits[:, empty] = float("-inf")
+    idx = logits.topk(topk, dim=-1).indices.flatten()
+    return torch.bincount(idx, minlength=experts).to(torch.int32).to(dev)
+
+
+def phase_fp8_kernels(torch, seed: int) -> list[dict]:
+    """The fp8 kernels (#11-#13) against their plain versions, at every
+    moe_heavy shape of the fp8 SFT step (M = 2 x 8192 rows for the
+    attention projections; 131072 routed rows over 16 experts, group sizes
+    from a top-8 routing with one expert empty), in e4m3 x e4m3 and with an
+    e5m2 gradient, and at odd shapes (M not a multiple of 128, K = 768 and
+    384, a 1-row expert, rows past the last group). Prints per GEMM the
+    kernel's ms (the wrapper, its K-major copies included), the plain
+    version's, TFLOP/s, the bound, the error against plain (relative to the
+    largest entry) and the mean relative error of the fp8 product against
+    the unquantised bf16 one; and what `torch._scaled_mm` /
+    `torch._scaled_grouped_mm` say to tile-wise scales."""
+    import numpy as np
+
+    from xtuner_tpu_torch.ops import fp8_gemm as fg
+    from xtuner_tpu_torch.ops import fp8_grouped as fgr
+    from xtuner_tpu_torch.ops.bf16_grouped import (_mm_f32, grouped_gemm_dw_plain,
+                                                   grouped_gemm_plain)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 4)
+    rng = np.random.default_rng(seed + 4)
+    e4, e5 = torch.float8_e4m3fn, torch.float8_e5m2
+    tag = {e4: "e4m3", e5: "e5m2"}
+    src = "xtuner_tpu_torch/csrc/"
+    rows = {
+        "fp8_gemm": {"name": "fp8_gemm", "route": "cuda", "source": src + "fp8_gemm.cu",
+                     "replaces": "xtuner_tpu/ops/fp8_gemm.py:60"},
+        "fp8_grouped_gemm": {"name": "fp8_grouped_gemm", "route": "cuda",
+                             "source": src + "fp8_grouped.cu",
+                             "replaces": "xtuner_tpu/ops/fp8_grouped.py:106"},
+        "fp8_grouped_dw": {"name": "fp8_grouped_dw", "route": "cuda",
+                           "source": src + "fp8_grouped.cu",
+                           "replaces": "xtuner_tpu/ops/fp8_grouped.py:195"},
+    }
+    for r in rows.values():
+        r.update(path="sft_fp8", max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
+
+    def add_library(name, label, uses, fn):
+        """Time the PyTorch call that would compute the same function, `uses`
+        times into the row; None (with PyTorch's reason) where it refuses."""
+        ms, why = library_ms(torch, fn)
+        say("kernel", name=name, gemm=label, library_ms=ms, why=repr(why))
+        row = rows[name]
+        row["library_ms"] = None if ms is None or row["library_ms"] is None \
+            else row["library_ms"] + uses * ms
+
+    def check(name, label, got, want, ref, rtol, uses=0, timed=None, flops=0, nbytes=0):
+        """Hold a kernel's result against its plain version; with `uses`,
+        time it and add `uses` times its ms and bound to the kernel's row."""
+        torch.cuda.synchronize()
+        err, rel = _abs(got, want), _rel(got, want)
+        vs_bf16 = ((got.float() - ref.float()).abs().mean() / ref.float().abs().mean()).item()
+        kv = {}
+        if uses:
+            kern, plain = timed
+            ms, pms = cuda_ms(kern, iters=5), cuda_ms(plain, iters=2, warmup=1)
+            b = least_ms(flops, nbytes, PEAK_FP8)
+            row = rows[name]
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["ms"] += uses * ms
+            row["plain_ms"] += uses * pms
+            for _ in range(uses):
+                add_bound(row, b)
+            kv = dict(uses=uses, ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
+                      tflops=f"{flops / ms / 1e9:.1f}", plain_tflops=f"{flops / pms / 1e9:.1f}",
+                      bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"])
+        say("kernel", name=name, gemm=label, err=f"{err:.3e}", rel=f"{rel:.3e}",
+            mean_rel_vs_bf16=f"{vs_bf16:.4f}", **kv)
+        if not (rel <= rtol and vs_bf16 <= FP8_VS_BF16_MEAN):
+            raise AssertionError(f"{name} {label}: {rel} against its plain version (<= {rtol}), "
+                                 f"{vs_bf16} mean against bf16 (<= {FP8_VS_BF16_MEAN})")
+
+    def operands(m, k, n, a_dt=e4, b_dt=e4, e=None):
+        x = torch.randn((m, k), generator=g, device=dev).bfloat16()
+        w = (torch.randn((k, n) if e is None else (e, k, n), generator=g, device=dev)
+             * 0.02).bfloat16()
+        xq, sx = fg.quantize_tilewise(x, dtype=a_dt)
+        wq, sw = (fg.quantize_blockwise(w, dtype=b_dt) if e is None
+                  else fgr.quantize_blockwise_stack(w, dtype=b_dt))
+        return x, w, xq, sx, wq, sw
+
+    # ---- #11 at the four attention projections (q, k, v, o), M = 16384
+    m_att = SFT_ROWS * SEQ
+    for label, m, k, n, a_dt, b_dt, uses in (
+            ("q", m_att, 1024, 2048, e4, e4, 1), ("k", m_att, 1024, 1024, e4, e4, 1),
+            ("v", m_att, 1024, 1024, e4, e4, 1), ("o", m_att, 2048, 1024, e4, e4, 1),
+            ("q dgrad, e5m2 gradient", m_att, 2048, 1024, e5, e4, 0),
+            ("q wgrad, e5m2 gradient", 1024, m_att, 2048, e4, e5, 0),
+            ("odd M200 K768", 200, 768, 256, e4, e4, 0),
+            ("odd M77 K384", 77, 384, 128, e5, e4, 0)):
+        x, w, xq, sx, wq, sw = operands(m, k, n, a_dt, b_dt)
+        kern = lambda: fg.fp8_gemm_tilewise(xq, sx, wq, sw)  # noqa: E731
+        plain = lambda: fg.fp8_gemm_tilewise_plain(xq, sx, wq, sw, out_dtype=torch.float32)  # noqa
+        kt, nt = k // 128, n // 128
+        check("fp8_gemm", f"{label} {tag[a_dt]}x{tag[b_dt]} M{m} K{k} N{n}", kern(), plain(),
+              _mm_f32(x, w), FP8_RTOL, uses, (kern, plain), 2 * m * k * n,
+              m * k + 4 * m * kt + k * n + 4 * kt * nt + 2 * m * n)
+        if uses:
+            # torch._scaled_mm with tile-wise scales, both outer-dim-major, as it takes them
+            wt = fg.k_major(wq).view(e4)
+            add_library("fp8_gemm", f"{label}: torch._scaled_mm", uses, lambda: torch._scaled_mm(
+                xq, wt.t(), scale_a=sx.t().contiguous().t(), scale_b=sw.t().contiguous().t(),
+                out_dtype=torch.bfloat16))
+        del x, w, xq, sx, wq, sw
+
+    # ---- #12 and #13 at the expert GEMMs: 131072 routed rows, E16, top-8
+    e = 16
+    m_moe = m_att * 8
+    sizes = routed_sizes(torch, rng, m_att, e, 8, empty=5, dev=dev)
+    say("kernel", name="fp8_grouped", rows=m_moe, experts=e, group_sizes=sizes.tolist())
+    for label, m, k, n, gs, a_dt, uses in (
+            # gate and up forward, down's dgrad: K1024 -> N768
+            ("gate/up fwd, down dgrad", m_moe, 1024, 768, sizes, e4, 3),
+            # down forward, gate's and up's dgrad: K768 -> N1024
+            ("down fwd, gate/up dgrad", m_moe, 768, 1024, sizes, e4, 3),
+            ("gate/up dgrad, e5m2 gradient", m_moe, 768, 1024, sizes, e5, 0),
+            ("odd M700 K768", 700, 768, 256, [300, 1, 0, 333], e4, 0),
+            ("odd M700 K768", 700, 768, 256, [300, 1, 0, 333], e5, 0),
+            ("odd M1000 K384", 1000, 384, 128, [0, 1000, 0, 0], e4, 0)):
+        gs = torch.as_tensor(gs, dtype=torch.int32, device=dev)
+        ee = gs.shape[0]
+        x, w, xq, sx, wq, sw = operands(m, k, n, a_dt, e4, ee)
+        kern = lambda: fgr.fp8_grouped_gemm(xq, sx, wq, sw, gs)  # noqa: E731
+        plain = lambda: fgr.fp8_grouped_gemm_plain(xq, sx, wq, sw, gs,  # noqa: E731
+                                                   out_dtype=torch.float32)
+        kt, nt = k // 128, n // 128
+        got = kern()
+        if (got[int(gs.sum()):] != 0).any():
+            raise AssertionError("fp8_grouped_gemm wrote rows past the last group")
+        check("fp8_grouped_gemm", f"{label} {tag[a_dt]}xe4m3 M{m} K{k} N{n}", got, plain(),
+              grouped_gemm_plain(x, w, gs, out_dtype=torch.float32), FP8_RTOL, uses,
+              (kern, plain), 2 * int(gs.sum()) * k * n,
+              m * k + 4 * m * kt + ee * k * n + 4 * ee * kt * nt + 2 * m * n)
+        if uses:
+            wt = fg.k_major(wq).view(e4)
+            offs = torch.cumsum(gs, 0).to(torch.int32)
+            add_library("fp8_grouped_gemm", f"{label}: torch._scaled_grouped_mm", uses,
+                        lambda: torch._scaled_grouped_mm(xq, wt.transpose(1, 2), sx, sw,
+                                                         offs=offs, out_dtype=torch.bfloat16))
+        del x, w, xq, sx, wq, sw, got
+
+    for label, m, k, n, gs, y_dt, uses in (
+            ("gate/up wgrad", m_moe, 1024, 768, sizes, e4, 2),
+            ("down wgrad", m_moe, 768, 1024, sizes, e4, 1),
+            ("down wgrad, e5m2 gradient", m_moe, 768, 1024, sizes, e5, 0),
+            ("odd M640 K768", 640, 768, 256, [300, 1, 0, 339], e5, 0),
+            ("odd M1024 K384", 1024, 384, 128, [0, 0, 1000, 0], e4, 0)):
+        gs = torch.as_tensor(gs, dtype=torch.int32, device=dev)
+        ee = gs.shape[0]
+        x = torch.randn((m, k), generator=g, device=dev).bfloat16()
+        dy = torch.randn((m, n), generator=g, device=dev).bfloat16()
+        xq, sx = fgr.quantize_rowtile(x)
+        yq, sy = fgr.quantize_rowtile(dy, dtype=y_dt)
+        kern = lambda: fgr.fp8_grouped_gemm_dw(xq, sx, yq, sy, gs, ee)  # noqa: E731
+        plain = lambda: fgr.fp8_grouped_gemm_dw_plain(xq, sx, yq, sy, gs, ee)  # noqa: E731
+        got = kern()
+        if any((got[i] != 0).any() for i in range(ee) if int(gs[i]) == 0):
+            raise AssertionError("fp8_grouped_gemm_dw wrote an empty expert's dW")
+        check("fp8_grouped_dw", f"{label} e4m3x{tag[y_dt]} M{m} K{k} N{n}", got, plain(),
+              grouped_gemm_dw_plain(x, dy, gs, ee), FP8_DW_RTOL, uses, (kern, plain),
+              2 * int(gs.sum()) * k * n, m * (k + n) + 8 * (m // 128) + 4 * ee * k * n)
+        del x, dy, xq, sx, yq, sy, got
+    say("kernel", name="fp8_grouped_dw",
+        library=repr("none: no PyTorch call takes one fp8 scale per 128-row tile of a ragged "
+                     "contraction"))
+    rows["fp8_grouped_dw"]["library_ms"] = None
+    return list(rows.values())
 
 
 def release(torch, phase: str) -> None:
@@ -841,16 +1167,31 @@ def phase_engine(torch, seed: int, smi: str) -> dict:
     return launches
 
 
+def reset_train_launches() -> None:
+    from xtuner_tpu_torch.ops import bf16_grouped, fp8_gemm, fp8_grouped, fused_ce
+    from xtuner_tpu_torch.ops.attention import flash
+
+    for mod in (flash, bf16_grouped, fused_ce, fp8_gemm, fp8_grouped):
+        mod.reset_launches()
+
+
 def train_launches(torch) -> dict:
+    """Every training kernel's launches since `reset_train_launches`."""
+    from xtuner_tpu_torch.ops import fused_ce as fc
     from xtuner_tpu_torch.ops.attention import flash as fl
     from xtuner_tpu_torch.ops.bf16_grouped import grouped_gemm_bf16, grouped_gemm_bf16_dw
+    from xtuner_tpu_torch.ops.fp8_gemm import fp8_gemm_tilewise
+    from xtuner_tpu_torch.ops.fp8_grouped import fp8_grouped_gemm, fp8_grouped_gemm_dw
 
     return {"flash_fwd": fl.flash_attention.launches - fl.max_free_launches(),
             "flash_fwd_max_free": fl.max_free_launches(),
             "flash_dq": fl.flash_dq.launches, "flash_dkv": fl.flash_dkv.launches,
             "grouped_gemm_nn": grouped_gemm_bf16.launches["nn"],
             "grouped_gemm_nt": grouped_gemm_bf16.launches["nt"],
-            "grouped_gemm_dw": grouped_gemm_bf16_dw.launches}
+            "grouped_gemm_dw": grouped_gemm_bf16_dw.launches,
+            "ce_fwd": fc.ce_fwd.launches, "ce_dh": fc.ce_dh.launches, "ce_dw": fc.ce_dw.launches,
+            "fp8_gemm": fp8_gemm_tilewise.launches, "fp8_grouped_gemm": fp8_grouped_gemm.launches,
+            "fp8_grouped_dw": fp8_grouped_gemm_dw.launches}
 
 
 def phase_train(torch, seed: int, smi: str) -> dict:
@@ -860,8 +1201,6 @@ def phase_train(torch, seed: int, smi: str) -> dict:
     from xtuner_tpu_torch.datasets.collator import sft_llm_collator
     from xtuner_tpu_torch.engine.train_engine import TrainEngine
     from xtuner_tpu_torch.model.registry import get_model_config
-    from xtuner_tpu_torch.ops.attention import flash as fl
-    from xtuner_tpu_torch.ops import bf16_grouped as bg
     from xtuner_tpu_torch.parallel.mesh import MeshConfig
 
     dev = torch.device("cuda")
@@ -897,8 +1236,7 @@ def phase_train(torch, seed: int, smi: str) -> dict:
     say("train", seq=SEQ, docs=",".join(map(str, lens)), pad=SEQ - sum(lens),
         supervised=int(row["loss_weights"].sum()))
 
-    fl.reset_launches()
-    bg.reset_launches()
+    reset_train_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     hist = []
@@ -917,7 +1255,8 @@ def phase_train(torch, seed: int, smi: str) -> dict:
     per = TRAIN_LAYERS * TRAIN_STEPS
     want = {"flash_fwd": 0, "flash_fwd_max_free": 2 * per, "flash_dq": per, "flash_dkv": per,
             "grouped_gemm_nn": 4 * per, "grouped_gemm_nt": 2 * per,
-            "grouped_gemm_dw": 2 * per}
+            "grouped_gemm_dw": 2 * per, "ce_fwd": 0, "ce_dh": 0, "ce_dw": 0,
+            "fp8_gemm": 0, "fp8_grouped_gemm": 0, "fp8_grouped_dw": 0}
     steady = [dt for _, dt in hist[1:]]
     say("train", launches=launches, expected=want,
         steady_step_ms=f"{1e3 * sum(steady) / len(steady):.1f}",
@@ -940,11 +1279,14 @@ def phase_train(torch, seed: int, smi: str) -> dict:
     return launches
 
 
-def phase_sft(torch, smi: str, breakdown: bool) -> dict:
+def phase_sft(torch, smi: str, breakdown: bool, fp8_ref_loss1=None) -> tuple[dict, list]:
     """The port's SFT entry point as a user runs it: the `sft` CLI's
-    `main(["--config", <moe_heavy recipe>])` in a temporary working
-    directory, 6 steps at full width and depth. Reads its tracker and its
-    final checkpoint, and counts every kernel launch of the run."""
+    `main(["--config", <recipe>])` in a temporary working directory, 6
+    steps at full width and depth. Reads its tracker and its final
+    checkpoint, and counts every kernel launch of the run. With
+    `fp8_ref_loss1` (the bf16 run's step-1 loss) it runs the fp8 recipe and
+    holds its step-1 loss within SFT_FP8_LOSS1_RTOL of that. Returns the
+    launches and the losses."""
     import os
     import tempfile
     from pathlib import Path
@@ -952,12 +1294,11 @@ def phase_sft(torch, smi: str, breakdown: bool) -> dict:
     import numpy as np
 
     from xtuner_tpu_torch.checkpoint.torch_io import TrainCheckpointManager
-    from xtuner_tpu_torch.ops import bf16_grouped as bg
-    from xtuner_tpu_torch.ops import fused_ce as fc
-    from xtuner_tpu_torch.ops.attention import flash as fl
     from xtuner_tpu_torch.train.cli import sft
 
-    recipe = str(Path(__file__).resolve().parent / SFT_RECIPE)
+    fp8 = fp8_ref_loss1 is not None
+    phase, rel_recipe = ("sft_fp8", SFT_FP8_RECIPE) if fp8 else ("sft", SFT_RECIPE)
+    recipe = str(Path(__file__).resolve().parent / rel_recipe)
     save_s: list = []
     real_save = TrainCheckpointManager.save
 
@@ -971,17 +1312,14 @@ def phase_sft(torch, smi: str, breakdown: bool) -> dict:
         os.chdir(tmp)
         TrainCheckpointManager.save = timed_save
         try:
-            fl.reset_launches()
-            bg.reset_launches()
-            fc.reset_launches()
+            reset_train_launches()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             trainer = sft.main(["--config", recipe])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = {**train_launches(torch), "ce_fwd": fc.ce_fwd.launches,
-                        "ce_dh": fc.ce_dh.launches, "ce_dw": fc.ce_dw.launches}
+            launches = train_launches(torch)
             peak = torch.cuda.max_memory_allocated() / 2**30
         finally:
             TrainCheckpointManager.save = real_save
@@ -993,15 +1331,16 @@ def phase_sft(torch, smi: str, breakdown: bool) -> dict:
         ckpt_gib = sum(p.stat().st_size for p in step_dir.iterdir()) / 2**30 \
             if step_dir.exists() else 0.0
         cfg = trainer.cfg.model_cfg
-        say("sft", recipe=SFT_RECIPE, params=trainer.engine.num_params,
+        say(phase, recipe=rel_recipe, params=trainer.engine.num_params,
             layers=cfg.num_hidden_layers, hidden=cfg.hidden_size,
             heads=f"{cfg.attention.num_attention_heads}/{cfg.attention.num_key_value_heads}",
             experts=f"{cfg.n_routed_experts}/top{cfg.num_experts_per_tok}",
             moe_inter=cfg.moe_intermediate_size, vocab=cfg.vocab_size,
             ce=cfg.lm_loss_cfg.mode, remat=trainer.engine.remat,
-            compute=str(trainer.engine.compute_dtype), wall_s=f"{wall:.3f}")
+            compute=str(trainer.engine.compute_dtype), float8=repr(cfg.float8_cfg),
+            wall_s=f"{wall:.3f}")
         for r in recs:
-            say("sft", step=r["step"], loss=f"{r['reduced_llm_loss']:.5f}",
+            say(phase, step=r["step"], loss=f"{r['reduced_llm_loss']:.5f}",
                 grad_norm=f"{r['grad_norm']:.5f}", lr=f"{r['lr']:.3e}",
                 tokens=int(r["consumed_tokens"]), step_ms=f"{1e3 * r['step_time']:.1f}",
                 tgs=f"{r['tgs']:.1f}", data_ms=f"{1e3 * r['data_time']:.2f}",
@@ -1010,11 +1349,17 @@ def phase_sft(torch, smi: str, breakdown: bool) -> dict:
         step_s = sum(r["step_time"] for r in steady) / len(steady)
         tokens = sum(r["consumed_tokens"] for r in steady) / len(steady)
         per = SFT_STEPS * SFT_LAYERS
+        # per layer and step: flash once each (its residuals are kept); bf16
+        # experts: gate|up and down forward, recompute and backward; fp8:
+        # q, k, v and o forward and recompute (8 of #11), gate, up and down
+        # forward, recompute and dgrad (9 of #12), their wgrads (3 of #13)
         want = {"flash_fwd": 0, "flash_fwd_max_free": per, "flash_dq": per, "flash_dkv": per,
-                "grouped_gemm_nn": 4 * per, "grouped_gemm_nt": 2 * per,
-                "grouped_gemm_dw": 2 * per, "ce_fwd": SFT_STEPS, "ce_dh": SFT_STEPS,
-                "ce_dw": SFT_STEPS}
-        say("sft", launches=launches, expected=want, steady_step_ms=f"{1e3 * step_s:.1f}",
+                "grouped_gemm_nn": 0 if fp8 else 4 * per, "grouped_gemm_nt": 0 if fp8 else 2 * per,
+                "grouped_gemm_dw": 0 if fp8 else 2 * per, "ce_fwd": SFT_STEPS,
+                "ce_dh": SFT_STEPS, "ce_dw": SFT_STEPS, "fp8_gemm": 8 * per if fp8 else 0,
+                "fp8_grouped_gemm": 9 * per if fp8 else 0,
+                "fp8_grouped_dw": 3 * per if fp8 else 0}
+        say(phase, launches=launches, expected=want, steady_step_ms=f"{1e3 * step_s:.1f}",
             steady_tok_s=f"{tokens / step_s:.1f}",
             pack_positions_s=f"{SFT_ROWS * SEQ / step_s:.1f}", peak_gib=f"{peak:.3f}",
             ckpt_committed=committed, ckpt_gib=f"{ckpt_gib:.3f}",
@@ -1027,6 +1372,13 @@ def phase_sft(torch, smi: str, breakdown: bool) -> dict:
             raise AssertionError(f"non-finite loss or grad norm: {losses}, {norms}")
         if not SFT_LOSS1[0] <= losses[0] <= SFT_LOSS1[1]:
             raise AssertionError(f"step-1 loss {losses[0]} outside {SFT_LOSS1}")
+        if fp8:
+            rel = abs(losses[0] - fp8_ref_loss1) / fp8_ref_loss1
+            say(phase, loss1=f"{losses[0]:.5f}", bf16_loss1=f"{fp8_ref_loss1:.5f}",
+                rel=f"{rel:.3e}", tol=SFT_FP8_LOSS1_RTOL)
+            if not rel <= SFT_FP8_LOSS1_RTOL:
+                raise AssertionError(f"fp8 step-1 loss {losses[0]} is {rel} from the bf16 "
+                                     f"run's {fp8_ref_loss1} (<= {SFT_FP8_LOSS1_RTOL})")
         if not losses[-1] < losses[0]:
             raise AssertionError(f"loss did not fall over {SFT_STEPS} steps: {losses}")
         if any(r["skipped"] for r in recs):
@@ -1037,12 +1389,58 @@ def phase_sft(torch, smi: str, breakdown: bool) -> dict:
             raise AssertionError(f"kernel launches {launches} != what 6 steps imply {want}")
 
         batch = next(iter(trainer.dataloader))
-        profile_window(torch, "sft_step", lambda: trainer.engine.train_step(batch, SFT_STEPS + 1),
-                       top=16)
-        if breakdown:
+        with quantise_annotated(torch, fp8):
+            profile_window(torch, f"{phase}_step",
+                           lambda: trainer.engine.train_step(batch, SFT_STEPS + 1), top=16,
+                           annotation=QUANTISE if fp8 else None)
+        if breakdown and not fp8:
             sft_memory(torch, trainer.engine, batch, smi)
         trainer.dataloader.close()
-    return launches
+    return launches, losses
+
+
+QUANTISE = "fp8_quantise"
+
+
+class quantise_annotated:
+    """While on (and `on`), every fp8 quantiser and K-major copy of the port
+    runs inside `torch.profiler.record_function(QUANTISE)`, so that a
+    profile can sum the device time of the quantise passes. The module
+    attributes are swapped back on exit."""
+
+    NAMES = {"fp8_gemm": ("quantize_tilewise", "quantize_blockwise", "k_major"),
+             "fp8_grouped": ("quantize_tilewise", "quantize_blockwise_stack",
+                             "quantize_rowtile", "k_major"),
+             "float8": ("quantize_tilewise", "quantize_blockwise")}
+
+    def __init__(self, torch, on: bool):
+        self.torch, self.on, self.saved = torch, on, []
+
+    def __enter__(self):
+        if not self.on:
+            return self
+        import importlib
+
+        for mod_name, names in self.NAMES.items():
+            mod = importlib.import_module(f"xtuner_tpu_torch.ops.{mod_name}")
+            for name in names:
+                fn = getattr(mod, name)
+                self.saved.append((mod, name, fn))
+                setattr(mod, name, self._wrap(fn))
+        return self
+
+    def _wrap(self, fn):
+        record_function = self.torch.profiler.record_function
+
+        def annotated(*a, **kw):
+            with record_function(QUANTISE):
+                return fn(*a, **kw)
+        return annotated
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
 
 
 def sft_memory(torch, eng, batch, smi: str) -> None:
@@ -1100,10 +1498,13 @@ def sft_memory(torch, eng, batch, smi: str) -> None:
             p.grad = None
 
 
-def profile_window(torch, name: str, fn, top: int = 8) -> None:
+def profile_window(torch, name: str, fn, top: int = 8, annotation=None) -> None:
     """Wall time, device-busy time (sum of kernel durations), kernel count,
-    device time by kind (the port's kernels, cuBLAS GEMMs, the rest) and
-    the top kernels by device time of one call under torch.profiler."""
+    device time by kind (the port's fp8 kernels and its others, cuBLAS
+    GEMMs, the rest) and the top kernels by device time of one call under
+    torch.profiler. With `annotation`, the device time of the kernels
+    launched inside `record_function(annotation)` ranges is its own kind,
+    taken out of the rest."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
@@ -1116,19 +1517,30 @@ def profile_window(torch, name: str, fn, top: int = 8) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict = defaultdict(lambda: [0.0, 0])
+    annotated_ms, ranges = 0.0, 0
     for e in prof.events():
+        if e.name == annotation:
+            if e.device_type != DeviceType.CUDA:  # the CPU range: its kernels' time
+                annotated_ms += e.device_time_total / 1e3
+                ranges += 1
+            continue  # the range's own device-side span is not a kernel
         if e.device_type == DeviceType.CUDA:
             by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
             by_name[e.name][1] += 1
     busy_ms = sum(v[0] for v in by_name.values())
     kinds: dict = defaultdict(float)
     for k, (ms, _) in by_name.items():
-        if "(anonymous namespace)::" in k:
+        if "(anonymous namespace)::fp8_" in k:
+            kinds["port_fp8_kernels"] += ms
+        elif "(anonymous namespace)::" in k:
             kinds["port_kernels"] += ms
         elif k.startswith(("nvjet", "sm90_", "cutlass")) or "gemm" in k.lower():
             kinds["cublas"] += ms
         else:
             kinds["other"] += ms
+    if annotation:
+        kinds[annotation] = annotated_ms  # elementwise kernels: counted in other so far
+        kinds["other"] -= annotated_ms
     say("profile", window=name, wall_ms=f"{wall_ms:.3f}", device_busy_ms=f"{busy_ms:.3f}",
         busy_share=f"{busy_ms / wall_ms:.3f}",
         kernels=sum(v[1] for v in by_name.values()),
@@ -1165,9 +1577,14 @@ def main() -> int:
     release(torch, "ce_kernels")
     kernels += phase_moe_heavy_kernels(torch, args.seed)
     release(torch, "moe_heavy_kernels")
-    launches["sft"] = phase_sft(torch, smi, args.breakdown)
+    kernels += phase_fp8_kernels(torch, args.seed)
+    release(torch, "fp8_kernels")
+    launches["sft"], losses = phase_sft(torch, smi, args.breakdown)
+    release(torch, "sft")
+    launches["sft_fp8"], _ = phase_sft(torch, smi, False, fp8_ref_loss1=losses[0])
     for kern in kernels:
         kern["launches"] = launches[kern["path"]][kern["name"]]
+        kern.pop("_bound_parts", None)
     say("done", total_s=f"{time.perf_counter() - t_start:.3f}")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

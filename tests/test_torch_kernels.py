@@ -45,6 +45,13 @@ DW_RTOL = 1e-4
 # another order; dh and dw round the coefficient and the result to bf16
 # (the grouped GEMMs' bound, relative to the largest entry)
 CE_STAT_ATOL = 1e-3
+# fp8 GEMMs: both sides multiply the same fp8 codes exactly; the kernels
+# sum each 128-deep tile in the tensor cores' accumulator, the plain
+# versions dequantise in f32 first and sum in another order. Outputs in bf16
+# round once (the grouped GEMMs' bound, relative to the largest entry); f32
+# outputs (the wgrad) differ by accumulation order and precision only
+FP8_RTOL = 1e-2
+FP8_DW_RTOL = 2e-3
 
 
 @pytest.fixture
@@ -354,3 +361,172 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fc.ce_fwd(h[:, :64].contiguous(), w[:, :64].contiguous(), labels)
     with pytest.raises(ValueError, match="contiguous"):
         fc.ce_dw(h, w.T.contiguous().T, labels, g_lse, g_lse, g_lab)
+
+
+def _fp8_operands(dev, m, k, n, e=None, a_dtype=torch.float8_e4m3fn, seed=0):
+    """x quantised per (row, 128-col) tile in `a_dtype`, w (K, N) or
+    (E, K, N) per 128 x 128 block in e4m3."""
+    from xtuner_tpu_torch.ops.fp8_gemm import quantize_blockwise, quantize_tilewise
+    from xtuner_tpu_torch.ops.fp8_grouped import quantize_blockwise_stack
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=dev)
+    w = torch.randn((k, n) if e is None else (e, k, n), generator=g, device=dev) * 0.05
+    xq, sx = quantize_tilewise(x, dtype=a_dtype)
+    wq, sw = quantize_blockwise(w) if e is None else quantize_blockwise_stack(w)
+    return xq, sx, wq, sw
+
+
+@pytest.mark.parametrize("m,k,n,a_dtype,b_dtype", [
+    (16384, 1024, 2048, "e4m3", "e4m3"),  # moe_heavy q projection
+    (16384, 2048, 1024, "e4m3", "e4m3"),  # o projection
+    (4096, 1024, 1024, "e5m2", "e4m3"),   # an e5m2 dgrad
+    (1024, 4096, 1024, "e4m3", "e5m2"),   # an e5m2 wgrad (contraction over rows)
+    (200, 768, 256, "e4m3", "e4m3"),      # K = 768, M not a 128 multiple
+    (77, 384, 128, "e5m2", "e4m3"),       # K = 384, M below one tile
+])
+def test_fp8_gemm_kernel_matches_plain(cuda, m, k, n, a_dtype, b_dtype):
+    from xtuner_tpu_torch.ops import fp8_gemm as fg
+
+    dt = {"e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2}
+    xq, sx, _, _ = _fp8_operands(cuda, m, k, n, a_dtype=dt[a_dtype])
+    g = torch.Generator(device=cuda).manual_seed(3)
+    wq, sw = fg.quantize_blockwise(torch.randn((k, n), generator=g, device=cuda) * 0.05,
+                                   dtype=dt[b_dtype])
+    fg.reset_launches()
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = fg.fp8_gemm_tilewise(xq, sx, wq, sw, out_dtype=out_dtype)
+        want = fg.fp8_gemm_tilewise_plain(xq, sx, wq, sw, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype
+        assert _rel_err(got, want) <= (FP8_RTOL if out_dtype == torch.bfloat16 else FP8_DW_RTOL)
+    assert fg.fp8_gemm_tilewise.launches == 2
+
+
+@pytest.mark.parametrize("m,k,n,sizes,a_dtype", [
+    # moe_heavy's gate/up at a quarter of its rows, one expert empty
+    (32768, 1024, 768, [2500, 2000, 0, 2200, 2100, 1900, 2300, 2048, 2000,
+                        2200, 2150, 2050, 1950, 2100, 2068, 3200], "e4m3"),
+    (32768, 768, 1024, [2048] * 16, "e5m2"),  # down's dgrad shape, e5m2 gradient
+    (700, 768, 256, [300, 1, 0, 333], "e4m3"),  # 1-row expert, 66 rows past the last
+    (1000, 384, 128, [0, 1000, 0, 0], "e5m2"),  # K = 384, one expert has every row
+])
+def test_fp8_grouped_gemm_kernel_matches_plain(cuda, m, k, n, sizes, a_dtype):
+    from xtuner_tpu_torch.ops import fp8_grouped as fgr
+
+    dt = {"e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2}
+    e = len(sizes)
+    xq, sx, wq, sw = _fp8_operands(cuda, m, k, n, e, a_dtype=dt[a_dtype])
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    fgr.reset_launches()
+    got = fgr.fp8_grouped_gemm(xq, sx, wq, sw, gs)
+    want = fgr.fp8_grouped_gemm_plain(xq, sx, wq, sw, gs, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert fgr.fp8_grouped_gemm.launches == 1 and got.dtype == torch.bfloat16
+    assert _rel_err(got, want) <= FP8_RTOL
+    assert (got[sum(sizes):] == 0).all()
+
+
+@pytest.mark.parametrize("m,k,n,sizes,y_dtype", [
+    (32768, 1024, 768, [2500, 2000, 0, 2200, 2100, 1900, 2300, 2048, 2000,
+                        2200, 2150, 2050, 1950, 2100, 2068, 3200], "e4m3"),
+    (32768, 768, 1024, [2048] * 16, "e5m2"),
+    (640, 768, 256, [300, 1, 0, 339], "e4m3"),  # tiles straddle experts, a 1-row expert
+    (1024, 384, 128, [0, 0, 1000, 0], "e5m2"),  # 24 rows past the last group
+])
+def test_fp8_grouped_dw_kernel_matches_plain(cuda, m, k, n, sizes, y_dtype):
+    from xtuner_tpu_torch.ops import fp8_grouped as fgr
+
+    dt = {"e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2}
+    e = len(sizes)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    xq, sx = fgr.quantize_rowtile(torch.randn((m, k), generator=g, device=cuda))
+    yq, sy = fgr.quantize_rowtile(torch.randn((m, n), generator=g, device=cuda),
+                                  dtype=dt[y_dtype])
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    fgr.reset_launches()
+    got = fgr.fp8_grouped_gemm_dw(xq, sx, yq, sy, gs, e)
+    want = fgr.fp8_grouped_gemm_dw_plain(xq, sx, yq, sy, gs, e)
+    torch.cuda.synchronize()
+    assert fgr.fp8_grouped_gemm_dw.launches == 1 and got.dtype == torch.float32
+    assert _rel_err(got, want) <= FP8_DW_RTOL
+    assert all((got[i] == 0).all() for i, s_ in enumerate(sizes) if s_ == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float8_e4m3fn, torch.float8_e5m2])
+def test_fp8_quantisers_on_the_card_match_the_cpu(cuda, dtype):
+    """The same codes and scales on both devices (the CPU ones are JAX's,
+    tests/test_torch_float8.py)."""
+    from xtuner_tpu_torch.ops import fp8_gemm as fg
+    from xtuner_tpu_torch.ops import fp8_grouped as fgr
+
+    x = torch.randn((3, 512, 768), generator=torch.Generator().manual_seed(7)).bfloat16()
+    for fn, t in ((fg.quantize_tilewise, x), (fg.quantize_blockwise, x[0]),
+                  (fgr.quantize_blockwise_stack, x), (fgr.quantize_rowtile, x[1])):
+        (qc, sc), (qg, sg) = fn(t, dtype=dtype), fn(t.to(cuda), dtype=dtype)
+        assert torch.equal(qg.cpu().view(torch.uint8), qc.view(torch.uint8)), fn.__name__
+        assert torch.equal(sg.cpu(), sc), fn.__name__
+
+
+@pytest.mark.parametrize("gran,e5m2", [("tilewise", False), ("tilewise", True),
+                                       ("tensorwise", False)])
+def test_fp8_matmul_on_the_card_matches_the_cpu(cuda, gran, e5m2):
+    """The autograd op through the kernels against the same op on the CPU,
+    where the wrappers run the plain versions."""
+    from xtuner_tpu_torch.ops.float8 import fp8_matmul
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((3, 500, 1024), generator=g).bfloat16()
+    w = torch.randn((1024, 640), generator=g) * 0.05
+    co = torch.randn((3, 500, 640), generator=g)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        xl = x.to(dev).requires_grad_(True)
+        wl = w.to(dev).bfloat16().requires_grad_(True)
+        y = fp8_matmul(xl, wl, gran, 128, e5m2)
+        (y.float() * co.to(dev)).sum().backward()
+        grads.append([t.float().cpu() for t in (y.detach(), xl.grad, wl.grad)])
+    for got, want in zip(*grads):
+        assert _rel_err(got, want) <= FP8_RTOL
+
+
+@pytest.mark.parametrize("e5m2", [False, True])
+def test_fp8_grouped_linear_on_the_card_matches_the_cpu(cuda, e5m2):
+    from xtuner_tpu_torch.ops.fp8_grouped import fp8_grouped_linear
+
+    g = torch.Generator().manual_seed(6)
+    sizes = [700, 0, 1, 1299]
+    x = torch.randn((2000, 768), generator=g).bfloat16()
+    w = torch.randn((4, 768, 1024), generator=g) * 0.05
+    co = torch.randn((2000, 1024), generator=g)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        xl = x.to(dev).requires_grad_(True)
+        wl = w.to(dev).bfloat16().requires_grad_(True)
+        y = fp8_grouped_linear(xl, wl, gs, e5m2)
+        (y.float() * co.to(dev)).sum().backward()
+        grads.append([t.float().cpu() for t in (y.detach(), xl.grad, wl.grad)])
+    for got, want in zip(*grads):
+        assert _rel_err(got, want) <= FP8_RTOL
+
+
+def test_fp8_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from xtuner_tpu_torch.ops import fp8_gemm as fg
+    from xtuner_tpu_torch.ops import fp8_grouped as fgr
+
+    xq, sx, wq, sw = _fp8_operands(cuda, 256, 256, 128)
+    with pytest.raises(ValueError, match="tile 64"):
+        x64, s64 = fg.quantize_tilewise(torch.ones((4, 64), device=cuda), 64)
+        w64, t64 = fg.quantize_blockwise(torch.ones((64, 64), device=cuda), 64)
+        fg.fp8_gemm_tilewise(x64, s64, w64, t64, tile=64)
+    with pytest.raises(ValueError, match="out_dtype"):
+        fg.fp8_gemm_tilewise(xq, sx, wq, sw, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="fp8 codes"):
+        fg.fp8_gemm_tilewise(xq.float(), sx, wq, sw)
+    xq, sx, wq, sw = _fp8_operands(cuda, 256, 256, 128, e=2)
+    gs = torch.tensor([100, 156], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        fgr.fp8_grouped_gemm(xq, sx, wq, sw, gs.long())
+    with pytest.raises(RuntimeError, match="CUDA error"):  # e5m2 weights: no kernel
+        fgr.fp8_grouped_gemm(xq, sx, wq.float().to(torch.float8_e5m2), sw, gs)

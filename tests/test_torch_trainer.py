@@ -92,7 +92,7 @@ def test_trainer_curve_matches_jax(tmp_path, monkeypatch):
     init = jax.tree.map(np.asarray, jt.engine.params)
     jt.fit()
 
-    tt = ttrainer.Trainer(_tcfg(tmp_path))
+    tt = ttrainer.Trainer(_tcfg(tmp_path), device="cpu")
     tt.engine.load_params(params_from_numpy(init, tt.cfg.model_cfg, "cpu"))
     tt.fit()
     want = np.array([[r[k] for k in CURVE_KEYS] for r in _tracker(jt)])
@@ -135,11 +135,32 @@ def test_remat_policies_give_the_same_gradients():
 
 
 def test_cli_parser_matches_jax():
+    """The JAX CLI's flags, and `--device` (default cuda), the port's own."""
     def flags(parser):
         return sorted((a.dest, a.default, tuple(a.choices or ()), getattr(a.type, "__name__", None))
-                      for a in parser._actions if a.dest != "help")
+                      for a in parser._actions if a.dest not in ("help", "device"))
 
     assert flags(tsft.build_parser()) == flags(jsft.build_parser())
+    assert tsft.build_parser().parse_args([]).device == "cuda"
+    assert tsft.build_parser().parse_args(["--device", "cpu"]).device == "cpu"
+
+
+def test_no_card_and_no_device_raises(tmp_path, monkeypatch):
+    """The engine and `Trainer` default to the card; on a machine without
+    one they raise, naming it, instead of running on the CPU."""
+    from xtuner_tpu_torch.engine.train_engine import TrainEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = _tcfg(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        TrainEngine(cfg.model_cfg, cfg.optim_cfg, cfg.lr_cfg, cfg.mesh_cfg, 2)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        TrainEngine(cfg.model_cfg, cfg.optim_cfg, cfg.lr_cfg, cfg.mesh_cfg, 2, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ttrainer.Trainer(cfg)
+    assert not (tmp_path / "torch").exists()  # raised before it built anything
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        tsft.main(["--config", str(RECIPE)])
 
 
 def test_config_file_loads_bench_moe_heavy():
@@ -174,12 +195,13 @@ def test_resume_continues_the_uninterrupted_run(tmp_path):
     total_steps."""
     const = LRConfig(lr_type="constant", warmup_steps=1)
     straight = ttrainer.Trainer(_tcfg(tmp_path, total_steps=5, exp_name="straight",
-                                      lr_cfg=const))
+                                      lr_cfg=const), device="cpu")
     straight.fit()
     first = ttrainer.Trainer(_tcfg(tmp_path, total_steps=3, checkpoint_interval=3,
-                                   lr_cfg=const))
+                                   lr_cfg=const), device="cpu")
     first.fit()
-    second = ttrainer.Trainer(_tcfg(tmp_path, total_steps=5, resume=True, lr_cfg=const))
+    second = ttrainer.Trainer(_tcfg(tmp_path, total_steps=5, resume=True, lr_cfg=const),
+                              device="cpu")
     assert second.start_step == 3
     second.fit()
     want = [[r[k] for k in CURVE_KEYS] for r in _tracker(straight)[3:]]
@@ -190,19 +212,20 @@ def test_resume_continues_the_uninterrupted_run(tmp_path):
 
 
 def test_selective_resume(tmp_path):
-    t1 = ttrainer.Trainer(_tcfg(tmp_path, total_steps=2))
+    t1 = ttrainer.Trainer(_tcfg(tmp_path, total_steps=2), device="cpu")
     t1.fit()
     saved = t1.engine.params["embed"]["w"].clone()
 
     t2 = ttrainer.Trainer(_tcfg(tmp_path, total_steps=4, resume=True,
-                                load_optimizer_states=False, load_dataset=False))
+                                load_optimizer_states=False, load_dataset=False), device="cpu")
     assert t2.start_step == 2
     torch.testing.assert_close(t2.engine.params["embed"]["w"], saved, rtol=0, atol=0)
     state = t2.engine.opt_state
     assert state["count"] == 0 and all(float(m.abs().sum()) == 0 for m in state["m"])
     assert t2.dataloader.get_state_dict()["sampler"]["consumed"] == 0
 
-    t3 = ttrainer.Trainer(_tcfg(tmp_path, total_steps=4, resume=True, load_model=False))
+    t3 = ttrainer.Trainer(_tcfg(tmp_path, total_steps=4, resume=True, load_model=False),
+                          device="cpu")
     assert not torch.equal(t3.engine.params["embed"]["w"], saved)  # the fresh init
     assert t3.engine.opt_state["count"] == 2
     assert t3.dataloader.get_state_dict()["sampler"]["consumed"] == 8
@@ -211,12 +234,13 @@ def test_selective_resume(tmp_path):
 def test_resume_takes_a_snapshot_newer_than_the_checkpoint(tmp_path):
     """Snapshots keep their own max_keep; a final save cut short (no commit
     marker) is skipped, and the newer committed snapshot is resumed."""
-    t1 = ttrainer.Trainer(_tcfg(tmp_path, total_steps=3, snapshot_interval=2))
+    t1 = ttrainer.Trainer(_tcfg(tmp_path, total_steps=3, snapshot_interval=2), device="cpu")
     t1.fit()
     snaps = t1.work_dir / "snapshots" / "checkpoints"
     assert sorted(p.name for p in snaps.iterdir()) == ["step-2"]
     (t1.work_dir / "checkpoints" / "step-3" / "train_state.json").unlink()
-    t2 = ttrainer.Trainer(_tcfg(tmp_path, total_steps=4, resume=True, snapshot_interval=2))
+    t2 = ttrainer.Trainer(_tcfg(tmp_path, total_steps=4, resume=True, snapshot_interval=2),
+                          device="cpu")
     assert t2.start_step == 2
     assert t2.engine.opt_state["count"] == 2
     t2.close()
@@ -236,12 +260,12 @@ def test_resume_takes_a_snapshot_newer_than_the_checkpoint(tmp_path):
 def test_unported_options_raise(tmp_path, kw, tag):
     cfg = _tcfg(tmp_path, **kw)
     if tag is None:  # the remat policy raises at the first step
-        t = ttrainer.Trainer(cfg)
+        t = ttrainer.Trainer(cfg, device="cpu")
         with pytest.raises(NotImplementedError, match=r"\[train-slice\]"):
             t.fit()
         return
     with pytest.raises(NotImplementedError, match=rf"\[{tag}\]"):
-        ttrainer.Trainer(cfg)
+        ttrainer.Trainer(cfg, device="cpu")
 
 
 def test_cli_muon_raises():

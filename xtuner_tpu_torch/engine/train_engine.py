@@ -34,6 +34,17 @@ from ..module.params import count_params, init_params, tree_map
 from ..parallel.mesh import MeshConfig
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another. A missing card raises; nothing falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card: torch.cuda.is_available() is False. The port "
+                           "trains on the card; pass device='cpu' (the sft CLI: "
+                           "--device cpu) to run on the CPU")
+    return dev
+
+
 def _leaf_views(master: dict):
     """A tree for the model whose layer stacks are lists of per-layer dicts
     of leaf views, plus [(view, decay)] pairs for the optimizer."""
@@ -57,8 +68,8 @@ def _leaf_views(master: dict):
 class TrainEngine:
     """JAX's constructor: `TrainEngine(model_cfg, optim_cfg, lr_cfg,
     mesh_cfg, total_steps)`; the compute dtype and the remat policy come
-    from `mesh_cfg` (`parallel/mesh.py`), the device from `device` (the
-    card when there is one)."""
+    from `mesh_cfg` (`parallel/mesh.py`), the device from `device`: the
+    card when it is None, and a RuntimeError when there is no card."""
 
     def __init__(self, model_cfg, optim_cfg: AdamWConfig, lr_cfg: LRConfig,
                  mesh_cfg: MeshConfig, total_steps: int, *, device=None):
@@ -77,8 +88,7 @@ class TrainEngine:
         self.specs = self.model.param_specs()
         self.compute_dtype = mesh_cfg.compute_dtype
         self.remat = mesh_cfg.remat
-        self.device = torch.device(device if device is not None else
-                                   ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = resolve_device(device)
         self.lr_schedule = build_lr_schedule(optim_cfg, lr_cfg, total_steps)
         self.params = None
         self.optimizer = None

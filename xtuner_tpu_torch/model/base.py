@@ -2,8 +2,9 @@
 
 The config fields the serving and training slices read, with the JAX
 package's names and defaults, as a dataclass (the machine with the card has
-no pydantic). `lora_cfg` and `float8_cfg` exist so configs translate; a
-model built with either raises where it would use it ([lora], [float8]).
+no pydantic). `float8_cfg` takes an `ops/float8.py::Float8Config`;
+`lora_cfg` exists so configs translate, and a model built with it raises
+([lora]).
 """
 
 from __future__ import annotations

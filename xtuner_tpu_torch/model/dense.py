@@ -97,8 +97,6 @@ class Dense:
             raise not_ported(f"attention {type(cfg.attention).__name__}", "mla")
         if cfg.lora_cfg is not None:
             raise not_ported("LoRA", "lora")
-        if cfg.float8_cfg is not None:
-            raise not_ported("fp8 training", "float8")
 
     def layer_param_specs(self) -> dict:
         cfg = self.cfg
@@ -146,14 +144,14 @@ class Dense:
         """o-proj -> residual -> norm; `lp` already in the compute dtype.
         Returns (x, normed h)."""
         cfg = self.cfg
-        x = x + mha_out(lp["attn"], cfg.attention, o)
+        x = x + mha_out(lp["attn"], cfg.attention, o, cfg.float8_cfg)
         return x, rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps,
                            cfg.rms_norm_type == "zero_centered")
 
     def _dense_post(self, x, o, lp, compute_dtype):
         lp = cast_tree(lp, compute_dtype)
         x, h = self._attn_out(x, o, lp)
-        return x + mlp_forward(lp["mlp"], h, self.cfg.hidden_act)
+        return x + mlp_forward(lp["mlp"], h, self.cfg.hidden_act, self.cfg.float8_cfg)
 
     def _layer_fn(self, post, cos, sin, segment_ids, compute_dtype, remat: str):
         """One decoder layer `(x, lp) -> post(x, attention out, lp)` under

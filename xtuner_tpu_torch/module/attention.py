@@ -15,9 +15,14 @@ one segment with the padding masked out, which is what the flash forward
 computes with `segment_ids = kv_mask`. Query rows at padding get zeros
 there where the JAX einsum gives unused values; real rows agree.
 
+The training projections run in fp8 when the model's `float8_cfg` is
+enabled (`module/mlp.py::linear` -> `ops/float8.py::fp8_matmul`), as JAX's
+`lora_linear` does; the serving prefill stays in the compute dtype, as in
+JAX.
+
 Not ported yet: a non-zero `cache_len` (chunked prefill and the dense
-decode engine), output gating, sinks and sliding windows ([serve-rest]),
-LoRA ([lora]) and fp8 projections (Float8, Queue 1).
+decode engine), output gating, sinks and sliding windows ([serve-rest]) and
+LoRA ([lora]).
 """
 
 from __future__ import annotations
@@ -102,14 +107,14 @@ def apply_partial_rotary(q, k, cos, sin, rope_dim: int):
             torch.cat([k_rot, k[..., rope_dim:]], dim=-1))
 
 
-def project_qkv(p: dict, cfg: MHAConfig, x, cos, sin):
+def project_qkv(p: dict, cfg: MHAConfig, x, cos, sin, fp8_cfg=None):
     """Projections, qk-norm and rope: x (B, C, H) -> q (B, C, Hq, D),
     k, v (B, C, Hkv, D), in x's dtype."""
     cfg.check_ported()
     b, c, _ = x.shape
-    q = linear(x, p["q_proj"]).reshape(b, c, cfg.num_attention_heads, cfg.head_dim)
-    k = linear(x, p["k_proj"]).reshape(b, c, cfg.num_key_value_heads, cfg.head_dim)
-    v = linear(x, p["v_proj"]).reshape(b, c, cfg.num_key_value_heads, cfg.head_dim)
+    q = linear(x, p["q_proj"], fp8_cfg).reshape(b, c, cfg.num_attention_heads, cfg.head_dim)
+    k = linear(x, p["k_proj"], fp8_cfg).reshape(b, c, cfg.num_key_value_heads, cfg.head_dim)
+    v = linear(x, p["v_proj"], fp8_cfg).reshape(b, c, cfg.num_key_value_heads, cfg.head_dim)
     if cfg.qk_norm:
         zc = cfg.rms_norm_type == "zero_centered"
         q = rms_norm(q, p["q_norm"], cfg.rms_norm_eps, zc)
@@ -125,11 +130,9 @@ def mha_qkv(p: dict, cfg: MHAConfig, x, cos, sin, window: Optional[int] = None,
     bound (None without qk-norm)."""
     if window:
         raise not_ported("sliding-window attention", "serve-rest")
-    if fp8_cfg is not None and getattr(fp8_cfg, "enabled", True):
-        raise not_ported("fp8 projections", "float8")
     if lora_scaling != 1.0 or any(k.startswith("lora") for k in p["q_proj"]):
         raise not_ported("LoRA projections", "lora")
-    q, k, v = project_qkv(p, cfg, x, cos, sin)
+    q, k, v = project_qkv(p, cfg, x, cos, sin, fp8_cfg)
     max_logit = None
     if cfg.qk_norm:
         # provable |scaled logit| bound: normed rows have ||x|| = sqrt(d), so
@@ -150,10 +153,10 @@ def mha_attend(cfg: MHAConfig, q, k, v, segment_ids, max_logit=None):
     return o
 
 
-def mha_out(p: dict, cfg: MHAConfig, o):
+def mha_out(p: dict, cfg: MHAConfig, o, fp8_cfg=None):
     """o (B, L, Hq, D) -> the output projection (B, L, hidden)."""
     b, l = o.shape[:2]
-    return linear(o.reshape(b, l, cfg.q_dim()), p["o_proj"])
+    return linear(o.reshape(b, l, cfg.q_dim()), p["o_proj"], fp8_cfg)
 
 
 def mha_cached_forward(p: dict, cfg: MHAConfig, x, cos, sin, cache_k, cache_v,

@@ -5,13 +5,19 @@ from __future__ import annotations
 import torch
 
 from ..ops.act_fn import get_act_fn
+from ..ops.float8 import fp8_enabled, fp8_matmul
 from .params import ParamSpec
 
 
-def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """`x @ w (+ b)` with w in the JAX (in, out) layout (the non-LoRA branch
-    of `xtuner_tpu/module/lora.py::lora_linear`)."""
-    y = x @ p["w"]
+def linear(x: torch.Tensor, p: dict, fp8_cfg=None) -> torch.Tensor:
+    """`x @ w (+ b)` with w in the JAX (in, out) layout: the non-LoRA
+    branches of `xtuner_tpu/module/lora.py::lora_linear`, the product in
+    fp8 (`ops/float8.py::fp8_matmul`) when `fp8_cfg` is enabled."""
+    if fp8_enabled(fp8_cfg):
+        y = fp8_matmul(x, p["w"], fp8_cfg.scaling_granularity, fp8_cfg.tile,
+                       getattr(fp8_cfg, "e5m2_grads", False))
+    else:
+        y = x @ p["w"]
     if "b" in p:
         y = y + p["b"]
     return y
@@ -31,7 +37,7 @@ def mlp_param_specs(hidden_size: int, intermediate_size: int,
     return specs
 
 
-def mlp_forward(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    gate = linear(x, p["gate_proj"])
-    up = linear(x, p["up_proj"])
-    return linear(get_act_fn(act)(gate) * up, p["down_proj"])
+def mlp_forward(p: dict, x: torch.Tensor, act: str = "silu", fp8_cfg=None) -> torch.Tensor:
+    gate = linear(x, p["gate_proj"], fp8_cfg)
+    up = linear(x, p["up_proj"], fp8_cfg)
+    return linear(get_act_fn(act)(gate) * up, p["down_proj"], fp8_cfg)

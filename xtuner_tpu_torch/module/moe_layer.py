@@ -8,9 +8,16 @@ GEMM on down, weighted combine. The grouped GEMMs are
 `ops/bf16_grouped.py::bf16_grouped_linear`: the Hopper kernels on a card,
 their plain versions on the CPU.
 
+With `fp8_cfg` enabled it follows JAX's fp8 branch (`moe_layer.py:130-154`):
+gate, up and down are three `ops/fp8_grouped.py::fp8_grouped_linear` calls
+(TPU kernels #12 and #13). gate and up stay two calls, not one on the
+fused (E, H, 2F) weight: the wgrad quantises g with one scale per 128-row
+tile over all its columns, so a fused (M, 2F) gradient would get other
+scales than two (M, F) ones.
+
 Not ported yet: the a2a and agrs dispatchers and expert parallelism
-(Queue 1, parallelism), fp8 expert GEMMs (float8), the fused MoE-MLP kernel
-(`XTUNER_FUSED_MLP`, TPU kernel #16) and `swiglu_clipped` ([leaf-ops]).
+(Queue 1, parallelism), the fused MoE-MLP kernel (`XTUNER_FUSED_MLP`, TPU
+kernel #16) and `swiglu_clipped` ([leaf-ops]).
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ import torch
 from .. import not_ported
 from ..ops.act_fn import get_act_fn
 from ..ops.bf16_grouped import bf16_grouped_linear
+from ..ops.float8 import fp8_enabled
+from ..ops.fp8_grouped import fp8_grouped_linear
 from ..ops.moe import permute, unpermute
 from .params import ParamSpec
 from .router import RouterConfig, RouterOutput, route
@@ -45,8 +54,6 @@ def moe_mlp_forward(p: dict, router_p: dict, router_cfg: RouterConfig, x: torch.
     Dropless: every routed token is computed."""
     if dispatcher != "gspmd":
         raise not_ported(f"the {dispatcher!r} MoE dispatcher", "parallelism")
-    if fp8_cfg is not None and getattr(fp8_cfg, "enabled", True):
-        raise not_ported("fp8 expert GEMMs", "float8")
     if os.environ.get("XTUNER_FUSED_MLP", "0") != "0":
         raise not_ported("the fused MoE-MLP kernel (XTUNER_FUSED_MLP, TPU kernel #16)",
                          "train-slice")
@@ -57,6 +64,18 @@ def moe_mlp_forward(p: dict, router_p: dict, router_cfg: RouterConfig, x: torch.
     r: RouterOutput = route(router_p, router_cfg, x2d, top_k, forced_idx=forced_topk_idx)
     info = permute(x2d.to(compute_dtype), r.topk_idx, num_experts,
                    topk_weights=r.topk_weights)
+    if fp8_enabled(fp8_cfg):
+        e5m2 = getattr(fp8_cfg, "e5m2_grads", False)
+
+        def gg(x_, w_):
+            return fp8_grouped_linear(x_, w_.to(compute_dtype), info.group_sizes, e5m2)
+
+        gate = gg(info.sorted_tokens, p["gate_proj"]).float()
+        up = gg(info.sorted_tokens, p["up_proj"]).float()
+        hidden = (get_act_fn(act)(gate) * up).to(compute_dtype)
+        out = gg(hidden, p["down_proj"])
+        combined = unpermute(out, info, b * l)
+        return combined.reshape(b, l, h).to(compute_dtype), r, info.group_sizes
     f = p["gate_proj"].shape[2]
     w_cat = torch.cat([p["gate_proj"].to(compute_dtype), p["up_proj"].to(compute_dtype)],
                       dim=2)

@@ -58,6 +58,15 @@ SIGNATURES = {
     # h, w, labels, lse, g_lse, g_lab, f32 partials, out, N, V, H, splits,
     # dw (0: dh, 1: dw), stream
     "xt_ce_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # xq, sx, wt (N, K), sw, out, M, K, N, a type, b type (0 e4m3, 1 e5m2),
+    # out f32 (0: bf16), stream
+    "xt_fp8_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # xq, sx, wt (E, N, K), sw, offsets, out, M, K, N, E, a type, b type,
+    # out f32, stream
+    "xt_fp8_grouped_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # xt (K, Mp), sx, yt (N, Mp), sy, offsets, dw, Mp, K, N, E, x type,
+    # y type, stream
+    "xt_fp8_grouped_dw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

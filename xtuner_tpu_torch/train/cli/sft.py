@@ -6,7 +6,9 @@ same flags).
         --total-steps 100
 
 `--optim Muon` raises ([muon]); `--load-from` and `--hf-interval` raise in
-`Trainer` ([serve-rest]). `main` returns the trainer after `fit`.
+`Trainer` ([serve-rest]). `--device` (default `cuda`) is the port's one flag
+of its own: the run is on the card, and fails without one, unless it says
+`--device cpu`. `main` returns the trainer after `fit`.
 """
 
 from __future__ import annotations
@@ -74,6 +76,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-load-optimizer-states", action="store_true")
     p.add_argument("--no-load-dataset", action="store_true")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (the default; fails without a card) or cpu")
     return p
 
 
@@ -134,7 +138,7 @@ def config_from_args(args: argparse.Namespace) -> TrainerConfig:
 
 def main(argv: Optional[list[str]] = None) -> Trainer:
     args = build_parser().parse_args(argv)
-    trainer = Trainer(config_from_args(args))
+    trainer = Trainer(config_from_args(args), device=args.device)
     trainer.fit()
     return trainer
 

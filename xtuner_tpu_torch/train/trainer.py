@@ -29,7 +29,7 @@ from .. import not_ported
 from ..checkpoint.torch_io import TrainCheckpointManager
 from ..config.optim import AdamWConfig, LRConfig
 from ..datasets.config import DataloaderConfig
-from ..engine.train_engine import TrainEngine
+from ..engine.train_engine import TrainEngine, resolve_device
 from ..parallel.mesh import MeshConfig
 from ..utils.logger import get_logger, log_file_handler
 from ..writer import JsonlWriter, TensorboardWriter
@@ -114,8 +114,13 @@ class TrainerConfig:
 
 
 class Trainer:
-    def __init__(self, cfg: TrainerConfig):
+    """`Trainer(cfg, device=None)`: on the card unless `device` names
+    another; with no card and no device given it raises before it builds
+    anything."""
+
+    def __init__(self, cfg: TrainerConfig, device=None):
         cfg.check_ported()
+        self.device = resolve_device(device)
         self.cfg = cfg
         self.work_dir = Path(cfg.work_dir) / cfg.exp_name
         self.work_dir.mkdir(parents=True, exist_ok=True)
@@ -131,7 +136,8 @@ class Trainer:
         self.total_steps = cfg.total_steps or max(int(steps_per_epoch * cfg.epochs), 1)
 
         self.engine = TrainEngine(
-            cfg.model_cfg, cfg.optim_cfg, cfg.lr_cfg, cfg.mesh_cfg, self.total_steps
+            cfg.model_cfg, cfg.optim_cfg, cfg.lr_cfg, cfg.mesh_cfg, self.total_steps,
+            device=self.device,
         )
         logger.info(
             f"model: {self.engine.num_params/1e6:.1f}M params | device {self.engine.device} "
