@@ -41,7 +41,19 @@ exits non-zero with no result line:
 8. sft_fp8: the same with `recipes/sft_moe_heavy_fp8.py` (bench.py's fp8
    row): step-1 loss within 2% of the bf16 run's, the exact launches of
    the fp8 kernels and none of the bf16 grouped GEMMs, and one profiled
-   step with the quantise passes' device time apart.
+   step with the quantise passes' device time apart;
+9. dsa_kernels: the block-sparse kernels #14 and #15 against their plain
+   versions at GLM-5.2's shapes (B1 L16384, 64 heads, D = Dv = 256, blocks
+   of 256, 8 slots; five documents and a padded tail; the selection from
+   random block maxima through `select_from_blockmax`), with times, the
+   bound on the visible pairs, and SDPA with the selection as a dense mask;
+10. glm52_dsa: `recipes/sft_glm52_dsa_head.py` (GLM-5.2's three dense head
+   layers at full width, 3.156 B params, block-granular DSA): its
+   `TrainEngine`, built by `Trainer` from the recipe, takes 4
+   `train_step`s on the recipe's own 16384-token rows (not `fit`, whose
+   final save would write ~38 GB); CE, indexer loss, step ms, tokens/s,
+   peak memory, the exact launches of #14 and #15, the indexer's own
+   forward and backward ms, and one profiled step.
 
 Between phases it frees what the last one held and checks that nothing
 large stays allocated, so each peak is the phase's own. Then a JSON line
@@ -107,6 +119,23 @@ SFT_FP8_LOSS1_RTOL = 0.02
 FP8_RTOL = 1e-2
 FP8_DW_RTOL = 2e-3
 FP8_VS_BF16_MEAN = 0.06
+# block-sparse (#14, #15, see tests/test_torch_kernels.py): out, lse and
+# the gradients take flash's bounds; the per-slot mass is a ratio of f32
+# sums of unrounded p
+BS_MASS_ATOL = 1e-3
+# dsa_kernels phase: GLM-5.2's attention shapes
+DSA_SEQ, DSA_HEADS, DSA_DIM, DSA_BLOCK, DSA_SLOTS = 16384, 64, 256, 256, 8
+# glm52_dsa phase: step-1 CE of a random model is ln(V) + sigma^2 / 2 for
+# logits of std 0.02 * sqrt(6144): 11.95 + 1.23 = 13.2. The indexer loss
+# must be finite and positive; it is not near 3 ln 8: at init the
+# indexer's scores are far from uniform (q_idx and k_idx entries of std
+# 0.02 * sqrt(6144) = 1.57, so q.k over 128 dims has std ~28 and the
+# 32-head weighted sum of its relu std ~100), and the softmax over the
+# selected slots is nearly one-hot
+GLM_RECIPE = "xtuner_tpu_torch/recipes/sft_glm52_dsa_head.py"
+GLM_STEPS = 4
+GLM_LOSS1 = (12.4, 14.0)
+GLM_PEAK_GIB = 78.0
 # what may stay allocated between phases (the kernels' small device buffers)
 RELEASED_GIB = 1.0
 # the least time the card could take (NVIDIA H100 SXM data sheet, dense):
@@ -245,7 +274,7 @@ def phase_kernels(torch, seed: int) -> list[dict]:
     if not (d_err <= PAGED_ATOL and finite):
         raise AssertionError(f"paged decode kernel disagrees with its plain version: "
                              f"{d_err} (<= {PAGED_ATOL}), finite {finite}")
-    f_lib, f_why = sdpa_ms(torch, q, k, v, seg)
+    f_lib, f_why = sdpa_ms(torch, q, k, v, block_causal_mask(torch, seg))
     active = [n + 1 for n in lens if n]  # keys each active slot reads (cache + this token)
     say("kernel", name="library", flash_fwd_sdpa_ms=f_lib, why=repr(f_why),
         paged_decode="none: no PyTorch call reads a block-table KV cache")
@@ -337,13 +366,12 @@ def causal_pairs(torch, seg) -> int:
     return total
 
 
-def sdpa_ms(torch, q, k, v, seg, do=None, iters: int = 5):
-    """`scaled_dot_product_attention` with the block-diagonal causal mask
-    and GQA on the flash kernels' (B, L, H, D) inputs: the forward, or with
-    `do` the backward (one call giving dq, dk and dv together)."""
+def sdpa_ms(torch, q, k, v, mask, do=None, iters: int = 5):
+    """`scaled_dot_product_attention` with a boolean (B, 1, L, L) mask and
+    GQA on the kernels' (B, L, H, D) inputs: the forward, or with `do` the
+    backward (one call giving dq, dk and dv together)."""
     import torch.nn.functional as F
 
-    mask = block_causal_mask(torch, seg)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if do is None:
         return library_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -493,7 +521,7 @@ def phase_train_kernels(torch, seed: int) -> list[dict]:
                              f"{mf_out_err} (<= {FLASH_OUT_ATOL}), lse {mf_lse_err} "
                              f"(<= {FLASH_LSE_ATOL}), padding rows ok {mf_pad_ok}")
     pairs = causal_pairs(torch, seg)
-    lib_fwd, why_fwd = sdpa_ms(torch, q, k, v, seg)
+    lib_fwd, why_fwd = sdpa_ms(torch, q, k, v, block_causal_mask(torch, seg))
     rows.append({"name": "flash_fwd_max_free", "route": "cuda",
                  "source": "xtuner_tpu_torch/csrc/flash_fwd.cu",
                  "replaces": "xtuner_tpu/ops/attention/flash.py:82", "path": "train",
@@ -518,7 +546,7 @@ def phase_train_kernels(torch, seed: int) -> list[dict]:
     dkv_ms = cuda_ms(lambda: fl.flash_dkv(q, k, v, seg, lse, delta, do, scale), iters=10)
     dkv_plain = cuda_ms(lambda: fl.flash_dkv_plain(q, k, v, seg, lse, delta, do, scale),
                         iters=3, warmup=1)
-    lib_bwd, why_bwd = sdpa_ms(torch, q, k, v, seg, do)
+    lib_bwd, why_bwd = sdpa_ms(torch, q, k, v, block_causal_mask(torch, seg), do)
     say("kernel", name="flash_dq", shape=f"B{b}xL{l}xHq{hq}xHkv{hkv}xD{d}",
         err=f"{dq_err:.3e}", rel=f"{dq_rel:.3e}", ms=f"{dq_ms:.4f}", plain_ms=f"{dq_plain:.4f}")
     say("kernel", name="flash_dkv", shape=f"B{b}xL{l}xHq{hq}xHkv{hkv}xD{d}",
@@ -780,8 +808,8 @@ def phase_moe_heavy_kernels(torch, seed: int) -> list[dict]:
     say("kernel", name="flash_dkv", shape=shape, err=f"{dkv_err:.3e}", rel=f"{dkv_rel:.3e}",
         ms=f"{dkv_ms:.4f}", plain_ms=f"{dkv_plain:.4f}")
     pairs = causal_pairs(torch, seg)
-    lib_fwd, why_fwd = sdpa_ms(torch, q, k, v, seg)
-    lib_bwd, why_bwd = sdpa_ms(torch, q, k, v, seg, do)
+    lib_fwd, why_fwd = sdpa_ms(torch, q, k, v, block_causal_mask(torch, seg))
+    lib_bwd, why_bwd = sdpa_ms(torch, q, k, v, block_causal_mask(torch, seg), do)
     say("kernel", name="library", shape=shape, sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd,
         why=repr(f"{why_fwd}; {why_bwd}"))
     bwd_in = flash_bytes(q, k, out_like=2) + 4 * b * hq * l
@@ -1006,6 +1034,287 @@ def phase_fp8_kernels(torch, seed: int) -> list[dict]:
     return list(rows.values())
 
 
+def block_visible(torch, seg, block: int):
+    """(B, nb, nb) bool: key block kb holds a key that some query of q-block
+    qb may see (causal, same non-padding document), as the indexer's
+    block maxima are finite exactly there."""
+    b, l = seg.shape
+    nb = l // block
+    docs = int(seg.max()) + 1
+    onehot = torch.nn.functional.one_hot(seg.long(), docs)[..., 1:]  # (B, L, docs)
+    present = onehot.reshape(b, nb, block, docs - 1).amax(dim=2).float()  # (B, nb, docs)
+    shared = (present @ present.transpose(1, 2)) > 0
+    return shared & torch.ones((nb, nb), dtype=torch.bool, device=seg.device).tril()
+
+
+def bs_dense_mask(torch, idx, seg, block: int):
+    """(B, 1, L, L) bool: the visible pairs of a block selection, for SDPA
+    (an empty slot gathers block 0 again, masked: accumulate, then > 0)."""
+    from xtuner_tpu_torch.ops.attention.block_sparse import _visible
+
+    b, l = seg.shape
+    nq = l // block
+    mask, kpos = _visible(idx, seg, block, True)  # (B, nq, block, S * block)
+    allow = torch.zeros((b, l, l), dtype=torch.int32, device=seg.device)
+    bi = torch.arange(b, device=seg.device)[:, None, None, None]
+    rows = torch.arange(l, device=seg.device).reshape(1, nq, block, 1)
+    allow.index_put_((bi, rows, kpos[:, :, None, :]), mask.int(), accumulate=True)
+    return (allow > 0)[:, None]
+
+
+def phase_dsa_kernels(torch, seed: int, smi: str) -> list[dict]:
+    """#14 and #15 against their plain versions at GLM-5.2's shapes: B1,
+    L16384, Hq = Hkv = 64 (MLA gives every head its own k), D = Dv = 256,
+    blocks of 256, 8 slots per q-block, five documents and a padded tail,
+    the selection from random block maxima through `select_from_blockmax`
+    (minus the blocks no query of the q-block can see, as the indexer's
+    maxima are -inf there). Bounds count the visible pairs."""
+    import numpy as np
+
+    from xtuner_tpu_torch.ops.attention import block_sparse as bs
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    rng = np.random.default_rng(seed + 5)
+    b, l, h, d, block, s = 1, DSA_SEQ, DSA_HEADS, DSA_DIM, DSA_BLOCK, DSA_SLOTS
+    lens = doc_lengths(rng, l, 5, int(rng.integers(200, 600)))
+    seg = _segments(torch, lens, l, dev)
+    nb = l // block
+    blockmax = torch.randn((b, nb, nb), generator=g, device=dev)
+    blockmax = torch.where(block_visible(torch, seg, block), blockmax, float("-inf"))
+    idx = bs.select_from_blockmax(blockmax, s)
+    q = torch.randn((b, l, h, d), generator=g, device=dev).bfloat16()
+    k = torch.randn((b, l, h, d), generator=g, device=dev).bfloat16()
+    v = torch.randn((b, l, h, d), generator=g, device=dev).bfloat16()
+    do = torch.randn((b, l, h, d), generator=g, device=dev).bfloat16()
+    scale = d ** -0.5
+    shape = f"B{b}xL{l}xH{h}xD{d}xDv{d}xblock{block}xS{s}"
+
+    out, lse, mass = bs.block_sparse_fwd(q, k, v, idx, seg, scale, block)
+    ref_out, ref_lse, ref_mass = bs.block_sparse_fwd_plain(q, k, v, idx, seg, scale, block)
+    torch.cuda.synchronize()
+    valid = seg[0] != 0
+    out_err = _abs(out[:, valid], ref_out[:, valid])
+    lse_err = _abs(lse[..., valid], ref_lse[..., valid])
+    mass_err = _abs(mass[:, valid], ref_mass[:, valid])
+    pad_ok = bool((out[:, ~valid] == 0).all()) and bool((mass[:, ~valid] == 0).all()) and \
+        bool((lse[..., ~valid] == torch.tensor(bs.BIG_LSE, dtype=torch.float32)).all())
+    del ref_out, ref_lse, ref_mass
+    grads = bs.block_sparse_bwd(q, k, v, idx, seg, out, lse, do, scale, block)
+    refs = bs.block_sparse_bwd_plain(q, k, v, idx, seg, out, lse, do, scale, block)
+    torch.cuda.synchronize()
+    g_err = max(_abs(a, r_) for a, r_ in zip(grads, refs))
+    g_rel = max(_rel(a, r_) for a, r_ in zip(grads, refs))
+    del grads, refs
+    fwd_ms = cuda_ms(lambda: bs.block_sparse_fwd(q, k, v, idx, seg, scale, block), iters=10)
+    fwd_plain = cuda_ms(lambda: bs.block_sparse_fwd_plain(q, k, v, idx, seg, scale, block),
+                        iters=2, warmup=1)
+    bwd_ms = cuda_ms(lambda: bs.block_sparse_bwd(q, k, v, idx, seg, out, lse, do, scale,
+                                                 block), iters=10)
+    bwd_plain = cuda_ms(lambda: bs.block_sparse_bwd_plain(q, k, v, idx, seg, out, lse, do,
+                                                          scale, block), iters=2, warmup=1)
+    mask_g, _ = bs._visible(idx, seg, block, True)
+    pairs = int(mask_g.sum())
+    del mask_g
+    valid_slots = int((idx >= 0).sum())
+    causal_blocks = int(block_visible(torch, seg, block).sum())
+    # the function's work: q k^T and p v forward; q k^T, do v^T, p^T do,
+    # ds^T q and ds k backward; every input read once, every output written
+    flops_fwd = 2 * pairs * h * (d + d)
+    flops_bwd = 2 * pairs * h * (3 * d + 2 * d)
+    io = 2 * b * l * h * d  # one (B, L, H, D) bf16 tensor
+    bytes_fwd = 4 * io + 4 * b * h * l + 4 * b * l * h * s + 4 * idx.numel() + 4 * b * l
+    bytes_bwd = 5 * io + 4 * b * h * l + 3 * io + 4 * idx.numel() + 4 * b * l
+    mask = bs_dense_mask(torch, idx, seg, block)
+    lib_fwd, why_fwd = sdpa_ms(torch, q, k, v, mask, iters=3)
+    lib_bwd, why_bwd = sdpa_ms(torch, q, k, v, mask, do, iters=3)
+    del mask
+    b_fwd, b_bwd = least_ms(flops_fwd, bytes_fwd, PEAK_BF16), least_ms(flops_bwd, bytes_bwd,
+                                                                        PEAK_BF16)
+    say("dsa_kernels", shape=shape, docs=",".join(map(str, lens)), pad=l - sum(lens),
+        valid_slots=f"{valid_slots}/{idx.numel()}", visible_blocks=causal_blocks,
+        visible_pairs=pairs, card=repr(smi))
+    say("kernel", name="block_sparse_fwd", shape=shape, out_err=f"{out_err:.3e}",
+        lse_err=f"{lse_err:.3e}", mass_err=f"{mass_err:.3e}", pad_rows_ok=pad_ok,
+        ms=f"{fwd_ms:.4f}", plain_ms=f"{fwd_plain:.4f}",
+        tflops=f"{flops_fwd / fwd_ms / 1e9:.1f}", bound_ms=f"{b_fwd['bound_ms']:.4f}")
+    say("kernel", name="block_sparse_bwd", shape=shape, err=f"{g_err:.3e}", rel=f"{g_rel:.3e}",
+        ms=f"{bwd_ms:.4f}", plain_ms=f"{bwd_plain:.4f}",
+        tflops=f"{flops_bwd / bwd_ms / 1e9:.1f}", bound_ms=f"{b_bwd['bound_ms']:.4f}")
+    say("kernel", name="library", shape=shape, sdpa_masked_fwd_ms=lib_fwd,
+        sdpa_masked_bwd_ms=lib_bwd,
+        what=repr("SDPA with the selection as a dense (B, 1, L, L) mask: out only (no lse, "
+                  "no mass); its backward gives dq, dk, dv"),
+        why=repr(f"{why_fwd}; {why_bwd}"))
+    if not (out_err <= FLASH_OUT_ATOL and lse_err <= FLASH_LSE_ATOL and
+            mass_err <= BS_MASS_ATOL and pad_ok and g_rel <= FLASH_GRAD_RTOL):
+        raise AssertionError(f"block-sparse kernels disagree with their plain versions at "
+                             f"{shape}: out {out_err} (<= {FLASH_OUT_ATOL}), lse {lse_err} "
+                             f"(<= {FLASH_LSE_ATOL}), mass {mass_err} (<= {BS_MASS_ATOL}), "
+                             f"padding rows ok {pad_ok}, grads {g_rel} (<= {FLASH_GRAD_RTOL})")
+    bs.reset_launches()
+    src = "xtuner_tpu_torch/csrc/block_sparse.cu"
+    return [{"name": "block_sparse_fwd", "route": "cuda", "source": src,
+             "replaces": "xtuner_tpu/ops/attention/block_sparse.py:70", "path": "glm52_dsa",
+             "max_abs_err": max(out_err, lse_err, mass_err), "ms": fwd_ms,
+             "plain_ms": fwd_plain, **b_fwd, "library_ms": lib_fwd},
+            {"name": "block_sparse_bwd", "route": "cuda", "source": src,
+             "replaces": "xtuner_tpu/ops/attention/block_sparse.py:130", "path": "glm52_dsa",
+             "max_abs_err": g_err, "ms": bwd_ms, "plain_ms": bwd_plain, **b_bwd,
+             "library_ms": lib_bwd}]
+
+
+INDEXER = "indexer_fwd"
+ADAMW = "adamw"
+
+
+def phase_glm52_dsa(torch, seed: int, smi: str) -> dict:
+    """GLM-5.2's three dense head layers at full width through the recipe
+    `recipes/sft_glm52_dsa_head.py`: `Trainer` builds the engine and the
+    data plane from it in a temporary directory, then 4 `train_step`s on
+    the recipe's own batches (not `fit`: its final save would write ~38 GB
+    of params and Adam state). Then the indexer's forward and backward
+    alone at the layer's shapes, and one profiled step."""
+    import os
+    import runpy
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from xtuner_tpu_torch.module.params import count_params
+    from xtuner_tpu_torch.ops.sparse_mla import indexer_block_stats
+    from xtuner_tpu_torch.train.trainer import Trainer
+
+    recipe = str(Path(__file__).resolve().parent / GLM_RECIPE)
+    tcfg = runpy.run_path(recipe)["trainer"]
+    tcfg.seed = seed
+    cfg = tcfg.model_cfg
+    attn = cfg.attention
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="xt_glm52_") as tmp:
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            trainer = Trainer(tcfg)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        eng = trainer.engine
+        n = eng.num_params
+        say("glm52_dsa", recipe=GLM_RECIPE, params=n, layers=f"{cfg.num_hidden_layers}/78",
+            reason=repr(f"the 3 dense head layers: one MoE layer (256 experts) alone needs "
+                        f"155 GB of f32 state; these need 16 B x {n / 1e9:.3f} B = "
+                        f"{16 * n / 1e9:.1f} GB"),
+            hidden=cfg.hidden_size, heads=attn.num_attention_heads,
+            qk=f"{attn.qk_nope_head_dim}+{attn.qk_rope_head_dim}", v=attn.v_head_dim,
+            lora=f"q{attn.q_lora_rank}/kv{attn.kv_lora_rank}",
+            indexer=f"{attn.index_n_heads}x{attn.index_head_dim}/top{attn.index_top_k}",
+            block=attn.index_block, mlp=cfg.intermediate_size, vocab=cfg.vocab_size,
+            ce=cfg.lm_loss_cfg.mode, remat=eng.remat, compute=str(eng.compute_dtype),
+            init_s=f"{init_s:.3f}", state_gib=f"{torch.cuda.memory_allocated() / 2**30:.3f}")
+        if n != count_params(cfg.build().param_specs()):
+            raise AssertionError("the engine's parameter count is not the recipe's")
+        data = iter(trainer.dataloader)
+        batches = [next(data) for _ in range(GLM_STEPS)]
+        trainer.close()
+    for i, bt in enumerate(batches):
+        segs = bt["segment_ids"][0, 0]
+        vis = block_visible(torch, torch.as_tensor(np.asarray(segs))[None], attn.index_block)
+        say("glm52_dsa", batch=i + 1, rows=bt["input_ids"].shape[1], seq=segs.shape[0],
+            docs=int(segs.max()), tokens=int((segs != 0).sum()),
+            supervised=int(bt["loss_weights"].sum()),
+            visible_blocks_per_qblock=f"{vis.sum(-1).float().mean().item():.2f}")
+
+    reset_train_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hist = []
+    for step, bt in enumerate(batches, start=1):
+        t0 = time.perf_counter()
+        m = eng.train_step(bt, step)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        hist.append((m, dt))
+        say("glm52_dsa", step=step, loss=f"{m['reduced_llm_loss']:.5f}",
+            dsa_index_loss=f"{m['dsa_index_loss']:.5f}", total_loss=f"{m['total_loss']:.5f}",
+            grad_norm=f"{m['grad_norm']:.5f}", lr=f"{m['lr']:.3e}", skipped=m["skipped"],
+            tokens=m["consumed_tokens"], step_ms=f"{1e3 * dt:.1f}",
+            tok_s=f"{m['consumed_tokens'] / dt:.1f}", pos_s=f"{DSA_SEQ / dt:.1f}",
+            peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}")
+    launches = train_launches(torch)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    layers = cfg.num_hidden_layers
+    # per layer and step: #14 in the forward and again in the remat
+    # recompute, #15 once; nothing else of the port's
+    want = {name: 0 for name in launches}
+    want.update(block_sparse_fwd=2 * layers * GLM_STEPS, block_sparse_bwd=layers * GLM_STEPS)
+    steady = hist[1:]
+    step_s = sum(dt for _, dt in steady) / len(steady)
+    tokens = sum(m["consumed_tokens"] for m, _ in steady) / len(steady)
+    say("glm52_dsa", launches={k: v for k, v in launches.items() if v or want[k]},
+        expected={k: v for k, v in want.items() if v}, steady_step_ms=f"{1e3 * step_s:.1f}",
+        steady_tok_s=f"{tokens / step_s:.1f}", steady_pos_s=f"{DSA_SEQ / step_s:.1f}",
+        peak_gib=f"{peak:.3f}", card=repr(smi))
+    losses = [m["reduced_llm_loss"] for m, _ in hist]
+    idx_losses = [m["dsa_index_loss"] for m, _ in hist]
+    norms = [m["grad_norm"] for m, _ in hist]
+    if not all(np.isfinite(losses + idx_losses + norms)):
+        raise AssertionError(f"non-finite loss, indexer loss or grad norm: {losses}, "
+                             f"{idx_losses}, {norms}")
+    if not GLM_LOSS1[0] <= losses[0] <= GLM_LOSS1[1]:
+        raise AssertionError(f"step-1 CE {losses[0]} outside {GLM_LOSS1}")
+    if not all(x > 0 for x in idx_losses):
+        raise AssertionError(f"indexer loss {idx_losses} not positive")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"CE did not fall over {GLM_STEPS} steps: {losses}")
+    if any(m["skipped"] for m, _ in hist):
+        raise AssertionError("a step was skipped")
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} != what {GLM_STEPS} steps imply {want}")
+    if not peak < GLM_PEAK_GIB:
+        raise AssertionError(f"peak {peak:.3f} GiB >= {GLM_PEAK_GIB}")
+
+    # the indexer alone at the layer's shapes (plain torch, f32): forward,
+    # and forward + backward; a step runs per layer two forwards (the
+    # forward and the remat recompute) and one forward + backward
+    g = torch.Generator(device="cuda").manual_seed(seed + 6)
+    hi, di, block = attn.index_n_heads, attn.index_head_dim, attn.index_block
+    segs = torch.as_tensor(np.asarray(batches[0]["segment_ids"][0])).cuda()
+    q_idx = torch.randn((1, DSA_SEQ, hi, di), generator=g, device="cuda").bfloat16()
+    k_idx = torch.randn((1, DSA_SEQ, 1, di), generator=g, device="cuda").bfloat16()
+    w_idx = torch.randn((1, DSA_SEQ, hi), generator=g, device="cuda").bfloat16()
+    k_b = k_idx.expand(1, DSA_SEQ, hi, di)
+    with torch.no_grad():
+        ix_fwd = cuda_ms(lambda: indexer_block_stats(q_idx, k_b, w_idx, segs, block), iters=3,
+                         warmup=1)
+    leaves = [t.clone().requires_grad_(True) for t in (q_idx, k_idx, w_idx)]
+
+    def fwd_bwd():
+        pooled, _ = indexer_block_stats(leaves[0], leaves[1].expand(1, DSA_SEQ, hi, di),
+                                        leaves[2], segs, block)
+        torch.where(torch.isfinite(pooled), pooled, 0.0).sum().backward()
+
+    ix_fb = cuda_ms(fwd_bwd, iters=3, warmup=1)
+    ix_flops = 2 * DSA_SEQ * DSA_SEQ * hi * di
+    say("glm52_dsa", indexer_fwd_ms=f"{ix_fwd:.3f}", indexer_fwd_bwd_ms=f"{ix_fb:.3f}",
+        per_step_ms=f"{layers * (2 * ix_fwd + ix_fb):.1f}",
+        fwd_tflops=f"{ix_flops / ix_fwd / 1e9:.1f}",
+        note=repr("plain torch f32 (no TF32): the q.k products over all L x L pairs of "
+                  "each layer, causality masked after"))
+    del q_idx, k_idx, w_idx, k_b, leaves
+
+    targets = {INDEXER: [("xtuner_tpu_torch.module.dsa", "indexer_block_stats")],
+               ADAMW: [("xtuner_tpu_torch.config.optim", "AdamW.step")]}
+    with annotated(torch, targets):
+        profile_window(torch, "glm52_dsa_step",
+                       lambda: eng.train_step(batches[0], GLM_STEPS + 1), top=16,
+                       annotations=(INDEXER, ADAMW))
+    del trainer, eng
+    return launches
+
+
 def release(torch, phase: str) -> None:
     """Free what a phase left behind, so that the next phase's peak memory
     is its own: collect reference cycles (the serving phase's engine holds
@@ -1169,15 +1478,16 @@ def phase_engine(torch, seed: int, smi: str) -> dict:
 
 def reset_train_launches() -> None:
     from xtuner_tpu_torch.ops import bf16_grouped, fp8_gemm, fp8_grouped, fused_ce
-    from xtuner_tpu_torch.ops.attention import flash
+    from xtuner_tpu_torch.ops.attention import block_sparse, flash
 
-    for mod in (flash, bf16_grouped, fused_ce, fp8_gemm, fp8_grouped):
+    for mod in (flash, bf16_grouped, fused_ce, fp8_gemm, fp8_grouped, block_sparse):
         mod.reset_launches()
 
 
 def train_launches(torch) -> dict:
     """Every training kernel's launches since `reset_train_launches`."""
     from xtuner_tpu_torch.ops import fused_ce as fc
+    from xtuner_tpu_torch.ops.attention import block_sparse as bs
     from xtuner_tpu_torch.ops.attention import flash as fl
     from xtuner_tpu_torch.ops.bf16_grouped import grouped_gemm_bf16, grouped_gemm_bf16_dw
     from xtuner_tpu_torch.ops.fp8_gemm import fp8_gemm_tilewise
@@ -1191,7 +1501,9 @@ def train_launches(torch) -> dict:
             "grouped_gemm_dw": grouped_gemm_bf16_dw.launches,
             "ce_fwd": fc.ce_fwd.launches, "ce_dh": fc.ce_dh.launches, "ce_dw": fc.ce_dw.launches,
             "fp8_gemm": fp8_gemm_tilewise.launches, "fp8_grouped_gemm": fp8_grouped_gemm.launches,
-            "fp8_grouped_dw": fp8_grouped_gemm_dw.launches}
+            "fp8_grouped_dw": fp8_grouped_gemm_dw.launches,
+            "block_sparse_fwd": bs.block_sparse_fwd.launches,
+            "block_sparse_bwd": bs.block_sparse_bwd.launches}
 
 
 def phase_train(torch, seed: int, smi: str) -> dict:
@@ -1256,7 +1568,8 @@ def phase_train(torch, seed: int, smi: str) -> dict:
     want = {"flash_fwd": 0, "flash_fwd_max_free": 2 * per, "flash_dq": per, "flash_dkv": per,
             "grouped_gemm_nn": 4 * per, "grouped_gemm_nt": 2 * per,
             "grouped_gemm_dw": 2 * per, "ce_fwd": 0, "ce_dh": 0, "ce_dw": 0,
-            "fp8_gemm": 0, "fp8_grouped_gemm": 0, "fp8_grouped_dw": 0}
+            "fp8_gemm": 0, "fp8_grouped_gemm": 0, "fp8_grouped_dw": 0,
+            "block_sparse_fwd": 0, "block_sparse_bwd": 0}
     steady = [dt for _, dt in hist[1:]]
     say("train", launches=launches, expected=want,
         steady_step_ms=f"{1e3 * sum(steady) / len(steady):.1f}",
@@ -1358,7 +1671,8 @@ def phase_sft(torch, smi: str, breakdown: bool, fp8_ref_loss1=None) -> tuple[dic
                 "grouped_gemm_dw": 0 if fp8 else 2 * per, "ce_fwd": SFT_STEPS,
                 "ce_dh": SFT_STEPS, "ce_dw": SFT_STEPS, "fp8_gemm": 8 * per if fp8 else 0,
                 "fp8_grouped_gemm": 9 * per if fp8 else 0,
-                "fp8_grouped_dw": 3 * per if fp8 else 0}
+                "fp8_grouped_dw": 3 * per if fp8 else 0, "block_sparse_fwd": 0,
+                "block_sparse_bwd": 0}
         say(phase, launches=launches, expected=want, steady_step_ms=f"{1e3 * step_s:.1f}",
             steady_tok_s=f"{tokens / step_s:.1f}",
             pack_positions_s=f"{SFT_ROWS * SEQ / step_s:.1f}", peak_gib=f"{peak:.3f}",
@@ -1389,10 +1703,10 @@ def phase_sft(torch, smi: str, breakdown: bool, fp8_ref_loss1=None) -> tuple[dic
             raise AssertionError(f"kernel launches {launches} != what 6 steps imply {want}")
 
         batch = next(iter(trainer.dataloader))
-        with quantise_annotated(torch, fp8):
+        with annotated(torch, QUANTISE_TARGETS if fp8 else {}):
             profile_window(torch, f"{phase}_step",
                            lambda: trainer.engine.train_step(batch, SFT_STEPS + 1), top=16,
-                           annotation=QUANTISE if fp8 else None)
+                           annotations=(QUANTISE,) if fp8 else ())
         if breakdown and not fp8:
             sft_memory(torch, trainer.engine, batch, smi)
         trainer.dataloader.close()
@@ -1400,46 +1714,51 @@ def phase_sft(torch, smi: str, breakdown: bool, fp8_ref_loss1=None) -> tuple[dic
 
 
 QUANTISE = "fp8_quantise"
+# the fp8 quantisers and K-major copies of the port
+QUANTISE_TARGETS = {QUANTISE: [
+    (f"xtuner_tpu_torch.ops.{mod}", name)
+    for mod, names in (("fp8_gemm", ("quantize_tilewise", "quantize_blockwise", "k_major")),
+                       ("fp8_grouped", ("quantize_tilewise", "quantize_blockwise_stack",
+                                        "quantize_rowtile", "k_major")),
+                       ("float8", ("quantize_tilewise", "quantize_blockwise")))
+    for name in names]}
 
 
-class quantise_annotated:
-    """While on (and `on`), every fp8 quantiser and K-major copy of the port
-    runs inside `torch.profiler.record_function(QUANTISE)`, so that a
-    profile can sum the device time of the quantise passes. The module
-    attributes are swapped back on exit."""
+class annotated:
+    """While on, every function named in `targets` ({label: [(module, attr)]},
+    attr may be "Class.method") runs inside
+    `torch.profiler.record_function(label)`, so that a profile can sum the
+    device time of what it launches. The attributes are swapped back on
+    exit."""
 
-    NAMES = {"fp8_gemm": ("quantize_tilewise", "quantize_blockwise", "k_major"),
-             "fp8_grouped": ("quantize_tilewise", "quantize_blockwise_stack",
-                             "quantize_rowtile", "k_major"),
-             "float8": ("quantize_tilewise", "quantize_blockwise")}
-
-    def __init__(self, torch, on: bool):
-        self.torch, self.on, self.saved = torch, on, []
+    def __init__(self, torch, targets: dict):
+        self.torch, self.targets, self.saved = torch, targets, []
 
     def __enter__(self):
-        if not self.on:
-            return self
         import importlib
 
-        for mod_name, names in self.NAMES.items():
-            mod = importlib.import_module(f"xtuner_tpu_torch.ops.{mod_name}")
-            for name in names:
-                fn = getattr(mod, name)
-                self.saved.append((mod, name, fn))
-                setattr(mod, name, self._wrap(fn))
+        for label, where in self.targets.items():
+            for mod_name, attr in where:
+                owner = importlib.import_module(mod_name)
+                *path, name = attr.split(".")
+                for part in path:
+                    owner = getattr(owner, part)
+                fn = getattr(owner, name)
+                self.saved.append((owner, name, fn))
+                setattr(owner, name, self._wrap(fn, label))
         return self
 
-    def _wrap(self, fn):
+    def _wrap(self, fn, label):
         record_function = self.torch.profiler.record_function
 
-        def annotated(*a, **kw):
-            with record_function(QUANTISE):
+        def wrapped(*a, **kw):
+            with record_function(label):
                 return fn(*a, **kw)
-        return annotated
+        return wrapped
 
     def __exit__(self, *exc):
-        for mod, name, fn in self.saved:
-            setattr(mod, name, fn)
+        for owner, name, fn in reversed(self.saved):
+            setattr(owner, name, fn)
         return False
 
 
@@ -1498,13 +1817,14 @@ def sft_memory(torch, eng, batch, smi: str) -> None:
             p.grad = None
 
 
-def profile_window(torch, name: str, fn, top: int = 8, annotation=None) -> None:
+def profile_window(torch, name: str, fn, top: int = 8, annotations=()) -> None:
     """Wall time, device-busy time (sum of kernel durations), kernel count,
-    device time by kind (the port's fp8 kernels and its others, cuBLAS
-    GEMMs, the rest) and the top kernels by device time of one call under
-    torch.profiler. With `annotation`, the device time of the kernels
-    launched inside `record_function(annotation)` ranges is its own kind,
-    taken out of the rest."""
+    device time by kind (the port's fp8 kernels, its block-sparse kernels
+    and its others, cuBLAS GEMMs, the rest) and the top kernels by device
+    time of one call under torch.profiler. For each name in `annotations`,
+    the device time of the kernels launched inside `record_function(name)`
+    ranges is its own kind, each kernel taken out of the kind it would
+    have had."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
@@ -1516,31 +1836,41 @@ def profile_window(torch, name: str, fn, top: int = 8, annotation=None) -> None:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    def kind(k: str) -> str:
+        # the port's kernels sit in a top-level anonymous namespace;
+        # PyTorch's own sit in at::native::(anonymous namespace)
+        own = k.removeprefix("void ").startswith("(anonymous namespace)::")
+        if own and "::fp8_" in k:
+            return "port_fp8_kernels"
+        if own and "::bs_" in k:
+            return "port_block_sparse"
+        if own:
+            return "port_kernels"
+        if k.startswith(("nvjet", "sm90_", "cutlass")) or "gemm" in k.lower():
+            return "cublas"
+        return "other"
+
+    def kernels_under(e):  # (name, ms) of the kernels a CPU range launched
+        for kern in e.kernels:
+            yield kern.name, kern.duration / 1e3
+        for ch in e.cpu_children:
+            yield from kernels_under(ch)
+
     by_name: dict = defaultdict(lambda: [0.0, 0])
-    annotated_ms, ranges = 0.0, 0
+    kinds: dict = defaultdict(float)
     for e in prof.events():
-        if e.name == annotation:
-            if e.device_type != DeviceType.CUDA:  # the CPU range: its kernels' time
-                annotated_ms += e.device_time_total / 1e3
-                ranges += 1
+        if e.name in annotations:
+            if e.device_type != DeviceType.CUDA:  # the CPU range: move its kernels
+                for k, ms in kernels_under(e):
+                    kinds[e.name] += ms
+                    kinds[kind(k)] -= ms
             continue  # the range's own device-side span is not a kernel
         if e.device_type == DeviceType.CUDA:
             by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
             by_name[e.name][1] += 1
     busy_ms = sum(v[0] for v in by_name.values())
-    kinds: dict = defaultdict(float)
     for k, (ms, _) in by_name.items():
-        if "(anonymous namespace)::fp8_" in k:
-            kinds["port_fp8_kernels"] += ms
-        elif "(anonymous namespace)::" in k:
-            kinds["port_kernels"] += ms
-        elif k.startswith(("nvjet", "sm90_", "cutlass")) or "gemm" in k.lower():
-            kinds["cublas"] += ms
-        else:
-            kinds["other"] += ms
-    if annotation:
-        kinds[annotation] = annotated_ms  # elementwise kernels: counted in other so far
-        kinds["other"] -= annotated_ms
+        kinds[kind(k)] += ms
     say("profile", window=name, wall_ms=f"{wall_ms:.3f}", device_busy_ms=f"{busy_ms:.3f}",
         busy_share=f"{busy_ms / wall_ms:.3f}",
         kernels=sum(v[1] for v in by_name.values()),
@@ -1582,6 +1912,10 @@ def main() -> int:
     launches["sft"], losses = phase_sft(torch, smi, args.breakdown)
     release(torch, "sft")
     launches["sft_fp8"], _ = phase_sft(torch, smi, False, fp8_ref_loss1=losses[0])
+    release(torch, "sft_fp8")
+    kernels += phase_dsa_kernels(torch, args.seed, smi)
+    release(torch, "dsa_kernels")
+    launches["glm52_dsa"] = phase_glm52_dsa(torch, args.seed, smi)
     for kern in kernels:
         kern["launches"] = launches[kern["path"]][kern["name"]]
         kern.pop("_bound_parts", None)

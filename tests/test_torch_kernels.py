@@ -530,3 +530,128 @@ def test_fp8_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fgr.fp8_grouped_gemm(xq, sx, wq, sw, gs.long())
     with pytest.raises(RuntimeError, match="CUDA error"):  # e5m2 weights: no kernel
         fgr.fp8_grouped_gemm(xq, sx, wq.float().to(torch.float8_e5m2), sw, gs)
+
+
+# ---------------------------------------------------------------- block-sparse
+# block-sparse attention (#14, #15): the kernels round p (and ds) to bf16
+# before the tensor-core products and the outputs to bf16, as flash does,
+# so out, lse and the gradients take flash's bounds; the per-slot mass is
+# a ratio of f32 sums of unrounded p, off by the scores' summation order
+BS_MASS_ATOL = 1e-3
+
+
+def _block_sparse(dev, b, l, hq, hkv, d, dv, block, s, docs, pad, hot=False, seed=0):
+    """bf16 q, k, v, packed documents with a padded tail, and a selection
+    from random block-max scores through `select_from_blockmax` (early
+    q-blocks have fewer causal blocks than S: leading -1 slots); with `hot`
+    every q-block also chooses key block 0."""
+    from xtuner_tpu_torch.ops.attention.block_sparse import select_from_blockmax
+
+    seg = _packed(dev, b, l, hq, hkv, docs, pad, seed)[3]
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    q = torch.randn((b, l, hq, d), generator=g, device=dev).bfloat16()
+    k = torch.randn((b, l, hkv, d), generator=g, device=dev).bfloat16()
+    v = torch.randn((b, l, hkv, dv), generator=g, device=dev).bfloat16()
+    blockmax = torch.randn((b, l // block, l // block), generator=g, device=dev)
+    if hot:
+        blockmax[..., 0] = 1e4
+    return q, k, v, seg, select_from_blockmax(blockmax, s)
+
+
+@pytest.mark.parametrize("b,l,hq,hkv,d,dv,block,s,docs,pad,hot", [
+    (1, 1024, 4, 4, 256, 256, 256, 2, 3, 100, False),  # GLM-5.2's dims, its block
+    (1, 1024, 4, 2, 256, 256, 64, 4, 4, 37, True),     # Hq = 2 Hkv; block 0 chosen by all
+    (1, 768, 4, 2, 192, 128, 64, 5, 2, 64, False),     # DeepSeek's 192/128
+    (2, 512, 2, 2, 128, 128, 64, 3, 3, 10, False),     # B2, 128/128
+    (1, 512, 2, 1, 128, 128, 128, 4, 1, 300, True),    # mostly padding, one kv head
+])
+def test_block_sparse_kernels_match_plain(cuda, b, l, hq, hkv, d, dv, block, s, docs, pad,
+                                          hot):
+    from xtuner_tpu_torch.ops.attention import block_sparse as bs
+
+    q, k, v, seg, idx = _block_sparse(cuda, b, l, hq, hkv, d, dv, block, s, docs, pad, hot)
+    assert (idx[:, 0, :-1] == -1).all()  # the first q-block has one causal block
+    scale = d ** -0.5
+    bs.reset_launches()
+    out, lse, mass = bs.block_sparse_fwd(q, k, v, idx, seg, scale, block)
+    ref_out, ref_lse, ref_mass = bs.block_sparse_fwd_plain(q, k, v, idx, seg, scale, block)
+    torch.cuda.synchronize()
+    valid = seg != 0
+    assert (out[valid].float() - ref_out[valid].float()).abs().max().item() <= FLASH_OUT_ATOL
+    lse_t, ref_t = lse.transpose(1, 2), ref_lse.transpose(1, 2)
+    assert (lse_t[valid] - ref_t[valid]).abs().max().item() <= FLASH_LSE_ATOL
+    assert (mass[valid] - ref_mass[valid]).abs().max().item() <= BS_MASS_ATOL
+    assert (out[~valid] == 0).all() and (mass[~valid] == 0).all()
+    assert (lse_t[~valid] == BIG_LSE).all()
+    do = torch.randn(out.shape, generator=torch.Generator(device=cuda).manual_seed(5),
+                     device=cuda).bfloat16()
+    grads = bs.block_sparse_bwd(q, k, v, idx, seg, out, lse, do, scale, block)
+    refs = bs.block_sparse_bwd_plain(q, k, v, idx, seg, out, lse, do, scale, block)
+    torch.cuda.synchronize()
+    assert (bs.block_sparse_fwd.launches, bs.block_sparse_bwd.launches) == (1, 1)
+    for got, want in zip(grads, refs):
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+        assert _rel_err(got, want) <= FLASH_GRAD_RTOL
+    assert (grads[0][~valid] == 0).all() and (grads[1][~valid] == 0).all()
+    # deterministic: no atomics
+    again = bs.block_sparse_bwd(q, k, v, idx, seg, out, lse, do, scale, block)
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+
+
+def test_block_sparse_autograd_matches_plain_autograd(cuda):
+    from xtuner_tpu_torch.ops.attention import block_sparse as bs
+
+    q, k, v, seg, idx = _block_sparse(cuda, 1, 512, 4, 2, 256, 256, 128, 2, 3, 20, seed=3)
+    co = torch.randn((1, 512, 4, 256), generator=torch.Generator(device=cuda).manual_seed(4),
+                     device=cuda)
+    grads = []
+    for on_card in (True, False):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        if on_card:
+            out = bs.block_sparse_attention(*leaves, idx, seg, block=128)
+        else:  # autograd through the plain forward
+            out = _plain_bs_autograd(*leaves, idx, seg, 256 ** -0.5, 128)
+        (out.float() * co).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        assert _rel_err(got, want) <= FLASH_GRAD_RTOL
+
+
+def _plain_bs_autograd(q, k, v, idx, seg, scale, block):
+    """The block-sparse forward as a dense masked softmax in f32 that
+    autograd differentiates (q, k, v (B, L, H, D), one kv head per q head
+    group)."""
+    from xtuner_tpu_torch.ops.attention.block_sparse import _visible
+
+    b, l, hq, d = q.shape
+    ratio = hq // k.shape[2]
+    nq = l // block
+    mask_g, kpos = _visible(idx, seg, block, True)  # (B, nq, block, S*block)
+    # an empty slot gathers block 0 again (masked): accumulate, then test > 0
+    allow = torch.zeros((b, l, l), dtype=torch.int32, device=q.device)
+    bi = torch.arange(b, device=q.device)[:, None, None, None]
+    rows = torch.arange(l, device=q.device).reshape(1, nq, block, 1)
+    allow.index_put_((bi, rows, kpos[:, :, None, :]), mask_g.int(), accumulate=True)
+    allow = allow > 0
+    kk = k.float().repeat_interleave(ratio, dim=2)
+    vv = v.float().repeat_interleave(ratio, dim=2)
+    sc = torch.einsum("blhd,bmhd->bhlm", q.float(), kk) * scale
+    sc = sc.masked_fill(~allow[:, None], float("-inf"))
+    p = torch.softmax(sc, dim=-1).nan_to_num(0.0)
+    return torch.einsum("bhlm,bmhd->blhd", p, vv)
+
+
+def test_block_sparse_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from xtuner_tpu_torch.ops.attention import block_sparse as bs
+
+    q, k, v, seg, idx = _block_sparse(cuda, 1, 256, 2, 2, 128, 128, 64, 2, 1, 0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        bs.block_sparse_fwd(q.float(), k.float(), v.float(), idx, seg, 0.1, 64)
+    with pytest.raises(ValueError, match=r"\(D, Dv\)"):
+        bs.block_sparse_fwd(q[..., :64].contiguous(), k[..., :64].contiguous(), v, idx, seg,
+                            0.1, 64)
+    q32, k32, v32, seg32, idx32 = _block_sparse(cuda, 1, 256, 2, 2, 128, 128, 32, 2, 1, 0)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        bs.block_sparse_fwd(q32, k32, v32, idx32, seg32, 0.1, 32)
+    with pytest.raises(ValueError, match="int32"):
+        bs.block_sparse_fwd(q, k, v, idx.long(), seg, 0.1, 64)

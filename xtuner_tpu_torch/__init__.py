@@ -12,9 +12,13 @@ each kernel sits its plain PyTorch version, which a wrapper runs only for
 tensors on the CPU.
 
 Ported so far: the paged serving path for dense MHA models
-(`model/paged_generate.py::PagedGenerator`) and the MoE SFT train step
-(`engine/train_engine.py::TrainEngine` on `model/moe.py::MoE`). What is not
-ported raises `NotImplementedError` naming its ROADMAP.md item.
+(`model/paged_generate.py::PagedGenerator`); the MoE SFT train step
+(`engine/train_engine.py::TrainEngine` on `model/moe.py::MoE`) and the SFT
+entry point (`train/cli/sft.py`, `train/trainer.py::Trainer`), in bf16
+and in tile-wise fp8 (`ops/float8.py`); GLM-5.2's DSA sparse attention
+(`module/dsa.py`) in `model/dense.py::Dense`, its dense head layers
+trained through `recipes/sft_glm52_dsa_head.py`. What is not ported
+raises `NotImplementedError` naming its ROADMAP.md item.
 """
 
 

@@ -7,8 +7,9 @@ The constructor takes what `Trainer` passes, as the JAX one does.
 `train_step(batch, step)` takes an (A, B, L) packed batch: A micro-batches,
 each one forward/backward with the loss denominator summed over the whole
 batch, gradients accumulated in f32; then the global-norm clip, AdamW
-(`config/optim.py`), and the JAX package's metrics. A step whose grad norm
-is not finite (or above `skip_grad_norm_threshold`) is skipped: params and
+(`config/optim.py`), and the JAX package's metrics, plus `dsa_index_loss`
+(summed over the micro-batches) for a DSA model. A step whose grad norm is
+not finite (or above `skip_grad_norm_threshold`) is skipped: params and
 optimizer state stay as they were.
 
 Memory: masters are stored stacked like the JAX tree; the model trains on
@@ -141,6 +142,8 @@ class TrainEngine:
                     "num_tokens": out.num_tokens}
             if out.expert_load is not None:
                 mets["expert_load"] = out.expert_load.float()
+            if out.dsa_index_loss is not None:
+                mets["dsa_index_loss"] = out.dsa_index_loss.detach()
             for k, v in mets.items():
                 sums[k] = sums[k] + v if k in sums else v
 
@@ -165,6 +168,8 @@ class TrainEngine:
             load = sums["expert_load"]
             metrics["maxvio"] = float(
                 (load.max(dim=-1).values / load.mean(dim=-1).clamp(min=1e-6)).mean())
+        if "dsa_index_loss" in sums:  # the port's tracker key for the indexer loss
+            metrics["dsa_index_loss"] = float(sums["dsa_index_loss"])
         n_tok = int(sums["num_tokens"])
         metrics["reduced_llm_loss"] = float(sums["sum_ce"]) / max(n_tok, 1)
         metrics["consumed_tokens"] = n_tok

@@ -2,8 +2,9 @@
 
 The config fields the serving and training slices read, with the JAX
 package's names and defaults, as a dataclass (the machine with the card has
-no pydantic). `float8_cfg` takes an `ops/float8.py::Float8Config`;
-`lora_cfg` exists so configs translate, and a model built with it raises
+no pydantic). `attention` is an `MHAConfig` or an `MLAConfig` (DSA's
+`module/dsa.py::DSAConfig` is one); `float8_cfg` takes an
+`ops/float8.py::Float8Config`; `lora_cfg` exists so configs translate, and a model built with it raises
 ([lora]).
 """
 
@@ -17,18 +18,22 @@ import torch
 
 from ..loss.ce_loss import CELossConfig
 from ..module.attention import MHAConfig
+from ..module.mla import MLAConfig
 
 
 @dataclass
 class ModelOutputs:
     """What `loss()` returns; the engine sums every `*loss*` field. The JAX
-    class's MTP, DSA and hidden-state fields come with those features."""
+    class's MTP and hidden-state fields come with those features."""
 
     loss: Optional[torch.Tensor] = None
     sum_ce: Optional[torch.Tensor] = None
     num_tokens: Optional[torch.Tensor] = None
     balancing_loss: Optional[torch.Tensor] = None
     z_loss: Optional[torch.Tensor] = None
+    # DSA lightning-indexer distillation (the indexer's only gradient path),
+    # summed into total_loss by name
+    dsa_index_loss: Optional[torch.Tensor] = None
     # per-layer expert token counts (L_moe, E): read by the engine's maxvio
     # metric; NOT a loss field
     expert_load: Optional[torch.Tensor] = None
@@ -49,7 +54,7 @@ class TransformerConfig:
     num_hidden_layers: int
     hidden_size: int
     intermediate_size: int
-    attention: MHAConfig
+    attention: MHAConfig | MLAConfig
     max_position_embeddings: int = 32768
     eos_token_id: int = 0
     pad_token_id: Optional[int] = None
@@ -67,6 +72,9 @@ class TransformerConfig:
     init_scale: float = 0.02
     lora_cfg: Optional[Any] = None
     float8_cfg: Optional[Any] = None
+    # DSA lightning-indexer distillation weight (read only when attention is
+    # a DSAConfig)
+    dsa_index_loss_coef: float = 1.0
 
     def build(self):
         raise NotImplementedError

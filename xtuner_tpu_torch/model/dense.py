@@ -8,6 +8,14 @@ tensor). Remat "full", "none" and "save_attn_residuals" are ported
 (`remat_wrap`); the other selective policies raise ([train-slice]).
 The serving layer loop lives in `model/generate.py` and
 `model/paged_generate.py`.
+
+Attention is MHA (`module/attention.py`) or DSA (`module/dsa.py`, GLM-5.2's
+sparse MLA with the lightning indexer); the spec dispatch is JAX's, DSA >
+MLA > MHA. A DSA layer returns its indexer loss beside x, and `loss` sets
+`dsa_index_loss` to their sum times `dsa_index_loss_coef`. Under remat
+"full" the whole DSA layer, indexer included, is one checkpoint; "none"
+runs it plainly, and the other policies raise for DSA ([train-slice]).
+Plain MLA raises ([mla]).
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ from torch.utils.checkpoint import checkpoint
 from .. import not_ported
 from ..loss.ce_loss import ce_loss
 from ..module.attention import MHAConfig, mha_attend, mha_out, mha_param_specs, mha_qkv
+from ..module.dsa import DSAConfig, dsa_forward, dsa_param_specs
+from ..module.mla import MLAConfig, mla_param_specs
 from ..module.mlp import mlp_forward, mlp_param_specs
 from ..module.params import ParamSpec, cast_tree, stack_specs, tree_map
 from ..module.rope import _rope_dim, rope_cos_sin
@@ -80,6 +90,19 @@ def embed_tokens(params, input_ids: torch.Tensor, dtype) -> torch.Tensor:
     return w.index_select(0, input_ids.reshape(-1).long()).reshape(b, l, -1).to(dtype)
 
 
+def _is_dsa(attn_cfg) -> bool:
+    return isinstance(attn_cfg, DSAConfig)
+
+
+def _attn_param_specs(cfg) -> dict:
+    """Attention spec dispatch, JAX's order: DSA > MLA > MHA."""
+    if _is_dsa(cfg.attention):
+        return dsa_param_specs(cfg.attention, cfg.hidden_size, cfg.init_scale)
+    if isinstance(cfg.attention, MLAConfig):
+        return mla_param_specs(cfg.attention, cfg.hidden_size, cfg.init_scale)
+    return mha_param_specs(cfg.attention, cfg.hidden_size, cfg.init_scale)
+
+
 class DenseConfig(TransformerConfig):
     def build(self) -> "Dense":
         return Dense(self)
@@ -93,7 +116,7 @@ class Dense:
 
     def check_ported(self) -> None:
         cfg = self.cfg
-        if not isinstance(cfg.attention, MHAConfig):
+        if not isinstance(cfg.attention, (MHAConfig, DSAConfig)):
             raise not_ported(f"attention {type(cfg.attention).__name__}", "mla")
         if cfg.lora_cfg is not None:
             raise not_ported("LoRA", "lora")
@@ -101,7 +124,7 @@ class Dense:
     def layer_param_specs(self) -> dict:
         cfg = self.cfg
         return {
-            "attn": mha_param_specs(cfg.attention, cfg.hidden_size, cfg.init_scale),
+            "attn": _attn_param_specs(cfg),
             "mlp": mlp_param_specs(cfg.hidden_size, cfg.intermediate_size,
                                    cfg.init_scale, cfg.mlp_bias),
             "input_norm": ParamSpec((cfg.hidden_size,), init="ones"),
@@ -164,6 +187,27 @@ class Dense:
 
         return remat_wrap(pre, attend, post, remat)
 
+    def _dsa_layer_fn(self, cos, sin, segment_ids, compute_dtype, remat: str):
+        """One DSA decoder layer `(x, lp) -> (x, indexer loss)` (JAX
+        `_layer_forward`'s DSA branch) under the remat policy."""
+        cfg = self.cfg
+        zc = cfg.rms_norm_type == "zero_centered"
+
+        def layer(x, lp):
+            lp = cast_tree(lp, compute_dtype)
+            h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps, zc)
+            h, _, idx_loss = dsa_forward(lp["attn"], cfg.attention, h, cos, sin, segment_ids,
+                                         rope_scaling=cfg.rope_scaling_cfg)
+            x = x + h
+            h = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps, zc)
+            return x + mlp_forward(lp["mlp"], h, cfg.hidden_act, cfg.float8_cfg), idx_loss
+
+        if remat == "none":
+            return layer
+        if remat == "full":  # the whole layer, indexer included, as JAX's checkpoint
+            return lambda x, lp: checkpoint(layer, x, lp, use_reentrant=False)
+        raise not_ported(f"remat policy {remat!r} with DSA attention", "train-slice")
+
     def _embed_and_rope(self, params, seq_ctx, compute_dtype):
         self.check_ported()
         cfg = self.cfg
@@ -179,21 +223,36 @@ class Dense:
                      cfg.rms_norm_type == "zero_centered")
         return x.to(compute_dtype)
 
-    def forward(self, params, seq_ctx, compute_dtype=torch.bfloat16, remat: str = "full"):
-        """-> final hidden states (B, L, H) in compute dtype."""
+    def _forward_aux(self, params, seq_ctx, compute_dtype, remat):
+        """-> (final hidden states (B, L, H) in compute dtype, the summed
+        indexer loss (None without DSA))."""
         x, cos, sin, seg = self._embed_and_rope(params, seq_ctx, compute_dtype)
+        stack = params["layers"]
+        if _is_dsa(self.cfg.attention):
+            layer_fn = self._dsa_layer_fn(cos, sin, seg, compute_dtype, remat)
+            idx_losses = []
+            for i in range(num_layers(stack)):
+                x, idx_loss = layer_fn(x, layer_params(stack, i))
+                idx_losses.append(idx_loss)
+            return self._final_norm(params, x, compute_dtype), torch.stack(idx_losses).sum()
         layer_fn = self._layer_fn(
             lambda x, o, lp: self._dense_post(x, o, lp, compute_dtype),
             cos, sin, seg, compute_dtype, remat)
-        stack = params["layers"]
         for i in range(num_layers(stack)):
             x = layer_fn(x, layer_params(stack, i))
-        return self._final_norm(params, x, compute_dtype)
+        return self._final_norm(params, x, compute_dtype), None
+
+    def forward(self, params, seq_ctx, compute_dtype=torch.bfloat16, remat: str = "full"):
+        """-> final hidden states (B, L, H) in compute dtype."""
+        return self._forward_aux(params, seq_ctx, compute_dtype, remat)[0]
 
     def loss(self, params, seq_ctx, shifted_labels, loss_weights, global_denom,
              compute_dtype=torch.bfloat16, remat: str = "full") -> ModelOutputs:
-        hidden = self.forward(params, seq_ctx, compute_dtype, remat)
+        hidden, idx_loss = self._forward_aux(params, seq_ctx, compute_dtype, remat)
         w = self.lm_head_weight(params).to(compute_dtype)
         loss, sum_ce, num_tokens = ce_loss(hidden, w, shifted_labels, loss_weights,
                                            global_denom, self.cfg.lm_loss_cfg)
-        return ModelOutputs(loss=loss, sum_ce=sum_ce, num_tokens=num_tokens)
+        out = ModelOutputs(loss=loss, sum_ce=sum_ce, num_tokens=num_tokens)
+        if idx_loss is not None:
+            out.dsa_index_loss = self.cfg.dsa_index_loss_coef * idx_loss
+        return out

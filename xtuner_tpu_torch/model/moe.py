@@ -58,8 +58,13 @@ class MoE(Dense):
         self.cfg = cfg
 
     def check_ported(self) -> None:
-        super().check_ported()
         cfg = self.cfg
+        if cfg.router.router_type != "greedy":
+            raise not_ported("the aux-free (noaux) router", "moe")
+        if not isinstance(cfg.attention, MHAConfig):
+            raise not_ported(f"MoE layers with {type(cfg.attention).__name__} attention",
+                             "moe")
+        super().check_ported()
         if cfg.mtp_num_layers > 0:
             raise not_ported("multi-token prediction (mtp_num_layers > 0)", "moe")
         if cfg.layer_window_pattern:

@@ -67,6 +67,14 @@ SIGNATURES = {
     # xt (K, Mp), sx, yt (N, Mp), sy, offsets, dw, Mp, K, N, E, x type,
     # y type, stream
     "xt_fp8_grouped_dw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, block_idx, segment_ids, out, lse, mass, B, L, Hq, Hkv, D, Dv,
+    # block, S, scale, stream
+    "xt_block_sparse_fwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, block_idx, segment_ids, do, lse, delta, inverse count, inverse
+    # list, dq, dk, dv, B, L, Hq, Hkv, D, Dv, block, S, scale, stream
+    "xt_block_sparse_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
 

@@ -5,7 +5,8 @@
 `Trainer` owns the work dir and its meta, the tokenizer, the text data
 plane (`DataloaderConfig.build`), the `TrainEngine`, the jsonl tracker and
 checkpoint save / resume, and `fit` logs the same step line and writes the
-same tracker keys as the JAX `fit`.
+same tracker keys as the JAX `fit`; a DSA model's indexer loss
+(`dsa_index_loss`) joins both, beside `reduced_llm_loss`.
 
 Options off the ported path raise: `load_from` and `hf_interval`
 ([serve-rest]); `profile_step`, `debug_nan_hooks`, `act_stats_interval`
@@ -249,10 +250,12 @@ class Trainer:
                 tgs = metrics["consumed_tokens"] / step_time
                 eta = (self.total_steps - step) * step_time
                 if step % cfg.log_interval == 0 or step == self.total_steps:
+                    idx = (f"dsa_index_loss {metrics['dsa_index_loss']:.4f} "
+                           if "dsa_index_loss" in metrics else "")
                     logger.info(
                         f"Step {step}/{self.total_steps} lr {metrics['lr']:.3e} "
                         f"text_tokens {metrics['consumed_tokens']:.0f} "
-                        f"reduced_llm_loss {metrics['reduced_llm_loss']:.4f} "
+                        f"reduced_llm_loss {metrics['reduced_llm_loss']:.4f} {idx}"
                         f"grad_norm {metrics['grad_norm']:.4f} "
                         f"tgs {tgs:.1f} data_time {t_data:.3f}s step_time {step_time:.3f}s "
                         f"eta {eta/60:.1f}min"
