@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path, its MoE SFT train step and its
-SFT entry point, in bf16 and in tile-wise fp8, once on one NVIDIA card.
+"""Drive the PyTorch port's serving path, its MoE SFT train step, its SFT
+entry point (in bf16, in tile-wise fp8 and with both kernel switches),
+bench.py's longctx_64k row and GLM-5.2's DSA head, once on one NVIDIA
+card.
 
     python3 chip_smoke.py [--seed N] [--breakdown]
 
@@ -42,12 +44,29 @@ exits non-zero with no result line:
    row): step-1 loss within 2% of the bf16 run's, the exact launches of
    the fp8 kernels and none of the bf16 grouped GEMMs, and one profiled
    step with the quantise passes' device time apart;
-9. dsa_kernels: the block-sparse kernels #14 and #15 against their plain
+9. longctx_kernels: the two-pass dk/dv kernel #4 against its plain
+   version at moe_heavy's flash shapes and, with the group sum, against
+   the grouped #3 at B1 L65536 Hq16/8 (SDPA's causal backward as its
+   library time); the fused MoE MLP #16, forward and backward, against
+   its plain version at the longctx row's M262144 E64 F128, moe_heavy's
+   M131072 E16 F768 and an odd M, beside the port's decomposed path and
+   `torch._grouped_mm` twice;
+10. longctx: `recipes/bench_longctx_64k.py` (bench.py's longctx_64k row,
+   470.8 M params, nothing cut) through `TrainEngine.train_step`, 3 steps
+   on one 65536-token row, remat "save_out_lse", under
+   `XTUNER_ATTN_BWD=two_pass` and `XTUNER_FUSED_MLP=1`: CE, grad norm,
+   step ms, tokens/s, peak memory, the exact launches (the flash forward
+   once per layer: never re-run), the bytes held for the backward beside
+   JAX's formula, one profiled step;
+11. sft_switched: the sft phase's recipe, seed and data under both
+   switches: every step's loss within 2e-2 of the sft run's, the exact
+   launches of #4 and #16 and none of #3 or the "nn" grouped GEMM;
+12. dsa_kernels: the block-sparse kernels #14 and #15 against their plain
    versions at GLM-5.2's shapes (B1 L16384, 64 heads, D = Dv = 256, blocks
    of 256, 8 slots; five documents and a padded tail; the selection from
    random block maxima through `select_from_blockmax`), with times, the
    bound on the visible pairs, and SDPA with the selection as a dense mask;
-10. glm52_dsa: `recipes/sft_glm52_dsa_head.py` (GLM-5.2's three dense head
+13. glm52_dsa: `recipes/sft_glm52_dsa_head.py` (GLM-5.2's three dense head
    layers at full width, 3.156 B params, block-granular DSA): its
    `TrainEngine`, built by `Trainer` from the recipe, takes 4
    `train_step`s on the recipe's own 16384-token rows (not `fit`, whose
@@ -111,6 +130,8 @@ SFT_LOSS1 = (11.4, 13.0)
 # test_moe_model_level_fp8_parity)
 SFT_FP8_RECIPE = "xtuner_tpu_torch/recipes/sft_moe_heavy_fp8.py"
 SFT_FP8_LOSS1_RTOL = 0.02
+LONGCTX_SEQ = 65536
+PLAIN_CHUNK = 1024  # q rows per chunk of the plain flash versions at LONGCTX_SEQ
 # fp8 GEMMs vs their plain versions (see tests/test_torch_kernels.py): the
 # same exact fp8 products, bf16 outputs rounded once (relative to the
 # largest entry), f32 outputs (the wgrad) only in another order; and the
@@ -136,6 +157,19 @@ GLM_RECIPE = "xtuner_tpu_torch/recipes/sft_glm52_dsa_head.py"
 GLM_STEPS = 4
 GLM_LOSS1 = (12.4, 14.0)
 GLM_PEAK_GIB = 78.0
+# the longctx row (recipes/bench_longctx_64k.py): step-1 CE of a random
+# model is ln(V) + sigma^2 / 2 for logits of std 0.02 * sqrt(1024):
+# 11.93 + 0.20 = 12.13; lr is 1e-5 on random labels, so the loss is not
+# held to fall. 3 steps of one 65536-token row
+LONGCTX_RECIPE = "xtuner_tpu_torch/recipes/bench_longctx_64k.py"
+LONGCTX_STEPS = 3
+LONGCTX_LOSS1 = (11.6, 12.6)
+LONGCTX_PEAK_GIB = 78.0
+# sft_switched (the longctx recipe's two switches on the sft recipe) holds
+# every step's loss within SWITCHED_LOSS_ATOL of the sft phase's (the same
+# recipe, seed and data: the fused MLP rounds where the decomposed path
+# does, the two-pass dk/dv sums in another order)
+SWITCHED_LOSS_ATOL = 2e-2
 # what may stay allocated between phases (the kernels' small device buffers)
 RELEASED_GIB = 1.0
 # the least time the card could take (NVIDIA H100 SXM data sheet, dense):
@@ -1315,6 +1349,441 @@ def phase_glm52_dsa(torch, seed: int, smi: str) -> dict:
     return launches
 
 
+def switch_state() -> dict:
+    """The dk/dv path and the fused-MLP switch as the port reads them
+    (bench.py records the first as `attn_bwd`)."""
+    import os
+
+    from xtuner_tpu_torch.ops.attention.flash import attn_bwd
+
+    return {"attn_bwd": attn_bwd(), "fused_mlp": os.environ.get("XTUNER_FUSED_MLP", "0")}
+
+
+def sdpa_causal_ms(torch, q, k, v, do=None, iters: int = 3):
+    """`scaled_dot_product_attention` with `is_causal=True` on one document,
+    k and v repeated to the q heads so that its flash backend takes it (a
+    mask would send it to a path that holds the (L, L) scores): the
+    forward, or with `do` the backward (dq, dk and dv in one call)."""
+    import torch.nn.functional as F
+
+    rep = q.shape[2] // k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k.repeat_interleave(rep, dim=2),
+                                               v.repeat_interleave(rep, dim=2)))
+    if do is None:
+        return library_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                        is_causal=True), iters)
+    leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+    o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    dot = do.transpose(1, 2)
+    return library_ms(torch, lambda: torch.autograd.grad(o, leaves, dot, retain_graph=True),
+                      iters)
+
+
+def timed_once(torch, fn):
+    """(fn(), its CUDA-event ms) for a call too slow to repeat."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    res = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return res, start.elapsed_time(end)
+
+
+def _rel_rows(got, want, chunk: int = PLAIN_CHUNK) -> float:
+    """The largest `_rel` over chunks of `chunk` positions along dim 1 of
+    (H, L, D) tensors: along one long document the entries shrink by
+    orders of magnitude, so one scale for the whole row would hide the
+    late rows."""
+    return max(_rel(got[:, i:i + chunk], want[:, i:i + chunk])
+               for i in range(0, got.shape[1], chunk))
+
+
+def flash_plain_chunked(torch, q, k, v, seg, lse, delta, do, scale: float, want: str,
+                        chunk: int = PLAIN_CHUNK):
+    """The plain flash forward or backward of one packed row (B = 1, every
+    row sees a key) at a length whose (L, L) scores do not fit the card:
+    the same f32 math as the plain versions in `ops/attention/flash.py`,
+    over q rows in chunks of `chunk`, each against the keys up to its last
+    row (a (Hq, chunk, L) f32 slab at most: 4.3 GB at Hq16 L65536).
+
+    want "fwd": (out, lse) (Hq, L, D) and (Hq, L); "dq": dq (Hq, L, D) from
+    the given lse and delta (B, Hq, L), the dq kernel's inputs; "dkv":
+    (dk_h scaled, dv_h), each (Hq, L, D) per q head, from the same inputs
+    as the two-pass kernel."""
+    l, hq = q.shape[1], q.shape[2]
+    rep = hq // k.shape[2]
+    heads_first = lambda t: t[0].float().transpose(0, 1).contiguous()  # (H, L, D)
+    qs = heads_first(q)
+    ks, vs = (heads_first(t).repeat_interleave(rep, dim=0) for t in (k, v))
+    dos = None if do is None else heads_first(do)
+    pos, sg = torch.arange(l, device=q.device), seg[0]
+    res = [torch.zeros_like(qs) for _ in range(2 if want == "dkv" else 1)]
+    lse_out = torch.empty((hq, l), device=q.device)
+    for r0 in range(0, l, chunk):
+        r1 = min(r0 + chunk, l)
+        rows = slice(r0, r1)
+        s = torch.matmul(qs[:, rows], ks[:, :r1].transpose(1, 2)).mul_(scale)  # (Hq, r, m)
+        mask = (pos[None, :r1] <= pos[rows, None]) & (sg[None, :r1] == sg[rows, None])
+        if want == "fwd":
+            s.masked_fill_(~mask, float("-inf"))
+            lse_out[:, rows] = torch.logsumexp(s, dim=-1)
+            res[0][:, rows] = torch.matmul(s.sub_(lse_out[:, rows, None]).exp_(), vs[:, :r1])
+            continue
+        p = s.sub_(lse[0][:, rows, None]).exp_().masked_fill_(~mask, 0.0)
+        ds = torch.matmul(dos[:, rows], vs[:, :r1].transpose(1, 2))
+        ds.sub_(delta[0][:, rows, None]).mul_(p)
+        if want == "dq":
+            res[0][:, rows] = torch.matmul(ds, ks[:, :r1]).mul_(scale)
+        else:
+            res[0][:, :r1] += torch.matmul(ds.transpose(1, 2), qs[:, rows]).mul_(scale)
+            res[1][:, :r1] += torch.matmul(p.transpose(1, 2), dos[:, rows])
+        del s, p, ds
+    if want == "fwd":
+        return res[0], lse_out
+    return res[0] if want == "dq" else tuple(res)
+
+
+def phase_longctx_kernels(torch, seed: int, smi: str) -> list[dict]:
+    """#4 (the two-pass dk/dv) and #16 (the fused MoE MLP) against their
+    plain versions at the shapes their paths give them: #4 at moe_heavy's
+    flash shapes (B2 L8192 Hq16/8, 4 documents per row and a padded tail);
+    at the longctx row's B1 L65536 Hq16/8 on one document, #1's out and
+    lse, #2's dq and #4's dk_h and dv_h against the plain versions run in
+    `PLAIN_CHUNK`-row chunks (`flash_plain_chunked`; the unchunked ones
+    hold (L, L) scores), and #4 with the group sum against #3; #16's
+    forward and backward at the longctx row's M
+    262144 E64 H1024 F128 and moe_heavy's M131072 E16 F768, routed sizes
+    with an empty expert, and at an odd M. Times from CUDA events, bounds,
+    SDPA's causal backward at L65536 as #4's library time; #16 has no
+    library call (none fuses two GEMMs): `torch._grouped_mm` twice with
+    silu * up between them and the port's decomposed path are printed
+    beside it."""
+    import numpy as np
+
+    from xtuner_tpu_torch.ops import fused_moe_mlp as fm
+    from xtuner_tpu_torch.ops.attention import flash as fl
+    from xtuner_tpu_torch.ops.bf16_grouped import grouped_gemm_bf16
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    rng = np.random.default_rng(seed + 7)
+    src = "xtuner_tpu_torch/csrc/"
+    rows = []
+    d, hq, hkv, scale = 128, 16, 8, 128 ** -0.5
+
+    def normed(b, l, hh):
+        x = torch.randn((b, l, hh, d), generator=g, device=dev)
+        return (x * (d ** 0.5) / x.norm(dim=-1, keepdim=True)).bfloat16()
+
+    def flash_inputs(b, l, seg):
+        q, k = normed(b, l, hq), normed(b, l, hkv)
+        v = torch.randn((b, l, hkv, d), generator=g, device=dev).bfloat16()
+        out, lse = fl.flash_attention(q, k, v, seg, max_logit=torch.tensor(d ** 0.5, device=dev))
+        do = torch.randn(q.shape, generator=g, device=dev).bfloat16()
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        return q, k, v, out, lse, delta, do
+
+    # ---- #4 against its plain version at moe_heavy's flash shapes
+    b, l = SFT_ROWS, SEQ
+    seg = torch.cat([_segments(torch, doc_lengths(rng, l, 4, int(rng.integers(50, 300))),
+                               l, dev) for _ in range(b)])
+    q, k, v, _, lse, delta, do = flash_inputs(b, l, seg)
+    args = (q, k, v, seg, lse, delta, do, scale)
+    (dk_h, dv_h), (rdk, rdv) = fl.flash_dkv_two_pass(*args), fl.flash_dkv_two_pass_plain(*args)
+    err = max(_abs(dk_h, rdk), _abs(dv_h, rdv))
+    rel = max(_rel(dk_h, rdk), _rel(dv_h, rdv))
+    pad_ok = bool((dk_h[seg == 0] == 0).all()) and bool((dv_h[seg == 0] == 0).all())
+    del dk_h, dv_h, rdk, rdv
+    ms = cuda_ms(lambda: fl.flash_dkv_two_pass(*args), iters=5)
+    plain = cuda_ms(lambda: fl.flash_dkv_two_pass_plain(*args), iters=2, warmup=1)
+    grouped = cuda_ms(lambda: fl.flash_dkv(*args), iters=5)
+    pairs = causal_pairs(torch, seg)
+    bwd_in = flash_bytes(q, k, out_like=2) + 4 * b * hq * l  # q, k, v, do; lse, delta
+    bound = least_ms(8 * pairs * hq * d, bwd_in + 4 * b * l * hq * d, PEAK_BF16)
+    lib, why = sdpa_ms(torch, q, k, v, block_causal_mask(torch, seg), do)
+    shape = f"B{b}xL{l}xHq{hq}xHkv{hkv}xD{d}"
+    say("kernel", name="flash_dkv_two_pass", shape=shape, err=f"{err:.3e}", rel=f"{rel:.3e}",
+        pad_rows_ok=pad_ok, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+        grouped_dkv_ms=f"{grouped:.4f}", bound_ms=f"{bound['bound_ms']:.4f}",
+        sdpa_bwd_ms=lib, why=repr(why))
+    if not (rel <= FLASH_GRAD_RTOL and pad_ok):
+        raise AssertionError(f"flash_dkv_two_pass disagrees with its plain version at {shape}: "
+                             f"{rel} (<= {FLASH_GRAD_RTOL}), padding rows ok {pad_ok}")
+    rows.append({"name": "flash_dkv_two_pass", "route": "cuda", "source": src + "flash_bwd.cu",
+                 "replaces": "xtuner_tpu/ops/attention/flash.py:249", "path": "sft_switched",
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain, **bound, "library_ms": lib})
+    del q, k, v, lse, delta, do, args
+
+    # ---- #1, #2 and #4 at the longctx row's shapes against their plain
+    # versions in 1024-row chunks, and #4 + the group sum against #3
+    b, l = 1, LONGCTX_SEQ
+    seg = torch.ones((b, l), dtype=torch.int32, device=dev)
+    q, k, v, out, lse, delta, do = flash_inputs(b, l, seg)
+    args = (q, k, v, seg, lse, delta, do, scale)
+    shape = f"B{b}xL{l}xHq{hq}xHkv{hkv}xD{d}"
+    pairs = causal_pairs(torch, seg)
+    bwd_in = flash_bytes(q, k, out_like=2) + 4 * b * hq * l
+    lib, why = sdpa_causal_ms(torch, q, k, v, do, iters=2)
+    lib_fwd, why_fwd = sdpa_causal_ms(torch, q, k, v, iters=2)
+    heads_first = lambda t: t[0].transpose(0, 1)  # (B, L, H, D) -> (H, L, D)
+
+    (ref_out, ref_lse), fwd_plain = timed_once(torch, lambda: flash_plain_chunked(
+        torch, q, k, v, seg, None, None, None, scale, "fwd"))
+    fwd_rel, fwd_err = _rel_rows(heads_first(out), ref_out), _abs(heads_first(out), ref_out)
+    lse_err = _abs(lse[0], ref_lse)
+    del ref_out, ref_lse
+    dq = fl.flash_dq(*args)
+    ref_dq, dq_plain = timed_once(torch, lambda: flash_plain_chunked(torch, *args, "dq"))
+    dq_rel, dq_err = _rel_rows(heads_first(dq), ref_dq), _abs(heads_first(dq), ref_dq)
+    del dq, ref_dq
+    dk_h, dv_h = fl.flash_dkv_two_pass(*args)
+    (ref_dk, ref_dv), dkv_plain = timed_once(torch, lambda: flash_plain_chunked(
+        torch, *args, "dkv"))
+    tp_rel = max(_rel_rows(heads_first(dk_h), ref_dk), _rel_rows(heads_first(dv_h), ref_dv))
+    tp_err = max(_abs(heads_first(dk_h), ref_dk), _abs(heads_first(dv_h), ref_dv))
+    del ref_dk, ref_dv
+    dk, dv = fl.group_sum(dk_h, hkv, k.dtype), fl.group_sum(dv_h, hkv, v.dtype)
+    rdk, rdv = fl.flash_dkv(*args)
+    rel = max(_rel(dk, rdk), _rel(dv, rdv))
+    del dk, dv, rdk, rdv
+    say("kernel", name="flash_plain_chunked", shape=shape, docs=1, rows_per_chunk=PLAIN_CHUNK,
+        out_rel=f"{fwd_rel:.3e}", lse_err=f"{lse_err:.3e}", dq_rel=f"{dq_rel:.3e}",
+        dkv_two_pass_rel=f"{tp_rel:.3e}", dkv_two_pass_vs_grouped_rel=f"{rel:.3e}",
+        fwd_plain_ms=f"{fwd_plain:.1f}", dq_plain_ms=f"{dq_plain:.1f}",
+        dkv_plain_ms=f"{dkv_plain:.1f}")
+    if not (fwd_rel <= FLASH_GRAD_RTOL and lse_err <= FLASH_LSE_ATOL and
+            dq_rel <= FLASH_GRAD_RTOL and tp_rel <= FLASH_GRAD_RTOL and rel <= FLASH_GRAD_RTOL):
+        raise AssertionError(f"flash kernels disagree at {shape}: out {fwd_rel}, dq {dq_rel}, "
+                             f"two-pass dk/dv {tp_rel}, two-pass + group sum vs grouped {rel} "
+                             f"(<= {FLASH_GRAD_RTOL}); lse {lse_err} (<= {FLASH_LSE_ATOL})")
+
+    bound = torch.tensor(d ** 0.5, device=dev)
+    fwd_ms = cuda_ms(lambda: fl.flash_attention(q, k, v, seg, max_logit=bound), iters=2,
+                     warmup=1)
+    dq_ms = cuda_ms(lambda: fl.flash_dq(*args), iters=2, warmup=1)
+    ms = cuda_ms(lambda: fl.flash_dkv_two_pass(*args), iters=2, warmup=1)
+    sum_ms = cuda_ms(lambda: (fl.group_sum(dk_h, hkv, k.dtype), fl.group_sum(dv_h, hkv, v.dtype)),
+                     iters=3, warmup=1)
+    grouped = cuda_ms(lambda: fl.flash_dkv(*args), iters=2, warmup=1)
+    del dk_h, dv_h
+    tp_bound = least_ms(8 * pairs * hq * d, bwd_in + 4 * b * l * hq * d, PEAK_BF16)
+    say("kernel", name="flash_dkv_two_pass", shape=shape, docs=1, ms=f"{ms:.3f}",
+        plain_ms=f"{dkv_plain:.3f}", group_sum_ms=f"{sum_ms:.3f}",
+        grouped_dkv_ms=f"{grouped:.3f}", bound_ms=f"{tp_bound['bound_ms']:.3f}",
+        tflops=f"{8 * pairs * hq * d / ms / 1e9:.1f}", sdpa_causal_bwd_ms=lib,
+        flash_fwd_ms=f"{fwd_ms:.3f}", flash_dq_ms=f"{dq_ms:.3f}",
+        sdpa_causal_fwd_ms=lib_fwd, why=repr(f"{why}; {why_fwd}"), card=repr(smi))
+    plain_note = f"the plain version in {PLAIN_CHUNK}-row chunks (its (L, L) scores do not fit)"
+    rows += [{"name": "flash_fwd_max_free", "route": "cuda", "source": src + "flash_fwd.cu",
+              "replaces": "xtuner_tpu/ops/attention/flash.py:82", "path": "longctx",
+              "max_abs_err": max(fwd_err, lse_err),
+              "ms": fwd_ms, "plain_ms": fwd_plain, "plain_is": plain_note,
+              **least_ms(4 * pairs * hq * d, flash_bytes(q, k), PEAK_BF16),
+              "library_ms": lib_fwd},
+             {"name": "flash_dq", "route": "cuda", "source": src + "flash_bwd.cu",
+              "replaces": "xtuner_tpu/ops/attention/flash.py:199", "path": "longctx",
+              "max_abs_err": dq_err, "ms": dq_ms, "plain_ms": dq_plain, "plain_is": plain_note,
+              **least_ms(6 * pairs * hq * d, bwd_in + 2 * b * l * hq * d, PEAK_BF16),
+              "library_ms": lib},
+             {"name": "flash_dkv_two_pass", "route": "cuda", "source": src + "flash_bwd.cu",
+              "replaces": "xtuner_tpu/ops/attention/flash.py:249", "path": "longctx",
+              "max_abs_err": tp_err, "ms": ms, "plain_ms": dkv_plain, "plain_is": plain_note,
+              **tp_bound, "library_ms": lib}]
+    del q, k, v, out, lse, delta, do, args
+
+    # ---- #16, forward and backward, at the longctx and moe_heavy shapes
+    # and at an odd M with rows past the last group
+    cases = (("longctx", LONGCTX_SEQ, 64, 4, 128), ("sft_switched", SFT_ROWS * SEQ, 16, 8, 768),
+             ("odd", None, 5, None, 128))
+    for path, tokens, e, topk, f in cases:
+        h = 1024
+        if tokens is None:
+            sizes = torch.tensor([1200, 0, 3001, 1, 789], dtype=torch.int32, device=dev)
+            m = int(sizes.sum()) + 11  # 11 rows past the last group
+        else:
+            sizes = routed_sizes(torch, rng, tokens, e, topk, empty=e // 2, dev=dev)
+            m = tokens * topk
+        x = torch.randn((m, h), generator=g, device=dev).bfloat16()
+        w_gu = (torch.randn((e, h, 2 * f), generator=g, device=dev) * 0.02).bfloat16()
+        w_dn = (torch.randn((e, f, h), generator=g, device=dev) * 0.02).bfloat16()
+        out, gu = fm.fused_moe_mlp_fwd(x, w_gu, w_dn, sizes)
+        ref_out, ref_gu = fm.fused_moe_mlp_plain(x, w_gu, w_dn, sizes)
+        torch.cuda.synchronize()
+        err = max(_abs(out, ref_out), _abs(gu, ref_gu))
+        rel = max(_rel(out, ref_out), _rel(gu, ref_gu))
+        n = int(sizes.sum())
+        tail_ok = bool((out[n:] == 0).all()) and bool((gu[n:] == 0).all())
+        del out, gu, ref_out, ref_gu
+        # the backward: the kernel path (#16, then #6 nt and #7) against
+        # autograd through the plain version in f32
+        co = torch.randn((m, h), generator=g, device=dev)
+        grads = []
+        for fn, dtype in ((fm.fused_moe_mlp, torch.bfloat16),
+                          (lambda *a: fm.fused_moe_mlp_plain(*a)[0], torch.float32)):
+            leaves = [t.detach().to(dtype).requires_grad_(True) for t in (x, w_gu, w_dn)]
+            (fn(*leaves, sizes).float() * co).sum().backward()
+            grads.append([t.grad for t in leaves])
+            del leaves
+        g_rel = max(_rel(a, r_) for a, r_ in zip(*grads))
+        del grads, co
+        shape = f"M{m}xE{e}xH{h}xF{f}"
+        say("kernel", name="fused_moe_mlp", shape=shape, rows=n, empty=int((sizes == 0).sum()),
+            out_gu_err=f"{err:.3e}", out_gu_rel=f"{rel:.3e}", grad_rel=f"{g_rel:.3e}",
+            tail_rows_ok=tail_ok)
+        if not (rel <= GG_RTOL and g_rel <= GG_RTOL and tail_ok):
+            raise AssertionError(f"fused_moe_mlp disagrees with its plain version at {shape}: "
+                                 f"out/gu {rel}, grads {g_rel} (<= {GG_RTOL}), rows past the "
+                                 f"last group zero {tail_ok}")
+        if path == "odd":
+            continue
+        ms = cuda_ms(lambda: fm.fused_moe_mlp_fwd(x, w_gu, w_dn, sizes), iters=5)
+        plain = cuda_ms(lambda: fm.fused_moe_mlp_plain(x, w_gu, w_dn, sizes), iters=2, warmup=1)
+
+        def decomposed():
+            gu_ = grouped_gemm_bf16(x, w_gu, sizes)
+            hid = (torch.nn.functional.silu(gu_[:, :f].float()) * gu_[:, f:].float()).bfloat16()
+            return grouped_gemm_bf16(hid, w_dn, sizes)
+
+        dec_ms = cuda_ms(decomposed, iters=5)
+        offs = torch.cumsum(sizes, 0).to(torch.int32)
+
+        def grouped_mm_pair():
+            gu_ = torch._grouped_mm(x, w_gu, offs=offs)
+            hid = (torch.nn.functional.silu(gu_[:, :f].float()) * gu_[:, f:].float()).bfloat16()
+            return torch._grouped_mm(hid, w_dn, offs=offs)
+
+        pair_ms, pair_why = library_ms(torch, grouped_mm_pair)
+        flops = 6 * n * h * f
+        nbytes = 2 * m * h * 2 + 2 * m * 2 * f + 2 * e * h * 2 * f + 2 * e * f * h
+        bound = least_ms(flops, nbytes, PEAK_BF16)
+        say("kernel", name="fused_moe_mlp", shape=shape, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+            decomposed_ms=f"{dec_ms:.4f}", grouped_mm_pair_ms=pair_ms, why=repr(pair_why),
+            tflops=f"{flops / ms / 1e9:.1f}", bound_ms=f"{bound['bound_ms']:.4f}",
+            bound_by=bound["bound_by"], card=repr(smi))
+        rows.append({"name": "fused_moe_mlp", "route": "cuda", "source": src + "fused_moe_mlp.cu",
+                     "replaces": "xtuner_tpu/ops/fused_moe_mlp.py:48", "path": path,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain, **bound,
+                     # no one PyTorch call fuses the two GEMMs and the activation
+                     "library_ms": None})
+        del x, w_gu, w_dn
+    say("kernel", name="fused_moe_mlp",
+        library=repr("none: no PyTorch call runs both grouped GEMMs and the activation; "
+                     "torch._grouped_mm twice with silu * up between them is printed above"))
+    reset_train_launches()
+    return rows
+
+
+def phase_longctx(torch, seed: int, smi: str) -> dict:
+    """bench.py's longctx_64k row at full width and depth through
+    `recipes/bench_longctx_64k.py`: `TrainEngine` on the card, random f32
+    masters from the seed, 3 `train_step`s on one `fake_collator` row of
+    65536 tokens, with `XTUNER_ATTN_BWD=two_pass` and `XTUNER_FUSED_MLP=1`
+    set (and restored after). CE, grad norm, step ms, tokens/s and peak
+    memory per step; the exact launches of every kernel; the bytes one
+    forward holds for the backward against JAX's formula for remat
+    "save_out_lse"; one profiled step."""
+    import os
+    from unittest import mock
+
+    import numpy as np
+
+    from xtuner_tpu_torch.data_proto import SequenceContext
+    from xtuner_tpu_torch.engine.train_engine import TrainEngine
+    from xtuner_tpu_torch.recipes import bench_longctx_64k as r
+
+    cfg = r.model_cfg
+    with mock.patch.dict(os.environ, r.SWITCHES):
+        eng = TrainEngine(cfg, r.optim_cfg, r.lr_cfg, r.mesh_cfg, r.TOTAL_STEPS)
+        t0 = time.perf_counter()
+        eng.init_random(seed)
+        torch.cuda.synchronize()
+        n = eng.num_params
+        batch = r.batch(seed)
+        say("longctx", recipe=LONGCTX_RECIPE, params=n, layers=cfg.num_hidden_layers,
+            hidden=cfg.hidden_size,
+            heads=f"{cfg.attention.num_attention_heads}/{cfg.attention.num_key_value_heads}",
+            experts=f"{cfg.n_routed_experts}/top{cfg.num_experts_per_tok}",
+            moe_inter=cfg.moe_intermediate_size, vocab=cfg.vocab_size, ce=cfg.lm_loss_cfg.mode,
+            remat=eng.remat, compute=str(eng.compute_dtype), seq=r.SEQ,
+            switches=repr(switch_state()), init_s=f"{time.perf_counter() - t0:.3f}",
+            state_gib=f"{torch.cuda.memory_allocated() / 2**30:.3f}",
+            reason=repr(f"nothing cut: 16 B x {n / 1e6:.1f} M params = {16 * n / 1e9:.2f} GB "
+                        f"of f32 state"))
+
+        reset_train_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        hist = []
+        for step in range(1, LONGCTX_STEPS + 1):
+            t0 = time.perf_counter()
+            m = eng.train_step(batch, step)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            hist.append((m, dt))
+            say("longctx", step=step, ce=f"{m['reduced_llm_loss']:.5f}",
+                total_loss=f"{m['total_loss']:.5f}", grad_norm=f"{m['grad_norm']:.5f}",
+                lr=f"{m['lr']:.3e}", maxvio=f"{m['maxvio']:.3f}", skipped=m["skipped"],
+                step_ms=f"{1e3 * dt:.1f}", tok_s=f"{m['consumed_tokens'] / dt:.1f}",
+                peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+                **switch_state())
+        launches = train_launches(torch)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        layers, steps = cfg.num_hidden_layers, LONGCTX_STEPS
+        # per layer and step: the flash forward once (never re-run: its out
+        # and lse are kept), dq and the two-pass dk/dv once, the fused MLP
+        # in the forward and in post's recompute, its backward's two "nt"
+        # and two wgrads; the fused CE once each
+        want = {name: 0 for name in launches}
+        want.update(flash_fwd_max_free=layers * steps, flash_dq=layers * steps,
+                    flash_dkv_two_pass=layers * steps, fused_moe_mlp=2 * layers * steps,
+                    grouped_gemm_nt=2 * layers * steps, grouped_gemm_dw=2 * layers * steps,
+                    ce_fwd=steps, ce_dh=steps, ce_dw=steps)
+        steady = [dt for _, dt in hist[1:]]
+        step_s = sum(steady) / len(steady)
+        say("longctx", launches={k: v for k, v in launches.items() if v or want[k]},
+            expected={k: v for k, v in want.items() if v}, steady_step_ms=f"{1e3 * step_s:.1f}",
+            steady_tok_s=f"{r.SEQ / step_s:.1f}", peak_gib=f"{peak:.3f}", card=repr(smi))
+        losses = [m["reduced_llm_loss"] for m, _ in hist]
+        norms = [m["grad_norm"] for m, _ in hist]
+        if not all(np.isfinite(losses + norms)):
+            raise AssertionError(f"non-finite loss or grad norm: {losses}, {norms}")
+        if not LONGCTX_LOSS1[0] <= losses[0] <= LONGCTX_LOSS1[1]:
+            raise AssertionError(f"step-1 CE {losses[0]} outside {LONGCTX_LOSS1}")
+        if any(m["skipped"] for m, _ in hist):
+            raise AssertionError("a step was skipped")
+        if launches != want:
+            raise AssertionError(f"kernel launches {launches} != what {steps} steps imply {want}")
+        if not peak < LONGCTX_PEAK_GIB:
+            raise AssertionError(f"peak {peak:.3f} GiB >= {LONGCTX_PEAK_GIB}")
+
+        # what one forward holds for the backward, against JAX's formula for
+        # "save_out_lse": per token and layer, out (Hq x Dv bf16) and lse
+        # (Hq f32), plus the layer input (H bf16) that every policy keeps
+        mb = {k: v[0] for k, v in eng._to_device(batch).items()}
+        seq_ctx = SequenceContext(mb["input_ids"], mb["segment_ids"], mb["position_ids"])
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        out = eng.model.loss(eng._train_tree, seq_ctx, mb["shifted_labels"], mb["loss_weights"],
+                             mb["loss_weights"].float().sum(), compute_dtype=eng.compute_dtype,
+                             remat=eng.remat)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - resident
+        del out
+        a = cfg.attention
+        per_layer = r.SEQ * (a.num_attention_heads * a.head_dim * 2 + a.num_attention_heads * 4
+                             + cfg.hidden_size * 2)
+        say("longctx", held_for_backward_gib=f"{held / 2**30:.3f}",
+            jax_formula_per_layer_gb=f"{per_layer / 1e9:.3f}",
+            jax_formula_layers_gib=f"{layers * per_layer / 2**30:.3f}",
+            rest=repr("outside the layers: the final norm's f32 tensors, the head's bf16 "
+                      "copy of the tied embedding, the CE's hidden states"))
+        profile_window(torch, "longctx_step",
+                       lambda: eng.train_step(batch, LONGCTX_STEPS + 1), top=16)
+    del eng, batch, mb, seq_ctx
+    return launches
+
+
 def release(torch, phase: str) -> None:
     """Free what a phase left behind, so that the next phase's peak memory
     is its own: collect reference cycles (the serving phase's engine holds
@@ -1477,10 +1946,11 @@ def phase_engine(torch, seed: int, smi: str) -> dict:
 
 
 def reset_train_launches() -> None:
-    from xtuner_tpu_torch.ops import bf16_grouped, fp8_gemm, fp8_grouped, fused_ce
+    from xtuner_tpu_torch.ops import bf16_grouped, fp8_gemm, fp8_grouped, fused_ce, fused_moe_mlp
     from xtuner_tpu_torch.ops.attention import block_sparse, flash
 
-    for mod in (flash, bf16_grouped, fused_ce, fp8_gemm, fp8_grouped, block_sparse):
+    for mod in (flash, bf16_grouped, fused_ce, fp8_gemm, fp8_grouped, block_sparse,
+                fused_moe_mlp):
         mod.reset_launches()
 
 
@@ -1492,10 +1962,13 @@ def train_launches(torch) -> dict:
     from xtuner_tpu_torch.ops.bf16_grouped import grouped_gemm_bf16, grouped_gemm_bf16_dw
     from xtuner_tpu_torch.ops.fp8_gemm import fp8_gemm_tilewise
     from xtuner_tpu_torch.ops.fp8_grouped import fp8_grouped_gemm, fp8_grouped_gemm_dw
+    from xtuner_tpu_torch.ops.fused_moe_mlp import fused_moe_mlp_fwd
 
     return {"flash_fwd": fl.flash_attention.launches - fl.max_free_launches(),
             "flash_fwd_max_free": fl.max_free_launches(),
             "flash_dq": fl.flash_dq.launches, "flash_dkv": fl.flash_dkv.launches,
+            "flash_dkv_two_pass": fl.flash_dkv_two_pass.launches,
+            "fused_moe_mlp": fused_moe_mlp_fwd.launches,
             "grouped_gemm_nn": grouped_gemm_bf16.launches["nn"],
             "grouped_gemm_nt": grouped_gemm_bf16.launches["nt"],
             "grouped_gemm_dw": grouped_gemm_bf16_dw.launches,
@@ -1566,6 +2039,7 @@ def phase_train(torch, seed: int, smi: str) -> dict:
     launches = train_launches(torch)
     per = TRAIN_LAYERS * TRAIN_STEPS
     want = {"flash_fwd": 0, "flash_fwd_max_free": 2 * per, "flash_dq": per, "flash_dkv": per,
+            "flash_dkv_two_pass": 0, "fused_moe_mlp": 0,
             "grouped_gemm_nn": 4 * per, "grouped_gemm_nt": 2 * per,
             "grouped_gemm_dw": 2 * per, "ce_fwd": 0, "ce_dh": 0, "ce_dw": 0,
             "fp8_gemm": 0, "fp8_grouped_gemm": 0, "fp8_grouped_dw": 0,
@@ -1592,14 +2066,28 @@ def phase_train(torch, seed: int, smi: str) -> dict:
     return launches
 
 
-def phase_sft(torch, smi: str, breakdown: bool, fp8_ref_loss1=None) -> tuple[dict, list]:
+def phase_sft(torch, smi: str, breakdown: bool, fp8_ref_loss1=None,
+              switched_ref=None) -> tuple[dict, list]:
     """The port's SFT entry point as a user runs it: the `sft` CLI's
     `main(["--config", <recipe>])` in a temporary working directory, 6
     steps at full width and depth. Reads its tracker and its final
     checkpoint, and counts every kernel launch of the run. With
     `fp8_ref_loss1` (the bf16 run's step-1 loss) it runs the fp8 recipe and
-    holds its step-1 loss within SFT_FP8_LOSS1_RTOL of that. Returns the
+    holds its step-1 loss within SFT_FP8_LOSS1_RTOL of that. With
+    `switched_ref` (the bf16 run's losses) it runs the bf16 recipe under
+    `XTUNER_ATTN_BWD=two_pass` and `XTUNER_FUSED_MLP=1` and holds every
+    step's loss within SWITCHED_LOSS_ATOL of that run's. Returns the
     launches and the losses."""
+    import os
+    from unittest import mock
+
+    from xtuner_tpu_torch.recipes.bench_longctx_64k import SWITCHES
+
+    with mock.patch.dict(os.environ, SWITCHES if switched_ref is not None else {}):
+        return _sft_run(torch, smi, breakdown, fp8_ref_loss1, switched_ref)
+
+
+def _sft_run(torch, smi: str, breakdown: bool, fp8_ref_loss1, switched_ref):
     import os
     import tempfile
     from pathlib import Path
@@ -1610,7 +2098,9 @@ def phase_sft(torch, smi: str, breakdown: bool, fp8_ref_loss1=None) -> tuple[dic
     from xtuner_tpu_torch.train.cli import sft
 
     fp8 = fp8_ref_loss1 is not None
-    phase, rel_recipe = ("sft_fp8", SFT_FP8_RECIPE) if fp8 else ("sft", SFT_RECIPE)
+    switched = switched_ref is not None
+    phase, rel_recipe = (("sft_fp8", SFT_FP8_RECIPE) if fp8 else
+                         ("sft_switched", SFT_RECIPE) if switched else ("sft", SFT_RECIPE))
     recipe = str(Path(__file__).resolve().parent / rel_recipe)
     save_s: list = []
     real_save = TrainCheckpointManager.save
@@ -1651,7 +2141,7 @@ def phase_sft(torch, smi: str, breakdown: bool, fp8_ref_loss1=None) -> tuple[dic
             moe_inter=cfg.moe_intermediate_size, vocab=cfg.vocab_size,
             ce=cfg.lm_loss_cfg.mode, remat=trainer.engine.remat,
             compute=str(trainer.engine.compute_dtype), float8=repr(cfg.float8_cfg),
-            wall_s=f"{wall:.3f}")
+            switches=repr(switch_state()), wall_s=f"{wall:.3f}")
         for r in recs:
             say(phase, step=r["step"], loss=f"{r['reduced_llm_loss']:.5f}",
                 grad_norm=f"{r['grad_norm']:.5f}", lr=f"{r['lr']:.3e}",
@@ -1665,9 +2155,15 @@ def phase_sft(torch, smi: str, breakdown: bool, fp8_ref_loss1=None) -> tuple[dic
         # per layer and step: flash once each (its residuals are kept); bf16
         # experts: gate|up and down forward, recompute and backward; fp8:
         # q, k, v and o forward and recompute (8 of #11), gate, up and down
-        # forward, recompute and dgrad (9 of #12), their wgrads (3 of #13)
-        want = {"flash_fwd": 0, "flash_fwd_max_free": per, "flash_dq": per, "flash_dkv": per,
-                "grouped_gemm_nn": 0 if fp8 else 4 * per, "grouped_gemm_nt": 0 if fp8 else 2 * per,
+        # forward, recompute and dgrad (9 of #12), their wgrads (3 of #13);
+        # switched: the two-pass dk/dv in place of the grouped one, the
+        # fused MLP (forward and recompute) in place of the nn GEMMs
+        want = {"flash_fwd": 0, "flash_fwd_max_free": per, "flash_dq": per,
+                "flash_dkv": 0 if switched else per,
+                "flash_dkv_two_pass": per if switched else 0,
+                "fused_moe_mlp": 2 * per if switched else 0,
+                "grouped_gemm_nn": 0 if fp8 or switched else 4 * per,
+                "grouped_gemm_nt": 0 if fp8 else 2 * per,
                 "grouped_gemm_dw": 0 if fp8 else 2 * per, "ce_fwd": SFT_STEPS,
                 "ce_dh": SFT_STEPS, "ce_dw": SFT_STEPS, "fp8_gemm": 8 * per if fp8 else 0,
                 "fp8_grouped_gemm": 9 * per if fp8 else 0,
@@ -1693,6 +2189,14 @@ def phase_sft(torch, smi: str, breakdown: bool, fp8_ref_loss1=None) -> tuple[dic
             if not rel <= SFT_FP8_LOSS1_RTOL:
                 raise AssertionError(f"fp8 step-1 loss {losses[0]} is {rel} from the bf16 "
                                      f"run's {fp8_ref_loss1} (<= {SFT_FP8_LOSS1_RTOL})")
+        if switched:
+            diff = max(abs(a - b) for a, b in zip(losses, switched_ref))
+            say(phase, losses=",".join(f"{x:.5f}" for x in losses),
+                sft_losses=",".join(f"{x:.5f}" for x in switched_ref),
+                max_abs_diff=f"{diff:.3e}", tol=SWITCHED_LOSS_ATOL)
+            if not diff <= SWITCHED_LOSS_ATOL:
+                raise AssertionError(f"the switched run's losses {losses} differ from the sft "
+                                     f"run's {switched_ref} by {diff} (> {SWITCHED_LOSS_ATOL})")
         if not losses[-1] < losses[0]:
             raise AssertionError(f"loss did not fall over {SFT_STEPS} steps: {losses}")
         if any(r["skipped"] for r in recs):
@@ -1707,7 +2211,7 @@ def phase_sft(torch, smi: str, breakdown: bool, fp8_ref_loss1=None) -> tuple[dic
             profile_window(torch, f"{phase}_step",
                            lambda: trainer.engine.train_step(batch, SFT_STEPS + 1), top=16,
                            annotations=(QUANTISE,) if fp8 else ())
-        if breakdown and not fp8:
+        if breakdown and phase == "sft":
             sft_memory(torch, trainer.engine, batch, smi)
         trainer.dataloader.close()
     return launches, losses
@@ -1913,6 +2417,12 @@ def main() -> int:
     release(torch, "sft")
     launches["sft_fp8"], _ = phase_sft(torch, smi, False, fp8_ref_loss1=losses[0])
     release(torch, "sft_fp8")
+    kernels += phase_longctx_kernels(torch, args.seed, smi)
+    release(torch, "longctx_kernels")
+    launches["longctx"] = phase_longctx(torch, args.seed, smi)
+    release(torch, "longctx")
+    launches["sft_switched"], _ = phase_sft(torch, smi, False, switched_ref=losses)
+    release(torch, "sft_switched")
     kernels += phase_dsa_kernels(torch, args.seed, smi)
     release(torch, "dsa_kernels")
     launches["glm52_dsa"] = phase_glm52_dsa(torch, args.seed, smi)

@@ -655,3 +655,132 @@ def test_block_sparse_wrappers_reject_what_the_kernels_do_not_take(cuda):
         bs.block_sparse_fwd(q32, k32, v32, idx32, seg32, 0.1, 32)
     with pytest.raises(ValueError, match="int32"):
         bs.block_sparse_fwd(q, k, v, idx.long(), seg, 0.1, 64)
+
+
+# ---- the two-pass dk/dv kernel (#4) and the fused MoE MLP (#16)
+@pytest.mark.parametrize("b,l,hq,hkv,docs,pad", [
+    (1, 512, 8, 2, 3, 40),     # packed documents, padded tail, GQA 4
+    (2, 1024, 16, 8, 6, 40),   # moe_heavy's heads: B2, 16/8 (group 2)
+    (2, 200, 4, 2, 2, 7),      # L not a multiple of 64, GQA 2
+    (1, 64, 4, 4, 1, 0),       # one tile, no GQA
+    (1, 77, 8, 1, 2, 60),      # mostly padding, one kv head (GQA 8)
+])
+def test_flash_dkv_two_pass_kernel_matches_plain_and_grouped(cuda, b, l, hq, hkv, docs, pad):
+    from xtuner_tpu_torch.ops.attention.flash import (flash_dkv_two_pass,
+                                                      flash_dkv_two_pass_plain, group_sum)
+
+    q, k, v, seg = _packed(cuda, b, l, hq, hkv, docs, pad)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    do = torch.randn(q.shape, generator=g, device=cuda).bfloat16()
+    scale = 128 ** -0.5
+    out, lse = flash_attention_plain(q, k, v, seg, scale)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    reset_launches()
+    dk_h, dv_h = flash_dkv_two_pass(q, k, v, seg, lse, delta, do, scale)
+    torch.cuda.synchronize()
+    assert flash_dkv_two_pass.launches == 1 and flash_dkv.launches == 0
+    ref_dk, ref_dv = flash_dkv_two_pass_plain(q, k, v, seg, lse, delta, do, scale)
+    for got, want in ((dk_h, ref_dk), (dv_h, ref_dv)):
+        assert got.shape == q.shape and got.dtype == torch.bfloat16
+        assert torch.isfinite(got.float()).all()
+        assert _rel_err(got, want) <= FLASH_GRAD_RTOL
+    assert (dk_h[seg == 0] == 0).all() and (dv_h[seg == 0] == 0).all()
+    # the group sum of #4 against the grouped kernel (#3)
+    dk, dv = flash_dkv(q, k, v, seg, lse, delta, do, scale)
+    assert _rel_err(group_sum(dk_h, hkv, k.dtype), dk) <= FLASH_GRAD_RTOL
+    assert _rel_err(group_sum(dv_h, hkv, v.dtype), dv) <= FLASH_GRAD_RTOL
+
+
+def test_flash_two_pass_autograd_matches_plain_autograd(cuda, monkeypatch):
+    monkeypatch.setenv("XTUNER_ATTN_BWD", "two_pass")
+    q, k, v, seg = _packed(cuda, 1, 300, 8, 2, 3, 20, seed=3)
+    co = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(4),
+                     device=cuda)
+    reset_launches()
+    grads = []
+    for fn in (lambda *a: flash_attention(*a, max_logit=torch.tensor(11.3, device=cuda))[0],
+               lambda *a: flash_attention_plain(*a, 128 ** -0.5)[0]):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        (fn(*leaves, seg).float() * co).sum().backward()
+        grads.append([t.grad for t in leaves])
+    from xtuner_tpu_torch.ops.attention.flash import flash_dkv_two_pass
+
+    assert (flash_dkv_two_pass.launches, flash_dkv.launches) == (1, 0)
+    for got, want in zip(*grads):
+        assert _rel_err(got, want) <= FLASH_GRAD_RTOL
+
+
+def _moe_mlp(dev, m, h, f, sizes, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    e = len(sizes)
+    x = torch.randn((m, h), generator=g, device=dev).bfloat16()
+    w_gu = (torch.randn((e, h, 2 * f), generator=g, device=dev) * 0.05).bfloat16()
+    w_dn = (torch.randn((e, f, h), generator=g, device=dev) * 0.05).bfloat16()
+    return x, w_gu, w_dn, torch.tensor(sizes, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("m,h,f,sizes", [
+    (1000, 256, 128, [100, 0, 500, 400]),          # an empty expert, unaligned sizes
+    (1001, 256, 128, [0, 1001, 0, 0]),             # odd M, one expert with all rows
+    (777, 128, 768, [37, 300, 1, 400]),            # F 768 (moe_heavy), a 1-row expert
+    (700, 1024, 128, [200, 0, 0, 400]),            # rows past the last group -> 0
+    (4096, 1024, 768, [300, 700, 0, 1200, 500, 400, 600, 100, 296]),  # moe_heavy widths
+])
+def test_fused_moe_mlp_kernel_matches_plain(cuda, m, h, f, sizes):
+    from xtuner_tpu_torch.ops import fused_moe_mlp as fm
+
+    x, w_gu, w_dn, gs = _moe_mlp(cuda, m, h, f, sizes)
+    fm.reset_launches()
+    out, gu = fm.fused_moe_mlp_fwd(x, w_gu, w_dn, gs)
+    out2, gu2 = fm.fused_moe_mlp_fwd(x, w_gu, w_dn, gs)
+    torch.cuda.synchronize()
+    assert fm.fused_moe_mlp_fwd.launches == 2
+    assert torch.equal(out, out2) and torch.equal(gu, gu2)  # bit for bit, run to run
+    ref_out, ref_gu = fm.fused_moe_mlp_plain(x, w_gu, w_dn, gs)
+    for got, want in ((out, ref_out), (gu, ref_gu)):
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+        assert _rel_err(got, want) <= GG_RTOL
+    if sum(sizes) < m:
+        assert (out[sum(sizes):] == 0).all() and (gu[sum(sizes):] == 0).all()
+
+
+@pytest.mark.parametrize("f", [128, 768])
+def test_fused_moe_mlp_autograd_matches_plain_autograd(cuda, f):
+    from xtuner_tpu_torch.ops import fused_moe_mlp as fm
+
+    x, w_gu, w_dn, gs = _moe_mlp(cuda, 1111, 256, f, [400, 0, 600, 111], seed=2)
+    co = torch.randn((1111, 256), generator=torch.Generator(device=cuda).manual_seed(3),
+                     device=cuda)
+    grads = []
+    # the plain version through autograd in f32 (bf16 `out_dtype` products
+    # have no derivative)
+    for fn, dtype in ((fm.fused_moe_mlp, torch.bfloat16),
+                      (lambda *a: fm.fused_moe_mlp_plain(*a)[0], torch.float32)):
+        leaves = [t.detach().to(dtype).requires_grad_(True) for t in (x, w_gu, w_dn)]
+        (fn(*leaves, gs).float() * co).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        assert got.shape == want.shape and _rel_err(got, want) <= GG_RTOL
+
+
+def test_fused_moe_mlp_rejects_what_the_kernel_does_not_take(cuda):
+    from xtuner_tpu_torch.ops import fused_moe_mlp as fm
+
+    x, w_gu, w_dn, gs = _moe_mlp(cuda, 64, 256, 128, [30, 34])
+    with pytest.raises(ValueError, match="bfloat16"):
+        fm.fused_moe_mlp_fwd(x.float(), w_gu, w_dn, gs)
+    with pytest.raises(ValueError, match="int32"):
+        fm.fused_moe_mlp_fwd(x, w_gu, w_dn, gs.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        fm.fused_moe_mlp_fwd(x.T.contiguous().T, w_gu, w_dn, gs)
+    with pytest.raises(ValueError, match="do not fit"):
+        fm.fused_moe_mlp_fwd(x, w_gu, w_dn[:, :64].contiguous(), gs)
+    xs, gus, dns, gss = _moe_mlp(cuda, 64, 192, 128, [30, 34])  # H not a multiple of 128
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fm.fused_moe_mlp_fwd(xs, gus, dns, gss)
+    xs, gus, dns, gss = _moe_mlp(cuda, 64, 128, 96, [30, 34])  # F not a multiple of 64
+    with pytest.raises(ValueError, match="multiple of 64"):
+        fm.fused_moe_mlp_fwd(xs, gus, dns, gss)
+    xs, gus, dns, gss = _moe_mlp(cuda, 64, 128, 1600, [30, 34])  # F past the hidden tile
+    with pytest.raises(ValueError, match="at most"):
+        fm.fused_moe_mlp_fwd(xs, gus, dns, gss)

@@ -17,8 +17,11 @@ Ported so far: the paged serving path for dense MHA models
 entry point (`train/cli/sft.py`, `train/trainer.py::Trainer`), in bf16
 and in tile-wise fp8 (`ops/float8.py`); GLM-5.2's DSA sparse attention
 (`module/dsa.py`) in `model/dense.py::Dense`, its dense head layers
-trained through `recipes/sft_glm52_dsa_head.py`. What is not ported
-raises `NotImplementedError` naming its ROADMAP.md item.
+trained through `recipes/sft_glm52_dsa_head.py`; bench.py's longctx row
+(`recipes/bench_longctx_64k.py`) under remat "save_out_lse" with JAX's
+two-pass dk/dv and fused expert-MLP switches. Every TPU kernel of the JAX
+package has its Hopper kernel. What is not ported raises
+`NotImplementedError` naming its ROADMAP.md item.
 """
 
 

@@ -1,10 +1,13 @@
 // Causal GQA flash-attention backward over packed rows, for Hopper (sm_90a).
 //
-// Replaces two TPU kernels of xtuner_tpu/ops/attention/flash.py:
+// Replaces three TPU kernels of xtuner_tpu/ops/attention/flash.py:
 // - _dq_kernel (pallas_call in _flash_bwd_rule): dq from q, k, v, do, lse
 //   and delta = rowsum(do * out);
 // - _dkv_grouped_kernel (pallas_call in _grouped_dkv): dk and dv of one kv
-//   head, summed over its whole q-head group.
+//   head, summed over its whole q-head group;
+// - _dkv_kernel (the two-pass pallas_call in _flash_bwd_rule,
+//   XTUNER_ATTN_BWD=two_pass): dk_h and dv_h of one q head, (B, L, Hq, D);
+//   the wrapper sums each group afterwards, as JAX does outside its kernel.
 // Layouts as the forward (csrc/flash_fwd.cu): q, do, dq (B, L, Hq, D);
 // k, v, dk, dv (B, L, Hkv, D), all bf16; lse, delta (B, Hq, L) f32;
 // segment_ids (B, L) int32, 0 = padding. Key m is visible to query l iff
@@ -30,6 +33,14 @@
 //   causal start to the end. dk and dv accumulate in registers (each warp
 //   owns 16 key rows) and are written once: no atomics and no
 //   (B, Hq, L, D) temporaries.
+// - two-pass dk/dv: the same kernel body (a template flag) with the group
+//   loop lifted into the grid: one CTA per (64-row k tile, q head, batch
+//   row) walks that head's q tiles and writes its own dk_h, dv_h. It does
+//   the grouped kernel's arithmetic on `ratio` times as many CTAs; what it
+//   adds is traffic: k and v are read once per q head, and 2 (B, L, Hq, D)
+//   bf16 partials are written (and read back by the group sum). The TPU
+//   kernel's index-map clamps (jnp.maximum(i, j)) only kept its DMA in
+//   range on skipped grid steps; here the loop starts at the causal tile.
 // - The causal work is uneven (k tile 0 sees every q tile, the last k tile
 //   one; q tile i sees i + 1 k tiles). The 1-D grid puts the longest CTAs
 //   first, so the short ones fill in behind them.
@@ -271,6 +282,11 @@ flash_dq_kernel(const __nv_bfloat16* __restrict__ q,
   store_rows(acc, sS, dq, b, q0, h, L, Hq, scale, warp, lane);
 }
 
+// TWO_PASS = false (#3): heads = Hkv; a CTA sums dk/dv over the `ratio`
+// q heads of its kv head and writes (B, L, Hkv, D).
+// TWO_PASS = true (#4): heads = Hq; a CTA takes one q head and writes its
+// dk_h/dv_h to (B, L, Hq, D).
+template <bool TWO_PASS>
 __global__ void __launch_bounds__(NTHREADS)
 flash_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
@@ -297,11 +313,15 @@ flash_dkv_kernel(const __nv_bfloat16* __restrict__ q,
 
   // longest first: k tile 0 sees every q tile
   const int nq = (L + BT - 1) / BT;
-  const int per_tile = Hkv * B;
-  const int kt = (int)(blockIdx.x / per_tile);
-  const int g = (int)(blockIdx.x % per_tile) % Hkv;
-  const int b = (int)(blockIdx.x % per_tile) / Hkv;
   const int ratio = Hq / Hkv;
+  const int heads = TWO_PASS ? Hq : Hkv;  // the output's heads
+  const int per_tile = heads * B;
+  const int kt = (int)(blockIdx.x / per_tile);
+  const int ho = (int)(blockIdx.x % per_tile) % heads;  // the output head
+  const int b = (int)(blockIdx.x % per_tile) / heads;
+  const int g = TWO_PASS ? ho / ratio : ho;  // the kv head
+  const int h_first = TWO_PASS ? ho : g * ratio;
+  const int n_heads = TWO_PASS ? 1 : ratio;  // q heads this CTA walks
   const int k0 = kt * BT;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -327,8 +347,8 @@ flash_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   const int n_qt = (kmax == 0) ? 0 : nq;  // a padding-only k tile gets zeros
-  for (int gi = 0; gi < ratio; ++gi) {
-    const int h = g * ratio + gi;
+  for (int gi = 0; gi < n_heads; ++gi) {
+    const int h = h_first + gi;
     for (int qt = kt; qt < n_qt; ++qt) {  // causal: q tiles from the k tile on
       const int q0 = qt * BT;
       __syncthreads();  // every warp is done with the previous q tile
@@ -374,14 +394,33 @@ flash_dkv_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   __syncthreads();  // the score tiles become the staging tile
-  store_rows(acc_dk, sS, dk, b, k0, g, L, Hkv, scale, warp, lane);
-  store_rows(acc_dv, sS, dv, b, k0, g, L, Hkv, 1.f, warp, lane);
+  store_rows(acc_dk, sS, dk, b, k0, ho, L, heads, scale, warp, lane);
+  store_rows(acc_dv, sS, dv, b, k0, ho, L, heads, 1.f, warp, lane);
 }
 
 int check_args(int B, int L, int Hq, int Hkv, int d) {
   if (d != D || Hkv <= 0 || Hq % Hkv != 0 || L <= 0 || B <= 0)
     return (int)cudaErrorInvalidValue;
   return 0;
+}
+
+template <bool TWO_PASS>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, const void* seg, void* dk, void* dv,
+               int B, int L, int Hq, int Hkv, int d, float scale, void* stream) {
+  if (int e = check_args(B, L, Hq, Hkv, d)) return e;
+  cudaError_t e = cudaFuncSetAttribute(flash_dkv_kernel<TWO_PASS>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned grid = (unsigned)((L + BT - 1) / BT) * (TWO_PASS ? Hq : Hkv) * B;
+  flash_dkv_kernel<TWO_PASS><<<grid, NTHREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(seg), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), B, L, Hq, Hkv, scale * LOG2E, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -405,21 +444,22 @@ extern "C" int xt_flash_dq_bf16(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// dk, dv (B, L, Hkv, D), each summed over its kv head's q-head group (#3)
 extern "C" int xt_flash_dkv_bf16(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, const void* seg, void* dk,
                                  void* dv, int B, int L, int Hq, int Hkv, int d,
                                  float scale, void* stream) {
-  if (int e = check_args(B, L, Hq, Hkv, d)) return e;
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  const unsigned grid = (unsigned)((L + BT - 1) / BT) * Hkv * B;
-  flash_dkv_kernel<<<grid, NTHREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(seg), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), B, L, Hq, Hkv, scale * LOG2E, scale);
-  return (int)cudaGetLastError();
+  return launch_dkv<false>(q, k, v, dout, lse, delta, seg, dk, dv, B, L, Hq, Hkv, d,
+                           scale, stream);
+}
+
+// dk_h, dv_h (B, L, Hq, D) of each q head, not summed (#4)
+extern "C" int xt_flash_dkv_two_pass_bf16(const void* q, const void* k, const void* v,
+                                          const void* dout, const void* lse,
+                                          const void* delta, const void* seg, void* dk,
+                                          void* dv, int B, int L, int Hq, int Hkv,
+                                          int d, float scale, void* stream) {
+  return launch_dkv<true>(q, k, v, dout, lse, delta, seg, dk, dv, B, L, Hq, Hkv, d,
+                          scale, stream);
 }

@@ -4,8 +4,9 @@ The parameter tree (`param_specs`), `lm_head_weight`, and the training
 `forward`/`loss`. Decoder layers are stored stacked with a leading L dim,
 as in the JAX tree; a layer stack may also be given as a list of per-layer
 dicts (what the engine trains on, so each layer's gradient is its own
-tensor). Remat "full", "none" and "save_attn_residuals" are ported
-(`remat_wrap`); the other selective policies raise ([train-slice]).
+tensor). Remat "full", "none", "save_attn_residuals" and "save_out_lse"
+are ported (`remat_wrap`); the other selective policies raise
+([train-slice]).
 The serving layer loop lives in `model/generate.py` and
 `model/paged_generate.py`.
 
@@ -21,41 +22,53 @@ Plain MLA raises ([mla]).
 from __future__ import annotations
 
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 from torch.utils.checkpoint import checkpoint
 
 from .. import not_ported
 from ..loss.ce_loss import ce_loss
-from ..module.attention import MHAConfig, mha_attend, mha_out, mha_param_specs, mha_qkv
+from ..module.attention import MHAConfig, mha_out, mha_param_specs, mha_qkv
 from ..module.dsa import DSAConfig, dsa_forward, dsa_param_specs
 from ..module.mla import MLAConfig, mla_param_specs
 from ..module.mlp import mlp_forward, mlp_param_specs
 from ..module.params import ParamSpec, cast_tree, stack_specs, tree_map
 from ..module.rope import _rope_dim, rope_cos_sin
+from ..ops.attention.flash import flash_attention_saving_out_lse
 from ..ops.rms_norm import rms_norm
 from .base import ModelOutputs, TransformerConfig
 
 
 def remat_wrap(pre, attend, post, remat: str):
-    """A decoder layer `(x, lp) -> post(x, attend(*pre(x, lp)), lp)` under
-    the remat policy `remat` (JAX `model/dense.py::_remat_policy`).
+    """A decoder layer `(x, lp) -> post(x, attention over pre(x, lp), lp)`
+    under the remat policy `remat` (JAX `model/dense.py::_remat_policy`).
 
     `pre` is norm, projections, qk-norm and rope, returning (q, k, v,
-    max_logit); `attend` is the flash attention; `post` is the output
-    projection, residual, norm and the MLP or MoE block.
+    max_logit); `attend(fn, *inputs)` is the flash attention over `(q, k,
+    v, max_logit) = fn(*inputs)`, which keeps `inputs`, out and lse for the
+    backward and re-runs `fn` there; `post` is the output projection,
+    residual, norm and the MLP or MoE block.
 
-    - "none": plain autograd;
+    - "none": plain autograd; the attention keeps q, k and v;
     - "full": the whole layer under `torch.utils.checkpoint`, recomputed in
       the backward (flash forward included), as `jax.checkpoint` around the
       scanned layer;
     - "save_attn_residuals": `pre` and `post` are two checkpoint regions and
-      the flash autograd Function runs between them, outside both, so it
-      keeps its residuals (q, k, v, out, lse) and the backward never re-runs
-      the flash forward; everything else is recomputed. JAX saves the same
-      names (attn_q/k/v, attn_res_out, attn_lse, attn_out).
+      the attention runs between them, outside both, so it keeps q, k, v,
+      out and lse and the backward never re-runs the flash forward;
+      everything else is recomputed. JAX saves the same names (attn_q/k/v,
+      attn_res_out, attn_lse, attn_out);
+    - "save_out_lse": the attention runs over `pre` itself, so it keeps the
+      layer input, out and lse (JAX's attn_res_out and attn_lse); its
+      backward re-runs `pre` (q, k and v are recomputed, never saved) and
+      never the flash forward. `post` is one checkpoint region, as under
+      "save_attn_residuals".
 
     The other named policies raise ([train-slice])."""
+    def attend_qkv(q, k, v, max_logit):
+        return attend(lambda *qkv: (*qkv, max_logit), q, k, v)
+
     def layer(x, lp):
-        return post(x, attend(*pre(x, lp)), lp)
+        return post(x, attend_qkv(*pre(x, lp)), lp)
 
     if remat == "none":
         return layer
@@ -64,8 +77,14 @@ def remat_wrap(pre, attend, post, remat: str):
     if remat == "save_attn_residuals":
         def split(x, lp):
             qkv = checkpoint(pre, x, lp, use_reentrant=False)
-            return checkpoint(post, x, attend(*qkv), lp, use_reentrant=False)
+            return checkpoint(post, x, attend_qkv(*qkv), lp, use_reentrant=False)
         return split
+    if remat == "save_out_lse":
+        def saving_out_lse(x, lp):
+            leaves, spec = tree_flatten(lp)
+            o = attend(lambda x_, *ls: pre(x_, tree_unflatten(list(ls), spec)), x, *leaves)
+            return checkpoint(post, x, o, lp, use_reentrant=False)
+        return saving_out_lse
     raise not_ported(f"remat policy {remat!r}", "train-slice")
 
 
@@ -182,8 +201,10 @@ class Dense:
         def pre(x, lp):
             return self._attn_in(x, lp, cos, sin, compute_dtype)
 
-        def attend(q, k, v, max_logit):
-            return mha_attend(self.cfg.attention, q, k, v, segment_ids, max_logit)
+        def attend(qkv_fn, *inputs):
+            o, _ = flash_attention_saving_out_lse(qkv_fn, inputs, segment_ids,
+                                                  scale=self.cfg.attention.head_dim ** -0.5)
+            return o
 
         return remat_wrap(pre, attend, post, remat)
 

@@ -1,13 +1,13 @@
 """Multi-head (GQA) attention (counterpart: `xtuner_tpu/module/attention.py`).
 
-The training attention over packed rows (JAX `mha_forward`) is
-`mha_qkv`, `mha_attend` and `mha_out` in a row: projections, qk-norm with
-its proven max-logit bound (which lets the flash forward run its max-free
-variant), partial rotary; the differentiable flash attention of
-`ops/attention/flash.py` (the Hopper kernels on a card); the output
-projection. The model calls the three itself, so that the remat policy
-"save_attn_residuals" can checkpoint the first and the last apart and
-run the flash kernel between them once.
+The training attention over packed rows (JAX `mha_forward`) is `mha_qkv`,
+the differentiable flash attention of `ops/attention/flash.py` (the Hopper
+kernels on a card) and `mha_out` in a row: projections, qk-norm with its
+proven max-logit bound (which lets the flash forward run its max-free
+variant), partial rotary; the attention; the output projection. The model
+calls the three itself (`model/dense.py::remat_wrap`), so that each remat
+policy can checkpoint them apart or, under "save_out_lse", run the
+attention over `mha_qkv` and keep only the flash output and lse.
 
 `mha_cached_forward` is ported for the prefill the paged engine runs: a
 whole right-padded prompt at `cache_len = 0`. Its attention is causal over
@@ -143,14 +143,6 @@ def mha_qkv(p: dict, cfg: MHAConfig, x, cos, sin, window: Optional[int] = None,
             gq, gk = 1.0 + gq, 1.0 + gk
         max_logit = cfg.head_dim ** 0.5 * gq.abs().max() * gk.abs().max()
     return q.contiguous(), k.contiguous(), v.contiguous(), max_logit
-
-
-def mha_attend(cfg: MHAConfig, q, k, v, segment_ids, max_logit=None):
-    """The differentiable flash attention: (B, L, Hq, D) in q.dtype. Its
-    autograd Function keeps q, k, v, out and lse for the backward."""
-    o, _ = flash_attention(q, k, v, segment_ids, scale=cfg.head_dim ** -0.5,
-                           max_logit=max_logit)
-    return o
 
 
 def mha_out(p: dict, cfg: MHAConfig, o, fp8_cfg=None):

@@ -8,6 +8,14 @@ GEMM on down, weighted combine. The grouped GEMMs are
 `ops/bf16_grouped.py::bf16_grouped_linear`: the Hopper kernels on a card,
 their plain versions on the CPU.
 
+With `XTUNER_FUSED_MLP` set to anything but "0", act "silu" and no fp8,
+it follows JAX's fused branch (`moe_layer.py:107-118`): one
+`ops/fused_moe_mlp.py::fused_moe_mlp` call on the sorted rows, `w_cat` and
+down (TPU kernel #16, whose backward runs the grouped "nt" and wgrad
+kernels). JAX takes that branch only with `gemm_impl="pallas"` (on the
+TPU); the port has no `gemm_impl` and takes it wherever the switch is set.
+Under fp8 or another activation the switch is ignored, as in JAX.
+
 With `fp8_cfg` enabled it follows JAX's fp8 branch (`moe_layer.py:130-154`):
 gate, up and down are three `ops/fp8_grouped.py::fp8_grouped_linear` calls
 (TPU kernels #12 and #13). gate and up stay two calls, not one on the
@@ -16,8 +24,7 @@ tile over all its columns, so a fused (M, 2F) gradient would get other
 scales than two (M, F) ones.
 
 Not ported yet: the a2a and agrs dispatchers and expert parallelism
-(Queue 1, parallelism), the fused MoE-MLP kernel (`XTUNER_FUSED_MLP`, TPU
-kernel #16) and `swiglu_clipped` ([leaf-ops]).
+(Queue 1, parallelism) and `swiglu_clipped` ([leaf-ops]).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from ..ops.act_fn import get_act_fn
 from ..ops.bf16_grouped import bf16_grouped_linear
 from ..ops.float8 import fp8_enabled
 from ..ops.fp8_grouped import fp8_grouped_linear
+from ..ops.fused_moe_mlp import fused_moe_mlp
 from ..ops.moe import permute, unpermute
 from .params import ParamSpec
 from .router import RouterConfig, RouterOutput, route
@@ -54,9 +62,6 @@ def moe_mlp_forward(p: dict, router_p: dict, router_cfg: RouterConfig, x: torch.
     Dropless: every routed token is computed."""
     if dispatcher != "gspmd":
         raise not_ported(f"the {dispatcher!r} MoE dispatcher", "parallelism")
-    if os.environ.get("XTUNER_FUSED_MLP", "0") != "0":
-        raise not_ported("the fused MoE-MLP kernel (XTUNER_FUSED_MLP, TPU kernel #16)",
-                         "train-slice")
     if act == "swiglu_clipped":
         raise not_ported("swiglu_clipped experts", "leaf-ops")
     b, l, h = x.shape
@@ -79,9 +84,13 @@ def moe_mlp_forward(p: dict, router_p: dict, router_cfg: RouterConfig, x: torch.
     f = p["gate_proj"].shape[2]
     w_cat = torch.cat([p["gate_proj"].to(compute_dtype), p["up_proj"].to(compute_dtype)],
                       dim=2)
-    gu = bf16_grouped_linear(info.sorted_tokens, w_cat, info.group_sizes)
-    gate, up = gu[:, :f].float(), gu[:, f:].float()
-    hidden = (get_act_fn(act)(gate) * up).to(compute_dtype)
-    out = bf16_grouped_linear(hidden, p["down_proj"].to(compute_dtype), info.group_sizes)
+    if act == "silu" and os.environ.get("XTUNER_FUSED_MLP", "0") != "0":
+        out = fused_moe_mlp(info.sorted_tokens, w_cat, p["down_proj"].to(compute_dtype),
+                            info.group_sizes)
+    else:
+        gu = bf16_grouped_linear(info.sorted_tokens, w_cat, info.group_sizes)
+        gate, up = gu[:, :f].float(), gu[:, f:].float()
+        hidden = (get_act_fn(act)(gate) * up).to(compute_dtype)
+        out = bf16_grouped_linear(hidden, p["down_proj"].to(compute_dtype), info.group_sizes)
     combined = unpermute(out, info, b * l)
     return combined.reshape(b, l, h).to(compute_dtype), r, info.group_sizes

@@ -1,16 +1,24 @@
 """Causal GQA flash attention over packed rows, forward and backward
 (counterpart: `xtuner_tpu/ops/attention/flash.py`, `_flash`'s custom VJP:
 `_flash_forward` with its running-max and max-free `_fwd_kernel`, and
-`_flash_bwd_rule` with `_dq_kernel` and `_dkv_grouped_kernel`).
+`_flash_bwd_rule` with `_dq_kernel` and either `_dkv_grouped_kernel` or,
+under `XTUNER_ATTN_BWD=two_pass`, the per-q-head `_dkv_kernel`).
 
 `flash_attention` returns `(out, lse)` like the JAX `_flash_forward` (the
 JAX public `flash_attention` returns `out` alone) and is differentiable in
 q, k and v through `_FlashAttention`, whose backward computes
 `delta = rowsum(do * out)` in plain PyTorch, as JAX does outside its
-kernels, then runs `flash_dq` and `flash_dkv`. Each of the three kernel
-wrappers launches its hand-written Hopper kernel on a CUDA tensor
-(`csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`) or raises, and runs the plain
-PyTorch version beside it on a CPU tensor.
+kernels, then runs `flash_dq` and the dk/dv path the switch selected when
+the forward ran: `flash_dkv` (grouped, the default) or any other value of
+`XTUNER_ATTN_BWD`, as in JAX, `flash_dkv_two_pass` and the group sum in
+plain PyTorch. Each kernel wrapper launches its hand-written Hopper kernel
+on a CUDA tensor (`csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`) or raises, and
+runs the plain PyTorch version beside it on a CPU tensor.
+
+`flash_attention_saving_out_lse` is the attention of remat "save_out_lse"
+(JAX saves only `attn_res_out` and `attn_lse`): it takes the function
+that makes q, k and v, keeps only that function's inputs, out and lse,
+and in the backward re-runs the function (never the flash forward).
 
 `max_logit` is a proven bound on |scaled logit| (a 0-d f32 tensor); at or
 below `MAX_FREE_BOUND` the forward runs the max-free variant. On the card
@@ -18,9 +26,8 @@ the bound stays on the device and each CTA branches on it, so no step
 waits on it; `max_free_launches()` reads how many launches took that
 variant.
 
-Not ported yet: sliding windows and sinks ([serve-rest]), non-causal
-attention and the two-pass per-q-head dk/dv kernel `_dkv_kernel`
-(`XTUNER_ATTN_BWD=two_pass`) ([train-slice]).
+Not ported yet: sliding windows and sinks ([serve-rest]) and non-causal
+attention ([train-slice]).
 """
 
 from __future__ import annotations
@@ -108,6 +115,27 @@ def flash_dkv_plain(q, k, v, segment_ids, lse, delta, do, scale):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_dkv_two_pass_plain(q, k, v, segment_ids, lse, delta, do, scale):
+    """Plain version of `_dkv_kernel`: dk_h, dv_h (B, L, Hq, D) of each q
+    head, not summed over the group, in q.dtype; dk_h scaled."""
+    b, l, hq, d = q.shape
+    hkv = k.shape[2]
+    p, _ = _probs(q, k, segment_ids, scale, lse.reshape(b, hkv, hq // hkv, l))
+    dog = do.float().reshape(b, l, hkv, hq // hkv, d)
+    dv = torch.einsum("bgrlm,blgrd->bmgrd", p, dog)
+    dp = torch.einsum("blgrd,bmgd->bgrlm", dog, v.float())
+    ds = p * (dp - delta.reshape(b, hkv, hq // hkv, l)[..., None])
+    dk = torch.einsum("bgrlm,blgrd->bmgrd", ds, _grouped(q, k)) * scale
+    return dk.reshape(b, l, hq, d).to(q.dtype), dv.reshape(b, l, hq, d).to(q.dtype)
+
+
+def group_sum(t_h: torch.Tensor, hkv: int, dtype) -> torch.Tensor:
+    """(B, L, Hq, D) per-q-head partials -> (B, L, Hkv, D), summed over each
+    kv head's q-head group (JAX `_flash_bwd_rule`'s sum after `_dkv_kernel`)."""
+    b, l, hq, d = t_h.shape
+    return t_h.reshape(b, l, hkv, hq // hkv, d).sum(dim=3).to(dtype)
+
+
 def _check_kernel_args(q, k, v, segment_ids, name="flash_attention"):
     if not (k.device == v.device == segment_ids.device == q.device):
         raise ValueError(f"{name}: q, k, v, segment_ids on different devices")
@@ -159,8 +187,9 @@ def max_free_launches() -> int:
 
 
 def reset_launches() -> None:
-    """Zero the launch counters of the three flash kernels."""
+    """Zero the launch counters of the four flash kernels."""
     flash_attention.launches = flash_dq.launches = flash_dkv.launches = 0
+    flash_dkv_two_pass.launches = 0
     for c in _MAX_FREE_COUNT.values():
         c.zero_()
 
@@ -235,30 +264,85 @@ def flash_dkv(q, k, v, segment_ids, lse, delta, do, scale: float):
     return dk, dv
 
 
+def flash_dkv_two_pass(q, k, v, segment_ids, lse, delta, do, scale: float):
+    """The two-pass dk/dv kernel (#4): dk_h, dv_h (B, L, Hq, D) of each q
+    head in q.dtype, not summed (`group_sum` sums them)."""
+    if q.device.type == "cpu":
+        return flash_dkv_two_pass_plain(q, k, v, segment_ids, lse, delta, do, scale)
+    _check_bwd_args(q, k, v, segment_ids, lse, delta, do, "flash_dkv_two_pass")
+    from ..cuda_lib import check, load
+
+    b, l, hq, d = q.shape
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    err = load().xt_flash_dkv_two_pass_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), segment_ids.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
+        l, hq, k.shape[2], d, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check(err, "xt_flash_dkv_two_pass_bf16")
+    flash_dkv_two_pass.launches += 1
+    return dk, dv
+
+
 flash_dq.launches = 0  # kernel launches since the last reset
 flash_dkv.launches = 0
+flash_dkv_two_pass.launches = 0
+
+
+def attn_bwd() -> str:
+    """The dk/dv path `XTUNER_ATTN_BWD` selects: "grouped" (the default)
+    or, for any other value, as in JAX, the two-pass kernel."""
+    return os.environ.get("XTUNER_ATTN_BWD", "grouped")
+
+
+def flash_backward(q, k, v, segment_ids, out, lse, dout, scale: float, bwd: str):
+    """dq, dk, dv from the forward's residuals (JAX `_flash_bwd_rule`):
+    delta in plain PyTorch, the dq kernel, then the grouped dk/dv kernel
+    (`bwd == "grouped"`) or the two-pass one and the group sum."""
+    do = dout.to(q.dtype).contiguous()
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = flash_dq(q, k, v, segment_ids, lse, delta, do, scale)
+    if bwd == "grouped":
+        dk, dv = flash_dkv(q, k, v, segment_ids, lse, delta, do, scale)
+    else:
+        dk_h, dv_h = flash_dkv_two_pass(q, k, v, segment_ids, lse, delta, do, scale)
+        dk, dv = group_sum(dk_h, k.shape[2], k.dtype), group_sum(dv_h, k.shape[2], v.dtype)
+    return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
-    """`_flash`'s custom VJP: residuals (q, k, v, seg, out, lse); lse is not
-    differentiable (the JAX rule ignores its cotangent too)."""
+    """`_flash`'s custom VJP over `(q, k, v, max_logit) = qkv_fn(*inputs)`.
+    The residuals are `inputs`, segment_ids, out and lse; lse is not
+    differentiable (the JAX rule ignores its cotangent too). The forward
+    runs `qkv_fn` without grad and the flash forward; the backward re-runs
+    `qkv_fn` with grad (a pass-through when `inputs` are q, k and v), runs
+    the backward kernels on the saved out and lse along the dk/dv path read
+    when the forward ran, and backpropagates dq, dk and dv through
+    `qkv_fn`. The flash forward never re-runs."""
 
     @staticmethod
-    def forward(ctx, q, k, v, segment_ids, max_logit, scale):
-        out, lse = flash_forward(q, k, v, segment_ids, scale, max_logit)
-        ctx.save_for_backward(q, k, v, segment_ids, out, lse)
-        ctx.scale = scale
+    def forward(ctx, qkv_fn, segment_ids, scale, *inputs):
+        with torch.no_grad():
+            q, k, v, max_logit = qkv_fn(*inputs)
+            out, lse = flash_forward(q, k, v, segment_ids, scale, max_logit)
+        ctx.save_for_backward(segment_ids, out, lse, *inputs)
+        ctx.qkv_fn, ctx.scale, ctx.bwd = qkv_fn, scale, attn_bwd()
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        q, k, v, segment_ids, out, lse = ctx.saved_tensors
-        do = dout.to(q.dtype).contiguous()
-        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-        dq = flash_dq(q, k, v, segment_ids, lse, delta, do, ctx.scale)
-        dk, dv = flash_dkv(q, k, v, segment_ids, lse, delta, do, ctx.scale)
-        return dq, dk, dv, None, None, None
+        segment_ids, out, lse, *inputs = ctx.saved_tensors
+        leaves = [t.detach().requires_grad_(t.requires_grad) for t in inputs]
+        with torch.enable_grad():
+            q, k, v, _ = ctx.qkv_fn(*leaves)
+        grads = flash_backward(q.detach(), k.detach(), v.detach(), segment_ids, out, lse,
+                               dout, ctx.scale, ctx.bwd)
+        made = [(t, g) for t, g in zip((q, k, v), grads) if t.requires_grad]
+        want = [t for t in leaves if t.requires_grad]
+        got = iter(torch.autograd.grad([t for t, _ in made], want, [g for _, g in made],
+                                       allow_unused=True))
+        return (None, None, None, *(next(got) if t.requires_grad else None for t in leaves))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -273,11 +357,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise not_ported("non-causal flash attention", "train-slice")
     if window is not None or sinks is not None:
         raise not_ported("flash attention with a sliding window or sinks", "serve-rest")
-    if os.environ.get("XTUNER_ATTN_BWD", "grouped") != "grouped":
-        raise not_ported("the two-pass per-q-head dk/dv backward (XTUNER_ATTN_BWD, "
-                         "TPU kernel #4)", "train-slice")
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    return _FlashAttention.apply(q, k, v, segment_ids, max_logit, float(scale))
+    return _FlashAttention.apply(lambda *qkv: (*qkv, max_logit), segment_ids, float(scale),
+                                 q, k, v)
+
+
+def flash_attention_saving_out_lse(qkv_fn, inputs, segment_ids: torch.Tensor, *,
+                                   scale: float):
+    """Causal flash attention over `(q, k, v, max_logit) = qkv_fn(*inputs)`
+    (the layer of remat "save_out_lse"): returns (out, lse) as
+    `flash_attention` does, keeps only `inputs`, out and lse for the
+    backward, and re-runs `qkv_fn` there. Differentiable in `inputs`."""
+    return _FlashAttention.apply(qkv_fn, segment_ids, float(scale), *inputs)
 
 
 # forward kernel launches (either variant) since the last reset; counted by

@@ -45,6 +45,9 @@ SIGNATURES = {
     # q, k, v, do, lse, delta, segment_ids, dk, dv, B, L, Hq, Hkv, D, scale, stream
     "xt_flash_dkv_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _F, _P],
+    # as xt_flash_dkv_bf16, dk and dv (B, L, Hq, D) per q head
+    "xt_flash_dkv_two_pass_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _F, _P],
     # q, pool_k, pool_v, block_table, seq_lens, out,
     # B, C, Hq, Hkv, D, NB, BS, MB, layer, scale, stream
     "xt_paged_decode_bf16": [_P, _P, _P, _P, _P, _P,
@@ -53,6 +56,8 @@ SIGNATURES = {
     "xt_grouped_gemm_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, dy, offsets, dw, M, E, K, N, stream
     "xt_grouped_gemm_dw_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w_gu, w_dn, offsets, out, gu, M, E, H, F, stream
+    "xt_fused_moe_mlp_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # h, w, labels, lse, label_logit, N, V, H, stream
     "xt_ce_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # h, w, labels, lse, g_lse, g_lab, f32 partials, out, N, V, H, splits,
