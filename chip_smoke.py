@@ -44,10 +44,11 @@ exits non-zero with no result line:
    row): step-1 loss within 2% of the bf16 run's, the exact launches of
    the fp8 kernels and none of the bf16 grouped GEMMs, and one profiled
    step with the quantise passes' device time apart;
-9. longctx_kernels: the two-pass dk/dv kernel #4 against its plain
-   version at moe_heavy's flash shapes and, with the group sum, against
-   the grouped #3 at B1 L65536 Hq16/8 (SDPA's causal backward as its
-   library time); the fused MoE MLP #16, forward and backward, against
+9. longctx_kernels: the one-pass flash backward's two-pass
+   instantiation (#2 + #4) against its plain version at moe_heavy's flash
+   shapes, and both instantiations against the plain versions in 1024-row
+   chunks at B1 L65536 Hq16/8 (SDPA's causal backward as the library
+   time); the fused MoE MLP #16, forward and backward, against
    its plain version at the longctx row's M262144 E64 F128, moe_heavy's
    M131072 E16 F768 and an odd M, beside the port's decomposed path and
    `torch._grouped_mm` twice;
@@ -60,7 +61,8 @@ exits non-zero with no result line:
    JAX's formula, one profiled step;
 11. sft_switched: the sft phase's recipe, seed and data under both
    switches: every step's loss within 2e-2 of the sft run's, the exact
-   launches of #4 and #16 and none of #3 or the "nn" grouped GEMM;
+   launches of the two-pass backward and #16, and none of the grouped
+   backward or the "nn" grouped GEMM;
 12. dsa_kernels: the block-sparse kernels #14 and #15 against their plain
    versions at GLM-5.2's shapes (B1 L16384, 64 heads, D = Dv = 256, blocks
    of 256, 8 slots; five documents and a padded tail; the selection from
@@ -168,7 +170,7 @@ LONGCTX_PEAK_GIB = 78.0
 # sft_switched (the longctx recipe's two switches on the sft recipe) holds
 # every step's loss within SWITCHED_LOSS_ATOL of the sft phase's (the same
 # recipe, seed and data: the fused MLP rounds where the decomposed path
-# does, the two-pass dk/dv sums in another order)
+# does, the two-pass backward sums dk/dv in another order)
 SWITCHED_LOSS_ATOL = 2e-2
 # what may stay allocated between phases (the kernels' small device buffers)
 RELEASED_GIB = 1.0
@@ -238,12 +240,23 @@ def phase_build() -> None:
     for ln in (log.read_text().splitlines() if log.exists() else []):
         if "Compiling entry function" in ln:  # the mangled name, cut to what tells kernels apart
             ptxas.append("kernel " + ln.split("'")[1].split("_cu_")[-1][:60])
-        elif "registers" in ln or "spill" in ln:
+        elif "registers" in ln or "spill" in ln or "C75" in ln:
             ptxas.append(ln.strip())
     say("build", library=so.name, nvcc_s=f"{nvcc_s:.3f}",
         total_s=f"{time.perf_counter() - t0:.3f}")
     for ln in ptxas:
         print(f"[build] ptxas {ln}", flush=True)
+    # the one-pass flash backward: registers and spills of both instantiations
+    # (ptxas) and the dynamic shared memory of one CTA
+    bwd = []
+    for i, ln in enumerate(ptxas):
+        if ln.startswith("kernel") and "flash_bwd_kernel" in ln:
+            after = ptxas[i + 1:i + 3]
+            bwd.append({"two_pass": "ILb1E" in ln,
+                        "registers": next((x for x in after if "registers" in x), "?"),
+                        "spills": next((x for x in after if "spill" in x), "?")})
+    say("build", kernel="flash_bwd", smem_bytes=cuda_lib.load().xt_flash_bwd_smem_bytes(),
+        ptxas=repr(bwd))
 
 
 def phase_kernels(torch, seed: int) -> list[dict]:
@@ -424,6 +437,29 @@ def flash_bytes(q, k, out_like: int = 1) -> int:
     return 2 * b * l * d * (hq + 2 * hkv) + out_like * 2 * b * l * hq * d + 4 * b * hq * l
 
 
+def bwd_bound(q, k, pairs: int, two_pass: bool = False) -> dict:
+    """`least_ms` of the one-pass flash backward: five products, 10 flops
+    per visible (query, key) pair, q head and head dim; q, k, v and do read
+    once (bf16), lse and delta (f32), dq and dk, dv (per q head when
+    two-pass) written once (bf16)."""
+    b, l, hq, d = q.shape
+    ho = hq if two_pass else k.shape[2]
+    nbytes = 2 * b * l * d * (2 * hq + 2 * k.shape[2]) + 8 * b * hq * l \
+        + 2 * b * l * d * (hq + 2 * ho)
+    return least_ms(10 * pairs * hq * d, nbytes, PEAK_BF16)
+
+
+def bwd_rows(path: str, nums: dict, two_pass: bool = False) -> list[dict]:
+    """The kernels line's rows of the one-pass backward, each with the whole
+    kernel's numbers: the grouped instantiation stands for #2 (dq) and #3
+    (grouped dk/dv), the two-pass one for #2 and #4."""
+    name, fn = ("flash_bwd_two_pass", "true") if two_pass else ("flash_bwd", "false")
+    return [{"name": name, "route": "cuda", "source": "xtuner_tpu_torch/csrc/flash_bwd.cu",
+             "function": f"flash_bwd_kernel<{fn}>",
+             "replaces": f"xtuner_tpu/ops/attention/flash.py:{line}", "path": path, **nums}
+            for line in (199, 249 if two_pass else 303)]
+
+
 def grouped_mm_ms(torch, x, w, sizes, kind: str):
     """`torch._grouped_mm` on the grouped GEMMs' inputs: nn, nt (w
     transposed) or dw (x^T dy over ragged rows, bf16 out where the kernel
@@ -565,44 +601,37 @@ def phase_train_kernels(torch, seed: int) -> list[dict]:
 
     do = torch.randn(q.shape, generator=g, device=dev).bfloat16()
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    dq = fl.flash_dq(q, k, v, seg, lse, delta, do, scale)
-    ref = fl.flash_dq_plain(q, k, v, seg, lse, delta, do, scale)
-    dq_err, dq_rel = _abs(dq, ref), _rel(dq, ref)
-    del ref
-    dk, dv = fl.flash_dkv(q, k, v, seg, lse, delta, do, scale)
-    ref_dk, ref_dv = fl.flash_dkv_plain(q, k, v, seg, lse, delta, do, scale)
-    dkv_err = max(_abs(dk, ref_dk), _abs(dv, ref_dv))
-    dkv_rel = max(_rel(dk, ref_dk), _rel(dv, ref_dv))
-    del ref_dk, ref_dv
-    dq_ms = cuda_ms(lambda: fl.flash_dq(q, k, v, seg, lse, delta, do, scale), iters=10)
-    dq_plain = cuda_ms(lambda: fl.flash_dq_plain(q, k, v, seg, lse, delta, do, scale),
-                       iters=3, warmup=1)
-    dkv_ms = cuda_ms(lambda: fl.flash_dkv(q, k, v, seg, lse, delta, do, scale), iters=10)
-    dkv_plain = cuda_ms(lambda: fl.flash_dkv_plain(q, k, v, seg, lse, delta, do, scale),
-                        iters=3, warmup=1)
+    args = (q, k, v, seg, lse, delta, do, scale)
+    got = fl.flash_bwd(*args)
+    ref = fl.flash_bwd_plain(*args)
+    errs = [_abs(t, w) for t, w in zip(got, ref)]
+    rels = [_rel(t, w) for t, w in zip(got, ref)]
+    pad_ok = all(bool((t[seg == 0] == 0).all()) for t in got)
+    del got, ref
+    bwd_ms = cuda_ms(lambda: fl.flash_bwd(*args), iters=10)
+    bwd_plain = cuda_ms(lambda: fl.flash_bwd_plain(*args), iters=3, warmup=1)
     lib_bwd, why_bwd = sdpa_ms(torch, q, k, v, block_causal_mask(torch, seg), do)
-    say("kernel", name="flash_dq", shape=f"B{b}xL{l}xHq{hq}xHkv{hkv}xD{d}",
-        err=f"{dq_err:.3e}", rel=f"{dq_rel:.3e}", ms=f"{dq_ms:.4f}", plain_ms=f"{dq_plain:.4f}")
-    say("kernel", name="flash_dkv", shape=f"B{b}xL{l}xHq{hq}xHkv{hkv}xD{d}",
-        err=f"{dkv_err:.3e}", rel=f"{dkv_rel:.3e}", ms=f"{dkv_ms:.4f}",
-        plain_ms=f"{dkv_plain:.4f}")
+    bwd_b = bwd_bound(q, k, pairs)
+    # whether the grouped grid (one CTA per 128-row k tile, kv head and row)
+    # fills the card at 4 kv heads: the two-pass grid has 8x the CTAs
+    tp_ms = cuda_ms(lambda: fl.flash_bwd(*args, True), iters=10)
+    ctas = -(-l // fl.KEY_TILE) * hkv * b
+    say("kernel", name="flash_bwd", shape=f"B{b}xL{l}xHq{hq}xHkv{hkv}xD{d}",
+        dq_dk_dv_err=",".join(f"{e:.3e}" for e in errs),
+        dq_dk_dv_rel=",".join(f"{r_:.3e}" for r_ in rels), pad_rows_ok=pad_ok,
+        ms=f"{bwd_ms:.4f}", plain_ms=f"{bwd_plain:.4f}", bound_ms=f"{bwd_b['bound_ms']:.4f}",
+        tflops=f"{10 * pairs * hq * d / bwd_ms / 1e9:.1f}", grouped_ctas=ctas,
+        sms=torch.cuda.get_device_properties(0).multi_processor_count,
+        two_pass_ms=f"{tp_ms:.4f}", two_pass_ctas=ctas * (hq // hkv))
     say("kernel", name="library", shape=f"B{b}xL{l}xHq{hq}xHkv{hkv}xD{d}",
         sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd, why=repr(f"{why_fwd}; {why_bwd}"))
-    bwd_in = flash_bytes(q, k, out_like=2) + 4 * b * hq * l  # q, k, v, do; lse, delta
-    if not (dq_rel <= FLASH_GRAD_RTOL and dkv_rel <= FLASH_GRAD_RTOL):
-        raise AssertionError(f"flash backward kernels disagree with their plain versions: "
-                             f"dq {dq_rel}, dk/dv {dkv_rel} (<= {FLASH_GRAD_RTOL})")
-    rows += [{"name": "flash_dq", "route": "cuda", "source": "xtuner_tpu_torch/csrc/flash_bwd.cu",
-              "replaces": "xtuner_tpu/ops/attention/flash.py:199", "path": "train",
-              "max_abs_err": dq_err, "ms": dq_ms, "plain_ms": dq_plain,
-              **least_ms(6 * pairs * hq * d, bwd_in + 2 * b * l * hq * d, PEAK_BF16),
-              "library_ms": lib_bwd},
-             {"name": "flash_dkv", "route": "cuda", "source": "xtuner_tpu_torch/csrc/flash_bwd.cu",
-              "replaces": "xtuner_tpu/ops/attention/flash.py:303", "path": "train",
-              "max_abs_err": dkv_err, "ms": dkv_ms, "plain_ms": dkv_plain,
-              **least_ms(8 * pairs * hq * d, bwd_in + 4 * b * l * hkv * d, PEAK_BF16),
-              "library_ms": lib_bwd}]
-    del q, k, v, do, out, lse, delta, dq, dk, dv
+    if not (max(rels) <= FLASH_GRAD_RTOL and pad_ok):
+        raise AssertionError(f"the flash backward kernel disagrees with its plain version: "
+                             f"dq, dk, dv {rels} (<= {FLASH_GRAD_RTOL}), padding rows ok "
+                             f"{pad_ok}")
+    rows += bwd_rows("train", {"max_abs_err": max(errs), "ms": bwd_ms, "plain_ms": bwd_plain,
+                               **bwd_b, "library_ms": lib_bwd})
+    del q, k, v, do, out, lse, delta, args
 
     # gradients end to end against autograd through the plain forward; the
     # plain backward keeps several (L, L) f32 tensors per head group, so
@@ -815,60 +844,46 @@ def phase_moe_heavy_kernels(torch, seed: int) -> list[dict]:
     del ref_out, ref_lse, lse_t
     do = torch.randn(q.shape, generator=g, device=dev).bfloat16()
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    dq, rdq = (fl.flash_dq(q, k, v, seg, lse, delta, do, scale),
-               fl.flash_dq_plain(q, k, v, seg, lse, delta, do, scale))
-    dq_err, dq_rel = _abs(dq, rdq), _rel(dq, rdq)
-    del dq, rdq
-    (dk, dv), (rdk, rdv) = (fl.flash_dkv(q, k, v, seg, lse, delta, do, scale),
-                            fl.flash_dkv_plain(q, k, v, seg, lse, delta, do, scale))
-    dkv_err = max(_abs(dk, rdk), _abs(dv, rdv))
-    dkv_rel = max(_rel(dk, rdk), _rel(dv, rdv))
-    del dk, dv, rdk, rdv
+    args = (q, k, v, seg, lse, delta, do, scale)
+    got, ref = fl.flash_bwd(*args), fl.flash_bwd_plain(*args)
+    bwd_errs = [_abs(t, w) for t, w in zip(got, ref)]
+    bwd_rels = [_rel(t, w) for t, w in zip(got, ref)]
+    bwd_pad_ok = all(bool((t[~valid] == 0).all()) for t in got)
+    del got, ref
     f_ms = cuda_ms(lambda: fl.flash_attention(q, k, v, seg, max_logit=bound), iters=5)
     f_plain = cuda_ms(lambda: fl.flash_attention_plain(q, k, v, seg, scale, max_free=True),
                       iters=2, warmup=1)
-    dq_ms = cuda_ms(lambda: fl.flash_dq(q, k, v, seg, lse, delta, do, scale), iters=5)
-    dq_plain = cuda_ms(lambda: fl.flash_dq_plain(q, k, v, seg, lse, delta, do, scale),
-                       iters=2, warmup=1)
-    dkv_ms = cuda_ms(lambda: fl.flash_dkv(q, k, v, seg, lse, delta, do, scale), iters=5)
-    dkv_plain = cuda_ms(lambda: fl.flash_dkv_plain(q, k, v, seg, lse, delta, do, scale),
-                        iters=2, warmup=1)
+    bwd_ms = cuda_ms(lambda: fl.flash_bwd(*args), iters=5)
+    bwd_plain = cuda_ms(lambda: fl.flash_bwd_plain(*args), iters=2, warmup=1)
     shape = f"B{b}xL{l}xHq{hq}xHkv{hkv}xD{d}"
+    pairs = causal_pairs(torch, seg)
+    bwd_b = bwd_bound(q, k, pairs)
     say("kernel", name="flash_fwd_max_free", shape=shape, out_err=f"{out_err:.3e}",
         lse_err=f"{lse_err:.3e}", pad_rows_ok=pad_ok, ms=f"{f_ms:.4f}",
         plain_ms=f"{f_plain:.4f}")
-    say("kernel", name="flash_dq", shape=shape, err=f"{dq_err:.3e}", rel=f"{dq_rel:.3e}",
-        ms=f"{dq_ms:.4f}", plain_ms=f"{dq_plain:.4f}")
-    say("kernel", name="flash_dkv", shape=shape, err=f"{dkv_err:.3e}", rel=f"{dkv_rel:.3e}",
-        ms=f"{dkv_ms:.4f}", plain_ms=f"{dkv_plain:.4f}")
-    pairs = causal_pairs(torch, seg)
+    say("kernel", name="flash_bwd", shape=shape,
+        dq_dk_dv_err=",".join(f"{e:.3e}" for e in bwd_errs),
+        dq_dk_dv_rel=",".join(f"{r_:.3e}" for r_ in bwd_rels), pad_rows_ok=bwd_pad_ok,
+        ms=f"{bwd_ms:.4f}", plain_ms=f"{bwd_plain:.4f}", bound_ms=f"{bwd_b['bound_ms']:.4f}",
+        tflops=f"{10 * pairs * hq * d / bwd_ms / 1e9:.1f}")
     lib_fwd, why_fwd = sdpa_ms(torch, q, k, v, block_causal_mask(torch, seg))
     lib_bwd, why_bwd = sdpa_ms(torch, q, k, v, block_causal_mask(torch, seg), do)
     say("kernel", name="library", shape=shape, sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd,
         why=repr(f"{why_fwd}; {why_bwd}"))
-    bwd_in = flash_bytes(q, k, out_like=2) + 4 * b * hq * l
     if not (out_err <= FLASH_OUT_ATOL and lse_err <= FLASH_LSE_ATOL and pad_ok
-            and dq_rel <= FLASH_GRAD_RTOL and dkv_rel <= FLASH_GRAD_RTOL):
+            and max(bwd_rels) <= FLASH_GRAD_RTOL and bwd_pad_ok):
         raise AssertionError(f"flash kernels disagree at {shape}: out {out_err} "
                              f"(<= {FLASH_OUT_ATOL}), lse {lse_err} (<= {FLASH_LSE_ATOL}), "
-                             f"padding rows ok {pad_ok}, dq {dq_rel}, dk/dv {dkv_rel} "
+                             f"padding rows ok {pad_ok}, {bwd_pad_ok}, dq, dk, dv {bwd_rels} "
                              f"(<= {FLASH_GRAD_RTOL})")
     src = "xtuner_tpu_torch/csrc/"
     rows += [{"name": "flash_fwd_max_free", "route": "cuda", "source": src + "flash_fwd.cu",
               "replaces": "xtuner_tpu/ops/attention/flash.py:82", "path": "sft",
               "max_abs_err": max(out_err, lse_err), "ms": f_ms, "plain_ms": f_plain,
-              **least_ms(4 * pairs * hq * d, flash_bytes(q, k), PEAK_BF16), "library_ms": lib_fwd},
-             {"name": "flash_dq", "route": "cuda", "source": src + "flash_bwd.cu",
-              "replaces": "xtuner_tpu/ops/attention/flash.py:199", "path": "sft",
-              "max_abs_err": dq_err, "ms": dq_ms, "plain_ms": dq_plain,
-              **least_ms(6 * pairs * hq * d, bwd_in + 2 * b * l * hq * d, PEAK_BF16),
-              "library_ms": lib_bwd},
-             {"name": "flash_dkv", "route": "cuda", "source": src + "flash_bwd.cu",
-              "replaces": "xtuner_tpu/ops/attention/flash.py:303", "path": "sft",
-              "max_abs_err": dkv_err, "ms": dkv_ms, "plain_ms": dkv_plain,
-              **least_ms(8 * pairs * hq * d, bwd_in + 4 * b * l * hkv * d, PEAK_BF16),
-              "library_ms": lib_bwd}]
-    del q, k, v, do, out, lse, delta
+              **least_ms(4 * pairs * hq * d, flash_bytes(q, k), PEAK_BF16), "library_ms": lib_fwd}]
+    rows += bwd_rows("sft", {"max_abs_err": max(bwd_errs), "ms": bwd_ms, "plain_ms": bwd_plain,
+                             **bwd_b, "library_ms": lib_bwd})
+    del q, k, v, do, out, lse, delta, args
 
     # ---- grouped GEMMs at E16, M = 16384 x top-8, gate|up K1024/N1536 and
     # down K768/N1024
@@ -1445,20 +1460,20 @@ def flash_plain_chunked(torch, q, k, v, seg, lse, delta, do, scale: float, want:
 
 
 def phase_longctx_kernels(torch, seed: int, smi: str) -> list[dict]:
-    """#4 (the two-pass dk/dv) and #16 (the fused MoE MLP) against their
-    plain versions at the shapes their paths give them: #4 at moe_heavy's
-    flash shapes (B2 L8192 Hq16/8, 4 documents per row and a padded tail);
-    at the longctx row's B1 L65536 Hq16/8 on one document, #1's out and
-    lse, #2's dq and #4's dk_h and dv_h against the plain versions run in
-    `PLAIN_CHUNK`-row chunks (`flash_plain_chunked`; the unchunked ones
-    hold (L, L) scores), and #4 with the group sum against #3; #16's
-    forward and backward at the longctx row's M
-    262144 E64 H1024 F128 and moe_heavy's M131072 E16 F768, routed sizes
-    with an empty expert, and at an odd M. Times from CUDA events, bounds,
-    SDPA's causal backward at L65536 as #4's library time; #16 has no
-    library call (none fuses two GEMMs): `torch._grouped_mm` twice with
-    silu * up between them and the port's decomposed path are printed
-    beside it."""
+    """The two-pass flash backward (#2 + #4) and #16 (the fused MoE MLP)
+    against their plain versions at the shapes their paths give them: the
+    backward at moe_heavy's flash shapes (B2 L8192 Hq16/8, 4 documents per
+    row and a padded tail), beside the grouped one; at the longctx row's B1
+    L65536 Hq16/8 on one document, #1's out and lse and both backward
+    instantiations' dq, dk and dv (dk_h and dv_h per q head for two-pass)
+    against the plain versions run in `PLAIN_CHUNK`-row chunks
+    (`flash_plain_chunked`; the unchunked ones hold (L, L) scores); #16's
+    forward and backward at the longctx row's M 262144 E64 H1024 F128 and
+    moe_heavy's M131072 E16 F768, routed sizes with an empty expert, and at
+    an odd M. Times from CUDA events, bounds, SDPA's causal backward at
+    L65536 as the backward's library time; #16 has no library call (none
+    fuses two GEMMs): `torch._grouped_mm` twice with silu * up between them
+    and the port's decomposed path are printed beside it."""
     import numpy as np
 
     from xtuner_tpu_torch.ops import fused_moe_mlp as fm
@@ -1484,46 +1499,44 @@ def phase_longctx_kernels(torch, seed: int, smi: str) -> list[dict]:
         delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
         return q, k, v, out, lse, delta, do
 
-    # ---- #4 against its plain version at moe_heavy's flash shapes
+    # ---- the two-pass backward (#2 + #4) against its plain version at
+    # moe_heavy's flash shapes, beside the grouped one (#2 + #3)
     b, l = SFT_ROWS, SEQ
     seg = torch.cat([_segments(torch, doc_lengths(rng, l, 4, int(rng.integers(50, 300))),
                                l, dev) for _ in range(b)])
     q, k, v, _, lse, delta, do = flash_inputs(b, l, seg)
     args = (q, k, v, seg, lse, delta, do, scale)
-    (dk_h, dv_h), (rdk, rdv) = fl.flash_dkv_two_pass(*args), fl.flash_dkv_two_pass_plain(*args)
-    err = max(_abs(dk_h, rdk), _abs(dv_h, rdv))
-    rel = max(_rel(dk_h, rdk), _rel(dv_h, rdv))
-    pad_ok = bool((dk_h[seg == 0] == 0).all()) and bool((dv_h[seg == 0] == 0).all())
-    del dk_h, dv_h, rdk, rdv
-    ms = cuda_ms(lambda: fl.flash_dkv_two_pass(*args), iters=5)
-    plain = cuda_ms(lambda: fl.flash_dkv_two_pass_plain(*args), iters=2, warmup=1)
-    grouped = cuda_ms(lambda: fl.flash_dkv(*args), iters=5)
+    got, ref = fl.flash_bwd(*args, True), fl.flash_bwd_plain(*args, True)
+    err = max(_abs(t, w) for t, w in zip(got, ref))
+    rel = max(_rel(t, w) for t, w in zip(got, ref))
+    pad_ok = all(bool((t[seg == 0] == 0).all()) for t in got)
+    del got, ref
+    ms = cuda_ms(lambda: fl.flash_bwd(*args, True), iters=5)
+    plain = cuda_ms(lambda: fl.flash_bwd_plain(*args, True), iters=2, warmup=1)
+    grouped = cuda_ms(lambda: fl.flash_bwd(*args), iters=5)
     pairs = causal_pairs(torch, seg)
-    bwd_in = flash_bytes(q, k, out_like=2) + 4 * b * hq * l  # q, k, v, do; lse, delta
-    bound = least_ms(8 * pairs * hq * d, bwd_in + 4 * b * l * hq * d, PEAK_BF16)
+    bound = bwd_bound(q, k, pairs, two_pass=True)
     lib, why = sdpa_ms(torch, q, k, v, block_causal_mask(torch, seg), do)
     shape = f"B{b}xL{l}xHq{hq}xHkv{hkv}xD{d}"
-    say("kernel", name="flash_dkv_two_pass", shape=shape, err=f"{err:.3e}", rel=f"{rel:.3e}",
+    say("kernel", name="flash_bwd_two_pass", shape=shape, err=f"{err:.3e}", rel=f"{rel:.3e}",
         pad_rows_ok=pad_ok, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
-        grouped_dkv_ms=f"{grouped:.4f}", bound_ms=f"{bound['bound_ms']:.4f}",
-        sdpa_bwd_ms=lib, why=repr(why))
+        grouped_ms=f"{grouped:.4f}", bound_ms=f"{bound['bound_ms']:.4f}",
+        sdpa_bwd_ms=lib, why=repr(why), card=repr(smi))
     if not (rel <= FLASH_GRAD_RTOL and pad_ok):
-        raise AssertionError(f"flash_dkv_two_pass disagrees with its plain version at {shape}: "
+        raise AssertionError(f"flash_bwd_two_pass disagrees with its plain version at {shape}: "
                              f"{rel} (<= {FLASH_GRAD_RTOL}), padding rows ok {pad_ok}")
-    rows.append({"name": "flash_dkv_two_pass", "route": "cuda", "source": src + "flash_bwd.cu",
-                 "replaces": "xtuner_tpu/ops/attention/flash.py:249", "path": "sft_switched",
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain, **bound, "library_ms": lib})
+    rows += bwd_rows("sft_switched", {"max_abs_err": err, "ms": ms, "plain_ms": plain, **bound,
+                                      "library_ms": lib}, two_pass=True)
     del q, k, v, lse, delta, do, args
 
-    # ---- #1, #2 and #4 at the longctx row's shapes against their plain
-    # versions in 1024-row chunks, and #4 + the group sum against #3
+    # ---- #1 and both backward variants at the longctx row's shapes against
+    # the plain versions in 1024-row chunks
     b, l = 1, LONGCTX_SEQ
     seg = torch.ones((b, l), dtype=torch.int32, device=dev)
     q, k, v, out, lse, delta, do = flash_inputs(b, l, seg)
     args = (q, k, v, seg, lse, delta, do, scale)
     shape = f"B{b}xL{l}xHq{hq}xHkv{hkv}xD{d}"
     pairs = causal_pairs(torch, seg)
-    bwd_in = flash_bytes(q, k, out_like=2) + 4 * b * hq * l
     lib, why = sdpa_causal_ms(torch, q, k, v, do, iters=2)
     lib_fwd, why_fwd = sdpa_causal_ms(torch, q, k, v, iters=2)
     heads_first = lambda t: t[0].transpose(0, 1)  # (B, L, H, D) -> (H, L, D)
@@ -1533,63 +1546,61 @@ def phase_longctx_kernels(torch, seed: int, smi: str) -> list[dict]:
     fwd_rel, fwd_err = _rel_rows(heads_first(out), ref_out), _abs(heads_first(out), ref_out)
     lse_err = _abs(lse[0], ref_lse)
     del ref_out, ref_lse
-    dq = fl.flash_dq(*args)
     ref_dq, dq_plain = timed_once(torch, lambda: flash_plain_chunked(torch, *args, "dq"))
-    dq_rel, dq_err = _rel_rows(heads_first(dq), ref_dq), _abs(heads_first(dq), ref_dq)
-    del dq, ref_dq
-    dk_h, dv_h = fl.flash_dkv_two_pass(*args)
     (ref_dk, ref_dv), dkv_plain = timed_once(torch, lambda: flash_plain_chunked(
         torch, *args, "dkv"))
-    tp_rel = max(_rel_rows(heads_first(dk_h), ref_dk), _rel_rows(heads_first(dv_h), ref_dv))
-    tp_err = max(_abs(heads_first(dk_h), ref_dk), _abs(heads_first(dv_h), ref_dv))
-    del ref_dk, ref_dv
-    dk, dv = fl.group_sum(dk_h, hkv, k.dtype), fl.group_sum(dv_h, hkv, v.dtype)
-    rdk, rdv = fl.flash_dkv(*args)
-    rel = max(_rel(dk, rdk), _rel(dv, rdv))
-    del dk, dv, rdk, rdv
+    # the grouped outputs against the plain per-q-head ones summed over each group
+    ref_group = [heads_first(fl.group_sum(t.transpose(0, 1)[None], hkv, torch.float32))
+                 for t in (ref_dk, ref_dv)]
+    res = {}
+    for variant, two_pass in (("grouped", False), ("two_pass", True)):
+        dq, dk, dv = fl.flash_bwd(*args, two_pass)
+        want = (ref_dq, ref_dk, ref_dv) if two_pass else (ref_dq, *ref_group)
+        got = [heads_first(t) for t in (dq, dk, dv)]
+        res[variant] = ([_rel_rows(t, w) for t, w in zip(got, want)],
+                        max(_abs(t, w) for t, w in zip(got, want)))
+        del dq, dk, dv, got
+    del ref_dq, ref_dk, ref_dv, ref_group
     say("kernel", name="flash_plain_chunked", shape=shape, docs=1, rows_per_chunk=PLAIN_CHUNK,
-        out_rel=f"{fwd_rel:.3e}", lse_err=f"{lse_err:.3e}", dq_rel=f"{dq_rel:.3e}",
-        dkv_two_pass_rel=f"{tp_rel:.3e}", dkv_two_pass_vs_grouped_rel=f"{rel:.3e}",
+        out_rel=f"{fwd_rel:.3e}", lse_err=f"{lse_err:.3e}",
+        grouped_dq_dk_dv_rel=",".join(f"{r_:.3e}" for r_ in res["grouped"][0]),
+        two_pass_dq_dk_dv_rel=",".join(f"{r_:.3e}" for r_ in res["two_pass"][0]),
         fwd_plain_ms=f"{fwd_plain:.1f}", dq_plain_ms=f"{dq_plain:.1f}",
         dkv_plain_ms=f"{dkv_plain:.1f}")
+    worst = max(max(res["grouped"][0]), max(res["two_pass"][0]))
     if not (fwd_rel <= FLASH_GRAD_RTOL and lse_err <= FLASH_LSE_ATOL and
-            dq_rel <= FLASH_GRAD_RTOL and tp_rel <= FLASH_GRAD_RTOL and rel <= FLASH_GRAD_RTOL):
-        raise AssertionError(f"flash kernels disagree at {shape}: out {fwd_rel}, dq {dq_rel}, "
-                             f"two-pass dk/dv {tp_rel}, two-pass + group sum vs grouped {rel} "
-                             f"(<= {FLASH_GRAD_RTOL}); lse {lse_err} (<= {FLASH_LSE_ATOL})")
+            worst <= FLASH_GRAD_RTOL):
+        raise AssertionError(f"flash kernels disagree at {shape}: out {fwd_rel}, backward "
+                             f"{res} (<= {FLASH_GRAD_RTOL}); lse {lse_err} (<= {FLASH_LSE_ATOL})")
 
     bound = torch.tensor(d ** 0.5, device=dev)
     fwd_ms = cuda_ms(lambda: fl.flash_attention(q, k, v, seg, max_logit=bound), iters=2,
                      warmup=1)
-    dq_ms = cuda_ms(lambda: fl.flash_dq(*args), iters=2, warmup=1)
-    ms = cuda_ms(lambda: fl.flash_dkv_two_pass(*args), iters=2, warmup=1)
+    tp_ms = cuda_ms(lambda: fl.flash_bwd(*args, True), iters=2, warmup=1)
+    dk_h, dv_h = fl.flash_bwd(*args, True)[1:]
     sum_ms = cuda_ms(lambda: (fl.group_sum(dk_h, hkv, k.dtype), fl.group_sum(dv_h, hkv, v.dtype)),
                      iters=3, warmup=1)
-    grouped = cuda_ms(lambda: fl.flash_dkv(*args), iters=2, warmup=1)
     del dk_h, dv_h
-    tp_bound = least_ms(8 * pairs * hq * d, bwd_in + 4 * b * l * hq * d, PEAK_BF16)
-    say("kernel", name="flash_dkv_two_pass", shape=shape, docs=1, ms=f"{ms:.3f}",
-        plain_ms=f"{dkv_plain:.3f}", group_sum_ms=f"{sum_ms:.3f}",
-        grouped_dkv_ms=f"{grouped:.3f}", bound_ms=f"{tp_bound['bound_ms']:.3f}",
-        tflops=f"{8 * pairs * hq * d / ms / 1e9:.1f}", sdpa_causal_bwd_ms=lib,
-        flash_fwd_ms=f"{fwd_ms:.3f}", flash_dq_ms=f"{dq_ms:.3f}",
-        sdpa_causal_fwd_ms=lib_fwd, why=repr(f"{why}; {why_fwd}"), card=repr(smi))
+    gr_ms = cuda_ms(lambda: fl.flash_bwd(*args), iters=2, warmup=1)
+    tp_bound, gr_bound = bwd_bound(q, k, pairs, two_pass=True), bwd_bound(q, k, pairs)
+    say("kernel", name="flash_bwd", shape=shape, docs=1, grouped_ms=f"{gr_ms:.3f}",
+        two_pass_ms=f"{tp_ms:.3f}", group_sum_ms=f"{sum_ms:.3f}",
+        grouped_bound_ms=f"{gr_bound['bound_ms']:.3f}",
+        two_pass_bound_ms=f"{tp_bound['bound_ms']:.3f}",
+        grouped_tflops=f"{10 * pairs * hq * d / gr_ms / 1e9:.1f}",
+        two_pass_tflops=f"{10 * pairs * hq * d / tp_ms / 1e9:.1f}",
+        sdpa_causal_bwd_ms=lib, flash_fwd_ms=f"{fwd_ms:.3f}", sdpa_causal_fwd_ms=lib_fwd,
+        why=repr(f"{why}; {why_fwd}"), card=repr(smi))
     plain_note = f"the plain version in {PLAIN_CHUNK}-row chunks (its (L, L) scores do not fit)"
-    rows += [{"name": "flash_fwd_max_free", "route": "cuda", "source": src + "flash_fwd.cu",
-              "replaces": "xtuner_tpu/ops/attention/flash.py:82", "path": "longctx",
-              "max_abs_err": max(fwd_err, lse_err),
-              "ms": fwd_ms, "plain_ms": fwd_plain, "plain_is": plain_note,
-              **least_ms(4 * pairs * hq * d, flash_bytes(q, k), PEAK_BF16),
-              "library_ms": lib_fwd},
-             {"name": "flash_dq", "route": "cuda", "source": src + "flash_bwd.cu",
-              "replaces": "xtuner_tpu/ops/attention/flash.py:199", "path": "longctx",
-              "max_abs_err": dq_err, "ms": dq_ms, "plain_ms": dq_plain, "plain_is": plain_note,
-              **least_ms(6 * pairs * hq * d, bwd_in + 2 * b * l * hq * d, PEAK_BF16),
-              "library_ms": lib},
-             {"name": "flash_dkv_two_pass", "route": "cuda", "source": src + "flash_bwd.cu",
-              "replaces": "xtuner_tpu/ops/attention/flash.py:249", "path": "longctx",
-              "max_abs_err": tp_err, "ms": ms, "plain_ms": dkv_plain, "plain_is": plain_note,
-              **tp_bound, "library_ms": lib}]
+    rows.append({"name": "flash_fwd_max_free", "route": "cuda", "source": src + "flash_fwd.cu",
+                 "replaces": "xtuner_tpu/ops/attention/flash.py:82", "path": "longctx",
+                 "max_abs_err": max(fwd_err, lse_err),
+                 "ms": fwd_ms, "plain_ms": fwd_plain, "plain_is": plain_note,
+                 **least_ms(4 * pairs * hq * d, flash_bytes(q, k), PEAK_BF16),
+                 "library_ms": lib_fwd})
+    rows += bwd_rows("longctx", {"max_abs_err": res["two_pass"][1], "ms": tp_ms,
+                                 "plain_ms": dq_plain + dkv_plain, "plain_is": plain_note,
+                                 **tp_bound, "library_ms": lib}, two_pass=True)
     del q, k, v, out, lse, delta, do, args
 
     # ---- #16, forward and backward, at the longctx and moe_heavy shapes
@@ -1731,12 +1742,12 @@ def phase_longctx(torch, seed: int, smi: str) -> dict:
         peak = torch.cuda.max_memory_allocated() / 2**30
         layers, steps = cfg.num_hidden_layers, LONGCTX_STEPS
         # per layer and step: the flash forward once (never re-run: its out
-        # and lse are kept), dq and the two-pass dk/dv once, the fused MLP
+        # and lse are kept), the two-pass backward once, the fused MLP
         # in the forward and in post's recompute, its backward's two "nt"
         # and two wgrads; the fused CE once each
         want = {name: 0 for name in launches}
-        want.update(flash_fwd_max_free=layers * steps, flash_dq=layers * steps,
-                    flash_dkv_two_pass=layers * steps, fused_moe_mlp=2 * layers * steps,
+        want.update(flash_fwd_max_free=layers * steps, flash_bwd_two_pass=layers * steps,
+                    fused_moe_mlp=2 * layers * steps,
                     grouped_gemm_nt=2 * layers * steps, grouped_gemm_dw=2 * layers * steps,
                     ce_fwd=steps, ce_dh=steps, ce_dw=steps)
         steady = [dt for _, dt in hist[1:]]
@@ -1966,8 +1977,8 @@ def train_launches(torch) -> dict:
 
     return {"flash_fwd": fl.flash_attention.launches - fl.max_free_launches(),
             "flash_fwd_max_free": fl.max_free_launches(),
-            "flash_dq": fl.flash_dq.launches, "flash_dkv": fl.flash_dkv.launches,
-            "flash_dkv_two_pass": fl.flash_dkv_two_pass.launches,
+            "flash_bwd": fl.flash_bwd.launches["grouped"],
+            "flash_bwd_two_pass": fl.flash_bwd.launches["two_pass"],
             "fused_moe_mlp": fused_moe_mlp_fwd.launches,
             "grouped_gemm_nn": grouped_gemm_bf16.launches["nn"],
             "grouped_gemm_nt": grouped_gemm_bf16.launches["nt"],
@@ -2038,8 +2049,8 @@ def phase_train(torch, seed: int, smi: str) -> dict:
             peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}")
     launches = train_launches(torch)
     per = TRAIN_LAYERS * TRAIN_STEPS
-    want = {"flash_fwd": 0, "flash_fwd_max_free": 2 * per, "flash_dq": per, "flash_dkv": per,
-            "flash_dkv_two_pass": 0, "fused_moe_mlp": 0,
+    want = {"flash_fwd": 0, "flash_fwd_max_free": 2 * per, "flash_bwd": per,
+            "flash_bwd_two_pass": 0, "fused_moe_mlp": 0,
             "grouped_gemm_nn": 4 * per, "grouped_gemm_nt": 2 * per,
             "grouped_gemm_dw": 2 * per, "ce_fwd": 0, "ce_dh": 0, "ce_dw": 0,
             "fp8_gemm": 0, "fp8_grouped_gemm": 0, "fp8_grouped_dw": 0,
@@ -2156,11 +2167,11 @@ def _sft_run(torch, smi: str, breakdown: bool, fp8_ref_loss1, switched_ref):
         # experts: gate|up and down forward, recompute and backward; fp8:
         # q, k, v and o forward and recompute (8 of #11), gate, up and down
         # forward, recompute and dgrad (9 of #12), their wgrads (3 of #13);
-        # switched: the two-pass dk/dv in place of the grouped one, the
+        # switched: the two-pass backward in place of the grouped one, the
         # fused MLP (forward and recompute) in place of the nn GEMMs
-        want = {"flash_fwd": 0, "flash_fwd_max_free": per, "flash_dq": per,
-                "flash_dkv": 0 if switched else per,
-                "flash_dkv_two_pass": per if switched else 0,
+        want = {"flash_fwd": 0, "flash_fwd_max_free": per,
+                "flash_bwd": 0 if switched else per,
+                "flash_bwd_two_pass": per if switched else 0,
                 "fused_moe_mlp": 2 * per if switched else 0,
                 "grouped_gemm_nn": 0 if fp8 or switched else 4 * per,
                 "grouped_gemm_nt": 0 if fp8 else 2 * per,

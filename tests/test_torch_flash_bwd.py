@@ -2,12 +2,12 @@
 backward, against the JAX package's Pallas kernels.
 
 On the CPU the port's kernel wrappers run their plain PyTorch versions (the
-forward in both variants, dq and the grouped dk/dv formulas); the JAX
-kernels run in interpret mode with 64-row blocks, as the JAX package's own
-flash tests run them. Inputs are numpy arrays from a seed, in fp32, L = 256
-(four blocks), with packed documents and a padded tail. The two sides
-differ only in summation order and exp vs exp2: tolerance 1e-5, absolute
-and relative.
+forward in both variants; the backward's dq with the grouped or the
+per-q-head dk/dv formulas); the JAX kernels run in interpret mode with
+64-row blocks, as the JAX package's own flash tests run them. Inputs are
+numpy arrays from a seed, in fp32, L = 256 (four blocks), with packed
+documents and a padded tail. The two sides differ only in summation order
+and exp vs exp2: tolerance 1e-5, absolute and relative.
 """
 
 import jax
@@ -16,11 +16,23 @@ import numpy as np
 import pytest
 import torch
 
+from xtuner_tpu.ops.attention import flash as jflash
 from xtuner_tpu.ops.attention.flash import flash_attention as j_flash
 from xtuner_tpu_torch.ops.attention import flash as tflash
 
 TOL = 1e-5
 BLOCK = 64
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's tiny CPU ops: many threads
+    gain nothing at these sizes and stall badly when several test
+    processes share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _t(a):
@@ -91,23 +103,74 @@ def test_grads_match_jax(b, hq, hkv, docs, max_logit):
     assert (leaves[0].grad.numpy()[seg == 0] == 0).all()
 
 
-def test_backward_launches_dq_and_dkv_wrappers_once():
+def test_backward_launches_dq_and_dkv_wrappers_once(monkeypatch):
+    """Each flash call's backward calls the one backward wrapper once, with
+    the variant `XTUNER_ATTN_BWD` selects; CPU tensors count no launch."""
     q, k, v, seg = _packed(1, 128, 4, 2, 2, seed=5)
-    tflash.reset_launches()
-    leaves = [_t(x).requires_grad_(True) for x in (q, k, v)]
     calls = []
-    orig_dq, orig_dkv = tflash.flash_dq, tflash.flash_dkv
-    try:
-        tflash.flash_dq = lambda *a: calls.append("dq") or orig_dq(*a)
-        tflash.flash_dkv = lambda *a: calls.append("dkv") or orig_dkv(*a)
-        out, _ = tflash.flash_attention(*leaves, _t(seg))
-        out.sum().backward()
-    finally:
-        tflash.flash_dq, tflash.flash_dkv = orig_dq, orig_dkv
-    assert calls == ["dq", "dkv"]
-    # CPU tensors run the plain versions: no kernel launch is counted
-    assert (tflash.flash_attention.launches, tflash.flash_dq.launches,
-            tflash.flash_dkv.launches) == (0, 0, 0)
+    orig = tflash.flash_bwd
+    monkeypatch.setattr(tflash, "flash_bwd",
+                        lambda *a: calls.append(a[-1]) or orig(*a))
+    for switch, two_pass in (("grouped", False), ("two_pass", True)):
+        monkeypatch.setenv("XTUNER_ATTN_BWD", switch)
+        tflash.reset_launches()
+        calls.clear()
+        for _ in range(2):  # two flash calls, one backward launch each
+            leaves = [_t(x).requires_grad_(True) for x in (q, k, v)]
+            out, _ = tflash.flash_attention(*leaves, _t(seg))
+            out.sum().backward()
+            assert all(t.grad is not None for t in leaves)
+        assert calls == [two_pass, two_pass]
+        # CPU tensors run the plain versions: no kernel launch is counted
+        assert tflash.flash_attention.launches == 0
+        assert tflash.flash_bwd.launches == {"grouped": 0, "two_pass": 0}
+
+
+def _docs_with_a_short_one(b, l, hq, hkv, seed, d=128):
+    """Packed rows whose first document is shorter than one 64-row block,
+    with a padded tail."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, l, hq, d), dtype=np.float32)
+    k = rng.standard_normal((b, l, hkv, d), dtype=np.float32)
+    v = rng.standard_normal((b, l, hkv, d), dtype=np.float32)
+    seg = np.zeros((b, l), np.int32)
+    for bi in range(b):
+        bounds = [0, int(rng.integers(20, 60)), int(rng.integers(100, 160)), l - 27]
+        for si in range(len(bounds) - 1):
+            seg[bi, bounds[si]:bounds[si + 1]] = si + 1
+    return q, k, v, seg
+
+
+@pytest.mark.parametrize("variant", ["grouped", "two_pass"])
+@pytest.mark.parametrize("hq,hkv", [(2, 2), (4, 2), (8, 2)])  # GQA ratios 1, 2, 4
+def test_flash_bwd_matches_jax_bwd_rule(monkeypatch, variant, hq, hkv):
+    """`flash_bwd` (then the group sum for two-pass) against JAX's
+    `_flash_bwd_rule` with the same `ATTN_BWD`, both from JAX's forward
+    residuals."""
+    monkeypatch.setattr(jflash, "ATTN_BWD", variant)
+    q, k, v, seg = _docs_with_a_short_one(1, 256, hq, hkv, seed=30 + hq)
+    g = np.random.default_rng(31).standard_normal(q.shape, dtype=np.float32)
+    scale = 128 ** -0.5
+    heads_first = lambda a: jnp.asarray(np.ascontiguousarray(a.transpose(0, 2, 1, 3)))
+    jq, jk, jv, jg, jseg = (heads_first(q), heads_first(k), heads_first(v), heads_first(g),
+                            jnp.asarray(seg))
+    out, lse = jflash._flash_forward(jq, jk, jv, jseg, None, None, scale, True, None,
+                                     BLOCK, BLOCK, True)
+    want = jflash._flash_bwd_rule(scale, True, None, BLOCK, BLOCK, True, 0,
+                                  (jq, jk, jv, jseg, None, out, lse), jg)[:3]
+    do = _t(g)
+    delta = (do * _t(out).transpose(1, 2)).sum(-1).transpose(1, 2).contiguous()
+    got = tflash.flash_bwd(_t(q), _t(k), _t(v), _t(seg), _t(lse), delta, do, scale,
+                           variant == "two_pass")
+    if variant == "two_pass":
+        assert got[1].shape == got[2].shape == q.shape
+        got = (got[0], *(tflash.group_sum(t, hkv, t.dtype) for t in got[1:]))
+    for t, w, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(t.numpy(), np.asarray(w).transpose(0, 2, 1, 3),
+                                   atol=TOL, rtol=TOL, err_msg=f"d{name}")
+    # padding rows get exactly zero gradient
+    for t in got:
+        assert (t.numpy()[seg == 0] == 0).all()
 
 
 def test_unported_options_raise():

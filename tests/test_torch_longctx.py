@@ -106,16 +106,15 @@ def test_two_pass_grads_match_jax(monkeypatch, b, hq, hkv, docs, max_logit):
                                                         jnp.asarray(v))
     leaves = [_t(x).requires_grad_(True) for x in (q, k, v)]
     calls = []
-    orig = tflash.flash_dkv_two_pass
-    monkeypatch.setattr(tflash, "flash_dkv_two_pass",
-                        lambda *a: calls.append("two_pass") or orig(*a))
-    monkeypatch.setattr(tflash, "flash_dkv", lambda *a: calls.append("grouped"))
+    orig = tflash.flash_bwd
+    monkeypatch.setattr(tflash, "flash_bwd",
+                        lambda *a: calls.append("two_pass" if a[-1] else "grouped") or orig(*a))
     tflash.reset_launches()
     tml = None if max_logit is None else torch.tensor(max_logit)
     out, _ = tflash.flash_attention(*leaves, _t(seg), max_logit=tml)
     (out * _t(co)).sum().backward()
     assert calls == ["two_pass"]
-    assert tflash.flash_dkv_two_pass.launches == 0  # CPU tensors: the plain version
+    assert tflash.flash_bwd.launches["two_pass"] == 0  # CPU tensors: the plain version
     for got, w, name in zip(leaves, want, "qkv"):
         np.testing.assert_allclose(got.grad.numpy(), np.asarray(w), atol=TOL, rtol=TOL,
                                    err_msg=f"d{name}")
@@ -126,9 +125,9 @@ def test_the_switch_is_read_when_the_forward_runs(monkeypatch):
     q, k, v, seg = _packed(1, 128, 4, 2, 2, seed=5)
     leaves = [_t(x).requires_grad_(True) for x in (q, k, v)]
     calls = []
-    orig = tflash.flash_dkv_two_pass
-    monkeypatch.setattr(tflash, "flash_dkv_two_pass",
-                        lambda *a: calls.append("two_pass") or orig(*a))
+    orig = tflash.flash_bwd
+    monkeypatch.setattr(tflash, "flash_bwd",
+                        lambda *a: calls.append("two_pass" if a[-1] else "grouped") or orig(*a))
     monkeypatch.setenv("XTUNER_ATTN_BWD", "anything but grouped")
     out, _ = tflash.flash_attention(*leaves, _t(seg))
     monkeypatch.setenv("XTUNER_ATTN_BWD", "grouped")

@@ -1,465 +1,665 @@
-// Causal GQA flash-attention backward over packed rows, for Hopper (sm_90a).
+// Causal GQA flash-attention backward over packed rows, for Hopper (sm_90a):
+// one pass that computes p and ds once per (k tile, q tile) pair and feeds
+// dq, dk and dv from them, on wgmma with a TMA ring.
 //
 // Replaces three TPU kernels of xtuner_tpu/ops/attention/flash.py:
-// - _dq_kernel (pallas_call in _flash_bwd_rule): dq from q, k, v, do, lse
-//   and delta = rowsum(do * out);
+// - _dq_kernel (the dq pallas_call in _flash_bwd_rule);
 // - _dkv_grouped_kernel (pallas_call in _grouped_dkv): dk and dv of one kv
-//   head, summed over its whole q-head group;
-// - _dkv_kernel (the two-pass pallas_call in _flash_bwd_rule,
-//   XTUNER_ATTN_BWD=two_pass): dk_h and dv_h of one q head, (B, L, Hq, D);
-//   the wrapper sums each group afterwards, as JAX does outside its kernel.
-// Layouts as the forward (csrc/flash_fwd.cu): q, do, dq (B, L, Hq, D);
-// k, v, dk, dv (B, L, Hkv, D), all bf16; lse, delta (B, Hq, L) f32;
-// segment_ids (B, L) int32, 0 = padding. Key m is visible to query l iff
-// seg[l] == seg[m] != 0 and m <= l. For every visible pair:
+//   head, summed over its q-head group (the default, TWO_PASS = false);
+// - _dkv_kernel (the two-pass pallas_call, XTUNER_ATTN_BWD=two_pass): dk_h
+//   and dv_h of one q head to (B, L, Hq, D) (TWO_PASS = true); the wrapper
+//   sums each group afterwards, as JAX does outside its kernel.
+// Layouts as the forward (csrc/flash_fwd.cu): q, do (B, L, Hq, D); k, v
+// (B, L, Hkv, D), all bf16. The wrapper pads lse, delta (B, Hq, Lp) f32 and
+// segment_ids (B, Lp) int32 (0 = padding) to Lp, a multiple of 128, and
+// passes a table of (B, Lp / 64) 64-row tiles {lowest non-zero segment id,
+// highest, the id if the tile holds one document and no padding else 0}.
+// Key m is visible to query l iff seg[l] == seg[m] != 0 and m <= l. For
+// every visible pair:
 //   p  = exp2(s * scale * log2e - lse * log2e)     (s = q.k)
 //   dp = do . v;  ds = p * (dp - delta)
-//   dq += ds k;   dk += ds q;   dv += p do;   dq, dk scaled by `scale` at the end.
-// Padding rows have lse = 1e30 and are masked, so p = 0 for them.
+//   dq += ds k;   dk += ds q;   dv += p do;   dq, dk scaled by `scale`.
+// Padding rows have seg 0: p = ds = 0 there, so they add exactly nothing
+// and their dq, dk and dv rows are exactly zero.
 //
-// What bounds it on the H100: 2.5x the forward's FLOPs (five L^2-sized
-// products instead of two) with the same WMMA tiles, so issue and
-// shared-memory traffic bound it as they bound the forward; HBM traffic is
-// small (each q/do tile is re-read once per k tile and vice versa).
+// What bounds it on the H100: five L^2-sized bf16 products (s, dp, dv, dk,
+// dq: 10 flops per visible pair and head dim) at 989 TFLOP/s; HBM traffic
+// is small beside them.
 //
-// Design (simple and right first; wgmma/TMA later):
-// - dq: one CTA of 4 warps per (64-row q tile, q head, batch row), kv head
-//   h / (Hq / Hkv). It walks the k tiles up to the causal limit, skipping
-//   tiles whose segment range cannot meet the q tile's; each warp owns 16 q
-//   rows and keeps its 16 x 128 dq in WMMA accumulators (registers).
-// - dk/dv: one CTA per (64-row k tile, kv head, batch row). A loop inside
-//   the CTA replaces the TPU's sequential grid axes (g, i): it walks the
-//   `ratio` q heads of the group and, for each, the q tiles from the
-//   causal start to the end. dk and dv accumulate in registers (each warp
-//   owns 16 key rows) and are written once: no atomics and no
-//   (B, Hq, L, D) temporaries.
-// - two-pass dk/dv: the same kernel body (a template flag) with the group
-//   loop lifted into the grid: one CTA per (64-row k tile, q head, batch
-//   row) walks that head's q tiles and writes its own dk_h, dv_h. It does
-//   the grouped kernel's arithmetic on `ratio` times as many CTAs; what it
-//   adds is traffic: k and v are read once per q head, and 2 (B, L, Hq, D)
-//   bf16 partials are written (and read back by the group sum). The TPU
-//   kernel's index-map clamps (jnp.maximum(i, j)) only kept its DMA in
-//   range on skipped grid steps; here the loop starts at the causal tile.
-// - The causal work is uneven (k tile 0 sees every q tile, the last k tile
-//   one; q tile i sees i + 1 k tiles). The 1-D grid puts the longest CTAs
-//   first, so the short ones fill in behind them.
-// - head_dim 128 only (the wrapper raises on any other).
+// Design:
+// - One CTA of two warpgroups per (128-row k tile, kv head, batch row)
+//   (grouped) or per (128-row k tile, q head, batch row) (two-pass). Each
+//   warpgroup owns 64 key rows and keeps their 64 x 128 dK and dV in f32
+//   registers for the whole CTA; they are written once, dK times `scale`.
+// - K and V stay resident (32 KB each). A 2-stage ring holds q tiles (64
+//   rows of Q and dO by TMA; lse, delta and segment ids by bulk copy), with
+//   a full and an empty mbarrier per stage. Thread 0 issues every load: the
+//   first two steps before the loop, then at the top of step t the loads of
+//   step t + 1 into the stage step t - 1 freed.
+// - The CTA walks the `ratio` q heads of its group (one head when
+//   two-pass) and, for each, the q tiles from the k tile's diagonal to the
+//   last tile whose segment range meets the k tile's (the end of its last
+//   document), which warp 0 finds once through the tile table, 32 tiles at
+//   a time from the end of the row. No step outside that range costs a load
+//   or a barrier.
+// - Per step, each warpgroup: S^T = K Q^T and dP^T = V dO^T on wgmma
+//   (m64n64k16, both operands in shared memory); P^T and dS^T in registers
+//   in the accumulator layout (the per-element mask only on pairs that
+//   straddle the diagonal, a document boundary or padding: JAX _tile_full);
+//   dV += P^T dO and dK += dS^T Q on wgmma with A from those registers
+//   (m64n128k16). dS^T also goes to shared memory (two buffers, so one
+//   barrier per step orders the warpgroups), and dQ = dS K (each
+//   warpgroup 64 of the 128 columns, m64n64k16, both operands transposed)
+//   goes by one bulk reduce-add per warpgroup (cp.reduce.async.bulk .add.f32,
+//   16 KB) into a zeroed f32 accumulator, times `scale`; the wrapper puts
+//   it in (B, L, Hq, D) order as bf16.
+// - Shared-memory tiles are 128-byte swizzled 64-column halves, as TMA
+//   writes them and wgmma descriptors read them: the same Q and dO tiles
+//   are K-major operands of S^T / dP^T and MN-major ones of dV / dK.
+// - Registers: 256 threads, so ptxas may give each up to 255. A producer
+//   warpgroup with setmaxnreg (384 threads) was tried first: ptxas then
+//   allocates every region within the launch bound's 168 registers,
+//   whatever setmaxnreg asks, so the consumers spilled ~1.5 KB and ptxas
+//   serialized every wgmma (C7512).
+// - TMA descriptors: cuTensorMapEncodeTiled, taken from the driver through
+//   cudaGetDriverEntryPoint(ByVersion), so the library is not linked
+//   against libcuda.
+// - Load balance: the 1-D grid puts k tile 0 (the longest walk) first.
+// - Determinism: dk and dv are summed in a fixed order. dq's sum over k
+//   tiles goes through bulk reduce-adds, whose order changes from run to
+//   run, so dq is not bitwise reproducible between two runs (it agrees to
+//   rounding).
+// - Head dim 128 and causal only (anything else returns an error).
+// - ptxas (nvcc -Xptxas -v, sm_90a), both instantiations: 255 registers,
+//   0 bytes of spills; 200,248 bytes of dynamic shared memory (one CTA per SM).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-using namespace nvcuda;
 
 namespace {
 
 constexpr int D = 128;
-constexpr int BT = 64;  // q tile rows == k tile rows
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-// padded leading dimensions (elements); every 16-row fragment start stays
-// 32-byte aligned, as WMMA loads require
-constexpr int LDH = D + 8;   // bf16 q/k/v/do tiles
-constexpr int LDS = BT + 4;  // f32 score tiles
-constexpr int LDP = BT + 8;  // bf16 p / ds tiles
-constexpr int LDO = D + 4;   // f32 staging of the outputs
+constexpr int BK = 128;  // key rows per CTA: two warpgroups of 64
+constexpr int BQ = 64;   // query rows per ring stage
+constexpr int STAGES = 2;
+constexpr int NTHREADS = 256;  // two warpgroups
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr long long WATCHDOG_CYCLES = 1ll << 35;  // ~17 s: trap rather than hang
 
-constexpr size_t H_TILE = sizeof(__nv_bfloat16) * BT * LDH;
-constexpr size_t S_TILE = sizeof(float) * BT * LDS;
-constexpr size_t P_TILE = sizeof(__nv_bfloat16) * BT * LDP;
-static_assert(2 * S_TILE >= sizeof(float) * BT * LDO, "staging fits the score tiles");
+// shared memory, in bytes from a 1024-aligned base; a tile is two 64-column
+// halves of 128-byte rows, swizzled in 1024-byte atoms
+constexpr uint32_t HALF_K = BK * 128;  // 16 KB
+constexpr uint32_t HALF_Q = BQ * 128;  // 8 KB
+constexpr uint32_t OFF_K = 0;
+constexpr uint32_t OFF_V = OFF_K + 2 * HALF_K;
+constexpr uint32_t OFF_RING = OFF_V + 2 * HALF_K;
+constexpr uint32_t ST_Q = 0;
+constexpr uint32_t ST_DO = ST_Q + 2 * HALF_Q;
+constexpr uint32_t ST_LSE = ST_DO + 2 * HALF_Q;
+constexpr uint32_t ST_DELTA = ST_LSE + BQ * 4;
+constexpr uint32_t ST_SEG = ST_DELTA + BQ * 4;
+constexpr uint32_t STAGE_BYTES = (ST_SEG + BQ * 4 + 1023) / 1024 * 1024;
+constexpr uint32_t OFF_DS = OFF_RING + STAGES * STAGE_BYTES;
+constexpr uint32_t DS_BYTES = BK * 128;  // dS^T: 128 key rows x 64 q columns
+constexpr uint32_t OFF_STG = OFF_DS + 2 * DS_BYTES;  // dQ staging, 16 KB per warpgroup
+constexpr uint32_t STG_BYTES = 64 * 64 * 4;
+constexpr uint32_t OFF_KSEG = OFF_STG + 2 * STG_BYTES;
+constexpr uint32_t OFF_RANGE = OFF_KSEG + BK * 4;  // first q tile, q tiles per head
+constexpr uint32_t OFF_BAR = OFF_RANGE + 16;
+constexpr uint32_t SMEM_BYTES = OFF_BAR + 8 * (2 * STAGES + 1) + 1024;  // + alignment slack
+constexpr uint32_t STAGE_TX = 4 * HALF_Q + 3 * BQ * 4;
+constexpr uint32_t KV_TX = 4 * HALF_K + BK * 4;
+static_assert(SMEM_BYTES <= 232448, "fits one SM");
 
-// shared layout, both kernels: four bf16 tiles, two f32 score tiles (also
-// the output staging at the end), two bf16 p/ds tiles, per-row vectors
-constexpr size_t OFF_T0 = 0;
-constexpr size_t OFF_T1 = OFF_T0 + H_TILE;
-constexpr size_t OFF_T2 = OFF_T1 + H_TILE;
-constexpr size_t OFF_T3 = OFF_T2 + H_TILE;
-constexpr size_t OFF_S = OFF_T3 + H_TILE;
-constexpr size_t OFF_DP = OFF_S + S_TILE;
-constexpr size_t OFF_P = OFF_DP + S_TILE;
-constexpr size_t OFF_DS = OFF_P + P_TILE;
-constexpr size_t OFF_LSE = OFF_DS + P_TILE;
-constexpr size_t OFF_DELTA = OFF_LSE + sizeof(float) * BT;
-constexpr size_t OFF_SEGA = OFF_DELTA + sizeof(float) * BT;
-constexpr size_t OFF_SEGB = OFF_SEGA + sizeof(int) * BT;
-constexpr size_t OFF_FLAG = OFF_SEGB + sizeof(int) * BT;
-constexpr size_t SMEM_BYTES = OFF_FLAG + 16;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
 
-// rows [row0, row0 + 64) of one head of a (B, L, H, D) tensor -> smem tile;
-// rows past L are zero
-__device__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int b,
-                          int row0, int h, int L, int H) {
-  constexpr int VEC = 8;            // bf16 per 16-byte load
-  constexpr int PER_ROW = D / VEC;  // 16
-  for (int i = threadIdx.x; i < BT * PER_ROW; i += NTHREADS) {
-    int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
-    int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < L) {
-      const __nv_bfloat16* p = src + (((int64_t)b * L + row) * H + h) * D + c;
-      val = *reinterpret_cast<const uint4*>(p);
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_reduce_add(float* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;"
+               ::"l"(dst), "r"(src), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// wait for the phase of parity `parity` to complete; a barrier that never
+// completes traps (an error the wrapper reports) instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(bar, parity))
+    if (clock64() - t0 > WATCHDOG_CYCLES) __trap();
+}
+
+// box (64 columns, 1 head, rows, 1 batch row) of a (B, L, H, D) bf16 tensor
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int h, int row, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(h), "r"(row), "r"(b), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled operand: start address, leading
+// and stride byte offsets (K-major: SBO = 1024 between 8-row groups, LBO
+// unused; MN-major: LBO between 64-wide column halves, SBO = 1024 between
+// 8-row groups along K)
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// keep the compiler from touching registers an async wgmma reads or writes
+// across the wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// D(64 x 64, f32 registers) (+)= A(64 x 16, shared) B(16 x 64, shared)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+// D(64 x 128, f32 registers) += A(64 x 16, bf16 registers) B(16 x 128, shared)
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1), "n"(TB));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+struct Args {
+  const float* lse;    // (B, Hq, Lp)
+  const float* delta;  // (B, Hq, Lp)
+  const int* seg;      // (B, Lp)
+  const int4* tiles;   // (B, Lp / 64)
+  float* dq_acc;       // (B, Hq, Lp / 64, 2, 4096), zeroed: see the end of the step loop
+  __nv_bfloat16* dk;   // (B, L, Hkv or Hq, D)
+  __nv_bfloat16* dv;
+  int B, L, Lp, Hq, Hkv;
+  float scale_log2e, scale;
+};
+
+// P^T and dS^T of one (64 key rows, 64 q rows) tile in the accumulator
+// layout (thread rows 16 warp + lane / 4 (+8), columns 8 j + 2 (lane % 4)
+// (+1)), packed to bf16 pairs as wgmma's register A operand wants them
+template <bool MASK>
+__device__ __forceinline__ void softmax_grad(const float (&s)[32], const float (&dp)[32],
+                                             uint32_t (&pa)[16], uint32_t (&da)[16],
+                                             const unsigned char* st, int tq, int q0,
+                                             const int (&kseg)[2], const int (&kpos)[2],
+                                             float scale_log2e) {
+  const float* lse_s = reinterpret_cast<const float*>(st + ST_LSE);
+  const float* delta_s = reinterpret_cast<const float*>(st + ST_DELTA);
+  const int* seg_s = reinterpret_cast<const int*>(st + ST_SEG);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + 2 * tq;
+    const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c);
+    const float2 dl = *reinterpret_cast<const float2*>(delta_s + c);
+    const float lb[2] = {l2.x * LOG2E, l2.y * LOG2E};
+    const float dlv[2] = {dl.x, dl.y};
+    int qs[2] = {0, 0};
+    if (MASK) {
+      const int2 sq = *reinterpret_cast<const int2*>(seg_s + c);
+      qs[0] = sq.x;
+      qs[1] = sq.y;
     }
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) = val;
-  }
-}
-
-// (warp's 16 rows of A) x (64 rows of B)^T -> f32 tile rows of this warp:
-// out[r][c] = sum_d A[r][d] * B[c][d], A and B row-major (rows, D) tiles
-__device__ __forceinline__ void rows_times_rows_t(float* out, const __nv_bfloat16* A,
-                                                  const __nv_bfloat16* B, int warp) {
-  FragA fa;
-  FragBc fb;
-  FragC fc;
+    float p[4], ds[4];
 #pragma unroll
-  for (int n = 0; n < BT / 16; ++n) {
-    wmma::fill_fragment(fc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::load_matrix_sync(fa, A + (warp * 16) * LDH + kk * 16, LDH);
-      // B^T as a col-major operand: element (d, c) sits at B[c * LDH + d]
-      wmma::load_matrix_sync(fb, B + (n * 16) * LDH + kk * 16, LDH);
-      wmma::mma_sync(fc, fa, fb, fc);
-    }
-    wmma::store_matrix_sync(out + (warp * 16) * LDS + n * 16, fc, LDS,
-                            wmma::mem_row_major);
-  }
-}
-
-// acc[n] += (warp's 16 rows of the bf16 64-wide tile P) x (64 x 128 tile B)
-__device__ __forceinline__ void accumulate_pv(FragC (&acc)[D / 16],
-                                              const __nv_bfloat16* P,
-                                              const __nv_bfloat16* B, int warp) {
-  FragA fa;
-  FragBr fb;
-#pragma unroll
-  for (int kk = 0; kk < BT / 16; ++kk) {
-    wmma::load_matrix_sync(fa, P + (warp * 16) * LDP + kk * 16, LDP);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::load_matrix_sync(fb, B + (kk * 16) * LDH + n * 16, LDH);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-}
-
-// write this warp's accumulators, times `mul`, to rows [row0, row0 + 64)
-// of head h of a (B, L, H, D) bf16 tensor through the f32 staging tile
-__device__ __forceinline__ void store_rows(FragC (&acc)[D / 16], float* stage,
-                                           __nv_bfloat16* dst, int b, int row0,
-                                           int h, int L, int H, float mul,
-                                           int warp, int lane) {
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(stage + (warp * 16) * LDO + n * 16, acc[n], LDO,
-                            wmma::mem_row_major);
-  __syncwarp();
-  const int r = warp * 16 + lane / 2;
-  const int half = lane % 2;
-  const int row = row0 + r;
-  if (row < L) {
-    const float* src = stage + r * LDO + half * 64;
-    __nv_bfloat16* out = dst + (((int64_t)b * L + row) * H + h) * D + half * 64;
-    for (int c = 0; c < 64; c += 2)
-      *reinterpret_cast<__nv_bfloat162*>(out + c) =
-          __floats2bfloat162_rn(src[c] * mul, src[c + 1] * mul);
-  }
-  __syncwarp();
-}
-
-__device__ __forceinline__ void seg_range(const int* s, int& lo, int& hi) {
-  lo = 0x7fffffff;
-  hi = 0;
-  for (int i = 0; i < BT; ++i) {
-    int v = s[i];
-    if (v != 0) { lo = min(lo, v); hi = max(hi, v); }
-  }
-}
-
-__global__ void __launch_bounds__(NTHREADS)
-flash_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v,
-                const __nv_bfloat16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                const int* __restrict__ seg, __nv_bfloat16* __restrict__ dq,
-                int B, int L, int Hq, int Hkv, float scale_log2e, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem + OFF_T0);
-  __nv_bfloat16* sDO = reinterpret_cast<__nv_bfloat16*>(smem + OFF_T1);
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + OFF_T2);
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + OFF_T3);
-  float* sS = reinterpret_cast<float*>(smem + OFF_S);
-  float* sDP = reinterpret_cast<float*>(smem + OFF_DP);
-  __nv_bfloat16* sDS = reinterpret_cast<__nv_bfloat16*>(smem + OFF_DS);
-  float* sLse = reinterpret_cast<float*>(smem + OFF_LSE);
-  float* sDelta = reinterpret_cast<float*>(smem + OFF_DELTA);
-  int* sSegQ = reinterpret_cast<int*>(smem + OFF_SEGA);
-  int* sSegK = reinterpret_cast<int*>(smem + OFF_SEGB);
-  int* sFlag = reinterpret_cast<int*>(smem + OFF_FLAG);
-
-  // longest first: the last q tiles see the most k tiles
-  const int nq = (L + BT - 1) / BT;
-  const int per_tile = Hq * B;
-  const int qt = nq - 1 - (int)(blockIdx.x / per_tile);
-  const int h = (int)(blockIdx.x % per_tile) % Hq;
-  const int b = (int)(blockIdx.x % per_tile) / Hq;
-  const int g = h / (Hq / Hkv);
-  const int q0 = qt * BT;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  load_tile(sQ, q, b, q0, h, L, Hq);
-  load_tile(sDO, dout, b, q0, h, L, Hq);
-  for (int i = threadIdx.x; i < BT; i += NTHREADS) {
-    const int row = q0 + i;
-    const bool in = row < L;
-    sSegQ[i] = in ? seg[(int64_t)b * L + row] : 0;
-    sLse[i] = in ? lse[((int64_t)b * Hq + h) * L + row] : 0.f;
-    sDelta[i] = in ? delta[((int64_t)b * Hq + h) * L + row] : 0.f;
-  }
-  __syncthreads();
-  int qmin, qmax;
-  seg_range(sSegQ, qmin, qmax);
-
-  const int r = warp * 16 + lane / 2;  // the row this lane pair works on
-  const int half = lane % 2;
-  const int qpos = q0 + r;
-  const int qseg = sSegQ[r];
-  const float lse2 = sLse[r] * LOG2E;
-  const float dl = sDelta[r];
-
-  FragC acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-
-  const int last = min(q0 + BT - 1, L - 1);
-  const int n_kt = (qmax == 0) ? 0 : last / BT + 1;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    for (int i = threadIdx.x; i < BT; i += NTHREADS)
-      sSegK[i] = (k0 + i < L) ? seg[(int64_t)b * L + k0 + i] : 0;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int kmin, kmax;
-      seg_range(sSegK, kmin, kmax);
-      *sFlag = (kmax != 0) && (kmax >= qmin) && (kmin <= qmax);
-    }
-    __syncthreads();
-    if (!*sFlag) continue;  // uniform across the CTA
-    load_tile(sK, k, b, k0, g, L, Hkv);
-    load_tile(sV, v, b, k0, g, L, Hkv);
-    __syncthreads();
-
-    rows_times_rows_t(sS, sQ, sK, warp);    // s = q k^T
-    rows_times_rows_t(sDP, sDO, sV, warp);  // dp = do v^T
-    __syncwarp();
-
-    {
-      const float* srow = sS + r * LDS + half * 32;
-      const float* dprow = sDP + r * LDS + half * 32;
-      __nv_bfloat16* dsrow = sDS + r * LDP + half * 32;
-      for (int c = 0; c < 32; ++c) {
-        const int kpos = k0 + half * 32 + c;
-        const bool ok = qseg != 0 && kpos <= qpos && sSegK[half * 32 + c] == qseg;
-        const float p = ok ? exp2f(srow[c] * scale_log2e - lse2) : 0.f;
-        dsrow[c] = __float2bfloat16(p * (dprow[c] - dl));
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e, cc = e & 1, r = e >> 1;
+      float pv = exp2f(fmaf(s[i], scale_log2e, -lb[cc]));
+      float dsv = pv * (dp[i] - dlv[cc]);
+      if (MASK) {
+        const bool ok = kseg[r] != 0 && qs[cc] == kseg[r] && kpos[r] <= q0 + c + cc;
+        pv = ok ? pv : 0.f;
+        dsv = ok ? dsv : 0.f;
       }
+      p[e] = pv;
+      ds[e] = dsv;
     }
-    __syncwarp();
-    accumulate_pv(acc, sDS, sK, warp);  // dq += ds k
+    pa[2 * j] = pack_bf16(p[0], p[1]);
+    pa[2 * j + 1] = pack_bf16(p[2], p[3]);
+    da[2 * j] = pack_bf16(ds[0], ds[1]);
+    da[2 * j + 1] = pack_bf16(ds[2], ds[3]);
   }
-  __syncthreads();  // the score tiles become the staging tile
-  store_rows(acc, sS, dq, b, q0, h, L, Hq, scale, warp, lane);
 }
 
-// TWO_PASS = false (#3): heads = Hkv; a CTA sums dk/dv over the `ratio`
-// q heads of its kv head and writes (B, L, Hkv, D).
-// TWO_PASS = true (#4): heads = Hq; a CTA takes one q head and writes its
-// dk_h/dv_h to (B, L, Hq, D).
-template <bool TWO_PASS>
-__global__ void __launch_bounds__(NTHREADS)
-flash_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const __nv_bfloat16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 const int* __restrict__ seg, __nv_bfloat16* __restrict__ dk,
-                 __nv_bfloat16* __restrict__ dv, int B, int L, int Hq, int Hkv,
-                 float scale_log2e, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + OFF_T0);
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + OFF_T1);
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem + OFF_T2);
-  __nv_bfloat16* sDO = reinterpret_cast<__nv_bfloat16*>(smem + OFF_T3);
-  float* sS = reinterpret_cast<float*>(smem + OFF_S);
-  float* sDP = reinterpret_cast<float*>(smem + OFF_DP);
-  __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(smem + OFF_P);
-  __nv_bfloat16* sDS = reinterpret_cast<__nv_bfloat16*>(smem + OFF_DS);
-  float* sLse = reinterpret_cast<float*>(smem + OFF_LSE);
-  float* sDelta = reinterpret_cast<float*>(smem + OFF_DELTA);
-  int* sSegK = reinterpret_cast<int*>(smem + OFF_SEGA);
-  int* sSegQ = reinterpret_cast<int*>(smem + OFF_SEGB);
-  int* sFlag = reinterpret_cast<int*>(smem + OFF_FLAG);
+// issue the loads of q tile j of q head h into ring stage `stage`: Q and dO
+// by TMA, lse, delta and the segment ids by bulk copy
+__device__ __forceinline__ void load_q_tile(const CUtensorMap* tm_q, const CUtensorMap* tm_do,
+                                            const Args& a, uint32_t sbase, uint32_t bar_full,
+                                            int stage, int j, int h, int b) {
+  const uint32_t st = sbase + OFF_RING + stage * STAGE_BYTES;
+  const uint32_t fb = bar_full + 8 * stage;
+  const int q0 = j * BQ;
+  mbar_expect_tx(fb, STAGE_TX);
+  for (int half = 0; half < 2; ++half) {
+    tma_load(st + ST_Q + half * HALF_Q, tm_q, fb, 64 * half, h, q0, b);
+    tma_load(st + ST_DO + half * HALF_Q, tm_do, fb, 64 * half, h, q0, b);
+  }
+  const int64_t row = ((int64_t)b * a.Hq + h) * a.Lp + q0;
+  bulk_load(st + ST_LSE, a.lse + row, BQ * 4, fb);
+  bulk_load(st + ST_DELTA, a.delta + row, BQ * 4, fb);
+  bulk_load(st + ST_SEG, a.seg + (int64_t)b * a.Lp + q0, BQ * 4, fb);
+}
 
-  // longest first: k tile 0 sees every q tile
-  const int nq = (L + BT - 1) / BT;
-  const int ratio = Hq / Hkv;
-  const int heads = TWO_PASS ? Hq : Hkv;  // the output's heads
-  const int per_tile = heads * B;
-  const int kt = (int)(blockIdx.x / per_tile);
-  const int ho = (int)(blockIdx.x % per_tile) % heads;  // the output head
+template <bool TWO_PASS>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_do,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t sbase = smem_u32(smem);
+  const uint32_t bar_full = sbase + OFF_BAR;         // [STAGES]: 1 arrival + the bytes
+  const uint32_t bar_empty = bar_full + 8 * STAGES;  // [STAGES]: one arrival per warp
+  const uint32_t bar_kv = bar_empty + 8 * STAGES;    // K, V and their segment ids
+  int* range_s = reinterpret_cast<int*>(smem + OFF_RANGE);
+
+  const int ratio = a.Hq / a.Hkv;
+  const int heads = TWO_PASS ? a.Hq : a.Hkv;  // the output's heads
+  const int per_tile = heads * a.B;
+  const int kt = (int)(blockIdx.x / per_tile);  // longest first: k tile 0 walks every q tile
+  const int ho = (int)(blockIdx.x % per_tile) % heads;
   const int b = (int)(blockIdx.x % per_tile) / heads;
   const int g = TWO_PASS ? ho / ratio : ho;  // the kv head
   const int h_first = TWO_PASS ? ho : g * ratio;
   const int n_heads = TWO_PASS ? 1 : ratio;  // q heads this CTA walks
-  const int k0 = kt * BT;
-  const int warp = threadIdx.x / 32;
+  const int k0 = kt * BK;
+  const int nq = a.Lp / BQ;
+  const int wg = threadIdx.x / 128;  // key rows [64 wg, 64 wg + 64) of the k tile
+  const int warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32;
 
-  load_tile(sK, k, b, k0, g, L, Hkv);
-  load_tile(sV, v, b, k0, g, L, Hkv);
-  for (int i = threadIdx.x; i < BT; i += NTHREADS)
-    sSegK[i] = (k0 + i < L) ? seg[(int64_t)b * L + k0 + i] : 0;
-  __syncthreads();
-  int kmin, kmax;
-  seg_range(sSegK, kmin, kmax);
+  // the k tile's documents: segment id range, and its one id if it holds a
+  // single document and no padding
+  const int4* tiles = a.tiles + (int64_t)b * nq;
+  const int4 t0 = tiles[2 * kt], t1 = tiles[2 * kt + 1];
+  const int kmin = min(t0.x, t1.x), kmax = max(t0.y, t1.y);
+  const int kuni = t0.z == t1.z ? t0.z : 0;
 
-  const int r = warp * 16 + lane / 2;  // the key row this lane pair works on
-  const int half = lane % 2;
-  const int kpos = k0 + r;
-  const int kseg = sSegK[r];
-
-  FragC acc_dk[D / 16], acc_dv[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fill_fragment(acc_dk[n], 0.f);
-    wmma::fill_fragment(acc_dv[n], 0.f);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, NTHREADS / 32);
+    }
+    mbar_init(bar_kv, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_expect_tx(bar_kv, KV_TX);
+    for (int half = 0; half < 2; ++half) {
+      tma_load(sbase + OFF_K + half * HALF_K, &tm_k, bar_kv, 64 * half, g, k0, b);
+      tma_load(sbase + OFF_V + half * HALF_K, &tm_v, bar_kv, 64 * half, g, k0, b);
+    }
+    bulk_load(sbase + OFF_KSEG, a.seg + (int64_t)b * a.Lp + k0, BK * 4, bar_kv);
   }
-
-  const int n_qt = (kmax == 0) ? 0 : nq;  // a padding-only k tile gets zeros
-  for (int gi = 0; gi < n_heads; ++gi) {
-    const int h = h_first + gi;
-    for (int qt = kt; qt < n_qt; ++qt) {  // causal: q tiles from the k tile on
-      const int q0 = qt * BT;
-      __syncthreads();  // every warp is done with the previous q tile
-      for (int i = threadIdx.x; i < BT; i += NTHREADS) {
-        const int row = q0 + i;
-        const bool in = row < L;
-        sSegQ[i] = in ? seg[(int64_t)b * L + row] : 0;
-        sLse[i] = in ? lse[((int64_t)b * Hq + h) * L + row] : 0.f;
-        sDelta[i] = in ? delta[((int64_t)b * Hq + h) * L + row] : 0.f;
-      }
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        int qmin, qmax;
-        seg_range(sSegQ, qmin, qmax);
-        *sFlag = (qmax != 0) && (qmax >= kmin) && (qmin <= kmax);
-      }
-      __syncthreads();
-      if (!*sFlag) continue;  // uniform across the CTA
-      load_tile(sQ, q, b, q0, h, L, Hq);
-      load_tile(sDO, dout, b, q0, h, L, Hq);
-      __syncthreads();
-
-      rows_times_rows_t(sS, sK, sQ, warp);    // s^T = k q^T
-      rows_times_rows_t(sDP, sV, sDO, warp);  // dp^T = v do^T
-      __syncwarp();
-
-      {
-        const float* srow = sS + r * LDS + half * 32;
-        const float* dprow = sDP + r * LDS + half * 32;
-        __nv_bfloat16* prow = sP + r * LDP + half * 32;
-        __nv_bfloat16* dsrow = sDS + r * LDP + half * 32;
-        for (int c = 0; c < 32; ++c) {
-          const int qi = half * 32 + c;
-          const bool ok = kseg != 0 && sSegQ[qi] == kseg && kpos <= q0 + qi;
-          const float p = ok ? exp2f(srow[c] * scale_log2e - sLse[qi] * LOG2E) : 0.f;
-          prow[c] = __float2bfloat16(p);
-          dsrow[c] = __float2bfloat16(p * (dprow[c] - sDelta[qi]));
+  if (warp == 0 && wg == 0) {
+    // the q tiles to walk: from the diagonal to the last tile whose segment
+    // range meets the k tile's (the end of its last document), found 32
+    // tiles at a time from the end of the row
+    int last = -1;
+    if (kmax != 0) {
+      for (int base = nq - 32;; base -= 32) {
+        const int j = base + lane;
+        bool ok = false;
+        if (j >= 2 * kt) {
+          const int4 t = tiles[j];
+          ok = t.y >= kmin && t.x <= kmax;
         }
+        const uint32_t m = __ballot_sync(0xffffffffu, ok);
+        if (m) {
+          last = base + 31 - __clz(m);
+          break;
+        }
+        if (base <= 2 * kt) break;
       }
-      __syncwarp();
-      accumulate_pv(acc_dv, sP, sDO, warp);  // dv += p^T do
-      accumulate_pv(acc_dk, sDS, sQ, warp);  // dk += ds^T q
+    }
+    // the first tile holds only padding or other documents when the k
+    // tile's first key with a segment id sits in its second half
+    const int first = (t0.y >= kmin && t0.x <= kmax) ? 2 * kt : 2 * kt + 1;
+    if (lane == 0) {
+      range_s[0] = first;
+      range_s[1] = last >= first ? last - first + 1 : 0;
     }
   }
-  __syncthreads();  // the score tiles become the staging tile
-  store_rows(acc_dk, sS, dk, b, k0, ho, L, heads, scale, warp, lane);
-  store_rows(acc_dv, sS, dv, b, k0, ho, L, heads, 1.f, warp, lane);
+  __syncthreads();
+  const int j_first = range_s[0], n_tiles = range_s[1];
+  const int total = n_tiles * n_heads;  // (head, q tile) steps, head-major
+  if (threadIdx.x == 0)
+    for (int t = 0; t < STAGES && t < total; ++t)
+      load_q_tile(&tm_q, &tm_do, a, sbase, bar_full, t, j_first + t % n_tiles,
+                  h_first + t / n_tiles, b);
+
+  const int tq = lane % 4;
+  const int row0 = 16 * warp + lane / 4;  // this thread's rows: row0 and row0 + 8
+
+  float acc_dk[64], acc_dv[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+
+  mbar_wait(bar_kv, 0);
+  const int* kseg_s = reinterpret_cast<const int*>(smem + OFF_KSEG);
+  int kseg[2], kpos[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    kseg[r] = kseg_s[64 * wg + row0 + 8 * r];
+    kpos[r] = k0 + 64 * wg + row0 + 8 * r;
+  }
+  const uint32_t sK = sbase + OFF_K + wg * (64 * 128);  // this warpgroup's 64 key rows
+  const uint32_t sV = sbase + OFF_V + wg * (64 * 128);
+  const uint32_t sKd = sbase + OFF_K + wg * HALF_K;  // all keys, this warpgroup's dq columns
+
+  for (int t = 0; t < total; ++t) {
+    const int stage = t % STAGES;
+    const int j = j_first + t % n_tiles, h = h_first + t / n_tiles;
+    const int q0 = j * BQ;
+    const int4 tj = tiles[j];
+    const bool full = kuni != 0 && tj.z == kuni && j >= 2 * kt + 2;  // JAX _tile_full
+    if (threadIdx.x == 0 && t >= 1 && t + STAGES - 1 < total) {
+      // refill the stage step t - 1 used, once every warp has released it
+      const int n = t + STAGES - 1;
+      mbar_wait(bar_empty + 8 * (n % STAGES), ((t - 1) / STAGES) & 1);
+      load_q_tile(&tm_q, &tm_do, a, sbase, bar_full, n % STAGES, j_first + n % n_tiles,
+                  h_first + n / n_tiles, b);
+    }
+    mbar_wait(bar_full + 8 * stage, (t / STAGES) & 1);
+    const unsigned char* st = smem + OFF_RING + stage * STAGE_BYTES;
+    const uint32_t sQ = sbase + OFF_RING + stage * STAGE_BYTES + ST_Q;
+    const uint32_t sDO = sbase + OFF_RING + stage * STAGE_BYTES + ST_DO;
+
+    // S^T = K Q^T, dP^T = V dO^T (64 keys x 64 queries, over D); then P^T
+    // and dS^T in registers
+    uint32_t pa[16], da[16];
+    {
+      float s[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t ko = (kk / 4) * HALF_K + (kk % 4) * 32;
+        const uint32_t qo = (kk / 4) * HALF_Q + (kk % 4) * 32;
+        wgmma_m64n64_ss<0, 0>(s, desc(sK + ko, 16, 1024), desc(sQ + qo, 16, 1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t ko = (kk / 4) * HALF_K + (kk % 4) * 32;
+        const uint32_t qo = (kk / 4) * HALF_Q + (kk % 4) * 32;
+        wgmma_m64n64_ss<0, 0>(dp, desc(sV + ko, 16, 1024), desc(sDO + qo, 16, 1024), kk > 0);
+      }
+      wg_commit();
+      wg_wait0();
+      reg_fence(s);
+      reg_fence(dp);
+      if (full)
+        softmax_grad<false>(s, dp, pa, da, st, tq, q0, kseg, kpos, a.scale_log2e);
+      else
+        softmax_grad<true>(s, dp, pa, da, st, tq, q0, kseg, kpos, a.scale_log2e);
+    }
+
+    // dV += P^T dO, dK += dS^T Q (64 keys x 128, over the 64 queries)
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_m64n128_rs<1>(acc_dv, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                          desc(sDO + kk * 2048, HALF_Q, 1024));
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_m64n128_rs<1>(acc_dk, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
+                          desc(sQ + kk * 2048, HALF_Q, 1024));
+    wg_commit();
+
+    // dS^T to shared memory (128 keys x 64 queries, swizzled) for dQ; two
+    // buffers, so that one barrier per step orders the warpgroups
+    unsigned char* dsb = smem + OFF_DS + (t & 1) * DS_BYTES;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int R = 64 * wg + row0 + 8 * r;
+        *reinterpret_cast<uint32_t*>(dsb + R * 128 + ((jj ^ (R & 7)) << 4) + 4 * tq) =
+            da[2 * jj + r];
+      }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    named_sync(1, NTHREADS);  // both halves of dS^T are written
+    wg_wait0();
+    reg_fence(acc_dv);
+    reg_fence(acc_dk);
+    reg_fence(pa);
+    reg_fence(da);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * stage);  // this warp is done with the stage
+
+    // dQ (64 queries x this warpgroup's 64 columns) = dS K, over 128 keys
+    float dq[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+    const uint32_t sDS = sbase + OFF_DS + (t & 1) * DS_BYTES;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_m64n64_ss<1, 1>(dq, desc(sDS + kk * 2048, HALF_Q, 1024),
+                            desc(sKd + kk * 2048, HALF_K, 1024), kk > 0);
+    wg_commit();
+    wg_wait0();
+    reg_fence(dq);
+
+    // dQ * scale into the f32 accumulator by one bulk reduce-add per
+    // warpgroup: its 16 KB block for (b, h, q tile, warpgroup) holds the
+    // accumulator fragments as the threads hold them ([warp][j][lane][4]),
+    // which the wrapper puts back in (B, L, Hq, D) order
+    float* stg = reinterpret_cast<float*>(smem + OFF_STG + wg * STG_BYTES);
+    if (threadIdx.x % 128 == 0)  // the last step's reduce has read the staging block
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    named_sync(2 + wg, 128);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+      *reinterpret_cast<float4*>(stg + ((warp * 8 + jj) * 32 + lane) * 4) =
+          make_float4(dq[4 * jj] * a.scale, dq[4 * jj + 1] * a.scale, dq[4 * jj + 2] * a.scale,
+                      dq[4 * jj + 3] * a.scale);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    named_sync(2 + wg, 128);
+    if (threadIdx.x % 128 == 0)
+      bulk_reduce_add(a.dq_acc + ((((int64_t)b * a.Hq + h) * nq + j) * 2 + wg) * 4096,
+                      smem_u32(stg), STG_BYTES);
+  }
+  if (threadIdx.x % 128 == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+
+  // dK (times scale) and dV, each row written once
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + 64 * wg + row0 + 8 * r;
+    if (key < a.L) {
+      const int64_t o = (((int64_t)b * a.L + key) * heads + ho) * D + 2 * tq;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj) {
+        *reinterpret_cast<uint32_t*>(a.dk + o + 8 * jj) =
+            pack_bf16(acc_dk[4 * jj + 2 * r] * a.scale, acc_dk[4 * jj + 2 * r + 1] * a.scale);
+        *reinterpret_cast<uint32_t*>(a.dv + o + 8 * jj) =
+            pack_bf16(acc_dv[4 * jj + 2 * r], acc_dv[4 * jj + 2 * r + 1]);
+      }
+    }
+  }
 }
 
-int check_args(int B, int L, int Hq, int Hkv, int d) {
-  if (d != D || Hkv <= 0 || Hq % Hkv != 0 || L <= 0 || B <= 0)
-    return (int)cudaErrorInvalidValue;
-  return 0;
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &res);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    if (res == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// (B, L, H, D = 128) bf16 -> boxes of (64 columns, 1 head, rows, 1 batch row),
+// 128-byte swizzled; rows past L read as zeros
+bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int B, int L, int H,
+              int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)L * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <bool TWO_PASS>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, const void* seg, void* dk, void* dv,
-               int B, int L, int Hq, int Hkv, int d, float scale, void* stream) {
-  if (int e = check_args(B, L, Hq, Hkv, d)) return e;
-  cudaError_t e = cudaFuncSetAttribute(flash_dkv_kernel<TWO_PASS>,
+int launch(const void* q, const void* k, const void* v, const void* dout, const Args& a,
+           cudaStream_t stream) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tm_q, tm_do, tm_k, tm_v;
+  if (!make_map(&tm_q, encode, q, a.B, a.L, a.Hq, BQ) ||
+      !make_map(&tm_do, encode, dout, a.B, a.L, a.Hq, BQ) ||
+      !make_map(&tm_k, encode, k, a.B, a.L, a.Hkv, BK) ||
+      !make_map(&tm_v, encode, v, a.B, a.L, a.Hkv, BK))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_kernel<TWO_PASS>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
-  const unsigned grid = (unsigned)((L + BT - 1) / BT) * (TWO_PASS ? Hq : Hkv) * B;
-  flash_dkv_kernel<TWO_PASS><<<grid, NTHREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(seg), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), B, L, Hq, Hkv, scale * LOG2E, scale);
+  const unsigned grid = (unsigned)(a.Lp / BK) * (TWO_PASS ? a.Hq : a.Hkv) * a.B;
+  flash_bwd_kernel<TWO_PASS><<<grid, NTHREADS, SMEM_BYTES, stream>>>(tm_q, tm_do, tm_k, tm_v, a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int xt_flash_dq_bf16(const void* q, const void* k, const void* v,
-                                const void* dout, const void* lse,
-                                const void* delta, const void* seg, void* dq,
-                                int B, int L, int Hq, int Hkv, int d,
-                                float scale, void* stream) {
-  if (int e = check_args(B, L, Hq, Hkv, d)) return e;
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  const unsigned grid = (unsigned)((L + BT - 1) / BT) * Hq * B;
-  flash_dq_kernel<<<grid, NTHREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(seg), static_cast<__nv_bfloat16*>(dq), B, L, Hq,
-      Hkv, scale * LOG2E, scale);
-  return (int)cudaGetLastError();
+// dq_acc (B, L, Hq, D) f32, zeroed by the caller, gets dq * scale added;
+// dk, dv: (B, L, Hkv, D) summed over each q-head group (two_pass = 0), or
+// (B, L, Hq, D) per q head (two_pass = 1). lse, delta (B, Hq, Lp), seg
+// (B, Lp) and tiles (B, Lp / 64, 4) padded to Lp, a multiple of 128.
+extern "C" int xt_flash_bwd_bf16(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse, const void* delta,
+                                 const void* seg, const void* tiles, void* dq_acc, void* dk,
+                                 void* dv, int B, int L, int Lp, int Hq, int Hkv, int d,
+                                 float scale, int two_pass, void* stream) {
+  if (d != D || Hkv <= 0 || Hq % Hkv != 0 || L <= 0 || B <= 0 || Lp % BK != 0 || Lp < L ||
+      Lp - L >= BK)
+    return (int)cudaErrorInvalidValue;
+  const Args a{static_cast<const float*>(lse), static_cast<const float*>(delta),
+               static_cast<const int*>(seg), static_cast<const int4*>(tiles),
+               static_cast<float*>(dq_acc), static_cast<__nv_bfloat16*>(dk),
+               static_cast<__nv_bfloat16*>(dv), B, L, Lp, Hq, Hkv, scale * LOG2E, scale};
+  return two_pass ? launch<true>(q, k, v, dout, a, (cudaStream_t)stream)
+                  : launch<false>(q, k, v, dout, a, (cudaStream_t)stream);
 }
 
-// dk, dv (B, L, Hkv, D), each summed over its kv head's q-head group (#3)
-extern "C" int xt_flash_dkv_bf16(const void* q, const void* k, const void* v,
-                                 const void* dout, const void* lse,
-                                 const void* delta, const void* seg, void* dk,
-                                 void* dv, int B, int L, int Hq, int Hkv, int d,
-                                 float scale, void* stream) {
-  return launch_dkv<false>(q, k, v, dout, lse, delta, seg, dk, dv, B, L, Hq, Hkv, d,
-                           scale, stream);
-}
-
-// dk_h, dv_h (B, L, Hq, D) of each q head, not summed (#4)
-extern "C" int xt_flash_dkv_two_pass_bf16(const void* q, const void* k, const void* v,
-                                          const void* dout, const void* lse,
-                                          const void* delta, const void* seg, void* dk,
-                                          void* dv, int B, int L, int Hq, int Hkv,
-                                          int d, float scale, void* stream) {
-  return launch_dkv<true>(q, k, v, dout, lse, delta, seg, dk, dv, B, L, Hq, Hkv, d,
-                          scale, stream);
-}
+// the dynamic shared memory one CTA of the kernel takes (bytes)
+extern "C" int xt_flash_bwd_smem_bytes() { return (int)SMEM_BYTES; }

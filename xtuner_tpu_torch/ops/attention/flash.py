@@ -8,12 +8,13 @@ under `XTUNER_ATTN_BWD=two_pass`, the per-q-head `_dkv_kernel`).
 JAX public `flash_attention` returns `out` alone) and is differentiable in
 q, k and v through `_FlashAttention`, whose backward computes
 `delta = rowsum(do * out)` in plain PyTorch, as JAX does outside its
-kernels, then runs `flash_dq` and the dk/dv path the switch selected when
-the forward ran: `flash_dkv` (grouped, the default) or any other value of
-`XTUNER_ATTN_BWD`, as in JAX, `flash_dkv_two_pass` and the group sum in
-plain PyTorch. Each kernel wrapper launches its hand-written Hopper kernel
-on a CUDA tensor (`csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`) or raises, and
-runs the plain PyTorch version beside it on a CPU tensor.
+kernels, then runs `flash_bwd` along the dk/dv path the switch selected
+when the forward ran: grouped (the default) or, for any other value of
+`XTUNER_ATTN_BWD`, as in JAX, per q head and then the group sum in plain
+PyTorch. Each kernel wrapper launches its hand-written Hopper kernel on a
+CUDA tensor (`csrc/flash_fwd.cu`; `csrc/flash_bwd.cu`, one pass that gives
+dq, dk and dv together) or raises, and runs the plain PyTorch version
+beside it on a CPU tensor.
 
 `flash_attention_saving_out_lse` is the attention of remat "save_out_lse"
 (JAX saves only `attn_res_out` and `attn_lse`): it takes the function
@@ -187,9 +188,9 @@ def max_free_launches() -> int:
 
 
 def reset_launches() -> None:
-    """Zero the launch counters of the four flash kernels."""
-    flash_attention.launches = flash_dq.launches = flash_dkv.launches = 0
-    flash_dkv_two_pass.launches = 0
+    """Zero the launch counters of the flash kernels."""
+    flash_attention.launches = 0
+    flash_bwd.launches = {"grouped": 0, "two_pass": 0}
     for c in _MAX_FREE_COUNT.values():
         c.zero_()
 
@@ -226,67 +227,69 @@ def flash_forward(q, k, v, segment_ids, scale: float,
     return out, lse
 
 
-def flash_dq(q, k, v, segment_ids, lse, delta, do, scale: float):
-    """The dq kernel (#2): dq (B, L, Hq, D) in q.dtype."""
+KEY_TILE = 128  # key rows per CTA of the backward kernel; Lp pads L to it
+TILE_ROWS = 64  # rows of one entry of the tile table (the kernel's q tile)
+
+
+def _tile_table(seg_p: torch.Tensor) -> torch.Tensor:
+    """(B, Lp / 64, 4) int32 over 64-row tiles of the padded segment ids:
+    the lowest non-zero id (int32 max if none), the highest (0 if none),
+    the id if the tile holds one document and no padding (else 0), 0."""
+    t = seg_p.view(seg_p.shape[0], -1, TILE_ROWS)
+    hi = t.amax(-1)
+    lo = t.masked_fill(t == 0, torch.iinfo(torch.int32).max).amin(-1)
+    uni = torch.where(t.amin(-1) == hi, hi, torch.zeros_like(hi))
+    return torch.stack([lo, hi, uni, torch.zeros_like(hi)], dim=-1).contiguous()
+
+
+def flash_bwd_plain(q, k, v, segment_ids, lse, delta, do, scale, two_pass=False):
+    """Plain version of `flash_bwd`: `flash_dq_plain` with
+    `flash_dkv_plain` (grouped) or `flash_dkv_two_pass_plain`."""
+    dq = flash_dq_plain(q, k, v, segment_ids, lse, delta, do, scale)
+    dkv = flash_dkv_two_pass_plain if two_pass else flash_dkv_plain
+    return (dq, *dkv(q, k, v, segment_ids, lse, delta, do, scale))
+
+
+def flash_bwd(q, k, v, segment_ids, lse, delta, do, scale: float, two_pass: bool = False):
+    """The one-pass backward kernel (#2 with #3, or with #4 when
+    `two_pass`): dq (B, L, Hq, D) in q.dtype and dk, dv (B, L, Hkv, D)
+    summed over each kv head's q-head group, or with `two_pass` dk_h, dv_h
+    (B, L, Hq, D) of each q head in q.dtype, not summed (`group_sum` sums
+    them). The kernel adds dq into a zeroed f32 accumulator by bulk
+    reduce-adds, so dq's summation order changes from run to run; dk and
+    dv's does not."""
     if q.device.type == "cpu":
-        return flash_dq_plain(q, k, v, segment_ids, lse, delta, do, scale)
-    _check_bwd_args(q, k, v, segment_ids, lse, delta, do, "flash_dq")
+        return flash_bwd_plain(q, k, v, segment_ids, lse, delta, do, scale, two_pass)
+    _check_bwd_args(q, k, v, segment_ids, lse, delta, do, "flash_bwd")
     from ..cuda_lib import check, load
 
     b, l, hq, d = q.shape
-    dq = torch.empty_like(q)
-    err = load().xt_flash_dq_bf16(
+    pad = -l % KEY_TILE
+    if pad:  # the kernel reads lse, delta and segment ids in whole tiles
+        segment_ids, lse, delta = (torch.nn.functional.pad(t, (0, pad))
+                                   for t in (segment_ids, lse, delta))
+    tiles = _tile_table(segment_ids)
+    nq = (l + pad) // TILE_ROWS
+    dq_acc = torch.zeros((b, hq, nq, 2, 4, 8, 8, 4, 2, 2), dtype=torch.float32, device=q.device)
+    dk = torch.empty_like(q if two_pass else k)
+    dv = torch.empty_like(q if two_pass else v)
+    err = load().xt_flash_bwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), segment_ids.data_ptr(), dq.data_ptr(), b, l, hq,
-        k.shape[2], d, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-    check(err, "xt_flash_dq_bf16")
-    flash_dq.launches += 1
-    return dq
+        delta.data_ptr(), segment_ids.data_ptr(), tiles.data_ptr(), dq_acc.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, l, l + pad, hq, k.shape[2], d, float(scale),
+        int(two_pass), torch.cuda.current_stream(q.device).cuda_stream)
+    check(err, "xt_flash_bwd_bf16")
+    flash_bwd.launches["two_pass" if two_pass else "grouped"] += 1
+    # the accumulator's blocks hold (b, h, q tile, column half, warp, j,
+    # row % 8, column pair, row half, column parity): one copy puts them in
+    # (B, Lp, Hq, D) order, in q.dtype
+    dq = torch.empty((b, nq, 4, 2, 8, hq, 2, 8, 4, 2), dtype=q.dtype, device=q.device)
+    dq.copy_(dq_acc.permute(0, 2, 4, 8, 6, 1, 3, 5, 7, 9))
+    dq = dq.view(b, l + pad, hq, d)
+    return (dq[:, :l].contiguous() if pad else dq), dk, dv
 
 
-def flash_dkv(q, k, v, segment_ids, lse, delta, do, scale: float):
-    """The grouped dk/dv kernel (#3): dk, dv (B, L, Hkv, D), each summed
-    over its kv head's q-head group."""
-    if q.device.type == "cpu":
-        return flash_dkv_plain(q, k, v, segment_ids, lse, delta, do, scale)
-    _check_bwd_args(q, k, v, segment_ids, lse, delta, do, "flash_dkv")
-    from ..cuda_lib import check, load
-
-    b, l, hq, d = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = load().xt_flash_dkv_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), segment_ids.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
-        l, hq, k.shape[2], d, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    check(err, "xt_flash_dkv_bf16")
-    flash_dkv.launches += 1
-    return dk, dv
-
-
-def flash_dkv_two_pass(q, k, v, segment_ids, lse, delta, do, scale: float):
-    """The two-pass dk/dv kernel (#4): dk_h, dv_h (B, L, Hq, D) of each q
-    head in q.dtype, not summed (`group_sum` sums them)."""
-    if q.device.type == "cpu":
-        return flash_dkv_two_pass_plain(q, k, v, segment_ids, lse, delta, do, scale)
-    _check_bwd_args(q, k, v, segment_ids, lse, delta, do, "flash_dkv_two_pass")
-    from ..cuda_lib import check, load
-
-    b, l, hq, d = q.shape
-    dk, dv = torch.empty_like(q), torch.empty_like(q)
-    err = load().xt_flash_dkv_two_pass_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), segment_ids.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
-        l, hq, k.shape[2], d, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    check(err, "xt_flash_dkv_two_pass_bf16")
-    flash_dkv_two_pass.launches += 1
-    return dk, dv
-
-
-flash_dq.launches = 0  # kernel launches since the last reset
-flash_dkv.launches = 0
-flash_dkv_two_pass.launches = 0
+flash_bwd.launches = {"grouped": 0, "two_pass": 0}  # launches since the last reset
 
 
 def attn_bwd() -> str:
@@ -297,16 +300,14 @@ def attn_bwd() -> str:
 
 def flash_backward(q, k, v, segment_ids, out, lse, dout, scale: float, bwd: str):
     """dq, dk, dv from the forward's residuals (JAX `_flash_bwd_rule`):
-    delta in plain PyTorch, the dq kernel, then the grouped dk/dv kernel
-    (`bwd == "grouped"`) or the two-pass one and the group sum."""
+    delta in plain PyTorch, then the backward kernel, grouped
+    (`bwd == "grouped"`) or per q head and the group sum."""
     do = dout.to(q.dtype).contiguous()
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    dq = flash_dq(q, k, v, segment_ids, lse, delta, do, scale)
-    if bwd == "grouped":
-        dk, dv = flash_dkv(q, k, v, segment_ids, lse, delta, do, scale)
-    else:
-        dk_h, dv_h = flash_dkv_two_pass(q, k, v, segment_ids, lse, delta, do, scale)
-        dk, dv = group_sum(dk_h, k.shape[2], k.dtype), group_sum(dv_h, k.shape[2], v.dtype)
+    two_pass = bwd != "grouped"
+    dq, dk, dv = flash_bwd(q, k, v, segment_ids, lse, delta, do, scale, two_pass)
+    if two_pass:
+        dk, dv = group_sum(dk, k.shape[2], k.dtype), group_sum(dv, k.shape[2], v.dtype)
     return dq, dk, dv
 
 

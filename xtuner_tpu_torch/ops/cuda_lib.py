@@ -40,14 +40,12 @@ SIGNATURES = {
     # max_logit bound (device f32 or null), max-free launch count (device
     # int32 or null), stream
     "xt_flash_fwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
-    # q, k, v, do, lse, delta, segment_ids, dq, B, L, Hq, Hkv, D, scale, stream
-    "xt_flash_dq_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    # q, k, v, do, lse, delta, segment_ids, dk, dv, B, L, Hq, Hkv, D, scale, stream
-    "xt_flash_dkv_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _F, _P],
-    # as xt_flash_dkv_bf16, dk and dv (B, L, Hq, D) per q head
-    "xt_flash_dkv_two_pass_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, do, lse, delta, segment_ids, tile table, dq accumulator (f32),
+    # dk, dv, B, L, Lp, Hq, Hkv, D, scale, two_pass, stream
+    "xt_flash_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # the dynamic shared memory of one backward CTA (bytes)
+    "xt_flash_bwd_smem_bytes": [],
     # q, pool_k, pool_v, block_table, seq_lens, out,
     # B, C, Hq, Hkv, D, NB, BS, MB, layer, scale, stream
     "xt_paged_decode_bf16": [_P, _P, _P, _P, _P, _P,
