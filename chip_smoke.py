@@ -16,7 +16,10 @@ exits non-zero with no result line:
 3. each hand-written kernel against its plain PyTorch version on the card,
    at the shapes its path gives it and at odd shapes, with times, the
    least time the card could take (`least_ms`) and the time of the one
-   PyTorch call that computes the same function, where there is one;
+   PyTorch call that computes the same function, where there is one; each
+   flash forward row also prints TFLOP/s, its share of the bound, SDPA's
+   time, and the k tiles the kernel walked (and walked unmasked) against
+   `fwd_tile_plan`;
 4. serving: `PagedGenerator.generate` on Qwen3-8B at full width and depth
    with random bf16 weights from the seed; 6 requests on 4 slots (one GRPO
    group of two); launch counters of its kernels; a teacher-forced re-check
@@ -46,9 +49,10 @@ exits non-zero with no result line:
    step with the quantise passes' device time apart;
 9. longctx_kernels: the one-pass flash backward's two-pass
    instantiation (#2 + #4) against its plain version at moe_heavy's flash
-   shapes, and both instantiations against the plain versions in 1024-row
-   chunks at B1 L65536 Hq16/8 (SDPA's causal backward as the library
-   time); the fused MoE MLP #16, forward and backward, against
+   shapes, and the forward (#1) and both backward instantiations against
+   the plain versions in 1024-row chunks at B1 L65536 Hq16/8 (SDPA's
+   causal forward and backward as the library times); the fused MoE MLP
+   #16, forward and backward, against
    its plain version at the longctx row's M262144 E64 F128, moe_heavy's
    M131072 E16 F768 and an odd M, beside the port's decomposed path and
    `torch._grouped_mm` twice;
@@ -246,17 +250,20 @@ def phase_build() -> None:
         total_s=f"{time.perf_counter() - t0:.3f}")
     for ln in ptxas:
         print(f"[build] ptxas {ln}", flush=True)
-    # the one-pass flash backward: registers and spills of both instantiations
-    # (ptxas) and the dynamic shared memory of one CTA
-    bwd = []
-    for i, ln in enumerate(ptxas):
-        if ln.startswith("kernel") and "flash_bwd_kernel" in ln:
-            after = ptxas[i + 1:i + 3]
-            bwd.append({"two_pass": "ILb1E" in ln,
-                        "registers": next((x for x in after if "registers" in x), "?"),
-                        "spills": next((x for x in after if "spill" in x), "?")})
-    say("build", kernel="flash_bwd", smem_bytes=cuda_lib.load().xt_flash_bwd_smem_bytes(),
-        ptxas=repr(bwd))
+    # the wgmma flash kernels: registers and spills (ptxas) of the forward
+    # (one kernel, both variants) and of both backward instantiations, and
+    # the dynamic shared memory of one CTA
+    lib = cuda_lib.load()
+    for kernel, smem in (("flash_fwd_kernel", lib.xt_flash_fwd_smem_bytes()),
+                         ("flash_bwd_kernel", lib.xt_flash_bwd_smem_bytes())):
+        found = []
+        for i, ln in enumerate(ptxas):
+            if ln.startswith("kernel") and kernel in ln:
+                after = ptxas[i + 1:i + 3]
+                found.append({**({"two_pass": "ILb1E" in ln} if "bwd" in kernel else {}),
+                              "registers": next((x for x in after if "registers" in x), "?"),
+                              "spills": next((x for x in after if "spill" in x), "?")})
+        say("build", kernel=kernel, smem_bytes=smem, ptxas=repr(found))
 
 
 def phase_kernels(torch, seed: int) -> list[dict]:
@@ -283,9 +290,11 @@ def phase_kernels(torch, seed: int) -> list[dict]:
         bool((lse[..., real:] == torch.tensor(BIG_LSE, dtype=torch.float32)).all())
     f_ms = cuda_ms(lambda: flash_attention(q, k, v, seg))
     f_plain = cuda_ms(lambda: flash_attention_plain(q, k, v, seg, scale))
+    f_lib, f_why = sdpa_ms(torch, q, k, v, block_causal_mask(torch, seg))
     say("kernel", name="flash_fwd", shape=f"B{b}xL{l}({real} real)xHq{hq}xHkv{hkv}xD{d}",
         out_err=f"{out_err:.3e}", lse_err=f"{lse_err:.3e}", pad_rows_ok=pad_ok,
-        ms=f"{f_ms:.4f}", plain_ms=f"{f_plain:.4f}")
+        ms=f"{f_ms:.4f}", plain_ms=f"{f_plain:.4f}",
+        **fwd_numbers(torch, q, k, v, seg, None, f_ms, f_lib))
     if not (out_err <= FLASH_OUT_ATOL and lse_err <= FLASH_LSE_ATOL and pad_ok):
         raise AssertionError(f"flash kernel disagrees with its plain version: out "
                              f"{out_err} (<= {FLASH_OUT_ATOL}), lse {lse_err} "
@@ -321,7 +330,6 @@ def phase_kernels(torch, seed: int) -> list[dict]:
     if not (d_err <= PAGED_ATOL and finite):
         raise AssertionError(f"paged decode kernel disagrees with its plain version: "
                              f"{d_err} (<= {PAGED_ATOL}), finite {finite}")
-    f_lib, f_why = sdpa_ms(torch, q, k, v, block_causal_mask(torch, seg))
     active = [n + 1 for n in lens if n]  # keys each active slot reads (cache + this token)
     say("kernel", name="library", flash_fwd_sdpa_ms=f_lib, why=repr(f_why),
         paged_decode="none: no PyTorch call reads a block-table KV cache")
@@ -435,6 +443,31 @@ def flash_bytes(q, k, out_like: int = 1) -> int:
     b, l, hq, d = q.shape
     hkv = k.shape[2]
     return 2 * b * l * d * (hq + 2 * hkv) + out_like * 2 * b * l * hq * d + 4 * b * hq * l
+
+
+def fwd_numbers(torch, q, k, v, seg, bound, ms: float, lib) -> dict:
+    """The flash forward's figures beside its time `ms`: TFLOP/s on the
+    documents' causal triangles, its share of the bound, SDPA's time `lib`,
+    and the k tiles one launch walks and walks unmasked (full), as the
+    kernel counts them, against `fwd_tile_plan` times the q heads; raises
+    if the two differ."""
+    from xtuner_tpu_torch.ops.attention import flash as fl
+
+    hq, d = q.shape[2], q.shape[3]
+    flops = 4 * causal_pairs(torch, seg) * hq * d
+    least = least_ms(flops, flash_bytes(q, k), PEAK_BF16)["bound_ms"]
+    fl.reset_launches()
+    fl.flash_attention(q, k, v, seg, max_logit=bound)
+    walked, full = fl.fwd_tiles_walked()
+    walk, plan_full = fl.fwd_tile_plan(seg)
+    fl.reset_launches()
+    plan = (int(walk.sum()) * hq, int(plan_full.sum()) * hq)
+    if (walked, full) != plan:
+        raise AssertionError(f"the flash forward walked {walked} k tiles ({full} full) where "
+                             f"its plan says {plan[0]} ({plan[1]}) at {tuple(q.shape)}")
+    return {"tflops": f"{flops / ms / 1e9:.1f}", "bound_ms": f"{least:.4f}",
+            "share_of_bound": f"{least / ms:.3f}", "sdpa_ms": lib, "tiles_walked": walked,
+            "tiles_full": full, "plan_walked_full": f"{plan[0]},{plan[1]}"}
 
 
 def bwd_bound(q, k, pairs: int, two_pass: bool = False) -> dict:
@@ -582,16 +615,17 @@ def phase_train_kernels(torch, seed: int) -> list[dict]:
     rm_ms = cuda_ms(lambda: fl.flash_attention(q, k, v, seg), iters=10)
     mf_plain = cuda_ms(lambda: fl.flash_attention_plain(q, k, v, seg, scale, max_free=True),
                        iters=3, warmup=1)
+    pairs = causal_pairs(torch, seg)
+    lib_fwd, why_fwd = sdpa_ms(torch, q, k, v, block_causal_mask(torch, seg))
     say("kernel", name="flash_fwd_max_free",
         shape=f"B{b}xL{l}xHq{hq}xHkv{hkv}xD{d}", docs=",".join(map(str, lens)),
         out_err=f"{mf_out_err:.3e}", lse_err=f"{mf_lse_err:.3e}", pad_rows_ok=mf_pad_ok,
-        ms=f"{mf_ms:.4f}", running_max_ms=f"{rm_ms:.4f}", plain_ms=f"{mf_plain:.4f}")
+        ms=f"{mf_ms:.4f}", running_max_ms=f"{rm_ms:.4f}", plain_ms=f"{mf_plain:.4f}",
+        **fwd_numbers(torch, q, k, v, seg, bound, mf_ms, lib_fwd))
     if not (mf_out_err <= FLASH_OUT_ATOL and mf_lse_err <= FLASH_LSE_ATOL and mf_pad_ok):
         raise AssertionError(f"max-free flash disagrees with its plain version: out "
                              f"{mf_out_err} (<= {FLASH_OUT_ATOL}), lse {mf_lse_err} "
                              f"(<= {FLASH_LSE_ATOL}), padding rows ok {mf_pad_ok}")
-    pairs = causal_pairs(torch, seg)
-    lib_fwd, why_fwd = sdpa_ms(torch, q, k, v, block_causal_mask(torch, seg))
     rows.append({"name": "flash_fwd_max_free", "route": "cuda",
                  "source": "xtuner_tpu_torch/csrc/flash_fwd.cu",
                  "replaces": "xtuner_tpu/ops/attention/flash.py:82", "path": "train",
@@ -858,15 +892,15 @@ def phase_moe_heavy_kernels(torch, seed: int) -> list[dict]:
     shape = f"B{b}xL{l}xHq{hq}xHkv{hkv}xD{d}"
     pairs = causal_pairs(torch, seg)
     bwd_b = bwd_bound(q, k, pairs)
+    lib_fwd, why_fwd = sdpa_ms(torch, q, k, v, block_causal_mask(torch, seg))
     say("kernel", name="flash_fwd_max_free", shape=shape, out_err=f"{out_err:.3e}",
         lse_err=f"{lse_err:.3e}", pad_rows_ok=pad_ok, ms=f"{f_ms:.4f}",
-        plain_ms=f"{f_plain:.4f}")
+        plain_ms=f"{f_plain:.4f}", **fwd_numbers(torch, q, k, v, seg, bound, f_ms, lib_fwd))
     say("kernel", name="flash_bwd", shape=shape,
         dq_dk_dv_err=",".join(f"{e:.3e}" for e in bwd_errs),
         dq_dk_dv_rel=",".join(f"{r_:.3e}" for r_ in bwd_rels), pad_rows_ok=bwd_pad_ok,
         ms=f"{bwd_ms:.4f}", plain_ms=f"{bwd_plain:.4f}", bound_ms=f"{bwd_b['bound_ms']:.4f}",
         tflops=f"{10 * pairs * hq * d / bwd_ms / 1e9:.1f}")
-    lib_fwd, why_fwd = sdpa_ms(torch, q, k, v, block_causal_mask(torch, seg))
     lib_bwd, why_bwd = sdpa_ms(torch, q, k, v, block_causal_mask(torch, seg), do)
     say("kernel", name="library", shape=shape, sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd,
         why=repr(f"{why_fwd}; {why_bwd}"))
@@ -1574,8 +1608,13 @@ def phase_longctx_kernels(torch, seed: int, smi: str) -> list[dict]:
                              f"{res} (<= {FLASH_GRAD_RTOL}); lse {lse_err} (<= {FLASH_LSE_ATOL})")
 
     bound = torch.tensor(d ** 0.5, device=dev)
-    fwd_ms = cuda_ms(lambda: fl.flash_attention(q, k, v, seg, max_logit=bound), iters=2,
+    fwd_ms = cuda_ms(lambda: fl.flash_attention(q, k, v, seg, max_logit=bound), iters=3,
                      warmup=1)
+    rm_ms = cuda_ms(lambda: fl.flash_attention(q, k, v, seg), iters=3, warmup=1)
+    say("kernel", name="flash_fwd_max_free", shape=shape, docs=1, out_rel=f"{fwd_rel:.3e}",
+        lse_err=f"{lse_err:.3e}", ms=f"{fwd_ms:.3f}", running_max_ms=f"{rm_ms:.3f}",
+        plain_ms=f"{fwd_plain:.1f}", card=repr(smi),
+        **fwd_numbers(torch, q, k, v, seg, bound, fwd_ms, lib_fwd))
     tp_ms = cuda_ms(lambda: fl.flash_bwd(*args, True), iters=2, warmup=1)
     dk_h, dv_h = fl.flash_bwd(*args, True)[1:]
     sum_ms = cuda_ms(lambda: (fl.group_sum(dk_h, hkv, k.dtype), fl.group_sum(dv_h, hkv, v.dtype)),
@@ -1589,8 +1628,7 @@ def phase_longctx_kernels(torch, seed: int, smi: str) -> list[dict]:
         two_pass_bound_ms=f"{tp_bound['bound_ms']:.3f}",
         grouped_tflops=f"{10 * pairs * hq * d / gr_ms / 1e9:.1f}",
         two_pass_tflops=f"{10 * pairs * hq * d / tp_ms / 1e9:.1f}",
-        sdpa_causal_bwd_ms=lib, flash_fwd_ms=f"{fwd_ms:.3f}", sdpa_causal_fwd_ms=lib_fwd,
-        why=repr(f"{why}; {why_fwd}"), card=repr(smi))
+        sdpa_causal_bwd_ms=lib, why=repr(f"{why}; {why_fwd}"), card=repr(smi))
     plain_note = f"the plain version in {PLAIN_CHUNK}-row chunks (its (L, L) scores do not fit)"
     rows.append({"name": "flash_fwd_max_free", "route": "cuda", "source": src + "flash_fwd.cu",
                  "replaces": "xtuner_tpu/ops/attention/flash.py:82", "path": "longctx",

@@ -15,7 +15,8 @@ import torch
 
 from xtuner_tpu_torch.ops.attention.flash import (BIG_LSE, flash_attention,
                                                   flash_attention_plain, flash_bwd,
-                                                  flash_bwd_plain, group_sum,
+                                                  flash_bwd_plain, fwd_tile_plan,
+                                                  fwd_tiles_walked, group_sum,
                                                   max_free_launches, reset_launches)
 from xtuner_tpu_torch.ops.attention.paged_decode import (paged_decode_attn,
                                                          paged_decode_attn_plain)
@@ -79,20 +80,16 @@ def _packed(dev, b, l, hq, hkv, docs, pad, seed=0):
     return q, k, v, seg
 
 
-@pytest.mark.parametrize("b,l,hq,hkv,docs,pad", [
-    (1, 1024, 32, 8, 1, 24),   # the slice's prefill: 1000 tokens in a 1024 bucket
-    (2, 1024, 16, 8, 6, 40),   # moe_heavy's heads: B2, 16/8 (group 2)
-    (2, 200, 4, 2, 3, 7),      # packed documents, ragged tile edge
-    (1, 64, 4, 4, 1, 0),       # one tile, no GQA
-    (1, 77, 8, 2, 2, 60),      # mostly padding
-])
-def test_flash_kernel_matches_plain(cuda, b, l, hq, hkv, docs, pad):
-    q, k, v, seg = _packed(cuda, b, l, hq, hkv, docs, pad)
-    n0 = flash_attention.launches
-    out, lse = flash_attention(q, k, v, seg)
-    torch.cuda.synchronize()
-    assert flash_attention.launches == n0 + 1
-    ref_out, ref_lse = flash_attention_plain(q, k, v, seg, 128 ** -0.5)
+def _with_lens(seg, lens):
+    """Explicit document lengths from position 0 in every row, the rest padding."""
+    seg.zero_()
+    bounds = np.cumsum([0, *lens])
+    for si in range(len(lens)):
+        seg[:, bounds[si]:bounds[si + 1]] = si + 1
+    return seg
+
+
+def _check_flash(out, lse, ref_out, ref_lse, seg):
     valid = seg != 0
     assert torch.isfinite(out.float()).all()
     assert (out[valid].float() - ref_out[valid].float()).abs().max().item() <= FLASH_OUT_ATOL
@@ -101,6 +98,66 @@ def test_flash_kernel_matches_plain(cuda, b, l, hq, hkv, docs, pad):
     assert (lse_valid - ref_valid).abs().max().item() <= FLASH_LSE_ATOL
     assert (out[~valid] == 0).all()
     assert (lse.transpose(1, 2)[~valid] == torch.tensor(BIG_LSE, dtype=torch.float32)).all()
+
+
+@pytest.mark.parametrize("b,l,hq,hkv,docs,pad,lens", [
+    (1, 1024, 32, 8, 1, 24, None),   # the slice's prefill: 1000 tokens in a 1024 bucket
+    (2, 1024, 16, 8, 6, 40, None),   # moe_heavy's heads: B2, 16/8 (group 2)
+    (2, 200, 4, 2, 3, 7, None),      # packed documents, ragged tile edge
+    (1, 64, 4, 4, 1, 0, None),       # one tile, no GQA
+    (1, 77, 8, 2, 2, 60, None),      # mostly padding
+    (1, 8192, 32, 4, 5, 250, None),  # Qwen3-30B-A3B's train step: 5 documents, GQA 8
+    (1, 700, 8, 2, 0, 0, [5, 100, 17, 60, 1, 127, 300]),  # documents shorter than a tile
+    (2, 640, 8, 4, 0, 0, [256, 128, 128]),  # boundaries on tile edges, a padding tile
+    (1, 129, 4, 2, 0, 0, [129]),     # the last q and k tile hold one row
+    (1, 65, 4, 1, 0, 0, [40, 25]),   # L < 64: q and k tiles past L
+])
+def test_flash_kernel_matches_plain(cuda, b, l, hq, hkv, docs, pad, lens):
+    q, k, v, seg = _packed(cuda, b, l, hq, hkv, max(docs, 1), pad)
+    if lens is not None:
+        seg = _with_lens(seg, lens)
+    reset_launches()
+    out, lse = flash_attention(q, k, v, seg)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == 1 and max_free_launches() == 0
+    ref_out, ref_lse = flash_attention_plain(q, k, v, seg, 128 ** -0.5)
+    _check_flash(out, lse, ref_out, ref_lse, seg)
+    # the kernel walks the tiles its plan says, once per q head
+    walk, full = fwd_tile_plan(seg)
+    assert fwd_tiles_walked() == (int(walk.sum()) * hq, int(full.sum()) * hq)
+
+
+@pytest.mark.parametrize("b,l,hq,hkv,lens", [
+    (1, 1024, 8, 2, [1000]),
+    (2, 600, 4, 4, [37, 300, 200]),
+])
+def test_flash_running_max_beyond_the_max_free_bound(cuda, b, l, hq, hkv, lens):
+    """Scaled logits up to ~80 (q times 16): exp2 of the raw logits would
+    overflow f32 in a row's sum, so only the running max keeps them finite;
+    the running-max variant (no bound given, or one above 45) must still
+    agree with the plain version."""
+    q, k, v, seg = _packed(cuda, b, l, hq, hkv, 1, 0)
+    seg = _with_lens(seg, lens)
+    q = (q.float() * 16).bfloat16()
+    scale = 128 ** -0.5
+    logits = torch.einsum("blhd,bmgd->bhlm", q.float(), k.float()[:, :, :1]) * scale
+    assert logits.abs().max().item() > 60
+    ref_out, ref_lse = flash_attention_plain(q, k, v, seg, scale)
+    for bound in (None, torch.tensor(90.0, device=cuda)):
+        reset_launches()
+        out, lse = flash_attention(q, k, v, seg, max_logit=bound)
+        torch.cuda.synchronize()
+        assert max_free_launches() == 0
+        _check_flash(out, lse, ref_out, ref_lse, seg)
+
+
+def test_flash_forward_two_launches_agree_bitwise(cuda):
+    """No atomics touch out or lse: two launches give the same bits."""
+    q, k, v, seg = _packed(cuda, 2, 2048, 16, 8, 3, 50)
+    for bound in (None, torch.tensor(11.3, device=cuda)):
+        a = flash_attention(q, k, v, seg, max_logit=bound)
+        b = flash_attention(q, k, v, seg, max_logit=bound)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def _paged(dev, b, c, hq, hkv, bs, lens, seed=0):
@@ -169,20 +226,13 @@ def test_flash_max_free_variant_matches_plain(cuda, bound, max_free):
     torch.cuda.synchronize()
     assert flash_attention.launches == 1 and max_free_launches() == int(max_free)
     ref_out, ref_lse = flash_attention_plain(q, k, v, seg, 128 ** -0.5, max_free=max_free)
-    valid = seg != 0
-    assert (out[valid].float() - ref_out[valid].float()).abs().max().item() <= FLASH_OUT_ATOL
-    assert (lse.transpose(1, 2)[valid] - ref_lse.transpose(1, 2)[valid]).abs().max().item() \
-        <= FLASH_LSE_ATOL
-    assert (out[~valid] == 0).all()
+    _check_flash(out, lse, ref_out, ref_lse, seg)
 
 
 def _bwd_inputs(dev, b, l, hq, hkv, docs, pad, seed=0, lens=None):
     q, k, v, seg = _packed(dev, b, l, hq, hkv, docs, pad, seed)
-    if lens is not None:  # explicit document lengths, the rest padding
-        seg.zero_()
-        bounds = np.cumsum([0, *lens])
-        for si in range(len(lens)):
-            seg[:, bounds[si]:bounds[si + 1]] = si + 1
+    if lens is not None:
+        seg = _with_lens(seg, lens)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     do = torch.randn(q.shape, generator=g, device=dev).bfloat16()
     scale = 128 ** -0.5

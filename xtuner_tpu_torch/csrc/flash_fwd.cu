@@ -1,310 +1,460 @@
-// Causal GQA flash-attention forward over packed rows, for Hopper (sm_90a).
+// Causal GQA flash-attention forward over packed rows, for Hopper (sm_90a):
+// wgmma for both products, K and V through a TMA ring, the output and the
+// softmax state in registers.
 //
 // Replaces the TPU kernel xtuner_tpu/ops/attention/flash.py::_fwd_kernel
 // (pallas_call in _flash_forward), both of its variants: running max, and
 // max-free (taken when a proven bound on |scaled logit| is <= 45). Same
-// function: q (B, L, Hq, D), k/v (B, L, Hkv, D) bf16, segment_ids (B, L)
-// int32 with 0 = padding; key m is visible to query l iff
+// function: q (B, L, Hq, D), k/v (B, L, Hkv, D) bf16, D = 128, segment_ids
+// (B, L) int32 (0 = padding). A first small kernel builds the backward's
+// table of 64-row tiles over the ids padded to Lp, a multiple of 128
+// (flash.py _tile_table: {lowest non-zero id, highest, the id if the tile
+// holds one document and no padding else 0}), into scratch the wrapper
+// gives, so the host does no work per call. Key m is visible to query l iff
 // seg[l] == seg[m] != 0 and m <= l. Returns out (B, L, Hq, D) bf16 and
 // lse (B, Hq, L) f32 in natural log; a row with no visible key gets
 // out = 0 and lse = 1e30.
 //
-// What bounds it on the H100: at prefill lengths (L ~ 1k) the work is
-// 4 L^2 D Hq / 2 FLOPs, small next to the projections around it, and the
-// kernel is bound by issue and shared-memory traffic rather than by HBM
-// (each K/V tile is read once per q tile) or by the tensor cores.
+// What bounds it on the H100: two L^2-sized bf16 products (S = Q K^T and
+// O = P V: 4 flops per visible pair and head dim) at 989 TFLOP/s; q, k, v
+// and out cross HBM once. Every CTA reads all the K/V tiles below its
+// diagonal, so the K/V stream has to come from L2 (see the grid order).
 //
-// Design (simple and right first; wgmma/TMA/warp specialisation later):
-// - One CTA of 4 warps per (64-row q tile, q head, batch row). The kv head
-//   is h / (Hq / Hkv): kv is never repeated.
-// - Q, K, V tiles are staged in shared memory with 16-byte loads; QK^T and
-//   PV run on the tensor cores through WMMA 16x16x16 bf16 fragments with
-//   f32 accumulation. Each warp owns 16 q rows end to end (scores, softmax,
-//   output rows), so inside a k tile only __syncwarp is needed.
-// - k tiles run from 0 to the causal limit of the q tile; a tile whose
-//   segment range cannot meet the q tile's is skipped (the per-element mask
-//   keeps the result exact either way).
-// - Online softmax in base 2 and f32. scale*log2(e) multiplies the f32
-//   scores: the TPU kernel folds it into q in q's dtype, which rounds q to
-//   bf16 once more; here that rounding does not happen.
-// - The output accumulator lives in shared memory as f32 and is rescaled
-//   there (the WMMA accumulator layout is opaque), then re-loaded into the
-//   fragments for the PV product.
-// - Max-free variant: a compile-time flag of the same body. With every
-//   scaled logit in [-45, 45], exp2 of the raw logit stays inside f32
-//   range, so the row max, the alpha rescale of the accumulator and the
-//   running m disappear (softmax is shift-invariant: the result is exact).
-//   The bound arrives as a device scalar (computed from the qk-norm gains
-//   on the card), and each CTA reads it and branches uniformly, so the
-//   host never waits on it. When asked, the CTA at grid origin of a
-//   max-free launch adds one to a device counter, so a run can show which
-//   variant ran without a synchronize.
-// - head_dim 128 only (the wrapper raises on any other).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+// Design:
+// - One CTA of two warpgroups per (128-row q tile, q head, batch row); each
+//   warpgroup owns 64 q rows and keeps their 64 x 128 O, row max and row
+//   sum in f32 registers for the whole walk. Both warpgroups read each K/V
+//   tile. 256 threads, so ptxas may give each up to 255 registers; thread 0
+//   issues every TMA load (a producer warpgroup under setmaxnreg is capped
+//   at the launch bound's 168 registers: see flash_bwd.cu).
+// - Shared memory: the Q tile (32 KB, loaded once) and a ring of STAGES
+//   K and V tiles (32 KB each), all as 128-byte-swizzled 64-column halves
+//   (sm90.cuh). K and V of a stage have their own full barrier, so S starts
+//   as soon as K has landed; one empty barrier per stage takes an arrival
+//   from each warp when its PV product is done.
+// - Per k tile, each warpgroup: S = Q K^T on wgmma m64n128k16 (both
+//   operands K-major in shared memory); the softmax in the accumulator
+//   layout in base 2 (scale * log2(e) on the f32 scores, as the plain
+//   version does; JAX folds it into bf16 q), row max and sum by quad
+//   shuffles; P packed to bf16 A fragments in registers; O += P V on wgmma
+//   m64n128k16 with A from registers and V as the MN-major B operand. The
+//   PV product of tile t runs while S of tile t + 1 is issued (one wait on
+//   the older group frees tile t's stage). The running-max variant rescales
+//   O and the row sum by alpha = exp2(m_old - m_new) in registers; the
+//   max-free variant (|scaled logit| <= 45: exp2 stays inside f32, and
+//   softmax is shift-invariant) has neither max nor rescale. Each thread
+//   sums its part of a row; the quad's parts are added in the epilogue.
+// - The walk: k tiles from the first whose segment range meets the q
+//   tile's (warp 0 finds it by ballots over the tile table) up to the
+//   diagonal, skipping any that does not meet it; producer and consumers
+//   read the same predicate. A tile wholly inside the q tile's one
+//   document and below the diagonal skips the per-element mask (JAX
+//   _tile_full); only tiles on the diagonal, a document boundary or
+//   padding are masked.
+// - Epilogue: out = O / l (0 where nothing was visible) to bf16, staged in
+//   the warpgroup's own rows of the Q buffer in the swizzled layout and
+//   written by two TMA stores (rows past L are not written); lse by the
+//   quad's first thread.
+// - Grid order (1-D): q tile outermost, last tile first (the longest walks
+//   start first), then batch row, kv head, and the q heads of the kv group
+//   innermost. The ~132 resident CTAs are then ~8 neighbouring q tiles of
+//   every head of one row, which walk the same K/V tiles from tile 0 up at
+//   about the same time: each K/V tile crosses HBM about once per wave and
+//   is read from L2 by every CTA of the wave.
+// - The variant comes from the device scalar `bound`, read per CTA, so the
+//   host never waits; CTA 0 of a max-free launch adds one to a device
+//   counter, and thread 0 of every CTA adds its walked and full k tiles to
+//   a second counter when one is given (the plan check of chip_smoke.py).
+// - Deterministic: no atomics touch out or lse.
+// - Head dim 128 and causal only (anything else returns an error).
+// - ptxas (nvcc -Xptxas -v, sm_90a, CUDA 12.9): one kernel holds both
+//   variants (the bound is read on the device): 254 registers, 0 bytes of
+//   spills; 164,936 bytes of dynamic shared memory (one CTA per SM). A
+//   three-stage ring fits too, and ran slower than two at L65536 and L8192.
 
-using namespace nvcuda;
+#include "sm90.cuh"
 
 namespace {
 
 constexpr int D = 128;
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-// padded leading dimensions (elements); each keeps every 16-row fragment
-// start 32-byte aligned, as WMMA loads require
-constexpr int LDH = D + 8;    // bf16 Q/K/V tiles
-constexpr int LDS = BK + 4;   // f32 scores
-constexpr int LDP = BK + 8;   // bf16 probabilities
-constexpr int LDO = D + 4;    // f32 output accumulator
+constexpr int BM = 128;  // q rows per CTA: two warpgroups of 64
+constexpr int BN = 128;  // key rows per k tile
+constexpr int STAGES = 2;
+constexpr int NTHREADS = 256;
 constexpr float NEG_INF = -1e30f;
 constexpr float BIG_LSE = 1e30f;
 constexpr float LN2 = 0.6931471805599453f;
+constexpr float LOG2E = 1.4426950408889634f;
 // |scaled logit| bound of the max-free variant (flash.py MAX_FREE_BOUND)
 constexpr float MAX_FREE_BOUND = 45.f;
 
-constexpr size_t OFF_Q = 0;
-constexpr size_t OFF_K = OFF_Q + sizeof(__nv_bfloat16) * BQ * LDH;
-constexpr size_t OFF_V = OFF_K + sizeof(__nv_bfloat16) * BK * LDH;
-constexpr size_t OFF_S = OFF_V + sizeof(__nv_bfloat16) * BK * LDH;
-constexpr size_t OFF_P = OFF_S + sizeof(float) * BQ * LDS;
-constexpr size_t OFF_O = OFF_P + sizeof(__nv_bfloat16) * BQ * LDP;
-constexpr size_t OFF_SEGQ = OFF_O + sizeof(float) * BQ * LDO;
-constexpr size_t OFF_SEGK = OFF_SEGQ + sizeof(int) * BQ;
-constexpr size_t OFF_FLAG = OFF_SEGK + sizeof(int) * BK;
-constexpr size_t SMEM_BYTES = OFF_FLAG + 16;
+// shared memory, in bytes from a 1024-aligned base
+constexpr uint32_t HALF = BN * 128;  // one 64-column half of a 128-row tile: 16 KB
+constexpr uint32_t TILE = 2 * HALF;
+constexpr uint32_t OFF_Q = 0;
+constexpr uint32_t OFF_K = OFF_Q + TILE;
+constexpr uint32_t OFF_V = OFF_K + STAGES * TILE;
+constexpr uint32_t OFF_BAR = OFF_V + STAGES * TILE;  // K full, V full, empty [STAGES]; Q
+constexpr uint32_t OFF_FIRST = OFF_BAR + 8 * (3 * STAGES + 1);
+constexpr uint32_t SMEM_BYTES = OFF_FIRST + 16 + 1024;  // + alignment slack
+static_assert(SMEM_BYTES <= 232448, "fits one SM");
 
-// rows [row0, row0 + 64) of one head of a (B, L, H, D) tensor -> smem tile;
-// rows past L are zero
-__device__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int b,
-                          int row0, int h, int L, int H) {
-  constexpr int VEC = 8;                 // bf16 per 16-byte load
-  constexpr int PER_ROW = D / VEC;       // 16
-  for (int i = threadIdx.x; i < 64 * PER_ROW; i += NTHREADS) {
-    int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
-    int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < L) {
-      const __nv_bfloat16* p = src + (((int64_t)b * L + row) * H + h) * D + c;
-      val = *reinterpret_cast<const uint4*>(p);
+struct Args {
+  const int* seg;      // (B, L)
+  const int4* tiles;   // (B, Lp / 64)
+  float* lse;          // (B, Hq, L)
+  const float* bound;  // device scalar or null (running max)
+  int* max_free_count;                // device int or null
+  unsigned long long* tile_count;     // [walked, full] or null
+  int B, L, Lp, Hq, Hkv;
+  float scale_log2e;
+};
+
+// whether k tile j's segment range meets the q tile's [qmin, qmax]
+__device__ __forceinline__ bool meets(const int4* tiles, int j, int qmin, int qmax) {
+  const int4 a = tiles[2 * j], c = tiles[2 * j + 1];
+  return max(a.y, c.y) >= qmin && min(a.x, c.x) <= qmax;
+}
+
+// the first k tile from j up to the diagonal i that meets the q tile (i + 1 if none)
+__device__ __forceinline__ int next_tile(const int4* tiles, int j, int i, int qmin, int qmax) {
+  while (j <= i && !meets(tiles, j, qmin, qmax)) ++j;
+  return j;
+}
+
+__device__ __forceinline__ void load_kv(const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                        uint32_t sbase, uint32_t bar_k, uint32_t bar_v,
+                                        int stage, int j, int g, int b) {
+  const uint32_t fk = bar_k + 8 * stage, fv = bar_v + 8 * stage;
+  mbar_expect_tx(fk, TILE);
+  for (int half = 0; half < 2; ++half)
+    tma_load(sbase + OFF_K + stage * TILE + half * HALF, tm_k, fk, 64 * half, g, j * BN, b);
+  mbar_expect_tx(fv, TILE);
+  for (int half = 0; half < 2; ++half)
+    tma_load(sbase + OFF_V + stage * TILE + half * HALF, tm_v, fv, 64 * half, g, j * BN, b);
+}
+
+// P of one (64 q rows, 128 keys) tile from S in the accumulator layout
+// (rows row0 + 8 r, columns 8 j + 2 tq + cc for s[4 j + 2 r + cc]), packed
+// to bf16 A fragments; m, l and O updated for the running-max variant
+template <bool MAX_FREE, bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&s)[64], uint32_t (&pa)[32], float (&o)[64],
+                                             float (&m)[2], float (&l)[2], float c,
+                                             const int* kseg, int k0, int L,
+                                             const int (&qs)[2], const int (&qpos)[2], int tq) {
+  int ks[32];
+  if (MASK) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int pos = k0 + 8 * (e / 2) + 2 * tq + e % 2;
+      ks[e] = pos < L ? kseg[pos] : 0;  // past L: padding
     }
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) = val;
+  }
+  auto visible = [&](int i) {
+    const int j = i / 4, r = (i / 2) % 2, cc = i % 2;
+    return qs[r] != 0 && ks[2 * j + cc] == qs[r] && k0 + 8 * j + 2 * tq + cc <= qpos[r];
+  };
+  if (MAX_FREE) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      float p = exp2f(s[i] * c);
+      if (MASK) p = visible(i) ? p : 0.f;
+      l[(i / 2) % 2] += p;
+      s[i] = p;
+    }
+  } else {
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      float v = s[i] * c;
+      if (MASK) v = visible(i) ? v : __int_as_float(0xff800000);  // -inf
+      s[i] = v;
+      mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], v);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f(m[r] - mx[r]);  // m starts at -1e30: a row's first visible key gives 0
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const float p = exp2f(s[i] - mx[(i / 2) % 2]);  // masked: exp2(-inf) = 0
+      l[(i / 2) % 2] += p;
+      s[i] = p;
+      o[i] *= alpha[(i / 2) % 2];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    pa[2 * j] = pack_bf16(s[4 * j], s[4 * j + 1]);
+    pa[2 * j + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
   }
 }
 
 template <bool MAX_FREE>
-__device__ __forceinline__ void fwd_body(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
-    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int L, int Hq,
-    int Hkv, float scale_log2e, unsigned char* smem) {
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem + OFF_Q);
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + OFF_K);
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + OFF_V);
-  float* sS = reinterpret_cast<float*>(smem + OFF_S);
-  __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(smem + OFF_P);
-  float* sO = reinterpret_cast<float*>(smem + OFF_O);
-  int* sSegQ = reinterpret_cast<int*>(smem + OFF_SEGQ);
-  int* sSegK = reinterpret_cast<int*>(smem + OFF_SEGK);
-  int* sFlag = reinterpret_cast<int*>(smem + OFF_FLAG);
+__device__ __forceinline__ void fwd_body(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
+                                         const CUtensorMap* tm_v, const CUtensorMap* tm_o,
+                                         const Args& a, unsigned char* smem) {
+  const uint32_t sbase = smem_u32(smem);
+  const uint32_t bar_k = sbase + OFF_BAR;         // [STAGES]: 1 arrival + the bytes
+  const uint32_t bar_v = bar_k + 8 * STAGES;      // [STAGES]: 1 arrival + the bytes
+  const uint32_t bar_e = bar_v + 8 * STAGES;      // [STAGES]: one arrival per warp
+  const uint32_t bar_q = bar_e + 8 * STAGES;
+  int* first_s = reinterpret_cast<int*>(smem + OFF_FIRST);
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int g = h / (Hq / Hkv);
-  const int warp = threadIdx.x / 32;
+  // grid order: q tile (last first), batch row, kv head, q head of the group
+  const int ratio = a.Hq / a.Hkv;
+  int x = (int)blockIdx.x;
+  const int hr = x % ratio;
+  x /= ratio;
+  const int g = x % a.Hkv;
+  x /= a.Hkv;
+  const int b = x % a.B;
+  const int i = a.Lp / BM - 1 - x / a.B;  // the q tile, and the last k tile it may see
+  const int h = g * ratio + hr;
+  const int q0 = i * BM;
+  const int wg = threadIdx.x / 128;  // q rows [64 wg, 64 wg + 64) of the tile
+  const int warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32;
+  const int tq = lane % 4;
+  const int row0 = 16 * warp + lane / 4;  // this thread's rows: row0 and row0 + 8
 
-  load_tile(sQ, q, b, q0, h, L, Hq);
-  for (int i = threadIdx.x; i < BQ; i += NTHREADS)
-    sSegQ[i] = (q0 + i < L) ? seg[(int64_t)b * L + q0 + i] : 0;
-  for (int i = threadIdx.x; i < BQ * LDO; i += NTHREADS) sO[i] = 0.f;
+  const int4* tiles = a.tiles + (int64_t)b * (a.Lp / 64);
+  const int* seg = a.seg + (int64_t)b * a.L;
+  const int4 t0 = tiles[2 * i], t1 = tiles[2 * i + 1];
+  const int qmin = min(t0.x, t1.x), qmax = max(t0.y, t1.y);
+  const int quni = t0.z == t1.z ? t0.z : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+      mbar_init(bar_e + 8 * s, NTHREADS / 32);
+    }
+    mbar_init(bar_q, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_expect_tx(bar_q, TILE);
+    for (int half = 0; half < 2; ++half)
+      tma_load(sbase + OFF_Q + half * HALF, tm_q, bar_q, 64 * half, h, q0, b);
+  }
+  if (threadIdx.x < 32) {  // the first k tile to walk, 32 tiles at a time from tile 0
+    int first = i + 1;
+    for (int base = 0; base <= i; base += 32) {
+      const int j = base + lane;
+      const unsigned hit = __ballot_sync(0xffffffffu, j <= i && meets(tiles, j, qmin, qmax));
+      if (hit) {
+        first = base + __ffs(hit) - 1;
+        break;
+      }
+    }
+    if (lane == 0) *first_s = first;
+  }
   __syncthreads();
+  const int j_first = *first_s;
+  int jn = j_first;  // thread 0: the next k tile to load
+  if (threadIdx.x == 0)
+    for (int s = 0; s < STAGES && jn <= i; ++s) {
+      load_kv(tm_k, tm_v, sbase, bar_k, bar_v, s, jn, g, b);
+      jn = next_tile(tiles, jn + 1, i, qmin, qmax);
+    }
 
-  // this q tile's segment range (segment 0 = padding sees nothing)
-  int qmin = 0x7fffffff, qmax = 0;
-  for (int i = 0; i < BQ; ++i) {
-    int s = sSegQ[i];
-    if (s != 0) { qmin = min(qmin, s); qmax = max(qmax, s); }
+  int qpos[2], qs[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qpos[r] = q0 + 64 * wg + row0 + 8 * r;
+    qs[r] = qpos[r] < a.L ? seg[qpos[r]] : 0;
   }
-
-  // lane pair (2r', 2r'+1) of a warp owns row r = 16*warp + lane/2; each
-  // lane of the pair holds half of the row's columns
-  const int r = warp * 16 + lane / 2;
-  const int half = lane % 2;
-  const int qpos = q0 + r;
-  const int qseg = sSegQ[r];
-  float m_i = NEG_INF, l_i = 0.f;
-
-  const int last = min(q0 + BQ - 1, L - 1);  // causal limit of this q tile
-  const int n_kt = (qmax == 0) ? 0 : last / BK + 1;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    for (int i = threadIdx.x; i < BK; i += NTHREADS)
-      sSegK[i] = (k0 + i < L) ? seg[(int64_t)b * L + k0 + i] : 0;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int kmin = 0x7fffffff, kmax = 0;
-      for (int i = 0; i < BK; ++i) {
-        int s = sSegK[i];
-        if (s != 0) { kmin = min(kmin, s); kmax = max(kmax, s); }
-      }
-      *sFlag = (kmax != 0) && (kmax >= qmin) && (kmin <= qmax);
-    }
-    __syncthreads();
-    if (!*sFlag) continue;  // uniform across the CTA
-    load_tile(sK, k, b, k0, g, L, Hkv);
-    load_tile(sV, v, b, k0, g, L, Hkv);
-    __syncthreads();
-
-    // ---- S = Q K^T for this warp's 16 rows (4 fragments of 16 columns)
-    {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc;
+  const float c = a.scale_log2e;
+  float o[64], s[64], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  uint32_t pa[32];
 #pragma unroll
-      for (int n = 0; n < BK / 16; ++n) {
-        wmma::fill_fragment(fc, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          wmma::load_matrix_sync(fa, sQ + (warp * 16) * LDH + kk * 16, LDH);
-          // K^T as a col-major B: element (d, key) sits at sK[key * LDH + d]
-          wmma::load_matrix_sync(fb, sK + (n * 16) * LDH + kk * 16, LDH);
-          wmma::mma_sync(fc, fa, fb, fc);
-        }
-        wmma::store_matrix_sync(sS + (warp * 16) * LDS + n * 16, fc, LDS,
-                                wmma::mem_row_major);
-      }
-    }
-    __syncwarp();
+  for (int e = 0; e < 64; ++e) o[e] = s[e] = 0.f;
+  const uint32_t sQ = sbase + OFF_Q + wg * (64 * 128);  // this warpgroup's 64 rows
+  mbar_wait(bar_q, 0);
 
-    // ---- softmax (base 2, f32) on row r, columns [32*half, +32)
-    {
-      const float* srow = sS + r * LDS + half * 32;
-      __nv_bfloat16* prow = sP + r * LDP + half * 32;
-      if (MAX_FREE) {
-        // |s * scale| <= 45: exp2 of the raw scaled logit cannot overflow,
-        // so no max and no rescale
-        float sum = 0.f;
-        for (int c = 0; c < 32; ++c) {
-          int kpos = k0 + half * 32 + c;
-          bool ok = qseg != 0 && kpos <= qpos && sSegK[half * 32 + c] == qseg;
-          float p = ok ? exp2f(srow[c] * scale_log2e) : 0.f;
-          sum += p;
-          prow[c] = __float2bfloat16(p);
-        }
-        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-        l_i += sum;
-      } else {
-        float mx = NEG_INF;
-        for (int c = 0; c < 32; ++c) {
-          int kpos = k0 + half * 32 + c;
-          bool ok = qseg != 0 && kpos <= qpos && sSegK[half * 32 + c] == qseg;
-          if (ok) mx = fmaxf(mx, srow[c] * scale_log2e);
-        }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        const float m_new = fmaxf(m_i, mx);
-        const float alpha = exp2f(m_i - m_new);
-        float sum = 0.f;
-        for (int c = 0; c < 32; ++c) {
-          int kpos = k0 + half * 32 + c;
-          bool ok = qseg != 0 && kpos <= qpos && sSegK[half * 32 + c] == qseg;
-          float p = ok ? exp2f(srow[c] * scale_log2e - m_new) : 0.f;
-          sum += p;
-          prow[c] = __float2bfloat16(p);
-        }
-        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-        l_i = l_i * alpha + sum;
-        m_i = m_new;
-        float* orow = sO + r * LDO + half * 64;
-        for (int c = 0; c < 64; ++c) orow[c] *= alpha;
-      }
-    }
-    __syncwarp();
+  int t = 0, n_full = 0;
+  for (int j = j_first; j <= i; ++t) {
+    const int j_next = next_tile(tiles, j + 1, i, qmin, qmax);
+    const int4 ka = tiles[2 * j], kb = tiles[2 * j + 1];
+    const bool full = j < i && quni != 0 && ka.z == quni && kb.z == quni;  // JAX _tile_full
+    const int stage = t % STAGES;
+    const uint32_t phase = (t / STAGES) & 1;
+    const uint32_t sK = sbase + OFF_K + stage * TILE;
+    const uint32_t sV = sbase + OFF_V + stage * TILE;
 
-    // ---- O += P V for this warp's 16 rows (8 fragments of 16 columns)
-    {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc;
+    // S = Q K^T (64 q rows x 128 keys, over D)
+    mbar_wait(bar_k + 8 * stage, phase);
+    wg_fence();
 #pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        float* optr = sO + (warp * 16) * LDO + n * 16;
-        wmma::load_matrix_sync(fc, optr, LDO, wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          wmma::load_matrix_sync(fa, sP + (warp * 16) * LDP + kk * 16, LDP);
-          wmma::load_matrix_sync(fb, sV + (kk * 16) * LDH + n * 16, LDH);
-          wmma::mma_sync(fc, fa, fb, fc);
-        }
-        wmma::store_matrix_sync(optr, fc, LDO, wmma::mem_row_major);
-      }
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * HALF + (kk % 4) * 32;
+      wgmma_m64n128_ss<0, 0>(s, desc(sQ + off, 16, 1024), desc(sK + off, 16, 1024), kk > 0);
     }
-    __syncwarp();
+    wg_commit();
+    if (t > 0) {
+      // the last tile's PV is done: release its stage, and refill it
+      wg_wait<1>();
+      reg_fence(o);
+      reg_fence(pa);
+      const int prev = (t - 1) % STAGES;
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_e + 8 * prev);
+      if (threadIdx.x == 0 && jn <= i) {
+        mbar_wait(bar_e + 8 * prev, ((t - 1) / STAGES) & 1);
+        load_kv(tm_k, tm_v, sbase, bar_k, bar_v, prev, jn, g, b);
+        jn = next_tile(tiles, jn + 1, i, qmin, qmax);
+      }
+      __syncwarp();
+    }
+    wg_wait0();
+    reg_fence(s);
+
+    n_full += full;
+    if (full)
+      softmax_tile<MAX_FREE, false>(s, pa, o, m, l, c, seg, j * BN, a.L, qs, qpos, tq);
+    else
+      softmax_tile<MAX_FREE, true>(s, pa, o, m, l, c, seg, j * BN, a.L, qs, qpos, tq);
+
+    // O += P V (64 q rows x 128, over the 128 keys)
+    mbar_wait(bar_v + 8 * stage, phase);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_m64n128_rs<1>(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                          desc(sV + kk * 2048, HALF, 1024));
+    wg_commit();
+    j = j_next;
   }
-  __syncwarp();
+  wg_wait0();
+  reg_fence(o);
 
-  // ---- finalize row r: out = O / l (0 if nothing was visible), lse
-  if (qpos < L) {
-    const bool valid = l_i > 0.f;
-    const float inv = valid ? 1.f / l_i : 0.f;
-    const float* orow = sO + r * LDO + half * 64;
-    __nv_bfloat16* dst = out + (((int64_t)b * L + qpos) * Hq + h) * D + half * 64;
-    for (int c = 0; c < 64; ++c) dst[c] = __float2bfloat16(orow[c] * inv);
-    if (half == 0) {
-      const float lse2 = MAX_FREE ? log2f(l_i) : m_i + log2f(l_i);
-      lse[((int64_t)b * Hq + h) * L + qpos] = valid ? lse2 * LN2 : BIG_LSE;
-    }
+  // epilogue: the quad's row sums; out = O / l to bf16 in this warpgroup's
+  // rows of the Q buffer (its S products are done), then two TMA stores
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
   }
+  unsigned char* stg = smem + OFF_Q;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int R = 64 * wg + row0 + 8 * r;
+      *reinterpret_cast<uint32_t*>(stg + (j / 8) * HALF + R * 128 + (((j % 8) ^ (R & 7)) << 4) +
+                                   4 * tq) =
+          pack_bf16(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+    }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  named_sync(1 + wg, 128);
+  const bool store = threadIdx.x % 128 == 0 && q0 + 64 * wg < a.L;
+  if (store) {
+    for (int half = 0; half < 2; ++half)
+      tma_store(tm_o, sbase + OFF_Q + half * HALF + wg * (64 * 128), 64 * half, h,
+                q0 + 64 * wg, b);
+    tma_store_commit();
+  }
+  if (tq == 0)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (qpos[r] < a.L) {
+        const float lse2 = MAX_FREE ? log2f(l[r]) : m[r] + log2f(l[r]);
+        a.lse[((int64_t)b * a.Hq + h) * a.L + qpos[r]] = l[r] > 0.f ? lse2 * LN2 : BIG_LSE;
+      }
+  if (threadIdx.x == 0 && a.tile_count != nullptr) {
+    atomicAdd(a.tile_count, (unsigned long long)t);
+    atomicAdd(a.tile_count + 1, (unsigned long long)n_full);
+  }
+  if (store) tma_store_wait();  // the stores have read the staging rows
 }
 
-// bound: device scalar, the proven |scaled logit| bound, or null (always
-// the running-max variant); max_free_count: device int, or null
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const int* __restrict__ seg, __nv_bfloat16* __restrict__ out,
-                 float* __restrict__ lse, int L, int Hq, int Hkv,
-                 float scale_log2e, const float* __restrict__ bound,
-                 int* __restrict__ max_free_count) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const bool max_free = bound != nullptr && *bound <= MAX_FREE_BOUND;
+// the tile table: one warp per 64-row tile of the ids padded to Lp
+__global__ void __launch_bounds__(256)
+tile_table_kernel(const int* __restrict__ seg, int4* __restrict__ tiles, int B, int L, int Lp) {
+  const int w = (int)((blockIdx.x * blockDim.x + threadIdx.x) / 32);
+  const int lane = threadIdx.x % 32;
+  const int nt = Lp / 64;
+  if (w >= B * nt) return;  // whole warps
+  const int b = w / nt, t = w % nt;
+  int lo = 0x7fffffff, hi = 0, mn = 0x7fffffff;
+  for (int r = 0; r < 2; ++r) {
+    const int pos = 64 * t + 32 * r + lane;
+    const int v = pos < L ? seg[(int64_t)b * L + pos] : 0;
+    hi = max(hi, v);
+    mn = min(mn, v);
+    if (v != 0) lo = min(lo, v);
+  }
+  for (int off = 16; off > 0; off /= 2) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+    mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+  }
+  if (lane == 0) tiles[w] = make_int4(lo, hi, mn == hi ? hi : 0, 0);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_o, const Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const bool max_free = a.bound != nullptr && *a.bound <= MAX_FREE_BOUND;
   if (max_free) {
-    if (max_free_count != nullptr && threadIdx.x == 0 && blockIdx.x == 0 &&
-        blockIdx.y == 0 && blockIdx.z == 0)
-      atomicAdd(max_free_count, 1);
-    fwd_body<true>(q, k, v, seg, out, lse, L, Hq, Hkv, scale_log2e, smem);
+    if (a.max_free_count != nullptr && threadIdx.x == 0 && blockIdx.x == 0)
+      atomicAdd(a.max_free_count, 1);
+    fwd_body<true>(&tm_q, &tm_k, &tm_v, &tm_o, a, smem);
   } else {
-    fwd_body<false>(q, k, v, seg, out, lse, L, Hq, Hkv, scale_log2e, smem);
+    fwd_body<false>(&tm_q, &tm_k, &tm_v, &tm_o, a, smem);
   }
 }
 
 }  // namespace
 
-extern "C" int xt_flash_fwd_bf16(const void* q, const void* k, const void* v,
-                                 const void* seg, void* out, void* lse, int B,
-                                 int L, int Hq, int Hkv, int d, float scale,
-                                 const void* bound, void* max_free_count,
-                                 void* stream) {
+// q (B, L, Hq, D), k, v (B, L, Hkv, D), out (B, L, Hq, D) bf16; seg (B, L)
+// int32; tiles: scratch of (B, Lp / 64, 4) int32, Lp = L rounded up to 128;
+// lse (B, Hq, L) f32. bound: device f32 or null (always the running-max
+// variant); max_free_count: device int32 or null; tile_count: device
+// uint64 [walked, full] or null.
+extern "C" int xt_flash_fwd_bf16(const void* q, const void* k, const void* v, const void* seg,
+                                 void* tiles, void* out, void* lse, int B, int L, int Hq,
+                                 int Hkv, int d, float scale, const void* bound,
+                                 void* max_free_count, void* tile_count, void* stream) {
   if (d != D || Hkv <= 0 || Hq % Hkv != 0 || L <= 0 || B <= 0)
     return (int)cudaErrorInvalidValue;
-  // above 48 KB, dynamic shared memory must be opted into (per device)
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
+  const int Lp = (L + BM - 1) / BM * BM;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  if (!make_map(&tm_q, encode, q, B, L, Hq, BM) || !make_map(&tm_k, encode, k, B, L, Hkv, BN) ||
+      !make_map(&tm_v, encode, v, B, L, Hkv, BN) || !make_map(&tm_o, encode, out, B, L, Hq, 64))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
-  const float log2e = 1.4426950408889634f;
-  dim3 grid((L + BQ - 1) / BQ, Hq, B);
-  flash_fwd_kernel<<<grid, NTHREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(seg),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), L, Hq, Hkv,
-      scale * log2e, static_cast<const float*>(bound),
-      static_cast<int*>(max_free_count));
+  const int warps = B * (Lp / 64);
+  tile_table_kernel<<<(warps + 7) / 8, 256, 0, (cudaStream_t)stream>>>(
+      static_cast<const int*>(seg), static_cast<int4*>(tiles), B, L, Lp);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const Args a{static_cast<const int*>(seg), static_cast<const int4*>(tiles),
+               static_cast<float*>(lse), static_cast<const float*>(bound),
+               static_cast<int*>(max_free_count),
+               static_cast<unsigned long long*>(tile_count), B, L, Lp, Hq, Hkv,
+               scale * LOG2E};
+  const unsigned grid = (unsigned)(Lp / BM) * Hq * B;
+  flash_fwd_kernel<<<grid, NTHREADS, SMEM_BYTES, (cudaStream_t)stream>>>(tm_q, tm_k, tm_v,
+                                                                         tm_o, a);
   return (int)cudaGetLastError();
 }
+
+// the dynamic shared memory one CTA of the kernel takes (bytes)
+extern "C" int xt_flash_fwd_smem_bytes() { return (int)SMEM_BYTES; }

@@ -25,7 +25,9 @@ and in the backward re-runs the function (never the flash forward).
 below `MAX_FREE_BOUND` the forward runs the max-free variant. On the card
 the bound stays on the device and each CTA branches on it, so no step
 waits on it; `max_free_launches()` reads how many launches took that
-variant.
+variant. The forward's CTAs also count the k tiles they walk, and those
+they walk without the per-element mask (`fwd_tiles_walked()`);
+`fwd_tile_plan` says which tiles one launch should walk.
 
 Not ported yet: sliding windows and sinks ([serve-rest]) and non-causal
 attention ([train-slice]).
@@ -173,6 +175,7 @@ def _check_bwd_args(q, k, v, segment_ids, lse, delta, do, name):
 
 
 _MAX_FREE_COUNT: dict = {}  # device -> int32 count of max-free launches
+_TILE_COUNT: dict = {}  # device -> int64 [k tiles walked, full ones], summed over CTAs
 
 
 def _max_free_counter(device) -> torch.Tensor:
@@ -181,18 +184,75 @@ def _max_free_counter(device) -> torch.Tensor:
     return _MAX_FREE_COUNT[device]
 
 
+def _tile_counter(device) -> torch.Tensor:
+    if device not in _TILE_COUNT:
+        _TILE_COUNT[device] = torch.zeros(2, dtype=torch.int64, device=device)
+    return _TILE_COUNT[device]
+
+
 def max_free_launches() -> int:
     """Forward launches that took the max-free variant since the last
     `reset_launches()` (reads the device counters: synchronizes)."""
     return sum(int(c.item()) for c in _MAX_FREE_COUNT.values())
 
 
+def fwd_tiles_walked() -> tuple[int, int]:
+    """(k tiles walked, of which full) by the forward kernel's CTAs, one
+    per (q tile, q head, batch row), since the last `reset_launches()`
+    (reads the device counters: synchronizes). `fwd_tile_plan` says which
+    tiles one launch should walk."""
+    walked = full = 0
+    for c in _TILE_COUNT.values():
+        w, f = c.tolist()
+        walked, full = walked + w, full + f
+    return walked, full
+
+
 def reset_launches() -> None:
     """Zero the launch counters of the flash kernels."""
     flash_attention.launches = 0
     flash_bwd.launches = {"grouped": 0, "two_pass": 0}
-    for c in _MAX_FREE_COUNT.values():
+    for c in (*_MAX_FREE_COUNT.values(), *_TILE_COUNT.values()):
         c.zero_()
+
+
+KEY_TILE = 128  # key rows of a backward CTA and q/k rows of a forward tile; Lp pads L to it
+TILE_ROWS = 64  # rows of one entry of the tile table (the backward's q tile)
+
+
+def _tile_table(seg_p: torch.Tensor) -> torch.Tensor:
+    """(B, Lp / 64, 4) int32 over 64-row tiles of the padded segment ids:
+    the lowest non-zero id (int32 max if none), the highest (0 if none),
+    the id if the tile holds one document and no padding (else 0), 0."""
+    t = seg_p.view(seg_p.shape[0], -1, TILE_ROWS)
+    hi = t.amax(-1)
+    lo = t.masked_fill(t == 0, torch.iinfo(torch.int32).max).amin(-1)
+    uni = torch.where(t.amin(-1) == hi, hi, torch.zeros_like(hi))
+    return torch.stack([lo, hi, uni, torch.zeros_like(hi)], dim=-1).contiguous()
+
+
+def fwd_tile_plan(segment_ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Which k tiles the forward kernel walks for each q tile, from the
+    padded segment ids and their tile table, which the kernel builds the
+    same way (for counts and tests only; nothing computes attention from
+    it). Tiles are KEY_TILE rows. Returns (walk, full), (B, nt, nt) bool
+    over (q tile i, k tile j): walked iff j <= i and the k tile's segment
+    range meets the q tile's; full (no per-element mask, JAX `_tile_full`)
+    iff walked, j < i, and both tiles hold one and the same document and
+    no padding."""
+    pad = -segment_ids.shape[1] % KEY_TILE
+    t = _tile_table(torch.nn.functional.pad(segment_ids, (0, pad)))
+    b = t.shape[0]
+    t = t.view(b, -1, 2, 4)
+    lo, hi = t[..., 0].amin(-1), t[..., 1].amax(-1)
+    uni = torch.where(t[:, :, 0, 2] == t[:, :, 1, 2], t[:, :, 0, 2], torch.zeros_like(lo))
+    n = lo.shape[1]
+    idx = torch.arange(n, device=lo.device)
+    causal = idx[None, :, None] >= idx[None, None, :]  # (1, i, j)
+    walk = causal & (hi[:, None, :] >= lo[:, :, None]) & (lo[:, None, :] <= hi[:, :, None])
+    full = walk & (idx[None, :, None] > idx[None, None, :]) & (uni[:, None, :] != 0) \
+        & (uni[:, None, :] == uni[:, :, None])
+    return walk, full
 
 
 def flash_forward(q, k, v, segment_ids, scale: float,
@@ -216,30 +276,18 @@ def flash_forward(q, k, v, segment_ids, scale: float,
     b, l, hq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, l), dtype=torch.float32, device=q.device)
+    # scratch for the tile table, which the kernel's first launch builds
+    tiles = torch.empty((b, -(-l // KEY_TILE) * (KEY_TILE // TILE_ROWS), 4),
+                        dtype=torch.int32, device=q.device)
     err = load().xt_flash_fwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), b, l, hq, k.shape[2], d, float(scale),
-        None if bound is None else bound.data_ptr(),
-        _max_free_counter(q.device).data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(), tiles.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), b, l, hq, k.shape[2], d,
+        float(scale), None if bound is None else bound.data_ptr(),
+        _max_free_counter(q.device).data_ptr(), _tile_counter(q.device).data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "xt_flash_fwd_bf16")
     flash_attention.launches += 1
     return out, lse
-
-
-KEY_TILE = 128  # key rows per CTA of the backward kernel; Lp pads L to it
-TILE_ROWS = 64  # rows of one entry of the tile table (the kernel's q tile)
-
-
-def _tile_table(seg_p: torch.Tensor) -> torch.Tensor:
-    """(B, Lp / 64, 4) int32 over 64-row tiles of the padded segment ids:
-    the lowest non-zero id (int32 max if none), the highest (0 if none),
-    the id if the tile holds one document and no padding (else 0), 0."""
-    t = seg_p.view(seg_p.shape[0], -1, TILE_ROWS)
-    hi = t.amax(-1)
-    lo = t.masked_fill(t == 0, torch.iinfo(torch.int32).max).amin(-1)
-    uni = torch.where(t.amin(-1) == hi, hi, torch.zeros_like(hi))
-    return torch.stack([lo, hi, uni, torch.zeros_like(hi)], dim=-1).contiguous()
 
 
 def flash_bwd_plain(q, k, v, segment_ids, lse, delta, do, scale, two_pass=False):

@@ -36,10 +36,14 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes (every one returns cudaGetLastError())
 SIGNATURES = {
-    # q, k, v, segment_ids, out, lse, B, L, Hq, Hkv, D, scale,
-    # max_logit bound (device f32 or null), max-free launch count (device
-    # int32 or null), stream
-    "xt_flash_fwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
+    # q, k, v, segment_ids, tile table scratch (B, Lp / 64, 4), out, lse, B,
+    # L, Hq, Hkv, D, scale, max_logit bound (device f32 or null), max-free
+    # launch count (device int32 or null), tiles walked and full (device
+    # int64[2] or null), stream
+    "xt_flash_fwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                          _P, _P, _P, _P],
+    # the dynamic shared memory of one forward CTA (bytes)
+    "xt_flash_fwd_smem_bytes": [],
     # q, k, v, do, lse, delta, segment_ids, tile table, dq accumulator (f32),
     # dk, dv, B, L, Lp, Hq, Hkv, D, scale, two_pass, stream
     "xt_flash_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
