@@ -19,7 +19,10 @@ exits non-zero with no result line:
    PyTorch call that computes the same function, where there is one; each
    flash forward row also prints TFLOP/s, its share of the bound, SDPA's
    time, and the k tiles the kernel walked (and walked unmasked) against
-   `fwd_tile_plan`;
+   `fwd_tile_plan`; each grouped GEMM row prints its share of the bound and
+   what its CTAs walked against `grouped_plan_counts` (a mismatch fails),
+   and the odd shapes add NaN rows past the last group and an expert that
+   ends mid-chunk before one with rows 1e3 times larger;
 4. serving: `PagedGenerator.generate` on Qwen3-8B at full width and depth
    with random bf16 weights from the seed; 6 requests on 4 slots (one GRPO
    group of two); launch counters of its kernels; a teacher-forced re-check
@@ -52,7 +55,9 @@ exits non-zero with no result line:
    shapes, and the forward (#1) and both backward instantiations against
    the plain versions in 1024-row chunks at B1 L65536 Hq16/8 (SDPA's
    causal forward and backward as the library times); the fused MoE MLP
-   #16, forward and backward, against
+   the grouped GEMMs #16's backward runs (#6 nt, #7) at the longctx row's
+   M262144 E64 (gate|up K1024 N256, down K128 N1024) against their plain
+   versions and `torch._grouped_mm`; #16, forward and backward, against
    its plain version at the longctx row's M262144 E64 F128, moe_heavy's
    M131072 E16 F768 and an odd M, beside the port's decomposed path and
    `torch._grouped_mm` twice;
@@ -91,6 +96,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -264,6 +270,18 @@ def phase_build() -> None:
                               "registers": next((x for x in after if "registers" in x), "?"),
                               "spills": next((x for x in after if "spill" in x), "?")})
         say("build", kernel=kernel, smem_bytes=smem, ptxas=repr(found))
+    # the grouped GEMMs (#6 nn/nt, #7 dw): one instantiation per mode and
+    # tile width, grouped_kernel<mode, BN> (mode 0 nn, 1 nt, 2 dw)
+    for i, ln in enumerate(ptxas):
+        inst = re.search(r"(?<!fp8_)grouped_kernelILi(\d)ELi(\d+)E", ln) \
+            if ln.startswith("kernel") else None
+        if inst:
+            mode, bn = int(inst.group(1)), int(inst.group(2))
+            after = ptxas[i + 1:i + 3]
+            say("build", kernel=f"grouped_kernel<{('nn', 'nt', 'dw')[mode]}, {bn}>",
+                smem_bytes=lib.xt_grouped_gemm_smem_bytes(mode, bn),
+                registers=repr(next((x for x in after if "registers" in x), "?")),
+                spills=repr(next((x for x in after if "spill" in x), "?")))
 
 
 def phase_kernels(torch, seed: int) -> list[dict]:
@@ -505,10 +523,11 @@ def grouped_mm_ms(torch, x, w, sizes, kind: str):
     return library_ms(torch, lambda: torch._grouped_mm(x.t(), w, offs=offs))
 
 
-def grouped_cases(x, hmid, w_gu, w_dn, dy_gu, dy_dn, sizes, e) -> list:
+def grouped_cases(x, hmid, w_gu, w_dn, dy_gu, dy_dn, sizes, e,
+                  kinds=("nn", "nt", "dw")) -> list:
     """The bf16 grouped GEMMs one MoE layer runs (gate|up and down; forward
-    nn, dgrad nt, wgrad dw): (kernel, which, kernel call, plain call, the
-    library call's inputs, operations, bytes)."""
+    nn, dgrad nt, wgrad dw; `kinds` of them): (kernel, which, kernel call,
+    plain call, the library call's inputs, operations, bytes)."""
     from xtuner_tpu_torch.ops.bf16_grouped import (grouped_gemm_bf16, grouped_gemm_bf16_dw,
                                                    grouped_gemm_dw_plain, grouped_gemm_plain)
 
@@ -531,27 +550,43 @@ def grouped_cases(x, hmid, w_gu, w_dn, dy_gu, dy_dn, sizes, e) -> list:
              lambda xin=xin, dy=dy: grouped_gemm_dw_plain(xin, dy, sizes, e),
              (xin, dy, "dw", sizes), flops, 2 * m * kk + 2 * m * nn_ + 4 * e * kk * nn_),
         ]
-    return cases
+    return [c for c in cases if c[4][2] in kinds]
 
 
 def grouped_rows(torch, path: str, cases, m: int, e: int, iters: int,
                  plain_iters: int) -> list[dict]:
     """Each grouped GEMM against its plain version and `torch._grouped_mm`;
     one row per kernel: the worst error of its GEMMs, the times and bounds
-    summed over the two GEMMs the layer runs it on."""
+    summed over the two GEMMs the layer runs it on. Each GEMM also prints
+    its share of the bound and what its CTAs walked (items with products,
+    zero items, contraction chunks) against `grouped_plan_counts`; a
+    mismatch fails."""
+    from xtuner_tpu_torch.ops import bf16_grouped as bg
+
     by_name: dict = {}
     for name, which, kern, plain, (a, b_, kind, sz), flops, nbytes in cases:
+        bg.reset_launches()
         got, want = kern(), plain()
         torch.cuda.synchronize()
+        walked = bg.grouped_tiles_walked()[kind]
+        bg.reset_launches()
+        k_, n_ = (a.shape[1], b_.shape[1]) if kind == "dw" else (b_.shape[1], b_.shape[2])
+        plan = bg.grouped_plan_counts(sz, m, kind, k_, n_)
         err, rel = _abs(got, want), _rel(got, want)
         del got, want
         ms = cuda_ms(kern, iters=iters)
         pms = cuda_ms(plain, iters=plain_iters, warmup=1)
         lib, why = grouped_mm_ms(torch, a, b_, sz, kind)
+        least = least_ms(flops, nbytes, PEAK_BF16)
         say("kernel", name=name, gemm=which, m=m, experts=e, err=f"{err:.3e}",
             rel=f"{rel:.3e}", ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}", library_ms=lib,
             why=repr(why), tflops=f"{flops / ms / 1e9:.1f}",
-            plain_tflops=f"{flops / pms / 1e9:.1f}")
+            plain_tflops=f"{flops / pms / 1e9:.1f}", bound_ms=f"{least['bound_ms']:.4f}",
+            bound_by=least["bound_by"], share_of_bound=f"{least['bound_ms'] / ms:.3f}",
+            walked=",".join(map(str, walked)), plan=",".join(map(str, plan)))
+        if walked != plan:
+            raise AssertionError(f"{name} ({which}) walked {walked} (items, zero items, "
+                                 f"chunks) where its plan says {plan}")
         if not rel <= (DW_RTOL if name.endswith("dw") else GG_RTOL):
             raise AssertionError(f"{name} ({which}) disagrees with its plain version: {rel}")
         row = by_name.setdefault(name, {
@@ -564,7 +599,7 @@ def grouped_rows(torch, path: str, cases, m: int, e: int, iters: int,
         row["plain_ms"] += pms
         row["library_ms"] = None if lib is None or row["library_ms"] is None \
             else row["library_ms"] + lib
-        add_bound(row, least_ms(flops, nbytes, PEAK_BF16))
+        add_bound(row, least)
     return list(by_name.values())
 
 
@@ -574,6 +609,7 @@ def phase_train_kernels(torch, seed: int) -> list[dict]:
     shapes."""
     import numpy as np
 
+    from xtuner_tpu_torch.ops import bf16_grouped as bg
     from xtuner_tpu_torch.ops.attention import flash as fl
     from xtuner_tpu_torch.ops.bf16_grouped import (bf16_grouped_linear, grouped_gemm_bf16,
                                                    grouped_gemm_bf16_dw,
@@ -707,18 +743,27 @@ def phase_train_kernels(torch, seed: int) -> list[dict]:
     # last group, ragged M and N edges; and the linear's gradients
     odd = ((8192, 2048, 1536, [0] * 60 + [120] * 68),  # 60 empty; 32 rows past the last
            (8192, 768, 2048, [0] * 5 + [8192] + [0] * 122),  # one expert has every row
-           (5000, 256, 224, [0, 1200, 0, 3000, 1]))  # ragged edges; 799 rows past the last
+           (5000, 256, 224, [0, 1200, 0, 3000, 1]),  # ragged edges; 799 rows past the last
+           # output width 128 for nt (the 128-wide tile, as the longctx down
+           # dgrad), and for nn at the down shape
+           (4096, 128, 1024, [700, 0, 1500, 900, 300, 96]),
+           (1000, 96, 224, [100, 37, 700]))  # contraction 96: a half chunk at every edge
     for mm, kk_, nn_, sz in odd:
         ee = len(sz)
         gs = torch.tensor(sz, dtype=torch.int32, device=dev)
         xx = torch.randn((mm, kk_), generator=g, device=dev).bfloat16()
         ww = (torch.randn((ee, kk_, nn_), generator=g, device=dev) * 0.05).bfloat16()
         yy = torch.randn((mm, nn_), generator=g, device=dev).bfloat16()
+        bg.reset_launches()
         rels = [_rel(grouped_gemm_bf16(xx, ww, gs), grouped_gemm_plain(xx, ww, gs)),
                 _rel(grouped_gemm_bf16(yy, ww, gs, transpose_rhs=True),
                      grouped_gemm_plain(yy, ww, gs, transpose_rhs=True))]
         dw_rel = _rel(grouped_gemm_bf16_dw(xx, yy, gs, ee),
                       grouped_gemm_dw_plain(xx, yy, gs, ee))
+        walked = bg.grouped_tiles_walked()
+        plan = {kind: bg.grouped_plan_counts(gs, mm, kind, kk_, nn_) for kind in walked}
+        if walked != plan:
+            raise AssertionError(f"grouped GEMMs walked {walked} where the plan says {plan}")
         xl, wl = xx.clone().requires_grad_(True), ww.clone().requires_grad_(True)
         (bf16_grouped_linear(xl, wl, gs).float() * yy.float()).sum().backward()
         xr, wr = xx.float().requires_grad_(True), ww.float().requires_grad_(True)
@@ -726,9 +771,45 @@ def phase_train_kernels(torch, seed: int) -> list[dict]:
         rels += [_rel(xl.grad, xr.grad), _rel(wl.grad, wr.grad)]
         say("kernel", name="grouped_gemm_odd", m=mm, k=kk_, n=nn_, experts=ee,
             empty=sum(1 for v_ in sz if v_ == 0), rows=sum(sz),
-            nn_nt_grad_rel=",".join(f"{r_:.2e}" for r_ in rels), dw_rel=f"{dw_rel:.2e}")
+            nn_nt_grad_rel=",".join(f"{r_:.2e}" for r_ in rels), dw_rel=f"{dw_rel:.2e}",
+            walked=repr(walked))
         if not (max(rels) <= GG_RTOL and dw_rel <= DW_RTOL):
             raise AssertionError(f"grouped GEMMs disagree at an odd shape: {rels}, {dw_rel}")
+
+    # rows past the last group hold NaN: nn/nt must give exact zeros there
+    # and dW stay finite and equal to the plain version (the wgrad zeroes
+    # those rows of its last chunk in both operands); then an expert ending
+    # mid-chunk before one whose rows are 1e3 times larger, each expert's
+    # dW held on its own scale, so a leaked row would show (~1e6 relative)
+    mm, kk_, nn_, sz = 1000, 256, 384, [300, 0, 333, 200]
+    used, ee = sum(sz), len(sz)
+    gs = torch.tensor(sz, dtype=torch.int32, device=dev)
+    xx = torch.randn((mm, kk_), generator=g, device=dev).bfloat16()
+    ww = (torch.randn((ee, kk_, nn_), generator=g, device=dev) * 0.05).bfloat16()
+    yy = torch.randn((mm, nn_), generator=g, device=dev).bfloat16()
+    xx[used:], yy[used:] = float("nan"), float("nan")
+    out, dx = grouped_gemm_bf16(xx, ww, gs), grouped_gemm_bf16(yy, ww, gs, transpose_rhs=True)
+    dw = grouped_gemm_bf16_dw(xx, yy, gs, ee)
+    nan_ok = bool((out[used:] == 0).all()) and bool((dx[used:] == 0).all()) \
+        and bool(torch.isfinite(dw).all())
+    nan_rels = [_rel(out[:used], grouped_gemm_plain(xx, ww, gs)[:used]),
+                _rel(dx[:used], grouped_gemm_plain(yy, ww, gs, transpose_rhs=True)[:used])]
+    nan_dw = _rel(dw, grouped_gemm_dw_plain(xx, yy, gs, ee))
+    sz = [100, 300, 112]
+    gs = torch.tensor(sz, dtype=torch.int32, device=dev)
+    xx = torch.randn((512, 128), generator=g, device=dev).bfloat16()
+    yy = torch.randn((512, 256), generator=g, device=dev).bfloat16()
+    xx[100:400] *= 1e3
+    yy[100:400] *= 1e3
+    dw, want = grouped_gemm_bf16_dw(xx, yy, gs, 3), grouped_gemm_dw_plain(xx, yy, gs, 3)
+    leak_rels = [_rel(dw[i], want[i]) for i in range(3)]
+    say("kernel", name="grouped_gemm_odd", nan_rows_past_last_group_ok=nan_ok,
+        nan_nn_nt_rel=",".join(f"{r_:.2e}" for r_ in nan_rels), nan_dw_rel=f"{nan_dw:.2e}",
+        mid_chunk_dw_rel_per_expert=",".join(f"{r_:.2e}" for r_ in leak_rels))
+    if not (nan_ok and max(nan_rels) <= GG_RTOL and nan_dw <= DW_RTOL
+            and max(leak_rels) <= DW_RTOL):
+        raise AssertionError(f"grouped GEMMs: NaN rows past the last group {nan_ok}, "
+                             f"{nan_rels}, {nan_dw}; mid-chunk dW per expert {leak_rels}")
     fl.reset_launches()
     return rows
 
@@ -1640,6 +1721,23 @@ def phase_longctx_kernels(torch, seed: int, smi: str) -> list[dict]:
                                  "plain_ms": dq_plain + dkv_plain, "plain_is": plain_note,
                                  **tp_bound, "library_ms": lib}, two_pass=True)
     del q, k, v, out, lse, delta, do, args
+
+    # ---- #6 nt and #7 at the longctx row's shapes (#16's backward runs
+    # them): E64, M = 65536 tokens x top-4, gate|up K1024/N256 and down
+    # K128/N1024, one expert given no token
+    e, hid, f = 64, 1024, 128
+    sizes = routed_sizes(torch, rng, LONGCTX_SEQ, e, 4, empty=e // 2, dev=dev)
+    m = LONGCTX_SEQ * 4
+    x = torch.randn((m, hid), generator=g, device=dev).bfloat16()
+    w_gu = (torch.randn((e, hid, 2 * f), generator=g, device=dev) * 0.02).bfloat16()
+    w_dn = (torch.randn((e, f, hid), generator=g, device=dev) * 0.02).bfloat16()
+    hmid = torch.randn((m, f), generator=g, device=dev).bfloat16()
+    dy_gu = torch.randn((m, 2 * f), generator=g, device=dev).bfloat16()
+    dy_dn = torch.randn((m, hid), generator=g, device=dev).bfloat16()
+    rows += grouped_rows(torch, "longctx", grouped_cases(
+        x, hmid, w_gu, w_dn, dy_gu, dy_dn, sizes, e, kinds=("nt", "dw")), m, e, iters=5,
+        plain_iters=2)
+    del x, w_gu, w_dn, hmid, dy_gu, dy_dn
 
     # ---- #16, forward and backward, at the longctx and moe_heavy shapes
     # and at an odd M with rows past the last group

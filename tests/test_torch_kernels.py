@@ -22,7 +22,9 @@ from xtuner_tpu_torch.ops.attention.paged_decode import (paged_decode_attn,
                                                          paged_decode_attn_plain)
 from xtuner_tpu_torch.ops.bf16_grouped import (bf16_grouped_linear, grouped_gemm_bf16,
                                                grouped_gemm_bf16_dw, grouped_gemm_dw_plain,
-                                               grouped_gemm_plain)
+                                               grouped_gemm_plain, grouped_plan_counts,
+                                               grouped_tiles_walked)
+from xtuner_tpu_torch.ops.bf16_grouped import reset_launches as reset_grouped
 
 pytestmark = pytest.mark.cuda
 
@@ -350,6 +352,80 @@ def test_grouped_linear_grads_match_plain(cuda):
     assert _rel_err(wl.grad, wr.grad) <= GG_RTOL
 
 
+@pytest.mark.parametrize("m,k,n,sizes", [
+    # the longctx row's down dgrad: output width 128 (the 128-wide tile)
+    (4096, 128, 1024, [700, 0, 1500, 900, 300, 96]),
+    # 128 experts, 60 of them empty, 32 rows past the last group
+    (8192, 256, 384, [0] * 60 + [120] * 68),
+    # an expert ending mid-chunk, one short expert, rows past the last
+    (1000, 96, 224, [100, 37, 700]),
+])
+def test_grouped_kernels_walk_their_plan(cuda, m, k, n, sizes):
+    """Each launch's CTAs walk exactly the items and contraction chunks of
+    `grouped_plan_counts` (nn/nt: `grouped_tile_plan`'s tiles), and the
+    results match the plain versions."""
+    e = len(sizes)
+    x, w, gs = _grouped(cuda, m, k, e, k, n, sizes)
+    dy = torch.randn((m, n), generator=torch.Generator(device=cuda).manual_seed(1),
+                     device=cuda).bfloat16()
+    reset_grouped()
+    out = grouped_gemm_bf16(x, w, gs)
+    dx = grouped_gemm_bf16(dy, w, gs, transpose_rhs=True)
+    dw = grouped_gemm_bf16_dw(x, dy, gs, e)
+    walked = grouped_tiles_walked()
+    reset_grouped()
+    for kind in ("nn", "nt", "dw"):
+        assert walked[kind] == grouped_plan_counts(gs, m, kind, k, n), kind
+    assert _rel_err(out, grouped_gemm_plain(x, w, gs)) <= GG_RTOL
+    assert _rel_err(dx, grouped_gemm_plain(dy, w, gs, transpose_rhs=True)) <= GG_RTOL
+    assert _rel_err(dw, grouped_gemm_dw_plain(x, dy, gs, e)) <= DW_RTOL
+    assert (out[sum(sizes):] == 0).all() and (dx[sum(sizes):] == 0).all()
+    assert all((dw[i] == 0).all() for i, s in enumerate(sizes) if s == 0)
+
+
+def test_grouped_kernels_ignore_rows_past_the_last_group(cuda):
+    """NaN in the x and dy rows past the last group: nn/nt give exact zeros
+    there and the plain results elsewhere; dW stays finite and equal to the
+    plain version (the wgrad zeroes those rows of its last chunk in both
+    operands: 0 * NaN would be NaN)."""
+    m, k, n, sizes = 1000, 256, 384, [300, 0, 333, 200]
+    e, used = len(sizes), sum(sizes)
+    x, w, gs = _grouped(cuda, m, k, e, k, n, sizes)
+    dy = torch.randn((m, n), generator=torch.Generator(device=cuda).manual_seed(3),
+                     device=cuda).bfloat16()
+    x[used:] = float("nan")
+    dy[used:] = float("nan")
+    out = grouped_gemm_bf16(x, w, gs)
+    dx = grouped_gemm_bf16(dy, w, gs, transpose_rhs=True)
+    dw = grouped_gemm_bf16_dw(x, dy, gs, e)
+    torch.cuda.synchronize()
+    assert (out[used:] == 0).all() and (dx[used:] == 0).all()
+    assert _rel_err(out[:used], grouped_gemm_plain(x, w, gs)[:used]) <= GG_RTOL
+    assert _rel_err(dx[:used], grouped_gemm_plain(dy, w, gs, transpose_rhs=True)[:used]) \
+        <= GG_RTOL
+    assert torch.isfinite(dw).all()
+    assert _rel_err(dw, grouped_gemm_dw_plain(x, dy, gs, e)) <= DW_RTOL
+
+
+def test_grouped_dw_keeps_the_next_experts_rows_out(cuda):
+    """Expert 0 ends mid-chunk (row 100 of a 64-row chunk walk) and expert
+    1's rows are 1e3 times larger: a row of expert 1 leaking into expert
+    0's last chunk would move dW[0] by ~1e6 relative to its own entries of
+    ~10, far above DW_RTOL, which each expert's dW is held to on its own
+    scale."""
+    m, k, n, sizes = 512, 128, 256, [100, 300, 112]
+    e = len(sizes)
+    x, _, gs = _grouped(cuda, m, k, e, k, n, sizes)
+    dy = torch.randn((m, n), generator=torch.Generator(device=cuda).manual_seed(4),
+                     device=cuda).bfloat16()
+    x[100:400] *= 1e3
+    dy[100:400] *= 1e3
+    dw = grouped_gemm_bf16_dw(x, dy, gs, e)
+    want = grouped_gemm_dw_plain(x, dy, gs, e)
+    for i in range(e):
+        assert _rel_err(dw[i], want[i]) <= DW_RTOL, i
+
+
 def _ce_inputs(dev, n, v, hd, ignored=0.05, seed=0):
     """h, w as the model feeds them (unit-RMS rows times a 0.02 init, so
     logits of std ~0.02 sqrt(H)); labels with `ignored` of the rows clamped
@@ -433,6 +509,9 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
         grouped_gemm_bf16_dw(x.T.contiguous().T, x, gs, 2)
     with pytest.raises(ValueError, match="do not fit"):
         grouped_gemm_bf16(x, w, gs, transpose_rhs=True)
+    many = torch.zeros(257, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="at most 256 experts"):
+        grouped_gemm_bf16_dw(x, x, many, 257)
     from xtuner_tpu_torch.ops import fused_ce as fc
 
     h, w, labels, g_lse, g_lab = _ce_inputs(cuda, 64, 300, 128)

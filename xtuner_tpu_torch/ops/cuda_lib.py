@@ -54,10 +54,14 @@ SIGNATURES = {
     # B, C, Hq, Hkv, D, NB, BS, MB, layer, scale, stream
     "xt_paged_decode_bf16": [_P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    # x, w, offsets, out, M, C, E, K, N, transpose_rhs, stream
-    "xt_grouped_gemm_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, dy, offsets, dw, M, E, K, N, stream
-    "xt_grouped_gemm_dw_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w, group_sizes, out, M, C, E, K, N, transpose_rhs, walked counts
+    # (device int64[3] or null), stream
+    "xt_grouped_gemm_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    # x, dy, group_sizes, dw, M, E, K, N, walked counts, stream
+    "xt_grouped_gemm_dw_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # the dynamic shared memory of one grouped CTA (bytes): mode (0 nn, 1 nt,
+    # 2 dw), block width (128 or 256)
+    "xt_grouped_gemm_smem_bytes": [_I, _I],
     # x, w_gu, w_dn, offsets, out, gu, M, E, H, F, stream
     "xt_fused_moe_mlp_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # h, w, labels, lse, label_logit, N, V, H, stream
