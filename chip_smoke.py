@@ -32,8 +32,11 @@ exits non-zero with no result line:
    8192-token row of 5 documents; loss, grad norm, lr, step time, tokens/s
    and peak memory per step; launch counters of its kernels against the
    counts the step implies; one profiled step;
-6. the fused CE kernels (#8-#10) at N = 2 x 8192, H = 1024, V = 151936
-   and at an odd shape, with times and peak memory; then flash at B2 with
+6. the fused CE kernels (#8, and #9/#10 as one backward: a coefficient
+   sweep per row chunk, then the dh and dW products) at N = 2 x 8192 and
+   N = 65536, H = 1024, V = 151936, at a ragged last row chunk and at odd
+   shapes, with times, each backward pass's time beside `torch.mm` over
+   the same product, and peak memory; then flash at B2 with
    16/8 heads and the grouped GEMMs at 16 experts (moe_heavy's shapes);
    then the fp8 kernels (#11-#13) at every moe_heavy fp8 shape and odd ones,
    in both operand-type variants;
@@ -271,17 +274,22 @@ def phase_build() -> None:
                               "spills": next((x for x in after if "spill" in x), "?")})
         say("build", kernel=kernel, smem_bytes=smem, ptxas=repr(found))
     # the grouped GEMMs (#6 nn/nt, #7 dw): one instantiation per mode and
-    # tile width, grouped_kernel<mode, BN> (mode 0 nn, 1 nt, 2 dw)
+    # tile width, grouped_kernel<mode, BN, reduce> (mode 0 nn, 1 nt, 2 dw;
+    # reduce: dw adding into its f32 output, the fused CE's dW); and the
+    # fused CE's coefficient kernel
     for i, ln in enumerate(ptxas):
-        inst = re.search(r"(?<!fp8_)grouped_kernelILi(\d)ELi(\d+)E", ln) \
+        inst = re.search(r"(?<!fp8_)grouped_kernelILi(\d)ELi(\d+)ELb(\d)E", ln) \
             if ln.startswith("kernel") else None
+        after = ptxas[i + 1:i + 3]
+        regs = {"registers": repr(next((x for x in after if "registers" in x), "?")),
+                "spills": repr(next((x for x in after if "spill" in x), "?"))}
         if inst:
-            mode, bn = int(inst.group(1)), int(inst.group(2))
-            after = ptxas[i + 1:i + 3]
-            say("build", kernel=f"grouped_kernel<{('nn', 'nt', 'dw')[mode]}, {bn}>",
-                smem_bytes=lib.xt_grouped_gemm_smem_bytes(mode, bn),
-                registers=repr(next((x for x in after if "registers" in x), "?")),
-                spills=repr(next((x for x in after if "spill" in x), "?")))
+            mode, bn, red = (int(x) for x in inst.groups())
+            say("build", kernel=f"grouped_kernel<{('nn', 'nt', 'dw')[mode]}, {bn}"
+                                f"{', reduce' if red else ''}>",
+                smem_bytes=lib.xt_grouped_gemm_smem_bytes(mode, bn), **regs)
+        elif ln.startswith("kernel") and "ce_coeff_kernel" in ln:
+            say("build", kernel="ce_coeff_kernel", **regs)
 
 
 def phase_kernels(torch, seed: int) -> list[dict]:
@@ -827,14 +835,24 @@ def _peak_ms(torch, fn, iters: int = 3) -> tuple[float, float]:
 
 
 def phase_ce_kernels(torch, seed: int) -> list[dict]:
-    """The fused CE kernels (#8-#10) against their plain versions: at the
-    moe_heavy step's N = 2 x 8192, H = 1024, V = 151936 with 5% ignored
-    labels, then at odd shapes (N not a multiple of the 128-row tile, V
+    """The fused CE kernels (#8, and #9/#10 as one backward: the coefficient
+    sweep and the dh and dW products) against their plain versions: at the
+    moe_heavy step's N = 2 x 8192 and the longctx row's N = 65536, H = 1024,
+    V = 151936 with 5% ignored labels, at N = Nc + 300 (a ragged last row
+    chunk), then at odd shapes (N not a multiple of the 128-row tile, V
     below one tile; a ragged vocab tail). The backward is checked under
     several cotangents: both terms; g_lse alone, so that dh and dW are the
     softmax part alone and the bound is relative to its own scale (with
     both, the label term's entries dominate dW at V = 151936, where p is
-    ~1/V); g_lab alone. CUDA-event times and the peak memory of each call,
+    ~1/V); g_lab alone. `ce_bwd` (dh and dW from one sweep, as the autograd
+    backward runs it) must give `ce_dh`'s and `ce_dw`'s results bit for bit,
+    and the coefficient kernel its plain version on the first row chunk.
+    Per backward call at the two path shapes: each pass's device ms (the
+    coefficient sweep, the dh and the dW products, dW's bf16 rounding), the
+    share of the bound (three products of 2 N V H FLOPs), peak memory and
+    the c scratch bytes, beside `torch.mm(..., out_dtype=float32)` over the
+    same N x V x H product as the dh products (a tuned GEMM's time; the port
+    never calls it). CUDA-event times and the peak memory of each wrapper,
     kernel and plain, under the first cotangents of each shape."""
     import numpy as np
 
@@ -855,15 +873,19 @@ def phase_ce_kernels(torch, seed: int) -> list[dict]:
         g_lab = torch.where(keep, -torch.rand((n,), generator=g, device=dev), 0.0).contiguous()
         return h, w, labels, g_lse, g_lab
 
-    main_n = SFT_ROWS * SEQ
-    for n, v, hd, cotangents in ((main_n, 151936, 1024, ("both", "g_lse")),
-                                 (1000, 100, 128, ("g_lab", "both")),
-                                 (300, 5000, 256, ("g_lse",))):
+    main_n, vocab = SFT_ROWS * SEQ, 151936
+    for n, v, hd, cotangents, path in (
+            (main_n, vocab, 1024, ("both", "g_lse"), "sft"),
+            (LONGCTX_SEQ, vocab, 1024, ("both", "g_lse"), "longctx"),
+            (fc.ce_chunk_plan(main_n, vocab).nc + 300, vocab, 1024, ("both",), None),
+            (1000, 100, 128, ("g_lab", "both"), None),
+            (300, 5000, 256, ("g_lse",), None)):
         h, w, labels, g_lse_all, g_lab_all = ce_inputs(n, v, hd, 0.05)
         lse, lab = fc.ce_fwd(h, w, labels)
         ref_lse, ref_lab = fc.ce_fwd_plain(h, w, labels)
         stat_err = max(_abs(lse, ref_lse), _abs(lab, ref_lab))
         shape = f"N{n}xH{hd}xV{v}"
+        plan = fc.ce_chunk_plan(n, v)
         if not stat_err <= CE_STAT_ATOL:
             raise AssertionError(f"ce_fwd disagrees with its plain version at {shape}: "
                                  f"lse/label {stat_err} (<= {CE_STAT_ATOL})")
@@ -871,26 +893,75 @@ def phase_ce_kernels(torch, seed: int) -> list[dict]:
             g_lse = torch.zeros_like(g_lse_all) if cot == "g_lab" else g_lse_all
             g_lab = torch.zeros_like(g_lab_all) if cot == "g_lse" else g_lab_all
             args = (h, w, labels, ref_lse, g_lse, g_lab)
-            dh_k, dh_p = fc.ce_dh(*args), fc.ce_dh_plain(*args)
+            c0 = plan.chunks[0][1]
+            first = (h[:c0], w, labels[:c0], ref_lse[:c0], g_lse[:c0], g_lab[:c0], plan.v_pad)
+            c_k, c_p = fc.ce_coeff(*first), fc.ce_coeff_plain(*first)
+            c_abs, c_rel = _abs(c_k, c_p), _rel(c_k, c_p)
+            pad_zero = bool((c_k[:, v:] == 0).all())
+            del c_k, c_p
+            dh_k, dw_k = fc.ce_dh(*args), fc.ce_dw(*args)
+            dh_b, dw_b = fc.ce_bwd(*args)
+            one_sweep = torch.equal(dh_k, dh_b) and torch.equal(dw_k, dw_b)
+            del dh_b, dw_b
+            dh_p = fc.ce_dh_plain(*args)
             dh_abs, dh_rel = _abs(dh_k, dh_p), _rel(dh_k, dh_p)
             del dh_k, dh_p
-            dw_k, dw_p = fc.ce_dw(*args), fc.ce_dw_plain(*args)
+            dw_p = fc.ce_dw_plain(*args)
             dw_abs, dw_rel = _abs(dw_k, dw_p), _rel(dw_k, dw_p)
             del dw_k, dw_p
             torch.cuda.synchronize()
             say("kernel", name="ce_bwd", shape=shape, ignored=0.05, cotangents=cot,
+                chunks=len(plan.chunks), last_chunk_rows=plan.chunks[-1][1],
+                coeff_err=f"{c_abs:.3e}", coeff_rel=f"{c_rel:.3e}", pad_zero=pad_zero,
                 dh_err=f"{dh_abs:.3e}", dh_rel=f"{dh_rel:.3e}", dw_err=f"{dw_abs:.3e}",
-                dw_rel=f"{dw_rel:.3e}")
-            if not (dh_rel <= GG_RTOL and dw_rel <= GG_RTOL):
-                raise AssertionError(f"ce_dh / ce_dw disagree with their plain versions at "
-                                     f"{shape}, cotangents {cot}: dh {dh_rel}, dw {dw_rel} "
-                                     f"(<= {GG_RTOL})")
+                dw_rel=f"{dw_rel:.3e}", bwd_equals_dh_dw=one_sweep)
+            if not (dh_rel <= GG_RTOL and dw_rel <= GG_RTOL and c_rel <= GG_RTOL and pad_zero
+                    and one_sweep):
+                raise AssertionError(f"the CE backward disagrees with its plain versions at "
+                                     f"{shape}, cotangents {cot}: dh {dh_rel}, dw {dw_rel}, "
+                                     f"c {c_rel} (<= {GG_RTOL}), pad columns zero {pad_zero}, "
+                                     f"ce_bwd == (ce_dh, ce_dw) {one_sweep}")
             if cot != cotangents[0]:
                 continue
+            if path is not None:
+                # one backward call, pass by pass, beside a tuned GEMM's time
+                ms, peak = _peak_ms(torch, lambda: fc.ce_bwd(*args))
+                marks: list = []
+                for _ in range(3):
+                    fc.ce_bwd(*args, marks=marks)
+                passes = {k: t / 3 for k, t in fc.ce_bwd_pass_ms(marks).items()}
+                c = torch.empty((plan.rows, v), device=dev, dtype=torch.bfloat16).normal_(
+                    generator=g)
+                mm_ms = cuda_ms(lambda: [torch.mm(c[:r], w, out_dtype=torch.float32)
+                                         for _, r in plan.chunks], iters=3, warmup=1)
+                del c
+                bound = 3 * 2 * n * v * hd / PEAK_BF16 * 1e3
+                say("kernel", name="ce_bwd", shape=shape, cotangents=cot, ms=f"{ms:.4f}",
+                    coeff_ms=f"{passes['coeff']:.4f}", dh_products_ms=f"{passes['dh']:.4f}",
+                    dw_products_ms=f"{passes['dw']:.4f}", round_ms=f"{passes['round']:.4f}",
+                    bound_ms=f"{bound:.3f}", share_of_bound=f"{bound / ms:.3f}",
+                    peak_gib=f"{peak:.3f}", c_scratch_bytes=plan.scratch_bytes,
+                    chunks=len(plan.chunks), torch_mm_nvh_ms=f"{mm_ms:.4f}")
+
+            def sweep(kernel: bool):
+                c = torch.empty((plan.rows, plan.v_pad), device=dev, dtype=torch.bfloat16)
+                for s0, r in plan.chunks:
+                    sl = slice(s0, s0 + r)
+                    part = (h[sl], w, labels[sl], ref_lse[sl], g_lse[sl], g_lab[sl], plan.v_pad)
+                    if kernel:
+                        fc.ce_coeff(*part, out=c[:r])
+                    else:
+                        c[:r] = fc.ce_coeff_plain(*part)
+                return c
+
             timed = {
                 "ce_fwd": (lambda: fc.ce_fwd(h, w, labels),
                            lambda: fc.ce_fwd_plain(h, w, labels), stat_err,
                            "xtuner_tpu/ops/fused_ce.py:47"),
+                # the sweep of one backward, chunk by chunk (the kernel's
+                # part of #9 and #10 that computes the logits)
+                "ce_coeff": (lambda: sweep(True), lambda: sweep(False),
+                             c_abs, "xtuner_tpu/ops/fused_ce.py:98"),
                 "ce_dh": (lambda: fc.ce_dh(*args), lambda: fc.ce_dh_plain(*args), dh_abs,
                           "xtuner_tpu/ops/fused_ce.py:98"),
                 "ce_dw": (lambda: fc.ce_dw(*args), lambda: fc.ce_dw_plain(*args), dw_abs,
@@ -899,18 +970,19 @@ def phase_ce_kernels(torch, seed: int) -> list[dict]:
             for name, (kern, plain, err, replaces) in timed.items():
                 ms, peak = _peak_ms(torch, kern)
                 pms, ppeak = _peak_ms(torch, plain)
-                flops = 2 * n * v * hd * (1 if name == "ce_fwd" else 2)
+                flops = 2 * n * v * hd * (2 if name in ("ce_dh", "ce_dw") else 1)
                 say("kernel", name=name, shape=shape, cotangents=cot, err=f"{err:.3e}",
                     ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}", tflops=f"{flops / ms / 1e9:.1f}",
                     peak_gib=f"{peak:.3f}", plain_peak_gib=f"{ppeak:.3f}")
-                if n == main_n:
+                if path is not None:
                     ins = 2 * n * hd + 2 * v * hd + 4 * n  # h, w, labels
                     nbytes = {"ce_fwd": ins + 8 * n,  # lse, label logit out
+                              "ce_coeff": ins + 12 * n + 2 * n * plan.v_pad,  # c out
                               "ce_dh": ins + 12 * n + 2 * n * hd,  # lse, g_lse, g_lab; dh
                               "ce_dw": ins + 12 * n + 2 * v * hd}[name]
                     rows.append({"name": name, "route": "cuda",
                                  "source": "xtuner_tpu_torch/csrc/fused_ce.cu",
-                                 "replaces": replaces, "path": "sft", "max_abs_err": err,
+                                 "replaces": replaces, "path": path, "max_abs_err": err,
                                  "ms": ms, "plain_ms": pms,
                                  **least_ms(flops, nbytes, PEAK_BF16),
                                  # no one PyTorch call computes lse and the label
@@ -1880,12 +1952,14 @@ def phase_longctx(torch, seed: int, smi: str) -> dict:
         # per layer and step: the flash forward once (never re-run: its out
         # and lse are kept), the two-pass backward once, the fused MLP
         # in the forward and in post's recompute, its backward's two "nt"
-        # and two wgrads; the fused CE once each
+        # and two wgrads; the fused CE once each, its coefficient kernel
+        # once per row chunk
         want = {name: 0 for name in launches}
         want.update(flash_fwd_max_free=layers * steps, flash_bwd_two_pass=layers * steps,
                     fused_moe_mlp=2 * layers * steps,
                     grouped_gemm_nt=2 * layers * steps, grouped_gemm_dw=2 * layers * steps,
-                    ce_fwd=steps, ce_dh=steps, ce_dw=steps)
+                    ce_fwd=steps, ce_dh=steps, ce_dw=steps,
+                    ce_coeff=steps * ce_chunks(r.SEQ, cfg.vocab_size))
         steady = [dt for _, dt in hist[1:]]
         step_s = sum(steady) / len(steady)
         say("longctx", launches={k: v for k, v in launches.items() if v or want[k]},
@@ -2092,6 +2166,14 @@ def phase_engine(torch, seed: int, smi: str) -> dict:
     return launches
 
 
+def ce_chunks(n: int, vocab: int) -> int:
+    """Row chunks of one fused-CE backward over n rows: its coefficient
+    kernel's launches."""
+    from xtuner_tpu_torch.ops.fused_ce import ce_chunk_plan
+
+    return len(ce_chunk_plan(n, vocab).chunks)
+
+
 def reset_train_launches() -> None:
     from xtuner_tpu_torch.ops import bf16_grouped, fp8_gemm, fp8_grouped, fused_ce, fused_moe_mlp
     from xtuner_tpu_torch.ops.attention import block_sparse, flash
@@ -2119,7 +2201,8 @@ def train_launches(torch) -> dict:
             "grouped_gemm_nn": grouped_gemm_bf16.launches["nn"],
             "grouped_gemm_nt": grouped_gemm_bf16.launches["nt"],
             "grouped_gemm_dw": grouped_gemm_bf16_dw.launches,
-            "ce_fwd": fc.ce_fwd.launches, "ce_dh": fc.ce_dh.launches, "ce_dw": fc.ce_dw.launches,
+            "ce_fwd": fc.ce_fwd.launches, "ce_coeff": fc.ce_coeff.launches,
+            "ce_dh": fc.ce_dh.launches, "ce_dw": fc.ce_dw.launches,
             "fp8_gemm": fp8_gemm_tilewise.launches, "fp8_grouped_gemm": fp8_grouped_gemm.launches,
             "fp8_grouped_dw": fp8_grouped_gemm_dw.launches,
             "block_sparse_fwd": bs.block_sparse_fwd.launches,
@@ -2188,7 +2271,7 @@ def phase_train(torch, seed: int, smi: str) -> dict:
     want = {"flash_fwd": 0, "flash_fwd_max_free": 2 * per, "flash_bwd": per,
             "flash_bwd_two_pass": 0, "fused_moe_mlp": 0,
             "grouped_gemm_nn": 4 * per, "grouped_gemm_nt": 2 * per,
-            "grouped_gemm_dw": 2 * per, "ce_fwd": 0, "ce_dh": 0, "ce_dw": 0,
+            "grouped_gemm_dw": 2 * per, "ce_fwd": 0, "ce_coeff": 0, "ce_dh": 0, "ce_dw": 0,
             "fp8_gemm": 0, "fp8_grouped_gemm": 0, "fp8_grouped_dw": 0,
             "block_sparse_fwd": 0, "block_sparse_bwd": 0}
     steady = [dt for _, dt in hist[1:]]
@@ -2312,6 +2395,7 @@ def _sft_run(torch, smi: str, breakdown: bool, fp8_ref_loss1, switched_ref):
                 "grouped_gemm_nn": 0 if fp8 or switched else 4 * per,
                 "grouped_gemm_nt": 0 if fp8 else 2 * per,
                 "grouped_gemm_dw": 0 if fp8 else 2 * per, "ce_fwd": SFT_STEPS,
+                "ce_coeff": SFT_STEPS * ce_chunks(SFT_ROWS * SEQ, cfg.vocab_size),
                 "ce_dh": SFT_STEPS, "ce_dw": SFT_STEPS, "fp8_gemm": 8 * per if fp8 else 0,
                 "fp8_grouped_gemm": 9 * per if fp8 else 0,
                 "fp8_grouped_dw": 3 * per if fp8 else 0, "block_sparse_fwd": 0,

@@ -441,17 +441,22 @@ def _ce_inputs(dev, n, v, hd, ignored=0.05, seed=0):
     return h, w, labels, g_lse.contiguous(), g_lab.contiguous()
 
 
-@pytest.mark.parametrize("n,v,hd,cotangents", [
-    (16384, 151936, 1024, "both"),  # the moe_heavy step: 2 rows of 8192, Qwen's vocab
+@pytest.mark.parametrize("n,v,hd,cotangents,w_grad", [
+    (16384, 151936, 1024, "both", True),  # the moe_heavy step: 2 rows of 8192, Qwen's vocab
     # g_lse alone: dh and dw are the softmax part alone, held to their own
     # scale (with both, the label term's entries dominate dw at p ~ 1/V)
-    (16384, 151936, 1024, "g_lse"),
-    (1000, 100, 128, "both"),       # N not a multiple of 128, V < one tile
-    (1000, 100, 128, "g_lab"),
-    (300, 5000, 256, "g_lab"),      # ragged vocab tail
-    (300, 5000, 256, "g_lse"),
+    (16384, 151936, 1024, "g_lse", True),
+    (1000, 100, 128, "both", True),       # N not a multiple of 128, V < one tile
+    (1000, 100, 128, "g_lab", True),
+    (300, 5000, 256, "g_lab", True),      # ragged vocab tail
+    (300, 5000, 256, "g_lse", True),
+    (4096 + 300, 151936, 1024, "both", True),  # N = Nc + 300: the last chunk is ragged
+    (65536, 151936, 1024, "g_lse", True),  # the longctx path's CE: 16 chunks
+    # through autograd with w not requiring grad: no dW product, its
+    # counter stays
+    (4096 + 300, 151936, 1024, "both", False),
 ])
-def test_fused_ce_kernels_match_plain(cuda, n, v, hd, cotangents):
+def test_fused_ce_kernels_match_plain(cuda, n, v, hd, cotangents, w_grad):
     from xtuner_tpu_torch.ops import fused_ce as fc
 
     h, w, labels, g_lse, g_lab = _ce_inputs(cuda, n, v, hd)
@@ -459,18 +464,59 @@ def test_fused_ce_kernels_match_plain(cuda, n, v, hd, cotangents):
         g_lse = torch.zeros_like(g_lse)
     if cotangents == "g_lse":
         g_lab = torch.zeros_like(g_lab)
+    chunks = len(fc.ce_chunk_plan(n, v).chunks)
     fc.reset_launches()
+    reset_grouped()
     lse, lab = fc.ce_fwd(h, w, labels)
     ref_lse, ref_lab = fc.ce_fwd_plain(h, w, labels)
     assert (lse - ref_lse).abs().max().item() <= CE_STAT_ATOL
     assert (lab - ref_lab).abs().max().item() <= CE_STAT_ATOL
-    dh = fc.ce_dh(h, w, labels, ref_lse, g_lse, g_lab)
-    dw = fc.ce_dw(h, w, labels, ref_lse, g_lse, g_lab)
-    torch.cuda.synchronize()
-    assert (fc.ce_fwd.launches, fc.ce_dh.launches, fc.ce_dw.launches) == (1, 1, 1)
-    assert dh.dtype == dw.dtype == torch.bfloat16 and dw.shape == w.shape
+    if w_grad:
+        dh = fc.ce_dh(h, w, labels, ref_lse, g_lse, g_lab)
+        dw = fc.ce_dw(h, w, labels, ref_lse, g_lse, g_lab)
+        # the one backward: both products from one sweep, as the directly
+        # called pair gives them
+        dh2, dw2 = fc.ce_bwd(h, w, labels, ref_lse, g_lse, g_lab)
+        torch.cuda.synchronize()
+        want = (1, 3 * chunks, 2, 2)
+        assert torch.equal(dh, dh2) and torch.equal(dw, dw2)
+        assert dh.dtype == dw.dtype == torch.bfloat16 and dw.shape == w.shape
+        assert _rel_err(dw, fc.ce_dw_plain(h, w, labels, ref_lse, g_lse, g_lab)) <= GG_RTOL
+    else:
+        hl = h.detach().clone().requires_grad_(True)
+        lse_a, lab_a = fc.ce_stats_vh(hl, w, labels)
+        fc.reset_launches()
+        ((lse_a * g_lse).sum() + (lab_a * g_lab).sum()).backward()
+        torch.cuda.synchronize()
+        dh, ref_lse, want = hl.grad, lse_a.detach(), (0, chunks, 1, 0)
+    assert (fc.ce_fwd.launches, fc.ce_coeff.launches, fc.ce_dh.launches,
+            fc.ce_dw.launches) == want
     assert _rel_err(dh, fc.ce_dh_plain(h, w, labels, ref_lse, g_lse, g_lab)) <= GG_RTOL
-    assert _rel_err(dw, fc.ce_dw_plain(h, w, labels, ref_lse, g_lse, g_lab)) <= GG_RTOL
+    # ignored rows (label clamped to 0, zero cotangents): c is 0, so dh is
+    # exactly 0
+    dead = (g_lse == 0) & (g_lab == 0)
+    assert dead.any() and (dh[dead] == 0).all()
+    # the CE's products count nothing in the MoE layer's counters
+    assert grouped_gemm_bf16.launches == {"nn": 0, "nt": 0}
+    assert grouped_gemm_bf16_dw.launches == 0
+    assert all(v == (0, 0, 0) for v in grouped_tiles_walked().values())
+
+
+def test_fused_ce_coefficient_kernel_matches_plain(cuda):
+    """One chunk's c against `ce_coeff_plain` (bf16 both: the same rounding
+    of nearly the same f32 value) at a ragged row count and vocab tail,
+    the pad columns exactly 0."""
+    from xtuner_tpu_torch.ops import fused_ce as fc
+
+    h, w, labels, g_lse, g_lab = _ce_inputs(cuda, 300, 5000, 256)
+    lse = fc.ce_fwd_plain(h, w, labels)[0]
+    v_pad = fc.ce_chunk_plan(300, 5000).v_pad
+    fc.reset_launches()
+    c = fc.ce_coeff(h, w, labels, lse, g_lse, g_lab, v_pad)
+    torch.cuda.synchronize()
+    assert fc.ce_coeff.launches == 1 and c.shape == (300, v_pad)
+    assert _rel_err(c, fc.ce_coeff_plain(h, w, labels, lse, g_lse, g_lab, v_pad)) <= GG_RTOL
+    assert (c[:, 5000:] == 0).all()
 
 
 def test_fused_ce_autograd_matches_plain_autograd(cuda):

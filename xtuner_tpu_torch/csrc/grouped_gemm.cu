@@ -74,6 +74,10 @@
 // - A device counter, when given, sums per launch the items with products,
 //   the zero items and the contraction chunks walked (the plan check of
 //   chip_smoke.py and the card tests).
+// - The fused-CE backward's dh and dW products (xt_gemm_nn_bf16,
+//   xt_gemm_dw_bf16) run the nn and dw instantiations with one group and
+//   no counter; dW over row chunks adds into its f32 accumulator by TMA
+//   reduce-add stores (grouped_kernel<dw, BN, true>).
 // - Limits: E <= 256 (DeepSeek-V3's routed experts); nn/nt: contraction a
 //   multiple of 32, output width of 8; dw: K and N multiples of 16.
 //   Anything else returns an error.
@@ -259,7 +263,9 @@ __device__ __forceinline__ void mma(float (&d)[BN / 2], uint64_t da, uint64_t db
     wgmma_m64n128_ss<TA, TB>(d, da, db, acc);
 }
 
-template <int MODE, int BN>
+// RED (dw only): add the f32 result into dW by TMA reduce-add stores in
+// place of plain stores (the fused-CE backward's dW over row chunks)
+template <int MODE, int BN, bool RED = false>
 __global__ void __launch_bounds__(NTHREADS, 1)
 grouped_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
                const __grid_constant__ CUtensorMap tm_out, const Args a) {
@@ -455,7 +461,11 @@ grouped_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
         if (lead && k0 < a.K) {
           for (int b = 0; b < SB; ++b) {
             const int col = it.n0 + 32 * (round * SB + b);
-            if (col < a.N) tma_store_3d(&tm_out, stg_s + b * BOX, col, k0, it.e);
+            if (col >= a.N) continue;
+            if constexpr (RED)
+              tma_reduce_add_3d(&tm_out, stg_s + b * BOX, col, k0, it.e);
+            else
+              tma_store_3d(&tm_out, stg_s + b * BOX, col, k0, it.e);
           }
           tma_store_commit();
         }
@@ -523,16 +533,16 @@ int sm_count() {
   return n;
 }
 
-template <int MODE, int BN>
+template <int MODE, int BN, bool RED = false>
 int launch(const CUtensorMap& ta, const CUtensorMap& tb, const CUtensorMap& tout, const Args& a,
            int max_items, cudaStream_t stream) {
   const int sms = sm_count();
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
-  cudaError_t e = cudaFuncSetAttribute(grouped_kernel<MODE, BN>,
+  cudaError_t e = cudaFuncSetAttribute(grouped_kernel<MODE, BN, RED>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)L<MODE, BN>::BYTES);
   if (e != cudaSuccess) return (int)e;
-  grouped_kernel<MODE, BN><<<min(sms, max_items), NTHREADS, L<MODE, BN>::BYTES, stream>>>(
+  grouped_kernel<MODE, BN, RED><<<min(sms, max_items), NTHREADS, L<MODE, BN>::BYTES, stream>>>(
       ta, tb, tout, a);
   return (int)cudaGetLastError();
 }
@@ -600,6 +610,72 @@ extern "C" int xt_grouped_gemm_dw_bf16(const void* x, const void* dy, const void
                static_cast<unsigned long long*>(counts), M, E, 0, K, N};
   const int items = E * ((K + BM - 1) / BM) * ((N + bn - 1) / bn);
   cudaStream_t s = (cudaStream_t)stream;
+  return bn == 256 ? launch<DW, 256>(tx, ty, tdw, a, items, s)
+                   : launch<DW, 128>(tx, ty, tdw, a, items, s);
+}
+
+// Dense products of the fused-CE backward (csrc/fused_ce.cu, driven by
+// ops/fused_ce.py::ce_bwd): the same kernel with one group of M rows, whose
+// size `rows` ((1,) int32) holds on the device. No walked counts: the MoE
+// layer's counters stay its own.
+//
+// nn: out (M, N) bf16 = x[:, :K] @ w, x (M, ldx) bf16 with ldx >= K
+// rounded up to 64, w (K, N) bf16; w's rows past K read as zeros.
+extern "C" int xt_gemm_nn_bf16(const void* x, const void* w, const void* rows, void* out, int M,
+                               int ldx, int K, int N, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || N % 8 != 0 || ldx % 64 != 0 || ldx < (K + 63) / 64 * 64)
+    return (int)cudaErrorInvalidValue;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  // BN 128 where its tiles fill the card's waves clearly better than
+  // 256's (a chunk of few rows), else the wider, cheaper tile
+  auto fill = [&](int bn) {
+    const int items = (M + BM - 1) / BM * ((N + bn - 1) / bn);
+    return (double)items / (double)(((items + sms - 1) / sms) * sms);
+  };
+  const int bn = (N <= 128 || fill(128) > 1.1 * fill(256)) ? 128 : 256;
+  const cuuint64_t dx[2] = {(cuuint64_t)ldx, (cuuint64_t)M};
+  const cuuint64_t dwt[3] = {(cuuint64_t)N, (cuuint64_t)K, 1};
+  const cuuint64_t dout[2] = {(cuuint64_t)N, (cuuint64_t)M};
+  const cuuint32_t bx[2] = {64, BM}, bout[2] = {64, 64}, bw[3] = {64, 64, 1};
+  CUtensorMap tx, tw, tout;
+  if (!make_map_nd(&tx, encode, x, 2, dx, bx) || !make_map_nd(&tw, encode, w, 3, dwt, bw) ||
+      !make_map_nd(&tout, encode, out, 2, dout, bout))
+    return (int)cudaErrorInvalidValue;
+  const Args a{static_cast<const int*>(rows), out, nullptr, M, 1, K, K, N};
+  const int max_items = (M / BM + 2) * ((N + bn - 1) / bn);
+  cudaStream_t s = (cudaStream_t)stream;
+  return bn == 256 ? launch<NN, 256>(tx, tw, tout, a, max_items, s)
+                   : launch<NN, 128>(tx, tw, tout, a, max_items, s);
+}
+
+// dw: dw (K, N) f32 = x[:, :K]^T @ dy (accumulate = 0) or += it
+// (accumulate = 1, by TMA reduce-add; each launch adds each tile once, so
+// the sum over launches is taken in launch order), x (M, ldx) bf16 with
+// ldx >= K, dy (M, N) bf16.
+extern "C" int xt_gemm_dw_bf16(const void* x, const void* dy, const void* rows, void* dw, int M,
+                               int ldx, int K, int N, int accumulate, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || N % 16 != 0 || ldx % 8 != 0 || ldx < K)
+    return (int)cudaErrorInvalidValue;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  const int bn = N <= 128 ? 128 : 256;
+  const cuuint64_t dxm[2] = {(cuuint64_t)ldx, (cuuint64_t)M};
+  const cuuint64_t dym[2] = {(cuuint64_t)N, (cuuint64_t)M};
+  const cuuint64_t ddw[3] = {(cuuint64_t)N, (cuuint64_t)K, 1};
+  const cuuint32_t box[2] = {64, 64}, bdw[3] = {32, 64, 1};
+  CUtensorMap tx, ty, tdw;
+  if (!make_map_nd(&tx, encode, x, 2, dxm, box) || !make_map_nd(&ty, encode, dy, 2, dym, box) ||
+      !make_map_nd(&tdw, encode, dw, 3, ddw, bdw, true))
+    return (int)cudaErrorInvalidValue;
+  const Args a{static_cast<const int*>(rows), dw, nullptr, M, 1, 0, K, N};
+  const int items = (K + BM - 1) / BM * ((N + bn - 1) / bn);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (accumulate)
+    return bn == 256 ? launch<DW, 256, true>(tx, ty, tdw, a, items, s)
+                     : launch<DW, 128, true>(tx, ty, tdw, a, items, s);
   return bn == 256 ? launch<DW, 256>(tx, ty, tdw, a, items, s)
                    : launch<DW, 128>(tx, ty, tdw, a, items, s);
 }

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu) and the grouped GEMMs (grouped_gemm.cu):
-// mbarriers with a watchdog, TMA loads and stores of 128-byte-swizzled
-// 64-column boxes, bulk copies, wgmma descriptors and products (SS and RS,
+// (flash_fwd.cu, flash_bwd.cu), the grouped GEMMs (grouped_gemm.cu) and the
+// fused-CE backward (fused_ce.cu): mbarriers with a watchdog, TMA loads,
+// stores and reduce-adds of 128-byte-swizzled 64-column boxes, bulk
+// copies, wgmma descriptors and products (SS and RS,
 // A in registers), fences, bf16 packing, and the host side's tensor maps.
 //
 // A shared-memory tile is made of 64-column halves of 128-byte rows,
@@ -134,6 +135,17 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t sr
                                              int row, int plane) {
   asm volatile(
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(col), "r"(row), "r"(plane)
+      : "memory");
+}
+
+// the same box added element-wise into an f32 3-D tensor (a reduce-add by
+// the TMA unit: one read-modify-write per element, no atomics in the
+// kernel); what lies past an edge is not touched. Commit and wait as above
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map, uint32_t src, int col,
+                                                  int row, int plane) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group [%0, {%2, %3, %4}], [%1];"
       ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(col), "r"(row), "r"(plane)
       : "memory");
 }

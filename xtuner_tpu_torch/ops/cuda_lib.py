@@ -34,6 +34,7 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinf
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: name -> argtypes (every one returns cudaGetLastError())
 SIGNATURES = {
     # q, k, v, segment_ids, tile table scratch (B, Lp / 64, 4), out, lse, B,
@@ -66,9 +67,16 @@ SIGNATURES = {
     "xt_fused_moe_mlp_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # h, w, labels, lse, label_logit, N, V, H, stream
     "xt_ce_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # h, w, labels, lse, g_lse, g_lab, f32 partials, out, N, V, H, splits,
-    # dw (0: dh, 1: dw), stream
-    "xt_ce_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # one row chunk: h, w, labels, lse, g_lse, g_lab, c out, rows, V, H,
+    # V_pad, stream
+    "xt_ce_coeff_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # f32 accumulator, bf16 out, count, stream
+    "xt_ce_round_bf16": [_P, _P, _L, _P],
+    # the fused-CE backward's products (one group, no counts): x, w, rows
+    # (device int32), out, M, x row stride, K, N, stream
+    "xt_gemm_nn_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, dy, rows, dw (f32), M, x row stride, K, N, accumulate, stream
+    "xt_gemm_dw_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # xq, sx, wt (N, K), sw, out, M, K, N, a type, b type (0 e4m3, 1 e5m2),
     # out f32 (0: bf16), stream
     "xt_fp8_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
