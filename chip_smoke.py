@@ -12,7 +12,8 @@ exits non-zero with no result line:
 1. environment: torch / CUDA / triton / nvcc versions, the card, its power
    limit;
 2. kernel build (nvcc, one process per source in xtuner_tpu_torch/csrc/,
-   all started together);
+   all started together), with ptxas's registers, spills and injected
+   wgmma waits of each wgmma kernel's instantiations;
 3. each hand-written kernel against its plain PyTorch version on the card,
    at the shapes its path gives it and at odd shapes, with times, the
    least time the card could take (`least_ms`) and the time of the one
@@ -32,11 +33,13 @@ exits non-zero with no result line:
    8192-token row of 5 documents; loss, grad norm, lr, step time, tokens/s
    and peak memory per step; launch counters of its kernels against the
    counts the step implies; one profiled step;
-6. the fused CE kernels (#8, and #9/#10 as one backward: a coefficient
-   sweep per row chunk, then the dh and dW products) at N = 2 x 8192 and
-   N = 65536, H = 1024, V = 151936, at a ragged last row chunk and at odd
-   shapes, with times, each backward pass's time beside `torch.mm` over
-   the same product, and peak memory; then flash at B2 with
+6. the fused CE kernels (#8, the statistics sweep and its fold; #9/#10 as
+   one backward: a coefficient sweep per row chunk, then the dh and dW
+   products) at N = 2 x 8192 and N = 65536, H = 1024, V = 151936, at a
+   ragged last row chunk and at odd shapes, with times, #8's parent's time
+   (PERF.md), its bound and `torch.mm` over the same product, each
+   backward pass's time beside `torch.mm`, two forward launches held to
+   the same bits, and peak memory; then flash at B2 with
    16/8 heads and the grouped GEMMs at 16 experts (moe_heavy's shapes);
    then the fp8 kernels (#11-#13) at every moe_heavy fp8 shape and odd ones,
    in both operand-type variants;
@@ -62,7 +65,9 @@ exits non-zero with no result line:
    M262144 E64 (gate|up K1024 N256, down K128 N1024) against their plain
    versions and `torch._grouped_mm`; #16, forward and backward, against
    its plain version at the longctx row's M262144 E64 F128, moe_heavy's
-   M131072 E16 F768 and an odd M, beside the port's decomposed path and
+   M131072 E16 F768, an odd M and F1536, two launches held to the same
+   bits and the tiles and chunks its CTAs walked to `fused_mlp_plan_counts`,
+   beside its parent's time (PERF.md), the port's decomposed path and
    `torch._grouped_mm` twice;
 10. longctx: `recipes/bench_longctx_64k.py` (bench.py's longctx_64k row,
    470.8 M params, nothing cut) through `TrainEngine.train_step`, 3 steps
@@ -195,6 +200,12 @@ PEAK_FP8 = 1979e12
 HBM_BYTES_S = 3.35e12
 
 MAX_NEW = 32
+# the times of the WMMA kernels that #8's and #16's wgmma/TMA kernels
+# replaced, as PERF.md §6 records them (chip_smoke.py runs, NVIDIA H100
+# 80GB HBM3, 700.00 W), printed beside the kernels that replaced them
+PARENT_MS = {("ce_fwd", "sft"): "34.13-34.26", ("ce_fwd", "longctx"): "118.12-118.26",
+             ("fused_moe_mlp", "longctx"): "1.946-2.026",
+             ("fused_moe_mlp", "sft_switched"): "6.232-6.269"}
 
 
 def say(phase: str, **kv) -> None:
@@ -275,11 +286,18 @@ def phase_build() -> None:
         say("build", kernel=kernel, smem_bytes=smem, ptxas=repr(found))
     # the grouped GEMMs (#6 nn/nt, #7 dw): one instantiation per mode and
     # tile width, grouped_kernel<mode, BN, reduce> (mode 0 nn, 1 nt, 2 dw;
-    # reduce: dw adding into its f32 output, the fused CE's dW); and the
-    # fused CE's coefficient kernel
+    # reduce: dw adding into its f32 output, the fused CE's dW); the fused
+    # CE's logits sweep, ce_sweep_kernel<fwd> (#8's statistics, then
+    # ce_lse_combine_kernel) and <coeff> (#9/#10's coefficients); the fused
+    # expert MLP (#16). A C7517 warning (a wgmma wait ptxas injected) is
+    # printed beside its kernel
+    injected = [ln for ln in log.read_text().splitlines() if "C7517" in ln] \
+        if log.exists() else []
     for i, ln in enumerate(ptxas):
-        inst = re.search(r"(?<!fp8_)grouped_kernelILi(\d)ELi(\d+)ELb(\d)E", ln) \
-            if ln.startswith("kernel") else None
+        if not ln.startswith("kernel"):
+            continue
+        inst = re.search(r"(?<!fp8_)grouped_kernelILi(\d)ELi(\d+)ELb(\d)E", ln)
+        sweep = re.search(r"ce_sweep_kernelILb(\d)E", ln)
         after = ptxas[i + 1:i + 3]
         regs = {"registers": repr(next((x for x in after if "registers" in x), "?")),
                 "spills": repr(next((x for x in after if "spill" in x), "?"))}
@@ -288,8 +306,17 @@ def phase_build() -> None:
             say("build", kernel=f"grouped_kernel<{('nn', 'nt', 'dw')[mode]}, {bn}"
                                 f"{', reduce' if red else ''}>",
                 smem_bytes=lib.xt_grouped_gemm_smem_bytes(mode, bn), **regs)
-        elif ln.startswith("kernel") and "ce_coeff_kernel" in ln:
-            say("build", kernel="ce_coeff_kernel", **regs)
+        elif sweep:
+            name = f"ce_sweep_kernel<{('coeff', 'fwd')[int(sweep.group(1))]}>"
+            mangled = f"ce_sweep_kernelILb{sweep.group(1)}E"
+            say("build", kernel=name, **regs,
+                injected_waits=sum(mangled in x for x in injected))
+        elif "ce_lse_combine_kernel" in ln:
+            say("build", kernel="ce_lse_combine_kernel", **regs)
+        elif "fused_moe_mlp_kernel" in ln:
+            say("build", kernel="fused_moe_mlp_kernel",
+                smem_bytes=lib.xt_fused_moe_mlp_smem_bytes(), **regs,
+                injected_waits=sum("fused_moe_mlp_kernel" in x for x in injected))
 
 
 def phase_kernels(torch, seed: int) -> list[dict]:
@@ -853,7 +880,10 @@ def phase_ce_kernels(torch, seed: int) -> list[dict]:
     the c scratch bytes, beside `torch.mm(..., out_dtype=float32)` over the
     same N x V x H product as the dh products (a tuned GEMM's time; the port
     never calls it). CUDA-event times and the peak memory of each wrapper,
-    kernel and plain, under the first cotangents of each shape."""
+    kernel and plain, under the first cotangents of each shape. Two forward
+    launches must give the same bits; beside the forward's time, its
+    parent's (PERF.md), its bound and `torch.mm` over the same N x V x H
+    product."""
     import numpy as np
 
     from xtuner_tpu_torch.ops import fused_ce as fc
@@ -882,13 +912,19 @@ def phase_ce_kernels(torch, seed: int) -> list[dict]:
             (300, 5000, 256, ("g_lse",), None)):
         h, w, labels, g_lse_all, g_lab_all = ce_inputs(n, v, hd, 0.05)
         lse, lab = fc.ce_fwd(h, w, labels)
+        lse2, lab2 = fc.ce_fwd(h, w, labels)
+        repeat = torch.equal(lse, lse2) and torch.equal(lab, lab2)
+        del lse2, lab2
         ref_lse, ref_lab = fc.ce_fwd_plain(h, w, labels)
         stat_err = max(_abs(lse, ref_lse), _abs(lab, ref_lab))
         shape = f"N{n}xH{hd}xV{v}"
         plan = fc.ce_chunk_plan(n, v)
-        if not stat_err <= CE_STAT_ATOL:
+        say("kernel", name="ce_fwd", shape=shape, lse_label_err=f"{stat_err:.3e}",
+            bitwise_repeat=repeat, scratch_bytes=fc.ce_fwd_scratch_bytes(n, v))
+        if not (stat_err <= CE_STAT_ATOL and repeat):
             raise AssertionError(f"ce_fwd disagrees with its plain version at {shape}: "
-                                 f"lse/label {stat_err} (<= {CE_STAT_ATOL})")
+                                 f"lse/label {stat_err} (<= {CE_STAT_ATOL}), two launches "
+                                 f"give the same bits {repeat}")
         for cot in cotangents:
             g_lse = torch.zeros_like(g_lse_all) if cot == "g_lab" else g_lse_all
             g_lab = torch.zeros_like(g_lab_all) if cot == "g_lse" else g_lab_all
@@ -974,6 +1010,18 @@ def phase_ce_kernels(torch, seed: int) -> list[dict]:
                 say("kernel", name=name, shape=shape, cotangents=cot, err=f"{err:.3e}",
                     ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}", tflops=f"{flops / ms / 1e9:.1f}",
                     peak_gib=f"{peak:.3f}", plain_peak_gib=f"{ppeak:.3f}")
+                if name == "ce_fwd" and path is not None:
+                    # beside the forward: its parent's time, its bound, and
+                    # a tuned GEMM over the same N x V x H product (the
+                    # backward's row chunks; f32 logits, the port never
+                    # calls it)
+                    mm_ms = cuda_ms(lambda: [torch.mm(h[s0:s0 + r], w.T, out_dtype=torch.float32)
+                                             for s0, r in plan.chunks], iters=3, warmup=1)
+                    say("kernel", name="ce_fwd", shape=shape, ms=f"{ms:.4f}",
+                        parent_ms_perf_md=PARENT_MS[("ce_fwd", path)],
+                        bound_ms=f"{flops / PEAK_BF16 * 1e3:.3f}",
+                        share_of_bound=f"{flops / PEAK_BF16 * 1e3 / ms:.3f}",
+                        torch_mm_nvh_ms=f"{mm_ms:.4f}")
                 if path is not None:
                     ins = 2 * n * hd + 2 * v * hd + 4 * n  # h, w, labels
                     nbytes = {"ce_fwd": ins + 8 * n,  # lse, label logit out
@@ -1656,11 +1704,14 @@ def phase_longctx_kernels(torch, seed: int, smi: str) -> list[dict]:
     against the plain versions run in `PLAIN_CHUNK`-row chunks
     (`flash_plain_chunked`; the unchunked ones hold (L, L) scores); #16's
     forward and backward at the longctx row's M 262144 E64 H1024 F128 and
-    moe_heavy's M131072 E16 F768, routed sizes with an empty expert, and at
-    an odd M. Times from CUDA events, bounds, SDPA's causal backward at
-    L65536 as the backward's library time; #16 has no library call (none
-    fuses two GEMMs): `torch._grouped_mm` twice with silu * up between them
-    and the port's decomposed path are printed beside it."""
+    moe_heavy's M131072 E16 F768, routed sizes with an empty expert, at
+    an odd M and at F1536 (timed, on no path); two launches must give the
+    same bits and walk `fused_mlp_plan_counts`'s tiles and chunks. Times
+    from CUDA events, bounds, SDPA's causal backward at L65536 as the
+    backward's library time; #16 has no library call (none fuses two
+    GEMMs): `torch._grouped_mm` twice with silu * up between them, the
+    port's decomposed path and the parent kernel's time from PERF.md are
+    printed beside it."""
     import numpy as np
 
     from xtuner_tpu_torch.ops import fused_moe_mlp as fm
@@ -1813,8 +1864,9 @@ def phase_longctx_kernels(torch, seed: int, smi: str) -> list[dict]:
 
     # ---- #16, forward and backward, at the longctx and moe_heavy shapes
     # and at an odd M with rows past the last group
+    # (F1536, the largest F the kernel takes, is timed but on no path)
     cases = (("longctx", LONGCTX_SEQ, 64, 4, 128), ("sft_switched", SFT_ROWS * SEQ, 16, 8, 768),
-             ("odd", None, 5, None, 128))
+             ("odd", None, 5, None, 128), ("f1536", SFT_ROWS * SEQ, 16, 8, 1536))
     for path, tokens, e, topk, f in cases:
         h = 1024
         if tokens is None:
@@ -1826,7 +1878,15 @@ def phase_longctx_kernels(torch, seed: int, smi: str) -> list[dict]:
         x = torch.randn((m, h), generator=g, device=dev).bfloat16()
         w_gu = (torch.randn((e, h, 2 * f), generator=g, device=dev) * 0.02).bfloat16()
         w_dn = (torch.randn((e, f, h), generator=g, device=dev) * 0.02).bfloat16()
+        fm.reset_launches()
         out, gu = fm.fused_moe_mlp_fwd(x, w_gu, w_dn, sizes)
+        out2, gu2 = fm.fused_moe_mlp_fwd(x, w_gu, w_dn, sizes)
+        repeat = torch.equal(out, out2) and torch.equal(gu, gu2)
+        del out2, gu2
+        # the tiles and chunks the kernel's CTAs walked in the two launches,
+        # against the plain plan's
+        walked = fm.fused_mlp_tiles_walked()
+        plan = tuple(2 * c for c in fm.fused_mlp_plan_counts(sizes, m, h, f))
         ref_out, ref_gu = fm.fused_moe_mlp_plain(x, w_gu, w_dn, sizes)
         torch.cuda.synchronize()
         err = max(_abs(out, ref_out), _abs(gu, ref_gu))
@@ -1849,11 +1909,12 @@ def phase_longctx_kernels(torch, seed: int, smi: str) -> list[dict]:
         shape = f"M{m}xE{e}xH{h}xF{f}"
         say("kernel", name="fused_moe_mlp", shape=shape, rows=n, empty=int((sizes == 0).sum()),
             out_gu_err=f"{err:.3e}", out_gu_rel=f"{rel:.3e}", grad_rel=f"{g_rel:.3e}",
-            tail_rows_ok=tail_ok)
-        if not (rel <= GG_RTOL and g_rel <= GG_RTOL and tail_ok):
+            tail_rows_ok=tail_ok, bitwise_repeat=repeat, walked=walked, plan=plan)
+        if not (rel <= GG_RTOL and g_rel <= GG_RTOL and tail_ok and repeat and walked == plan):
             raise AssertionError(f"fused_moe_mlp disagrees with its plain version at {shape}: "
                                  f"out/gu {rel}, grads {g_rel} (<= {GG_RTOL}), rows past the "
-                                 f"last group zero {tail_ok}")
+                                 f"last group zero {tail_ok}, two launches give the same "
+                                 f"bits {repeat}, walked {walked} against the plan {plan}")
         if path == "odd":
             continue
         ms = cuda_ms(lambda: fm.fused_moe_mlp_fwd(x, w_gu, w_dn, sizes), iters=5)
@@ -1876,10 +1937,16 @@ def phase_longctx_kernels(torch, seed: int, smi: str) -> list[dict]:
         flops = 6 * n * h * f
         nbytes = 2 * m * h * 2 + 2 * m * 2 * f + 2 * e * h * 2 * f + 2 * e * f * h
         bound = least_ms(flops, nbytes, PEAK_BF16)
+        _, peak = _peak_ms(torch, lambda: fm.fused_moe_mlp_fwd(x, w_gu, w_dn, sizes), iters=1)
         say("kernel", name="fused_moe_mlp", shape=shape, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+            parent_ms_perf_md=PARENT_MS.get(("fused_moe_mlp", path), "not measured"),
             decomposed_ms=f"{dec_ms:.4f}", grouped_mm_pair_ms=pair_ms, why=repr(pair_why),
             tflops=f"{flops / ms / 1e9:.1f}", bound_ms=f"{bound['bound_ms']:.4f}",
-            bound_by=bound["bound_by"], card=repr(smi))
+            bound_by=bound["bound_by"], share_of_bound=f"{bound['bound_ms'] / ms:.3f}",
+            peak_gib=f"{peak:.3f}", card=repr(smi))
+        if path == "f1536":
+            del x, w_gu, w_dn
+            continue
         rows.append({"name": "fused_moe_mlp", "route": "cuda", "source": src + "fused_moe_mlp.cu",
                      "replaces": "xtuner_tpu/ops/fused_moe_mlp.py:48", "path": path,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain, **bound,

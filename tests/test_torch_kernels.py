@@ -468,6 +468,10 @@ def test_fused_ce_kernels_match_plain(cuda, n, v, hd, cotangents, w_grad):
     fc.reset_launches()
     reset_grouped()
     lse, lab = fc.ce_fwd(h, w, labels)
+    # the per-tile statistics fold in a fixed order: two launches, one result
+    lse2, lab2 = fc.ce_fwd(h, w, labels)
+    torch.cuda.synchronize()
+    assert torch.equal(lse, lse2) and torch.equal(lab, lab2)
     ref_lse, ref_lab = fc.ce_fwd_plain(h, w, labels)
     assert (lse - ref_lse).abs().max().item() <= CE_STAT_ATOL
     assert (lab - ref_lab).abs().max().item() <= CE_STAT_ATOL
@@ -478,7 +482,7 @@ def test_fused_ce_kernels_match_plain(cuda, n, v, hd, cotangents, w_grad):
         # called pair gives them
         dh2, dw2 = fc.ce_bwd(h, w, labels, ref_lse, g_lse, g_lab)
         torch.cuda.synchronize()
-        want = (1, 3 * chunks, 2, 2)
+        want = (2, 3 * chunks, 2, 2)
         assert torch.equal(dh, dh2) and torch.equal(dw, dw2)
         assert dh.dtype == dw.dtype == torch.bfloat16 and dw.shape == w.shape
         assert _rel_err(dw, fc.ce_dw_plain(h, w, labels, ref_lse, g_lse, g_lab)) <= GG_RTOL
@@ -918,6 +922,8 @@ def _moe_mlp(dev, m, h, f, sizes, seed=0):
     (777, 128, 768, [37, 300, 1, 400]),            # F 768 (moe_heavy), a 1-row expert
     (700, 1024, 128, [200, 0, 0, 400]),            # rows past the last group -> 0
     (4096, 1024, 768, [300, 700, 0, 1200, 500, 400, 600, 100, 296]),  # moe_heavy widths
+    (1500, 384, 1536, [500, 0, 499, 1, 400]),      # F 1536, the largest F; H not a multiple of 256
+    (900, 256, 64, [300, 0, 555]),                 # F 64: one half-empty gate|up chunk
 ])
 def test_fused_moe_mlp_kernel_matches_plain(cuda, m, h, f, sizes):
     from xtuner_tpu_torch.ops import fused_moe_mlp as fm
@@ -929,6 +935,9 @@ def test_fused_moe_mlp_kernel_matches_plain(cuda, m, h, f, sizes):
     torch.cuda.synchronize()
     assert fm.fused_moe_mlp_fwd.launches == 2
     assert torch.equal(out, out2) and torch.equal(gu, gu2)  # bit for bit, run to run
+    # the tiles and chunks the CTAs walked: the plain plan's, per launch
+    assert fm.fused_mlp_tiles_walked() == tuple(
+        2 * c for c in fm.fused_mlp_plan_counts(gs, m, h, f))
     ref_out, ref_gu = fm.fused_moe_mlp_plain(x, w_gu, w_dn, gs)
     for got, want in ((out, ref_out), (gu, ref_gu)):
         assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
@@ -937,7 +946,7 @@ def test_fused_moe_mlp_kernel_matches_plain(cuda, m, h, f, sizes):
         assert (out[sum(sizes):] == 0).all() and (gu[sum(sizes):] == 0).all()
 
 
-@pytest.mark.parametrize("f", [128, 768])
+@pytest.mark.parametrize("f", [128, 768, 1536, 64])
 def test_fused_moe_mlp_autograd_matches_plain_autograd(cuda, f):
     from xtuner_tpu_torch.ops import fused_moe_mlp as fm
 
@@ -974,6 +983,6 @@ def test_fused_moe_mlp_rejects_what_the_kernel_does_not_take(cuda):
     xs, gus, dns, gss = _moe_mlp(cuda, 64, 128, 96, [30, 34])  # F not a multiple of 64
     with pytest.raises(ValueError, match="multiple of 64"):
         fm.fused_moe_mlp_fwd(xs, gus, dns, gss)
-    xs, gus, dns, gss = _moe_mlp(cuda, 64, 128, 1600, [30, 34])  # F past the hidden tile
+    xs, gus, dns, gss = _moe_mlp(cuda, 64, 128, 1600, [30, 34])  # F past the kernel's limit
     with pytest.raises(ValueError, match="at most"):
         fm.fused_moe_mlp_fwd(xs, gus, dns, gss)

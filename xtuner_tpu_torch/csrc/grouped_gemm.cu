@@ -135,29 +135,6 @@ struct Args {
   int K, N;          // nn/nt: the output width is N; dw: dW is (E, K, N)
 };
 
-// exclusive prefix sum of v over the CTA's 256 threads; `total` gets the sum
-__device__ __forceinline__ int block_scan(int v, int* wsum, int& total) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  int x = v;
-#pragma unroll
-  for (int off = 1; off < 32; off *= 2) {
-    const int y = __shfl_up_sync(0xffffffffu, x, off);
-    if (lane >= off) x += y;
-  }
-  if (lane == 31) wsum[warp] = x;
-  __syncthreads();
-  int base = 0, tot = 0;
-#pragma unroll
-  for (int w = 0; w < NTHREADS / 32; ++w) {
-    const int s = wsum[w];
-    base += w < warp ? s : 0;
-    tot += s;
-  }
-  __syncthreads();  // wsum is free again
-  total = tot;
-  return base + x - v;
-}
-
 // one item of the work list
 struct Item {
   int e;       // expert (-1: a zero item)
@@ -287,7 +264,7 @@ grouped_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
   {
     const int n = tid < E ? max(a.sizes[tid], 0) : 0;
     int total;
-    const int ex = block_scan(n, wsum, total);
+    const int ex = block_scan<NTHREADS>(n, wsum, total);
     const int rs = min(ex, M), re = min(ex + n, M);
     if (tid < E) offs[tid] = rs;
     if (tid == 0) offs[E] = min(total, M);
@@ -303,7 +280,7 @@ grouped_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
       if (tid < E) tab[rank] = tid;
     } else {
       const int tiles = tid < E ? (re - rs + BM - 1) / BM : 0;
-      const int tex = block_scan(tiles, wsum, total);
+      const int tex = block_scan<NTHREADS>(tiles, wsum, total);
       if (tid < E) tab[tid] = tex;
       if (tid == 0) tab[E] = total;
     }
@@ -520,17 +497,6 @@ grouped_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
     atomicAdd(a.counts + 1, n_zero);
     atomicAdd(a.counts + 2, n_chunks);
   }
-}
-
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      n = 0;
-  }
-  return n;
 }
 
 template <int MODE, int BN, bool RED = false>

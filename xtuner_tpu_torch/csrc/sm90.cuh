@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu), the grouped GEMMs (grouped_gemm.cu) and the
-// fused-CE backward (fused_ce.cu): mbarriers with a watchdog, TMA loads,
-// stores and reduce-adds of 128-byte-swizzled 64-column boxes, bulk
-// copies, wgmma descriptors and products (SS and RS,
-// A in registers), fences, bf16 packing, and the host side's tensor maps.
+// (flash_fwd.cu, flash_bwd.cu), the grouped GEMMs (grouped_gemm.cu), the
+// fused CE (fused_ce.cu) and the fused expert MLP (fused_moe_mlp.cu):
+// mbarriers with a watchdog, TMA loads, stores and reduce-adds of
+// 128-byte-swizzled 64-column boxes, bulk copies, wgmma descriptors and
+// products (SS and RS, A in registers), fences, bf16 packing, a CTA-wide
+// prefix sum, and the host side's SM count and tensor maps.
 //
 // A shared-memory tile is made of 64-column halves of 128-byte rows,
 // swizzled in 1024-byte atoms of 8 rows, as TMA writes them
@@ -327,6 +328,31 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// exclusive prefix sum of v over a CTA of THREADS threads (a multiple of
+// 32); `total` gets the sum. wsum: THREADS / 32 ints of shared memory
+template <int THREADS>
+__device__ __forceinline__ int block_scan(int v, int* wsum, int& total) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int x = v;
+#pragma unroll
+  for (int off = 1; off < 32; off *= 2) {
+    const int y = __shfl_up_sync(0xffffffffu, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) wsum[warp] = x;
+  __syncthreads();
+  int base = 0, tot = 0;
+#pragma unroll
+  for (int w = 0; w < THREADS / 32; ++w) {
+    const int s = wsum[w];
+    base += w < warp ? s : 0;
+    tot += s;
+  }
+  __syncthreads();  // wsum is free again
+  total = tot;
+  return base + x - v;
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -348,6 +374,18 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+// the card's SM count (a persistent grid's size), read once
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n = 0;
+  }
+  return n;
+}
+
 // (B, L, H, D = 128) bf16 -> boxes of (64 columns, 1 head, rows, 1 batch row),
 // 128-byte swizzled; rows past L read as zeros
 bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int B, int L, int H,
@@ -363,17 +401,17 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int B, int 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// a contiguous bf16 (or f32) tensor of rank 2 or 3, dims innermost first,
+// a contiguous bf16 (or f32) tensor of rank 2 to 4, dims innermost first,
 // -> boxes of `box` (the innermost 128 bytes: 64 bf16 or 32 f32 columns),
 // 128-byte swizzled; what lies past an edge reads as zeros and is not
 // written (one expert's matrix of a (E, K, N) stack mapped as (N, K, E)
 // never reads or writes the next expert's rows)
 bool make_map_nd(CUtensorMap* map, EncodeTiled encode, const void* ptr, int rank,
                  const cuuint64_t* dims, const cuuint32_t* box, bool f32 = false) {
-  cuuint64_t strides[2];
+  cuuint64_t strides[3];
   cuuint64_t stride = f32 ? 4 : 2;
   for (int i = 0; i + 1 < rank; ++i) strides[i] = stride *= dims[i];
-  const cuuint32_t elem[3] = {1, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                 rank, const_cast<void*>(ptr), dims,
                 strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,

@@ -63,10 +63,14 @@ SIGNATURES = {
     # the dynamic shared memory of one grouped CTA (bytes): mode (0 nn, 1 nt,
     # 2 dw), block width (128 or 256)
     "xt_grouped_gemm_smem_bytes": [_I, _I],
-    # x, w_gu, w_dn, offsets, out, gu, M, E, H, F, stream
-    "xt_fused_moe_mlp_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # h, w, labels, lse, label_logit, N, V, H, stream
-    "xt_ce_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, w_gu, w_dn, group_sizes, out, gu, hidden slots (bf16 scratch), slots,
+    # M, E, H, F, walked counts (device int64[3] or null), stream
+    "xt_fused_moe_mlp_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    # the dynamic shared memory of one fused-MLP CTA (bytes)
+    "xt_fused_moe_mlp_smem_bytes": [],
+    # h, w, labels, per-tile statistics scratch (f32), lse, label_logit, N,
+    # V, H, stream
+    "xt_ce_fwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # one row chunk: h, w, labels, lse, g_lse, g_lab, c out, rows, V, H,
     # V_pad, stream
     "xt_ce_coeff_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -20,6 +20,14 @@ which never write the (N, V) logits to device memory, or raises; on a CPU
 tensor it runs the plain version beside it: f32 logits from the same
 operands, a chunk of rows at a time.
 
+The forward (`ce_fwd`) is one logits sweep over (256-column vocab tile,
+128-row tile) items: each item writes, per row, the max and the sum of
+exp2 of its tile's columns (base 2) into a scratch of ceil(V / 256) x N
+pairs (`ce_fwd_scratch_bytes`), and a second kernel folds each row's pairs
+in vocab-tile order into lse; the label logit comes from the tile that
+holds it. `ce_fwd_partials_plain` and `ce_lse_combine_plain` are that
+decomposition in plain torch, for the CPU tests.
+
 The backward (`ce_bwd`) walks the rows in chunks (`ce_chunk_plan`): per
 chunk one coefficient sweep (`ce_coeff`: the logits on wgmma, c in
 registers, out as a bf16 (rows, V_pad) scratch reused by every chunk),
@@ -37,6 +45,7 @@ and gives them zero cotangents (`loss/ce_loss.py::_fused_ce`).
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -63,6 +72,45 @@ def ce_fwd_plain(h, w, labels):
         lse.append(torch.logsumexp(logits, dim=-1))
         lab.append(logits.gather(1, labels[s:s + PLAIN_ROWS, None].long())[:, 0])
     return torch.cat(lse), torch.cat(lab)
+
+
+def ce_fwd_scratch_bytes(n: int, v: int) -> int:
+    """The forward's f32 scratch: a (max, sum) pair per row and vocab tile."""
+    return 8 * n * _ceil(v, VOCAB_TILE)
+
+
+def ce_fwd_partials_plain(h, w, labels):
+    """The forward kernel's per-item statistics in plain torch: part (vt, N,
+    2) f32, per 256-column vocab tile t and row r the tile's max logit times
+    log2(e) and the sum of exp2(logit log2(e) - that max) over its columns
+    < V; and the label logit (N,) from the tile that holds the label."""
+    n, v = h.shape[0], w.shape[0]
+    vt = _ceil(v, VOCAB_TILE)
+    part = torch.empty((vt, n, 2), dtype=torch.float32, device=h.device)
+    lab = torch.empty(n, dtype=torch.float32, device=h.device)
+    log2e = 1.0 / math.log(2.0)
+    for t in range(vt):
+        v0 = t * VOCAB_TILE
+        s = _logits_plain(h, w[v0:v0 + VOCAB_TILE])
+        m2 = s.amax(dim=1) * log2e
+        part[t, :, 0] = m2
+        part[t, :, 1] = torch.exp2(s * log2e - m2[:, None]).sum(dim=1)
+        hit = (labels >= v0) & (labels < v0 + s.shape[1])
+        lab[hit] = s[hit].gather(1, (labels[hit] - v0)[:, None].long())[:, 0]
+    return part, lab
+
+
+def ce_lse_combine_plain(part):
+    """The combine kernel in plain torch: lse (N,) from part (vt, N, 2),
+    folded in vocab-tile order with a running max, as the kernel folds it."""
+    m = torch.full(part.shape[1:2], -1e30, dtype=torch.float32, device=part.device)
+    l = torch.zeros_like(m)
+    for t in range(part.shape[0]):
+        mt, lt = part[t, :, 0], part[t, :, 1]
+        mn = torch.maximum(m, mt)
+        l = l * torch.exp2(m - mn) + lt * torch.exp2(mt - mn)
+        m = mn
+    return (m + torch.log2(l)) * math.log(2.0)
 
 
 def _coeff(logits, labels, lse, g_lse, g_lab, dtype):
@@ -177,17 +225,21 @@ def _check(name, h, w, labels, *rows):
 
 
 def ce_fwd(h, w, labels):
-    """Kernel #8: (lse, label_logit), each (N,) f32."""
+    """Kernel #8: (lse, label_logit), each (N,) f32: the statistics sweep,
+    then the fold of its per-tile pairs (a scratch of
+    `ce_fwd_scratch_bytes`)."""
     _check("ce_fwd", h, w, labels)
     if h.device.type == "cpu":
         return ce_fwd_plain(h, w, labels)
     from .cuda_lib import check, load
 
     n, hd = h.shape
+    v = w.shape[0]
+    part = torch.empty((_ceil(v, VOCAB_TILE), n, 2), dtype=torch.float32, device=h.device)
     lse = torch.empty(n, dtype=torch.float32, device=h.device)
     lab = torch.empty(n, dtype=torch.float32, device=h.device)
-    err = load().xt_ce_fwd_bf16(h.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-                                lab.data_ptr(), n, w.shape[0], hd,
+    err = load().xt_ce_fwd_bf16(h.data_ptr(), w.data_ptr(), labels.data_ptr(), part.data_ptr(),
+                                lse.data_ptr(), lab.data_ptr(), n, v, hd,
                                 torch.cuda.current_stream(h.device).cuda_stream)
     check(err, "xt_ce_fwd_bf16")
     ce_fwd.launches += 1
