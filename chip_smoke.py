@@ -41,8 +41,12 @@ exits non-zero with no result line:
    backward pass's time beside `torch.mm`, two forward launches held to
    the same bits, and peak memory; then flash at B2 with
    16/8 heads and the grouped GEMMs at 16 experts (moe_heavy's shapes);
-   then the fp8 kernels (#11-#13) at every moe_heavy fp8 shape and odd ones,
-   in both operand-type variants;
+   then the fp8 kernels (#11-#13) at every moe_heavy fp8 shape and odd ones
+   (every expert start offset inside a 128-row tile, 128 aligned rows, M
+   below a tile), in both operand-type variants; #12 and #13 also print
+   the launch alone on operands already in their layout, TFLOP/s, the
+   share of the bound and their parent's time, and hold two launches to
+   the same bits and their walks to `fp8_plan_counts`;
 7. sft: the `sft` CLI's `main(["--config", recipes/sft_moe_heavy.py])` in a
    temporary directory: bench.py's moe_heavy config at full width and depth
    (fused CE, remat "save_attn_residuals"), 6 steps through `Trainer.fit`;
@@ -55,7 +59,8 @@ exits non-zero with no result line:
 8. sft_fp8: the same with `recipes/sft_moe_heavy_fp8.py` (bench.py's fp8
    row): step-1 loss within 2% of the bf16 run's, the exact launches of
    the fp8 kernels and none of the bf16 grouped GEMMs, and one profiled
-   step with the quantise passes' device time apart;
+   step with the device time of the quantise passes, the layout copies,
+   #11, #12 and #13 apart;
 9. longctx_kernels: the one-pass flash backward's two-pass
    instantiation (#2 + #4) against its plain version at moe_heavy's flash
    shapes, and the forward (#1) and both backward instantiations against
@@ -200,12 +205,17 @@ PEAK_FP8 = 1979e12
 HBM_BYTES_S = 3.35e12
 
 MAX_NEW = 32
-# the times of the WMMA kernels that #8's and #16's wgmma/TMA kernels
-# replaced, as PERF.md §6 records them (chip_smoke.py runs, NVIDIA H100
-# 80GB HBM3, 700.00 W), printed beside the kernels that replaced them
+# the times of the WMMA and mma.sync kernels that #8's, #16's, #12's and
+# #13's wgmma/TMA kernels replaced, as PERF.md §6 records them
+# (chip_smoke.py runs, NVIDIA H100 80GB HBM3, 700.00 W), printed beside the
+# kernels that replaced them
 PARENT_MS = {("ce_fwd", "sft"): "34.13-34.26", ("ce_fwd", "longctx"): "118.12-118.26",
              ("fused_moe_mlp", "longctx"): "1.946-2.026",
-             ("fused_moe_mlp", "sft_switched"): "6.232-6.269"}
+             ("fused_moe_mlp", "sft_switched"): "6.232-6.269",
+             # the mma.sync kernels #12 and #13 replaced: a layer's 6 calls of
+             # #12 and 3 of #13 at the sft_fp8 shapes
+             ("fp8_grouped_gemm", "sft_fp8"): "7.11-7.43",
+             ("fp8_grouped_dw", "sft_fp8"): "6.22"}
 
 
 def say(phase: str, **kv) -> None:
@@ -263,7 +273,7 @@ def phase_build() -> None:
     ptxas = []
     for ln in (log.read_text().splitlines() if log.exists() else []):
         if "Compiling entry function" in ln:  # the mangled name, cut to what tells kernels apart
-            ptxas.append("kernel " + ln.split("'")[1].split("_cu_")[-1][:60])
+            ptxas.append("kernel " + ln.split("'")[1].split("_cu_")[-1][:100])
         elif "registers" in ln or "spill" in ln or "C75" in ln:
             ptxas.append(ln.strip())
     say("build", library=so.name, nvcc_s=f"{nvcc_s:.3f}",
@@ -289,8 +299,9 @@ def phase_build() -> None:
     # reduce: dw adding into its f32 output, the fused CE's dW); the fused
     # CE's logits sweep, ce_sweep_kernel<fwd> (#8's statistics, then
     # ce_lse_combine_kernel) and <coeff> (#9/#10's coefficients); the fused
-    # expert MLP (#16). A C7517 warning (a wgmma wait ptxas injected) is
-    # printed beside its kernel
+    # expert MLP (#16); the fp8 grouped GEMMs (#12 gg, #13 dw),
+    # fp8_grouped_kernel<mode, A type, B type, out>. A C7517
+    # warning (a wgmma wait ptxas injected) is printed beside its kernel
     injected = [ln for ln in log.read_text().splitlines() if "C7517" in ln] \
         if log.exists() else []
     for i, ln in enumerate(ptxas):
@@ -298,6 +309,7 @@ def phase_build() -> None:
             continue
         inst = re.search(r"(?<!fp8_)grouped_kernelILi(\d)ELi(\d+)ELb(\d)E", ln)
         sweep = re.search(r"ce_sweep_kernelILb(\d)E", ln)
+        fp8g = re.search(r"fp8_grouped_kernelILi(\d)ELi(\d)ELi(\d)E(f|13__nv_bfloat16)E", ln)
         after = ptxas[i + 1:i + 3]
         regs = {"registers": repr(next((x for x in after if "registers" in x), "?")),
                 "spills": repr(next((x for x in after if "spill" in x), "?"))}
@@ -317,6 +329,14 @@ def phase_build() -> None:
             say("build", kernel="fused_moe_mlp_kernel",
                 smem_bytes=lib.xt_fused_moe_mlp_smem_bytes(), **regs,
                 injected_waits=sum("fused_moe_mlp_kernel" in x for x in injected))
+        elif fp8g:
+            mode, ta, tb, out = fp8g.groups()
+            types = ("e4m3", "e5m2")
+            say("build", kernel=f"fp8_grouped_kernel<{('gg', 'dw')[int(mode)]}, "
+                                f"{types[int(ta)]}x{types[int(tb)]}, "
+                                f"{'f32' if out == 'f' else 'bf16'}>",
+                smem_bytes=lib.xt_fp8_grouped_smem_bytes(int(out == "f")), **regs,
+                injected_waits=sum(fp8g.group(0) in x for x in injected))
 
 
 def phase_kernels(torch, seed: int) -> list[dict]:
@@ -1195,15 +1215,19 @@ def phase_fp8_kernels(torch, seed: int) -> list[dict]:
         row["library_ms"] = None if ms is None or row["library_ms"] is None \
             else row["library_ms"] + uses * ms
 
+    alone_ms = {name: 0.0 for name in rows}  # the launches alone, uses-weighted
+
     def check(name, label, got, want, ref, rtol, uses=0, timed=None, flops=0, nbytes=0):
         """Hold a kernel's result against its plain version; with `uses`,
-        time it and add `uses` times its ms and bound to the kernel's row."""
+        time it and add `uses` times its ms and bound to the kernel's row.
+        `timed` is (wrapper, plain) or (wrapper, plain, the launch alone on
+        operands already in the kernel's layout)."""
         torch.cuda.synchronize()
         err, rel = _abs(got, want), _rel(got, want)
         vs_bf16 = ((got.float() - ref.float()).abs().mean() / ref.float().abs().mean()).item()
         kv = {}
         if uses:
-            kern, plain = timed
+            kern, plain, *alone = timed
             ms, pms = cuda_ms(kern, iters=5), cuda_ms(plain, iters=2, warmup=1)
             b = least_ms(flops, nbytes, PEAK_FP8)
             row = rows[name]
@@ -1214,7 +1238,13 @@ def phase_fp8_kernels(torch, seed: int) -> list[dict]:
                 add_bound(row, b)
             kv = dict(uses=uses, ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
                       tflops=f"{flops / ms / 1e9:.1f}", plain_tflops=f"{flops / pms / 1e9:.1f}",
-                      bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"])
+                      bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"],
+                      share_of_bound=f"{b['bound_ms'] / ms:.3f}")
+            if alone:
+                ams = cuda_ms(alone[0], iters=5)
+                alone_ms[name] += uses * ams
+                kv.update(kernel_ms=f"{ams:.4f}", kernel_tflops=f"{flops / ams / 1e9:.1f}",
+                          kernel_share_of_bound=f"{b['bound_ms'] / ams:.3f}")
         say("kernel", name=name, gemm=label, err=f"{err:.3e}", rel=f"{rel:.3e}",
             mean_rel_vs_bf16=f"{vs_bf16:.4f}", **kv)
         if not (rel <= rtol and vs_bf16 <= FP8_VS_BF16_MEAN):
@@ -1254,11 +1284,25 @@ def phase_fp8_kernels(torch, seed: int) -> list[dict]:
                 out_dtype=torch.bfloat16))
         del x, w, xq, sx, wq, sw
 
-    # ---- #12 and #13 at the expert GEMMs: 131072 routed rows, E16, top-8
+    # ---- #12 and #13 at the expert GEMMs: 131072 routed rows, E16, top-8;
+    # then odd shapes: every expert start offset inside a 128-row tile with
+    # an empty first and last expert and 1-row experts, experts of exactly
+    # 128 aligned rows, M below one tile
     e = 16
     m_moe = m_att * 8
     sizes = routed_sizes(torch, rng, m_att, e, 8, empty=5, dev=dev)
     say("kernel", name="fp8_grouped", rows=m_moe, experts=e, group_sizes=sizes.tolist())
+    bounds = [0, 1, 14, 1, 1, 110, 300, 0]
+
+    def same_walk_twice(name, kind, first, second, gs, m, k, n):
+        """Two launches give the same bits and walk `fp8_plan_counts` each."""
+        walked = fgr.fp8_grouped_walked()[kind]
+        plan = tuple(2 * c for c in fgr.fp8_plan_counts(gs, m, kind, k, n))
+        if walked != plan or not torch.equal(first, second):
+            raise AssertionError(f"{name}: two launches walked {walked} (plan {plan}), "
+                                 f"same bits: {torch.equal(first, second)}")
+        return dict(walked=walked, plan=plan)
+
     for label, m, k, n, gs, a_dt, uses in (
             # gate and up forward, down's dgrad: K1024 -> N768
             ("gate/up fwd, down dgrad", m_moe, 1024, 768, sizes, e4, 3),
@@ -1267,35 +1311,48 @@ def phase_fp8_kernels(torch, seed: int) -> list[dict]:
             ("gate/up dgrad, e5m2 gradient", m_moe, 768, 1024, sizes, e5, 0),
             ("odd M700 K768", 700, 768, 256, [300, 1, 0, 333], e4, 0),
             ("odd M700 K768", 700, 768, 256, [300, 1, 0, 333], e5, 0),
-            ("odd M1000 K384", 1000, 384, 128, [0, 1000, 0, 0], e4, 0)):
+            ("odd M1000 K384", 1000, 384, 128, [0, 1000, 0, 0], e4, 0),
+            ("starts 0/1/15/16/17/127", 512, 1024, 256, bounds, e4, 0),
+            ("starts 0/1/15/16/17/127", 512, 768, 384, bounds, e5, 0),
+            ("128 aligned rows", 256, 256, 128, [128, 0, 128], e4, 0),
+            ("M below a tile", 100, 512, 128, [0, 37, 1, 50, 0], e5, 0)):
         gs = torch.as_tensor(gs, dtype=torch.int32, device=dev)
         ee = gs.shape[0]
         x, w, xq, sx, wq, sw = operands(m, k, n, a_dt, e4, ee)
         kern = lambda: fgr.fp8_grouped_gemm(xq, sx, wq, sw, gs)  # noqa: E731
         plain = lambda: fgr.fp8_grouped_gemm_plain(xq, sx, wq, sw, gs,  # noqa: E731
                                                    out_dtype=torch.float32)
+        wt = fg.k_major(wq).view(wq.dtype)  # the launch alone: W laid out K-major beforehand
+        alone = lambda: fgr.fp8_grouped_gemm_launch(xq, sx, wt, sw, gs)  # noqa: E731
         kt, nt = k // 128, n // 128
+        fgr.reset_launches()
         got = kern()
+        walk = same_walk_twice("fp8_grouped_gemm", "gg", got, kern(), gs, m, k, n)
         if (got[int(gs.sum()):] != 0).any():
             raise AssertionError("fp8_grouped_gemm wrote rows past the last group")
+        say("kernel", name="fp8_grouped_gemm", gemm=label, **walk)
         check("fp8_grouped_gemm", f"{label} {tag[a_dt]}xe4m3 M{m} K{k} N{n}", got, plain(),
               grouped_gemm_plain(x, w, gs, out_dtype=torch.float32), FP8_RTOL, uses,
-              (kern, plain), 2 * int(gs.sum()) * k * n,
+              (kern, plain, alone), 2 * int(gs.sum()) * k * n,
               m * k + 4 * m * kt + ee * k * n + 4 * ee * kt * nt + 2 * m * n)
         if uses:
-            wt = fg.k_major(wq).view(e4)
+            wt8 = wt.view(e4)
             offs = torch.cumsum(gs, 0).to(torch.int32)
             add_library("fp8_grouped_gemm", f"{label}: torch._scaled_grouped_mm", uses,
-                        lambda: torch._scaled_grouped_mm(xq, wt.transpose(1, 2), sx, sw,
+                        lambda: torch._scaled_grouped_mm(xq, wt8.transpose(1, 2), sx, sw,
                                                          offs=offs, out_dtype=torch.bfloat16))
-        del x, w, xq, sx, wq, sw, got
+        del x, w, xq, sx, wq, sw, wt, got
 
     for label, m, k, n, gs, y_dt, uses in (
             ("gate/up wgrad", m_moe, 1024, 768, sizes, e4, 2),
             ("down wgrad", m_moe, 768, 1024, sizes, e4, 1),
             ("down wgrad, e5m2 gradient", m_moe, 768, 1024, sizes, e5, 0),
             ("odd M640 K768", 640, 768, 256, [300, 1, 0, 339], e5, 0),
-            ("odd M1024 K384", 1024, 384, 128, [0, 0, 1000, 0], e4, 0)):
+            ("odd M1024 K384", 1024, 384, 128, [0, 0, 1000, 0], e4, 0),
+            ("starts 0/1/15/16/17/127", 512, 1024, 256, bounds, e4, 0),
+            ("starts 0/1/15/16/17/127", 512, 768, 384, bounds, e5, 0),
+            ("128 aligned rows", 256, 256, 128, [128, 0, 128], e4, 0),
+            ("M below a tile, padded", 128, 512, 128, [0, 37, 1, 50, 0], e5, 0)):
         gs = torch.as_tensor(gs, dtype=torch.int32, device=dev)
         ee = gs.shape[0]
         x = torch.randn((m, k), generator=g, device=dev).bfloat16()
@@ -1304,17 +1361,30 @@ def phase_fp8_kernels(torch, seed: int) -> list[dict]:
         yq, sy = fgr.quantize_rowtile(dy, dtype=y_dt)
         kern = lambda: fgr.fp8_grouped_gemm_dw(xq, sx, yq, sy, gs, ee)  # noqa: E731
         plain = lambda: fgr.fp8_grouped_gemm_dw_plain(xq, sx, yq, sy, gs, ee)  # noqa: E731
+        # the launch alone: both operands laid out in row tiles beforehand
+        xt, yt = fgr._row_tiles_k_major(xq, 128), fgr._row_tiles_k_major(yq, 128)
+        alone = lambda: fgr.fp8_grouped_dw_launch(xt, sx, yt, sy, gs, ee)  # noqa: E731
+        fgr.reset_launches()
         got = kern()
+        walk = same_walk_twice("fp8_grouped_dw", "dw", got, kern(), gs, m, k, n)
         if any((got[i] != 0).any() for i in range(ee) if int(gs[i]) == 0):
             raise AssertionError("fp8_grouped_gemm_dw wrote an empty expert's dW")
+        say("kernel", name="fp8_grouped_dw", gemm=label, **walk)
         check("fp8_grouped_dw", f"{label} e4m3x{tag[y_dt]} M{m} K{k} N{n}", got, plain(),
-              grouped_gemm_dw_plain(x, dy, gs, ee), FP8_DW_RTOL, uses, (kern, plain),
+              grouped_gemm_dw_plain(x, dy, gs, ee), FP8_DW_RTOL, uses, (kern, plain, alone),
               2 * int(gs.sum()) * k * n, m * (k + n) + 8 * (m // 128) + 4 * ee * k * n)
-        del x, dy, xq, sx, yq, sy, got
+        del x, dy, xq, sx, yq, sy, xt, yt, got
     say("kernel", name="fp8_grouped_dw",
         library=repr("none: no PyTorch call takes one fp8 scale per 128-row tile of a ragged "
                      "contraction"))
     rows["fp8_grouped_dw"]["library_ms"] = None
+    for name in ("fp8_grouped_gemm", "fp8_grouped_dw"):
+        r = rows[name]
+        say("kernel", name=name, per_layer_ms=f"{r['ms']:.4f}",
+            per_layer_kernel_ms=f"{alone_ms[name]:.4f}", bound_ms=f"{r['bound_ms']:.4f}",
+            share_of_bound=f"{r['bound_ms'] / r['ms']:.3f}",
+            kernel_share_of_bound=f"{r['bound_ms'] / alone_ms[name]:.3f}",
+            parent_ms_perf_md=PARENT_MS[(name, "sft_fp8")])
     return list(rows.values())
 
 
@@ -2508,7 +2578,7 @@ def _sft_run(torch, smi: str, breakdown: bool, fp8_ref_loss1, switched_ref):
         with annotated(torch, QUANTISE_TARGETS if fp8 else {}):
             profile_window(torch, f"{phase}_step",
                            lambda: trainer.engine.train_step(batch, SFT_STEPS + 1), top=16,
-                           annotations=(QUANTISE,) if fp8 else ())
+                           annotations=(QUANTISE, LAYOUT) if fp8 else ())
         if breakdown and phase == "sft":
             sft_memory(torch, trainer.engine, batch, smi)
         trainer.dataloader.close()
@@ -2516,14 +2586,19 @@ def _sft_run(torch, smi: str, breakdown: bool, fp8_ref_loss1, switched_ref):
 
 
 QUANTISE = "fp8_quantise"
-# the fp8 quantisers and K-major copies of the port
-QUANTISE_TARGETS = {QUANTISE: [
-    (f"xtuner_tpu_torch.ops.{mod}", name)
-    for mod, names in (("fp8_gemm", ("quantize_tilewise", "quantize_blockwise", "k_major")),
-                       ("fp8_grouped", ("quantize_tilewise", "quantize_blockwise_stack",
-                                        "quantize_rowtile", "k_major")),
-                       ("float8", ("quantize_tilewise", "quantize_blockwise")))
-    for name in names]}
+LAYOUT = "fp8_layout"
+# the fp8 quantisers of the port, and its K-major and row-tile copies of the
+# codes (`_row_tiles_k_major` calls the module's `k_major`)
+QUANTISE_TARGETS = {
+    QUANTISE: [(f"xtuner_tpu_torch.ops.{mod}", name)
+               for mod, names in (("fp8_gemm", ("quantize_tilewise", "quantize_blockwise")),
+                                  ("fp8_grouped", ("quantize_tilewise",
+                                                   "quantize_blockwise_stack",
+                                                   "quantize_rowtile")),
+                                  ("float8", ("quantize_tilewise", "quantize_blockwise")))
+               for name in names],
+    LAYOUT: [("xtuner_tpu_torch.ops.fp8_gemm", "k_major"),
+             ("xtuner_tpu_torch.ops.fp8_grouped", "k_major")]}
 
 
 class annotated:
@@ -2621,8 +2696,9 @@ def sft_memory(torch, eng, batch, smi: str) -> None:
 
 def profile_window(torch, name: str, fn, top: int = 8, annotations=()) -> None:
     """Wall time, device-busy time (sum of kernel durations), kernel count,
-    device time by kind (the port's fp8 kernels, its block-sparse kernels
-    and its others, cuBLAS GEMMs, the rest) and the top kernels by device
+    device time by kind (the port's fp8 kernels #11, #12 and #13 each, its
+    block-sparse kernels and its others, cuBLAS GEMMs, the rest) and the
+    top kernels by device
     time of one call under torch.profiler. For each name in `annotations`,
     the device time of the kernels launched inside `record_function(name)`
     ranges is its own kind, each kernel taken out of the kind it would
@@ -2642,8 +2718,12 @@ def profile_window(torch, name: str, fn, top: int = 8, annotations=()) -> None:
         # the port's kernels sit in a top-level anonymous namespace;
         # PyTorch's own sit in at::native::(anonymous namespace)
         own = k.removeprefix("void ").startswith("(anonymous namespace)::")
-        if own and "::fp8_" in k:
-            return "port_fp8_kernels"
+        if own and "::fp8_gemm_kernel" in k:  # #11
+            return "port_fp8_gemm"
+        if own and "::fp8_grouped_kernel<0" in k:  # #12, forward and dgrad
+            return "port_fp8_grouped"
+        if own and "::fp8_grouped_kernel<1" in k:  # #13, the wgrad
+            return "port_fp8_wgrad"
         if own and "::bs_" in k:
             return "port_block_sparse"
         if own:

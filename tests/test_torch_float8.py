@@ -50,6 +50,8 @@ from xtuner_tpu_torch.ops import float8 as tf8
 from xtuner_tpu_torch.ops import fp8_gemm as tgemm
 from xtuner_tpu_torch.ops import fp8_grouped as tgrp
 
+from fp8_oracles import grouped_oracle, rowtile_oracle, tile_oracle
+
 REPO = Path(__file__).resolve().parents[1]
 RECIPE = REPO / "xtuner_tpu_torch" / "recipes" / "sft_moe_heavy_fp8.py"
 KERNEL_TOL = 2e-5
@@ -132,17 +134,6 @@ def test_float8_config_fields_match_jax():
 
 
 # ------------------------------------------------- #11: the tile-wise GEMM
-def _tile_oracle(xq, sx, wq, sw):
-    """float64 sum over K tiles of (x_t . w_t) * sx[:, t] * sw[t, n / 128]."""
-    xf, wf = xq.float().double().numpy(), wq.float().double().numpy()
-    sxf, swf = sx.double().numpy(), np.repeat(sw.double().numpy(), 128, axis=1)
-    y = np.zeros((xf.shape[0], wf.shape[1]))
-    for t in range(xf.shape[1] // 128):
-        ks = slice(128 * t, 128 * (t + 1))
-        y += (xf[:, ks] @ wf[ks]) * sxf[:, t:t + 1] * swf[t][None, :]
-    return y
-
-
 @pytest.mark.parametrize("a_dtype,b_dtype", [("e4m3", "e4m3"), ("e5m2", "e4m3"),
                                              ("e4m3", "e5m2")])
 @pytest.mark.parametrize("k", [256, 512, 1024])
@@ -165,7 +156,7 @@ def test_fp8_gemm_plain_at_k768_matches_the_tile_oracle():
     xq, sx = tgemm.quantize_tilewise(_t(_data((m, k), seed=7)))
     wq, sw = tgemm.quantize_blockwise(_t(_data((k, n), seed=8)) * 0.05)
     got = tgemm.fp8_gemm_tilewise(xq, sx, wq, sw, out_dtype=torch.float32)
-    np.testing.assert_allclose(got.numpy(), _tile_oracle(xq, sx, wq, sw), rtol=KERNEL_TOL,
+    np.testing.assert_allclose(got.numpy(), tile_oracle(xq, sx, wq, sw), rtol=KERNEL_TOL,
                                atol=KERNEL_TOL)
 
 
@@ -189,32 +180,6 @@ def test_fp8_grouped_gemm_plain_matches_jax_kernel(sizes, k):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=KERNEL_TOL, atol=KERNEL_TOL)
 
 
-def _grouped_oracle(xq, sx, wq, sw, sizes):
-    out = np.zeros((xq.shape[0], wq.shape[2]))
-    start = 0
-    for e, g in enumerate(sizes):
-        if g:
-            out[start:start + g] = _tile_oracle(xq[start:start + g], sx[start:start + g],
-                                                wq[e], sw[e])
-        start += g
-    return out
-
-
-def _rowtile_oracle(xq, sx, yq, sy, sizes, num_experts):
-    """float64 sum over 128-row tiles r of (x_r^T y_r) sx[r] sy[r], each
-    expert's rows only."""
-    xf, yf = xq.float().double().numpy(), yq.float().double().numpy()
-    sxf, syf = sx.double().numpy()[:, 0], sy.double().numpy()[:, 0]
-    dw = np.zeros((num_experts, xf.shape[1], yf.shape[1]))
-    start = 0
-    for e, g in enumerate(sizes):
-        for r in range(start // 128, (start + g + 127) // 128 if g else start // 128):
-            lo, hi = max(start, 128 * r), min(start + g, 128 * (r + 1))
-            dw[e] += (xf[lo:hi].T @ yf[lo:hi]) * sxf[r] * syf[r]
-        start += g
-    return dw
-
-
 def test_fp8_grouped_gemm_plain_at_k768_matches_the_tile_oracle():
     """K = 768, M not a 128 multiple, a 1-row expert, an empty expert and
     rows past the last group."""
@@ -223,7 +188,7 @@ def test_fp8_grouped_gemm_plain_at_k768_matches_the_tile_oracle():
     xq, sx = tgemm.quantize_tilewise(_t(_data((m, k), seed=3)))
     wq, sw = tgrp.quantize_blockwise_stack(_t(_data((4, k, n), seed=4)) * 0.05)
     got = tgrp.fp8_grouped_gemm(xq, sx, wq, sw, _gs_sizes(sizes)[1], out_dtype=torch.float32)
-    np.testing.assert_allclose(got.numpy(), _grouped_oracle(xq, sx, wq, sw, sizes),
+    np.testing.assert_allclose(got.numpy(), grouped_oracle(xq, sx, wq, sw, sizes),
                                rtol=KERNEL_TOL, atol=KERNEL_TOL)
     assert not got[sum(sizes):].any()
 
@@ -254,7 +219,7 @@ def test_fp8_grouped_dw_plain_at_k768_matches_the_rowtile_oracle():
     xq, sx = tgrp.quantize_rowtile(_t(_data((m, k), seed=9)))
     yq, sy = tgrp.quantize_rowtile(_t(_data((m, n), seed=10)), 128, torch.float8_e5m2)
     got = tgrp.fp8_grouped_gemm_dw(xq, sx, yq, sy, _gs_sizes(sizes)[1], 4)
-    want = _rowtile_oracle(xq, sx, yq, sy, sizes, 4)
+    want = rowtile_oracle(xq, sx, yq, sy, sizes, 4)
     np.testing.assert_allclose(got.numpy(), want, rtol=KERNEL_TOL,
                                atol=KERNEL_TOL * np.abs(want).max())
     assert not got[2].any()

@@ -615,6 +615,11 @@ def test_fp8_gemm_kernel_matches_plain(cuda, m, k, n, a_dtype, b_dtype):
     assert fg.fp8_gemm_tilewise.launches == 2
 
 
+# expert starts at 0, 1, 15, 16, 17 and 127 of a 128-row tile, an empty
+# first and last expert, 1-row experts, 85 rows past the last group
+FP8_BOUNDARIES = [0, 1, 14, 1, 1, 110, 300, 0]
+
+
 @pytest.mark.parametrize("m,k,n,sizes,a_dtype", [
     # moe_heavy's gate/up at a quarter of its rows, one expert empty
     (32768, 1024, 768, [2500, 2000, 0, 2200, 2100, 1900, 2300, 2048, 2000,
@@ -622,21 +627,54 @@ def test_fp8_gemm_kernel_matches_plain(cuda, m, k, n, a_dtype, b_dtype):
     (32768, 768, 1024, [2048] * 16, "e5m2"),  # down's dgrad shape, e5m2 gradient
     (700, 768, 256, [300, 1, 0, 333], "e4m3"),  # 1-row expert, 66 rows past the last
     (1000, 384, 128, [0, 1000, 0, 0], "e5m2"),  # K = 384, one expert has every row
+    (512, 1024, 256, FP8_BOUNDARIES, "e4m3"),   # every start offset inside a tile
+    (512, 768, 384, FP8_BOUNDARIES, "e5m2"),
+    (256, 256, 128, [128, 0, 128], "e4m3"),     # experts of exactly 128 aligned rows
+    (100, 512, 128, [0, 37, 1, 50, 0], "e5m2"),  # M below one tile, 12 rows past the last
 ])
 def test_fp8_grouped_gemm_kernel_matches_plain(cuda, m, k, n, sizes, a_dtype):
+    """bf16 and f32 out against the plain version and the kernel's own
+    order in plain torch (`fp8_grouped_tiled_plain`); two launches give the
+    same bits; rows past the last group are zero; the CTAs walk
+    `fp8_plan_counts`."""
     from xtuner_tpu_torch.ops import fp8_grouped as fgr
 
     dt = {"e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2}
     e = len(sizes)
     xq, sx, wq, sw = _fp8_operands(cuda, m, k, n, e, a_dtype=dt[a_dtype])
     gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    want = fgr.fp8_grouped_gemm_plain(xq, sx, wq, sw, gs, out_dtype=torch.float32)
+    tiled = fgr.fp8_grouped_tiled_plain(xq, sx, wq, sw, gs)
     fgr.reset_launches()
     got = fgr.fp8_grouped_gemm(xq, sx, wq, sw, gs)
-    want = fgr.fp8_grouped_gemm_plain(xq, sx, wq, sw, gs, out_dtype=torch.float32)
+    got32 = fgr.fp8_grouped_gemm(xq, sx, wq, sw, gs, out_dtype=torch.float32)
+    again = fgr.fp8_grouped_gemm(xq, sx, wq, sw, gs)
+    walked = fgr.fp8_grouped_walked()["gg"]
     torch.cuda.synchronize()
-    assert fgr.fp8_grouped_gemm.launches == 1 and got.dtype == torch.bfloat16
+    assert fgr.fp8_grouped_gemm.launches == 3 and got.dtype == torch.bfloat16
+    assert got32.dtype == torch.float32
     assert _rel_err(got, want) <= FP8_RTOL
-    assert (got[sum(sizes):] == 0).all()
+    assert _rel_err(got32, want) <= FP8_DW_RTOL and _rel_err(got32, tiled) <= FP8_DW_RTOL
+    assert torch.equal(got, again)
+    assert (got[sum(sizes):] == 0).all() and (got32[sum(sizes):] == 0).all()
+    assert walked == tuple(3 * c for c in fgr.fp8_plan_counts(gs, m, "gg", k, n))
+
+
+def test_fp8_grouped_gemm_ignores_rows_past_the_last_group(cuda):
+    """NaN codes in the rows past the last group: exact zeros there, the
+    plain results elsewhere (those rows share a tile only with zero items)."""
+    from xtuner_tpu_torch.ops import fp8_grouped as fgr
+
+    m, k, n, sizes = 700, 512, 256, [300, 0, 333]
+    xq, sx, wq, sw = _fp8_operands(cuda, m, k, n, len(sizes))
+    used = sum(sizes)
+    xq.view(torch.uint8)[used:] = 0x7F  # e4m3 NaN
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    got = fgr.fp8_grouped_gemm(xq, sx, wq, sw, gs)
+    want = fgr.fp8_grouped_gemm_plain(xq[:used], sx[:used], wq, sw, gs, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert (got[used:] == 0).all()
+    assert _rel_err(got[:used], want) <= FP8_RTOL
 
 
 @pytest.mark.parametrize("m,k,n,sizes,y_dtype", [
@@ -645,8 +683,15 @@ def test_fp8_grouped_gemm_kernel_matches_plain(cuda, m, k, n, sizes, a_dtype):
     (32768, 768, 1024, [2048] * 16, "e5m2"),
     (640, 768, 256, [300, 1, 0, 339], "e4m3"),  # tiles straddle experts, a 1-row expert
     (1024, 384, 128, [0, 0, 1000, 0], "e5m2"),  # 24 rows past the last group
+    (512, 1024, 256, FP8_BOUNDARIES, "e4m3"),   # every start offset inside a tile
+    (512, 768, 384, FP8_BOUNDARIES, "e5m2"),
+    (256, 256, 128, [128, 0, 128], "e4m3"),     # experts of exactly 128 aligned rows
+    (128, 512, 128, [0, 37, 1, 50, 0], "e5m2"),  # 100 rows padded to one tile
 ])
 def test_fp8_grouped_dw_kernel_matches_plain(cuda, m, k, n, sizes, y_dtype):
+    """Against the plain version and the kernel's own order in plain torch
+    (`fp8_dw_walk_plain`); two launches give the same bits; an empty
+    expert's dW is zero; the CTAs walk `fp8_plan_counts`."""
     from xtuner_tpu_torch.ops import fp8_grouped as fgr
 
     dt = {"e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2}
@@ -656,13 +701,43 @@ def test_fp8_grouped_dw_kernel_matches_plain(cuda, m, k, n, sizes, y_dtype):
     yq, sy = fgr.quantize_rowtile(torch.randn((m, n), generator=g, device=cuda),
                                   dtype=dt[y_dtype])
     gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    want = fgr.fp8_grouped_gemm_dw_plain(xq, sx, yq, sy, gs, e)
+    walk = fgr.fp8_dw_walk_plain(xq, sx, yq, sy, gs, e)
     fgr.reset_launches()
     got = fgr.fp8_grouped_gemm_dw(xq, sx, yq, sy, gs, e)
-    want = fgr.fp8_grouped_gemm_dw_plain(xq, sx, yq, sy, gs, e)
+    again = fgr.fp8_grouped_gemm_dw(xq, sx, yq, sy, gs, e)
+    walked = fgr.fp8_grouped_walked()["dw"]
     torch.cuda.synchronize()
-    assert fgr.fp8_grouped_gemm_dw.launches == 1 and got.dtype == torch.float32
-    assert _rel_err(got, want) <= FP8_DW_RTOL
+    assert fgr.fp8_grouped_gemm_dw.launches == 2 and got.dtype == torch.float32
+    assert _rel_err(got, want) <= FP8_DW_RTOL and _rel_err(got, walk) <= FP8_DW_RTOL
+    assert torch.equal(got, again)
     assert all((got[i] == 0).all() for i, s_ in enumerate(sizes) if s_ == 0)
+    assert walked == tuple(2 * c for c in fgr.fp8_plan_counts(gs, m, "dw", k, n))
+
+
+def test_fp8_grouped_dw_masks_the_rows_outside_each_expert(cuda):
+    """NaN codes in the rows past the last group, which share the last
+    expert's final row tile: the kernel zeroes them before the product, so
+    dW stays finite and equal to the plain version over the used rows; and
+    each expert's dW, held on its own scale, sees none of its neighbours'
+    rows (a 1-row expert beside two large ones)."""
+    from xtuner_tpu_torch.ops import fp8_grouped as fgr
+
+    m, k, n, sizes = 640, 256, 256, [300, 1, 250]
+    e, used = len(sizes), sum(sizes)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    xq, sx = fgr.quantize_rowtile(torch.randn((m, k), generator=g, device=cuda))
+    yq, sy = fgr.quantize_rowtile(torch.randn((m, n), generator=g, device=cuda))
+    want = fgr.fp8_grouped_gemm_dw_plain(xq, sx, yq, sy, torch.tensor(
+        sizes, dtype=torch.int32, device=cuda), e)
+    xq.view(torch.uint8)[used:] = 0x7F  # e4m3 NaN
+    yq.view(torch.uint8)[used:] = 0x7F
+    got = fgr.fp8_grouped_gemm_dw(xq, sx, yq, sy,
+                                  torch.tensor(sizes, dtype=torch.int32, device=cuda), e)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    for i in range(e):
+        assert _rel_err(got[i], want[i]) <= FP8_DW_RTOL, i
 
 
 @pytest.mark.parametrize("dtype", [torch.float8_e4m3fn, torch.float8_e5m2])
@@ -742,6 +817,23 @@ def test_fp8_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fgr.fp8_grouped_gemm(xq, sx, wq, sw, gs.long())
     with pytest.raises(RuntimeError, match="CUDA error"):  # e5m2 weights: no kernel
         fgr.fp8_grouped_gemm(xq, sx, wq.float().to(torch.float8_e5m2), sw, gs)
+    # the launch functions, on operands in the kernel's layout
+    wt = fg.k_major(wq).view(wq.dtype)
+    with pytest.raises(ValueError, match="contiguous"):
+        fgr.fp8_grouped_gemm_launch(xq, sx, wt.transpose(1, 2).contiguous().transpose(1, 2),
+                                    sw, gs)
+    with pytest.raises(ValueError, match="group_sizes on"):
+        fgr.fp8_grouped_gemm_launch(xq, sx, wt, sw, gs.cpu())
+    with pytest.raises(ValueError, match="fp8 codes"):
+        fgr.fp8_grouped_gemm_launch(xq, sx.double(), wt, sw, gs)
+    with pytest.raises(ValueError, match="do not fit"):
+        fgr.fp8_grouped_gemm_launch(xq, sx, wt[:, :, :128].contiguous(), sw, gs)
+    xt = torch.zeros((2, 256, 128), dtype=torch.float8_e4m3fn, device=cuda)
+    st = torch.ones((2, 1), device=cuda)
+    with pytest.raises(ValueError, match="on one device"):
+        fgr.fp8_grouped_dw_launch(xt, st, xt.cpu(), st, gs, 2)
+    with pytest.raises(ValueError, match="do not fit"):
+        fgr.fp8_grouped_dw_launch(xt, st, xt[:1], st, gs, 2)
 
 
 # ---------------------------------------------------------------- block-sparse

@@ -1,5 +1,6 @@
-// Shared pieces of the tile-wise fp8 GEMM kernels (fp8_gemm.cu: TPU kernel
-// #11; fp8_grouped.cu: #12 and #13), for Hopper (sm_90a).
+// The tile-wise fp8 GEMM's CTA tile (fp8_gemm.cu: TPU kernel #11), for
+// Hopper (sm_90a). The grouped fp8 GEMMs #12 and #13 (fp8_grouped.cu) run on
+// wgmma instead.
 //
 // A CTA of 8 warps owns a 128 x 128 f32 output tile. Both operands arrive
 // K-major (row r of A and row n of B hold their contraction bytes

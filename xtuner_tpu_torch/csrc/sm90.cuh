@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu), the grouped GEMMs (grouped_gemm.cu), the
-// fused CE (fused_ce.cu) and the fused expert MLP (fused_moe_mlp.cu):
+// (flash_fwd.cu, flash_bwd.cu), the grouped GEMMs (grouped_gemm.cu,
+// fp8_grouped.cu), the fused CE (fused_ce.cu) and the fused expert MLP
+// (fused_moe_mlp.cu):
 // mbarriers with a watchdog, TMA loads, stores and reduce-adds of
 // 128-byte-swizzled 64-column boxes, bulk copies, wgmma descriptors and
-// products (SS and RS, A in registers), fences, bf16 packing, a CTA-wide
-// prefix sum, and the host side's SM count and tensor maps.
+// products (SS and RS, A in registers; fp8 SS), fences, bf16 packing, a
+// CTA-wide prefix sum, and the host side's SM count and tensor maps (bf16,
+// f32 and uint8 codes).
 //
 // A shared-memory tile is made of 64-column halves of 128-byte rows,
 // swizzled in 1024-byte atoms of 8 rows, as TMA writes them
@@ -323,6 +325,45 @@ __device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64], uint32_t a0, ui
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1), "n"(TB));
 }
 
+// D(64 x 128, f32 registers) (+)= A(64 x 32, shared) B(32 x 128, shared), fp8
+// codes (TA, TB: 0 e4m3, 1 e5m2), both operands K-major: fp8 wgmma takes
+// no transposed operand
+#define XT_WGMMA_FP8(TYPES)                                                            \
+  asm volatile(                                                                        \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                     \
+      "wgmma.mma_async.sync.aligned.m64n128k32.f32." TYPES " "                         \
+      "{"                                                                              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                               \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                                         \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                                       \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                                       \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                                       \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                                       \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                                       \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                                         \
+      "}, %64, %65, p, 1, 1;\n}\n"                                                     \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),        \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),      \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),  \
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),  \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),  \
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),  \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),  \
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),  \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                             \
+      : "l"(da), "l"(db), "r"(acc))
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k32_fp8(float (&d)[64], uint64_t da, uint64_t db,
+                                                     int acc) {
+  if constexpr (TA == 0 && TB == 0) XT_WGMMA_FP8("e4m3.e4m3");
+  else if constexpr (TA == 1 && TB == 0) XT_WGMMA_FP8("e5m2.e4m3");
+  else if constexpr (TA == 0 && TB == 1) XT_WGMMA_FP8("e4m3.e5m2");
+  else XT_WGMMA_FP8("e5m2.e5m2");
+}
+#undef XT_WGMMA_FP8
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -415,6 +456,21 @@ bool make_map_nd(CUtensorMap* map, EncodeTiled encode, const void* ptr, int rank
   return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                 rank, const_cast<void*>(ptr), dims,
                 strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a contiguous uint8 tensor (fp8 codes) of rank 2 or 3, dims innermost
+// first -> boxes of `box` (the innermost 128 bytes: 128 codes, one scale
+// tile of depth), 128-byte swizzled; what lies past an edge reads as zeros
+bool make_map_u8(CUtensorMap* map, EncodeTiled encode, const void* ptr, int rank,
+                 const cuuint64_t* dims, const cuuint32_t* box) {
+  cuuint64_t strides[2];
+  cuuint64_t stride = 1;
+  for (int i = 0; i + 1 < rank; ++i) strides[i] = stride *= dims[i];
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -19,14 +19,6 @@ from __future__ import annotations
 import torch
 
 
-def _offsets(group_sizes: torch.Tensor) -> torch.Tensor:
-    """(E + 1,) int32 exclusive cumsum, computed where the sizes live."""
-    offs = torch.zeros(group_sizes.shape[0] + 1, dtype=torch.int32,
-                       device=group_sizes.device)
-    offs[1:] = torch.cumsum(group_sizes, 0)
-    return offs
-
-
 MAX_EXPERTS = 256  # the kernel's limit: DeepSeek-V3's routed experts, the most of any preset
 TILE_M = 128  # rows of a kernel tile (nn/nt: output rows; dw: rows of dW)
 CHUNK = 64  # depth of one contraction chunk of the kernel's ring

@@ -84,12 +84,15 @@ SIGNATURES = {
     # xq, sx, wt (N, K), sw, out, M, K, N, a type, b type (0 e4m3, 1 e5m2),
     # out f32 (0: bf16), stream
     "xt_fp8_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # xq, sx, wt (E, N, K), sw, offsets, out, M, K, N, E, a type, b type,
-    # out f32, stream
-    "xt_fp8_grouped_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # xt (K, Mp), sx, yt (N, Mp), sy, offsets, dw, Mp, K, N, E, x type,
-    # y type, stream
-    "xt_fp8_grouped_dw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # xq, sx, wt (E, N, K), sw, group_sizes, out, walked counts (device
+    # int64[3] or null), M, K, N, E, a type, b type, out f32, stream
+    "xt_fp8_grouped_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # xt (Mp/128, K, 128), sx, yt (Mp/128, N, 128), sy, group_sizes, dw,
+    # walked counts, Mp, K, N, E, x type, y type, stream
+    "xt_fp8_grouped_dw": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # the dynamic shared memory of one fp8 grouped CTA (bytes): out f32 (0:
+    # #12 in bf16; 1: #12 in f32, and #13)
+    "xt_fp8_grouped_smem_bytes": [_I],
     # q, k, v, block_idx, segment_ids, out, lse, mass, B, L, Hq, Hkv, D, Dv,
     # block, S, scale, stream
     "xt_block_sparse_fwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P,
