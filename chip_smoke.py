@@ -13,7 +13,8 @@ exits non-zero with no result line:
    limit;
 2. kernel build (nvcc, one process per source in xtuner_tpu_torch/csrc/,
    all started together), with ptxas's registers, spills and injected
-   wgmma waits of each wgmma kernel's instantiations;
+   wgmma waits of each wgmma kernel's instantiations (the block-sparse
+   ones' with their shared memory);
 3. each hand-written kernel against its plain PyTorch version on the card,
    at the shapes its path gives it and at odd shapes, with times, the
    least time the card could take (`least_ms`) and the time of the one
@@ -88,15 +89,19 @@ exits non-zero with no result line:
 12. dsa_kernels: the block-sparse kernels #14 and #15 against their plain
    versions at GLM-5.2's shapes (B1 L16384, 64 heads, D = Dv = 256, blocks
    of 256, 8 slots; five documents and a padded tail; the selection from
-   random block maxima through `select_from_blockmax`), with times, the
-   bound on the visible pairs, and SDPA with the selection as a dense mask;
+   random block maxima through `select_from_blockmax`), two launches of
+   each held to the same bits, with times, the bound on the visible pairs,
+   and SDPA with the selection as a dense mask;
 13. glm52_dsa: `recipes/sft_glm52_dsa_head.py` (GLM-5.2's three dense head
    layers at full width, 3.156 B params, block-granular DSA): its
    `TrainEngine`, built by `Trainer` from the recipe, takes 4
    `train_step`s on the recipe's own 16384-token rows (not `fit`, whose
    final save would write ~38 GB); CE, indexer loss, step ms, tokens/s,
    peak memory, the exact launches of #14 and #15, the indexer's own
-   forward and backward ms, and one profiled step.
+   forward and backward ms, and one profiled step (#14's and #15's device
+   time apart); the selection and segment ids of that step's first
+   block-sparse call (layer 0's forward) then take #14 and #15 through
+   the checks and times of 12 again, at the recipe's own selection.
 
 Between phases it frees what the last one held and checks that nothing
 large stays allocated, so each peak is the phase's own. Then a JSON line
@@ -300,7 +305,9 @@ def phase_build() -> None:
     # CE's logits sweep, ce_sweep_kernel<fwd> (#8's statistics, then
     # ce_lse_combine_kernel) and <coeff> (#9/#10's coefficients); the fused
     # expert MLP (#16); the fp8 grouped GEMMs (#12 gg, #13 dw),
-    # fp8_grouped_kernel<mode, A type, B type, out>. A C7517
+    # fp8_grouped_kernel<mode, A type, B type, out>; the block-sparse
+    # kernels, bs_fwd_kernel (#14), bs_dq_kernel and bs_dkv_kernel (#15),
+    # each <D, Dv>. A C7517
     # warning (a wgmma wait ptxas injected) is printed beside its kernel
     injected = [ln for ln in log.read_text().splitlines() if "C7517" in ln] \
         if log.exists() else []
@@ -310,6 +317,7 @@ def phase_build() -> None:
         inst = re.search(r"(?<!fp8_)grouped_kernelILi(\d)ELi(\d+)ELb(\d)E", ln)
         sweep = re.search(r"ce_sweep_kernelILb(\d)E", ln)
         fp8g = re.search(r"fp8_grouped_kernelILi(\d)ELi(\d)ELi(\d)E(f|13__nv_bfloat16)E", ln)
+        bsk = re.search(r"bs_(fwd|dq|dkv)_kernelILi(\d+)ELi(\d+)EE", ln)
         after = ptxas[i + 1:i + 3]
         regs = {"registers": repr(next((x for x in after if "registers" in x), "?")),
                 "spills": repr(next((x for x in after if "spill" in x), "?"))}
@@ -329,6 +337,12 @@ def phase_build() -> None:
             say("build", kernel="fused_moe_mlp_kernel",
                 smem_bytes=lib.xt_fused_moe_mlp_smem_bytes(), **regs,
                 injected_waits=sum("fused_moe_mlp_kernel" in x for x in injected))
+        elif bsk:
+            kind, d, dv = bsk.group(1), int(bsk.group(2)), int(bsk.group(3))
+            say("build", kernel=f"bs_{kind}_kernel<{d}, {dv}>",
+                smem_bytes=lib.xt_block_sparse_smem_bytes(("fwd", "dq", "dkv").index(kind), d,
+                                                          dv),
+                **regs, injected_waits=sum(bsk.group(0) in x for x in injected))
         elif fp8g:
             mode, ta, tb, out = fp8g.groups()
             types = ("e4m3", "e5m2")
@@ -1422,7 +1436,8 @@ def phase_dsa_kernels(torch, seed: int, smi: str) -> list[dict]:
     blocks of 256, 8 slots per q-block, five documents and a padded tail,
     the selection from random block maxima through `select_from_blockmax`
     (minus the blocks no query of the q-block can see, as the indexer's
-    maxima are -inf there). Bounds count the visible pairs."""
+    maxima are -inf there): the synthetic selection, kept unchanged so
+    that its times compare across versions of the kernels."""
     import numpy as np
 
     from xtuner_tpu_torch.ops.attention import block_sparse as bs
@@ -1441,10 +1456,28 @@ def phase_dsa_kernels(torch, seed: int, smi: str) -> list[dict]:
     k = torch.randn((b, l, h, d), generator=g, device=dev).bfloat16()
     v = torch.randn((b, l, h, d), generator=g, device=dev).bfloat16()
     do = torch.randn((b, l, h, d), generator=g, device=dev).bfloat16()
-    scale = d ** -0.5
-    shape = f"B{b}xL{l}xH{h}xD{d}xDv{d}xblock{block}xS{s}"
+    say("dsa_kernels", selection="synthetic", docs=",".join(map(str, lens)), pad=l - sum(lens))
+    return bs_kernel_rows(torch, q, k, v, do, idx, seg, d ** -0.5, smi, "synthetic")
 
+
+def bs_kernel_rows(torch, q, k, v, do, idx, seg, scale: float, smi: str,
+                   selection: str) -> list[dict]:
+    """#14 and #15 against their plain versions at one selection: out, lse
+    and mass within FLASH_OUT_ATOL, FLASH_LSE_ATOL and BS_MASS_ATOL, the
+    padding rows' out 0, lse 1e30 and mass 0, the gradients within
+    FLASH_GRAD_RTOL, the same bits from a second launch of each; times,
+    the bound on the visible pairs, and SDPA with the selection as a dense
+    mask (the library time)."""
+    from xtuner_tpu_torch.ops.attention import block_sparse as bs
+
+    b, l, h, d = q.shape
+    s = idx.shape[-1]
+    block = l // idx.shape[1]
+    shape = f"B{b}xL{l}xH{h}xD{d}xDv{v.shape[-1]}xblock{block}xS{s}"
     out, lse, mass = bs.block_sparse_fwd(q, k, v, idx, seg, scale, block)
+    again = bs.block_sparse_fwd(q, k, v, idx, seg, scale, block)
+    fwd_same = all(torch.equal(a, b_) for a, b_ in zip((out, lse, mass), again))
+    del again
     ref_out, ref_lse, ref_mass = bs.block_sparse_fwd_plain(q, k, v, idx, seg, scale, block)
     torch.cuda.synchronize()
     valid = seg[0] != 0
@@ -1455,6 +1488,8 @@ def phase_dsa_kernels(torch, seed: int, smi: str) -> list[dict]:
         bool((lse[..., ~valid] == torch.tensor(bs.BIG_LSE, dtype=torch.float32)).all())
     del ref_out, ref_lse, ref_mass
     grads = bs.block_sparse_bwd(q, k, v, idx, seg, out, lse, do, scale, block)
+    bwd_same = all(torch.equal(a, b_) for a, b_ in
+                   zip(grads, bs.block_sparse_bwd(q, k, v, idx, seg, out, lse, do, scale, block)))
     refs = bs.block_sparse_bwd_plain(q, k, v, idx, seg, out, lse, do, scale, block)
     torch.cuda.synchronize()
     g_err = max(_abs(a, r_) for a, r_ in zip(grads, refs))
@@ -1485,50 +1520,83 @@ def phase_dsa_kernels(torch, seed: int, smi: str) -> list[dict]:
     del mask
     b_fwd, b_bwd = least_ms(flops_fwd, bytes_fwd, PEAK_BF16), least_ms(flops_bwd, bytes_bwd,
                                                                         PEAK_BF16)
-    say("dsa_kernels", shape=shape, docs=",".join(map(str, lens)), pad=l - sum(lens),
+    say("dsa_kernels", selection=selection, shape=shape,
         valid_slots=f"{valid_slots}/{idx.numel()}", visible_blocks=causal_blocks,
         visible_pairs=pairs, card=repr(smi))
-    say("kernel", name="block_sparse_fwd", shape=shape, out_err=f"{out_err:.3e}",
-        lse_err=f"{lse_err:.3e}", mass_err=f"{mass_err:.3e}", pad_rows_ok=pad_ok,
-        ms=f"{fwd_ms:.4f}", plain_ms=f"{fwd_plain:.4f}",
-        tflops=f"{flops_fwd / fwd_ms / 1e9:.1f}", bound_ms=f"{b_fwd['bound_ms']:.4f}")
-    say("kernel", name="block_sparse_bwd", shape=shape, err=f"{g_err:.3e}", rel=f"{g_rel:.3e}",
-        ms=f"{bwd_ms:.4f}", plain_ms=f"{bwd_plain:.4f}",
-        tflops=f"{flops_bwd / bwd_ms / 1e9:.1f}", bound_ms=f"{b_bwd['bound_ms']:.4f}")
-    say("kernel", name="library", shape=shape, sdpa_masked_fwd_ms=lib_fwd,
-        sdpa_masked_bwd_ms=lib_bwd,
+    say("kernel", name="block_sparse_fwd", selection=selection, shape=shape,
+        out_err=f"{out_err:.3e}", lse_err=f"{lse_err:.3e}", mass_err=f"{mass_err:.3e}",
+        pad_rows_ok=pad_ok, same_bits=fwd_same, ms=f"{fwd_ms:.4f}",
+        plain_ms=f"{fwd_plain:.4f}", tflops=f"{flops_fwd / fwd_ms / 1e9:.1f}",
+        bound_ms=f"{b_fwd['bound_ms']:.4f}", bound_by=b_fwd["bound_by"],
+        share_of_bound=f"{b_fwd['bound_ms'] / fwd_ms:.3f}")
+    say("kernel", name="block_sparse_bwd", selection=selection, shape=shape,
+        err=f"{g_err:.3e}", rel=f"{g_rel:.3e}", same_bits=bwd_same, ms=f"{bwd_ms:.4f}",
+        plain_ms=f"{bwd_plain:.4f}", tflops=f"{flops_bwd / bwd_ms / 1e9:.1f}",
+        bound_ms=f"{b_bwd['bound_ms']:.4f}", bound_by=b_bwd["bound_by"],
+        share_of_bound=f"{b_bwd['bound_ms'] / bwd_ms:.3f}")
+    say("kernel", name="library", selection=selection, shape=shape,
+        sdpa_masked_fwd_ms=lib_fwd, sdpa_masked_bwd_ms=lib_bwd,
         what=repr("SDPA with the selection as a dense (B, 1, L, L) mask: out only (no lse, "
                   "no mass); its backward gives dq, dk, dv"),
         why=repr(f"{why_fwd}; {why_bwd}"))
     if not (out_err <= FLASH_OUT_ATOL and lse_err <= FLASH_LSE_ATOL and
-            mass_err <= BS_MASS_ATOL and pad_ok and g_rel <= FLASH_GRAD_RTOL):
+            mass_err <= BS_MASS_ATOL and pad_ok and g_rel <= FLASH_GRAD_RTOL and fwd_same
+            and bwd_same):
         raise AssertionError(f"block-sparse kernels disagree with their plain versions at "
-                             f"{shape}: out {out_err} (<= {FLASH_OUT_ATOL}), lse {lse_err} "
-                             f"(<= {FLASH_LSE_ATOL}), mass {mass_err} (<= {BS_MASS_ATOL}), "
-                             f"padding rows ok {pad_ok}, grads {g_rel} (<= {FLASH_GRAD_RTOL})")
+                             f"{shape} ({selection} selection): out {out_err} (<= "
+                             f"{FLASH_OUT_ATOL}), lse {lse_err} (<= {FLASH_LSE_ATOL}), mass "
+                             f"{mass_err} (<= {BS_MASS_ATOL}), padding rows ok {pad_ok}, "
+                             f"grads {g_rel} (<= {FLASH_GRAD_RTOL}), same bits on a second "
+                             f"launch: forward {fwd_same}, backward {bwd_same}")
     bs.reset_launches()
     src = "xtuner_tpu_torch/csrc/block_sparse.cu"
     return [{"name": "block_sparse_fwd", "route": "cuda", "source": src,
              "replaces": "xtuner_tpu/ops/attention/block_sparse.py:70", "path": "glm52_dsa",
-             "max_abs_err": max(out_err, lse_err, mass_err), "ms": fwd_ms,
-             "plain_ms": fwd_plain, **b_fwd, "library_ms": lib_fwd},
+             "selection": selection, "max_abs_err": max(out_err, lse_err, mass_err),
+             "ms": fwd_ms, "plain_ms": fwd_plain, **b_fwd, "library_ms": lib_fwd},
             {"name": "block_sparse_bwd", "route": "cuda", "source": src,
              "replaces": "xtuner_tpu/ops/attention/block_sparse.py:130", "path": "glm52_dsa",
-             "max_abs_err": g_err, "ms": bwd_ms, "plain_ms": bwd_plain, **b_bwd,
-             "library_ms": lib_bwd}]
+             "selection": selection, "max_abs_err": g_err, "ms": bwd_ms,
+             "plain_ms": bwd_plain, **b_bwd, "library_ms": lib_bwd}]
+
+
+class first_call:
+    """While on, records the arguments of the first call of
+    `owner.<name>` ((args, kwargs)) and passes every call through; the
+    attribute is put back on exit."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name, self.args = owner, name, None
+
+    def __enter__(self):
+        self.fn = getattr(self.owner, self.name)
+
+        def wrapped(*a, **kw):
+            if self.args is None:
+                self.args = (a, kw)
+            return self.fn(*a, **kw)
+        setattr(self.owner, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.fn)
+        return False
 
 
 INDEXER = "indexer_fwd"
 ADAMW = "adamw"
 
 
-def phase_glm52_dsa(torch, seed: int, smi: str) -> dict:
+def phase_glm52_dsa(torch, seed: int, smi: str) -> tuple[dict, list[dict]]:
     """GLM-5.2's three dense head layers at full width through the recipe
     `recipes/sft_glm52_dsa_head.py`: `Trainer` builds the engine and the
     data plane from it in a temporary directory, then 4 `train_step`s on
     the recipe's own batches (not `fit`: its final save would write ~38 GB
     of params and Adam state). Then the indexer's forward and backward
-    alone at the layer's shapes, and one profiled step."""
+    alone at the layer's shapes, and one profiled step, whose first
+    block-sparse call (layer 0's forward) gives the selection and segment
+    ids at which #14 and #15 are then checked and timed (random q, k, v,
+    do of the layer's shapes). Returns the launches and those kernel rows."""
     import os
     import runpy
     import tempfile
@@ -1659,14 +1727,30 @@ def phase_glm52_dsa(torch, seed: int, smi: str) -> dict:
                   "each layer, causality masked after"))
     del q_idx, k_idx, w_idx, k_b, leaves
 
+    from xtuner_tpu_torch.ops.attention import block_sparse as bs
+
     targets = {INDEXER: [("xtuner_tpu_torch.module.dsa", "indexer_block_stats")],
                ADAMW: [("xtuner_tpu_torch.config.optim", "AdamW.step")]}
-    with annotated(torch, targets):
+    with annotated(torch, targets), first_call(bs, "block_sparse_attention") as rec:
         profile_window(torch, "glm52_dsa_step",
                        lambda: eng.train_step(batches[0], GLM_STEPS + 1), top=16,
                        annotations=(INDEXER, ADAMW))
-    del trainer, eng
-    return launches
+    (q0, k0, v0, idx, seg), kw = rec.args[0][:5], rec.args[1]
+    idx, seg = idx.to(torch.int32).clone(), seg.to(torch.int32).clone()
+    shape_q, dv = tuple(q0.shape), v0.shape[-1]
+    scale = kw.get("scale") or shape_q[-1] ** -0.5
+    del trainer, eng, rec, q0, k0, v0
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("glm52_dsa", selection="recipe", q=shape_q, dv=dv, block=kw["block"], scale=scale,
+        valid_slots_per_qblock=f"{(idx >= 0).sum(-1).float().mean().item():.3f}")
+    if kw["block"] != attn.index_block or shape_q != (1, DSA_SEQ, DSA_HEADS, DSA_DIM):
+        raise AssertionError(f"layer 0's block-sparse call was {shape_q}, block {kw['block']}")
+    g = torch.Generator(device="cuda").manual_seed(seed + 8)
+    q, k, v, do = (torch.randn(shape, generator=g, device="cuda").bfloat16()
+                   for shape in (shape_q, shape_q, (*shape_q[:3], dv), (*shape_q[:3], dv)))
+    rows = bs_kernel_rows(torch, q, k, v, do, idx, seg, scale, smi, "recipe")
+    return launches, rows
 
 
 def switch_state() -> dict:
@@ -2697,7 +2781,8 @@ def sft_memory(torch, eng, batch, smi: str) -> None:
 def profile_window(torch, name: str, fn, top: int = 8, annotations=()) -> None:
     """Wall time, device-busy time (sum of kernel durations), kernel count,
     device time by kind (the port's fp8 kernels #11, #12 and #13 each, its
-    block-sparse kernels and its others, cuBLAS GEMMs, the rest) and the
+    block-sparse forward #14 and backward #15 each, and its others, cuBLAS
+    GEMMs, the rest) and the
     top kernels by device
     time of one call under torch.profiler. For each name in `annotations`,
     the device time of the kernels launched inside `record_function(name)`
@@ -2724,8 +2809,10 @@ def profile_window(torch, name: str, fn, top: int = 8, annotations=()) -> None:
             return "port_fp8_grouped"
         if own and "::fp8_grouped_kernel<1" in k:  # #13, the wgrad
             return "port_fp8_wgrad"
-        if own and "::bs_" in k:
-            return "port_block_sparse"
+        if own and "::bs_fwd_kernel" in k:  # #14
+            return "port_block_sparse_fwd"
+        if own and "::bs_" in k:  # #15: delta, the inverse table, dq, dk/dv
+            return "port_block_sparse_bwd"
         if own:
             return "port_kernels"
         if k.startswith(("nvjet", "sm90_", "cutlass")) or "gemm" in k.lower():
@@ -2803,7 +2890,8 @@ def main() -> int:
     release(torch, "sft_switched")
     kernels += phase_dsa_kernels(torch, args.seed, smi)
     release(torch, "dsa_kernels")
-    launches["glm52_dsa"] = phase_glm52_dsa(torch, args.seed, smi)
+    launches["glm52_dsa"], rows = phase_glm52_dsa(torch, args.seed, smi)
+    kernels += rows
     for kern in kernels:
         kern["launches"] = launches[kern["path"]][kern["name"]]
         kern.pop("_bound_parts", None)

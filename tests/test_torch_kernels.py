@@ -844,11 +844,14 @@ def test_fp8_wrappers_reject_what_the_kernels_do_not_take(cuda):
 BS_MASS_ATOL = 1e-3
 
 
-def _block_sparse(dev, b, l, hq, hkv, d, dv, block, s, docs, pad, hot=False, seed=0):
+def _block_sparse(dev, b, l, hq, hkv, d, dv, block, s, docs, pad, hot=False, seed=0,
+                  visible_only=False):
     """bf16 q, k, v, packed documents with a padded tail, and a selection
     from random block-max scores through `select_from_blockmax` (early
     q-blocks have fewer causal blocks than S: leading -1 slots); with `hot`
-    every q-block also chooses key block 0."""
+    every q-block also chooses key block 0; with `visible_only` a q-block
+    chooses only blocks that share a document with it (the indexer's
+    block maxima are -inf elsewhere), as the GLM-5.2 recipe's rows do."""
     from xtuner_tpu_torch.ops.attention.block_sparse import select_from_blockmax
 
     seg = _packed(dev, b, l, hq, hkv, docs, pad, seed)[3]
@@ -856,9 +859,14 @@ def _block_sparse(dev, b, l, hq, hkv, d, dv, block, s, docs, pad, hot=False, see
     q = torch.randn((b, l, hq, d), generator=g, device=dev).bfloat16()
     k = torch.randn((b, l, hkv, d), generator=g, device=dev).bfloat16()
     v = torch.randn((b, l, hkv, dv), generator=g, device=dev).bfloat16()
-    blockmax = torch.randn((b, l // block, l // block), generator=g, device=dev)
+    nb = l // block
+    blockmax = torch.randn((b, nb, nb), generator=g, device=dev)
     if hot:
         blockmax[..., 0] = 1e4
+    if visible_only:
+        docs_in = torch.nn.functional.one_hot(seg.long(), int(seg.max()) + 1)[..., 1:]
+        present = docs_in.reshape(b, nb, block, -1).amax(dim=2).float()
+        blockmax = blockmax.masked_fill((present @ present.transpose(1, 2)) == 0, float("-inf"))
     return q, k, v, seg, select_from_blockmax(blockmax, s)
 
 
@@ -868,13 +876,26 @@ def _block_sparse(dev, b, l, hq, hkv, d, dv, block, s, docs, pad, hot=False, see
     (1, 768, 4, 2, 192, 128, 64, 5, 2, 64, False),     # DeepSeek's 192/128
     (2, 512, 2, 2, 128, 128, 64, 3, 3, 10, False),     # B2, 128/128
     (1, 512, 2, 1, 128, 128, 128, 4, 1, 300, True),    # mostly padding, one kv head
+    # the GLM-5.2 recipe's shape of selection: 256/256, block 256, S 8, ~40
+    # short documents, so each q-block sees 1-2 blocks (visible ones only)
+    (1, 4096, 4, 4, 256, 256, 256, 8, 40, 50, None),
+    # block 64: the two 64-row halves of every 128-row CTA in different
+    # q-blocks with different selections
+    (1, 1024, 4, 2, 128, 128, 64, 3, 2, 0, False),
+    # block 192: the halves of every other CTA in different q-blocks
+    (1, 768, 2, 2, 192, 128, 192, 2, 3, 40, False),
+    # L = 9 x 64: the last 128-row CTA's second half lies past L
+    (1, 576, 4, 2, 192, 128, 192, 3, 3, 30, True),
 ])
 def test_block_sparse_kernels_match_plain(cuda, b, l, hq, hkv, d, dv, block, s, docs, pad,
                                           hot):
     from xtuner_tpu_torch.ops.attention import block_sparse as bs
 
-    q, k, v, seg, idx = _block_sparse(cuda, b, l, hq, hkv, d, dv, block, s, docs, pad, hot)
+    q, k, v, seg, idx = _block_sparse(cuda, b, l, hq, hkv, d, dv, block, s, docs, pad,
+                                      bool(hot), visible_only=hot is None)
     assert (idx[:, 0, :-1] == -1).all()  # the first q-block has one causal block
+    if block == 64:  # some CTA's halves chose differently
+        assert (idx[:, 0::2] != idx[:, 1::2]).any()
     scale = d ** -0.5
     bs.reset_launches()
     out, lse, mass = bs.block_sparse_fwd(q, k, v, idx, seg, scale, block)
@@ -900,6 +921,8 @@ def test_block_sparse_kernels_match_plain(cuda, b, l, hq, hkv, d, dv, block, s, 
     # deterministic: no atomics
     again = bs.block_sparse_bwd(q, k, v, idx, seg, out, lse, do, scale, block)
     assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+    again = bs.block_sparse_fwd(q, k, v, idx, seg, scale, block)
+    assert all(torch.equal(a, b_) for a, b_ in zip((out, lse, mass), again))
 
 
 def test_block_sparse_autograd_matches_plain_autograd(cuda):

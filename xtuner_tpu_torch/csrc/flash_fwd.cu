@@ -6,14 +6,14 @@
 // (pallas_call in _flash_forward), both of its variants: running max, and
 // max-free (taken when a proven bound on |scaled logit| is <= 45). Same
 // function: q (B, L, Hq, D), k/v (B, L, Hkv, D) bf16, D = 128, segment_ids
-// (B, L) int32 (0 = padding). A first small kernel builds the backward's
-// table of 64-row tiles over the ids padded to Lp, a multiple of 128
-// (flash.py _tile_table: {lowest non-zero id, highest, the id if the tile
-// holds one document and no padding else 0}), into scratch the wrapper
-// gives, so the host does no work per call. Key m is visible to query l iff
-// seg[l] == seg[m] != 0 and m <= l. Returns out (B, L, Hq, D) bf16 and
-// lse (B, Hq, L) f32 in natural log; a row with no visible key gets
-// out = 0 and lse = 1e30.
+// (B, L) int32 (0 = padding). A first small kernel (tile_table.cuh) builds
+// the backward's table of 64-row tiles over the ids padded to Lp, a
+// multiple of 128 (flash.py _tile_table: {lowest non-zero id, highest, the
+// id if the tile holds one document and no padding else 0}), into scratch
+// the wrapper gives, so the host does no work per call. Key m is visible
+// to query l iff seg[l] == seg[m] != 0 and m <= l. Returns out (B, L, Hq,
+// D) bf16 and lse (B, Hq, L) f32 in natural log; a row with no visible key
+// gets out = 0 and lse = 1e30.
 //
 // What bounds it on the H100: two L^2-sized bf16 products (S = Q K^T and
 // O = P V: 4 flops per visible pair and head dim) at 989 TFLOP/s; q, k, v
@@ -73,6 +73,7 @@
 //   three-stage ring fits too, and ran slower than two at L65536 and L8192.
 
 #include "sm90.cuh"
+#include "tile_table.cuh"
 
 namespace {
 
@@ -374,30 +375,6 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap* tm_q, const CUtensor
   if (store) tma_store_wait();  // the stores have read the staging rows
 }
 
-// the tile table: one warp per 64-row tile of the ids padded to Lp
-__global__ void __launch_bounds__(256)
-tile_table_kernel(const int* __restrict__ seg, int4* __restrict__ tiles, int B, int L, int Lp) {
-  const int w = (int)((blockIdx.x * blockDim.x + threadIdx.x) / 32);
-  const int lane = threadIdx.x % 32;
-  const int nt = Lp / 64;
-  if (w >= B * nt) return;  // whole warps
-  const int b = w / nt, t = w % nt;
-  int lo = 0x7fffffff, hi = 0, mn = 0x7fffffff;
-  for (int r = 0; r < 2; ++r) {
-    const int pos = 64 * t + 32 * r + lane;
-    const int v = pos < L ? seg[(int64_t)b * L + pos] : 0;
-    hi = max(hi, v);
-    mn = min(mn, v);
-    if (v != 0) lo = min(lo, v);
-  }
-  for (int off = 16; off > 0; off /= 2) {
-    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-    mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
-  }
-  if (lane == 0) tiles[w] = make_int4(lo, hi, mn == hi ? hi : 0, 0);
-}
-
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
@@ -440,10 +417,8 @@ extern "C" int xt_flash_fwd_bf16(const void* q, const void* k, const void* v, co
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
-  const int warps = B * (Lp / 64);
-  tile_table_kernel<<<(warps + 7) / 8, 256, 0, (cudaStream_t)stream>>>(
-      static_cast<const int*>(seg), static_cast<int4*>(tiles), B, L, Lp);
-  e = cudaGetLastError();
+  e = launch_tile_table(static_cast<const int*>(seg), static_cast<int4*>(tiles), B, L, Lp,
+                        (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   const Args a{static_cast<const int*>(seg), static_cast<const int4*>(tiles),
                static_cast<float*>(lse), static_cast<const float*>(bound),

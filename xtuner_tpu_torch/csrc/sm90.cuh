@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
 // (flash_fwd.cu, flash_bwd.cu), the grouped GEMMs (grouped_gemm.cu,
-// fp8_grouped.cu), the fused CE (fused_ce.cu) and the fused expert MLP
-// (fused_moe_mlp.cu):
+// fp8_grouped.cu), the fused CE (fused_ce.cu), the fused expert MLP
+// (fused_moe_mlp.cu) and the block-sparse attention (block_sparse.cu):
 // mbarriers with a watchdog, TMA loads, stores and reduce-adds of
 // 128-byte-swizzled 64-column boxes, bulk copies, wgmma descriptors and
 // products (SS and RS, A in registers; fp8 SS), fences, bf16 packing, a
@@ -293,6 +293,27 @@ __device__ __forceinline__ void wgmma_m64n256_ss(float (&d)[128], uint64_t da, u
         "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
         "+f"(d[127])
       : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+// D(64 x 64, f32 registers) += A(64 x 16, bf16 registers) B(16 x 64, shared)
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1), "n"(TB));
 }
 
 // D(64 x 128, f32 registers) += A(64 x 16, bf16 registers) B(16 x 128, shared)

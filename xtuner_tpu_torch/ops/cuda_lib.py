@@ -93,14 +93,18 @@ SIGNATURES = {
     # the dynamic shared memory of one fp8 grouped CTA (bytes): out f32 (0:
     # #12 in bf16; 1: #12 in f32, and #13)
     "xt_fp8_grouped_smem_bytes": [_I],
-    # q, k, v, block_idx, segment_ids, out, lse, mass, B, L, Hq, Hkv, D, Dv,
-    # block, S, scale, stream
-    "xt_block_sparse_fwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P,
+    # q, k, v, block_idx, segment_ids, tile table scratch (B, Lp / 64, 4),
+    # out, lse, mass, B, L, Hq, Hkv, D, Dv, block, S, scale, stream
+    "xt_block_sparse_fwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    # q, k, v, block_idx, segment_ids, do, lse, delta, inverse count, inverse
-    # list, dq, dk, dv, B, L, Hq, Hkv, D, Dv, block, S, scale, stream
-    "xt_block_sparse_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    # q, k, v, block_idx, segment_ids, out, do, lse, then scratch: delta (B,
+    # Hq, L) f32, the tile table, the inverse count and list; dq, dk, dv, B,
+    # L, Hq, Hkv, D, Dv, block, S, scale, stream
+    "xt_block_sparse_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # the dynamic shared memory of one block-sparse CTA (bytes): kernel (0
+    # forward, 1 dq, 2 dk/dv), D, Dv
+    "xt_block_sparse_smem_bytes": [_I, _I, _I],
 }
 
 
