@@ -24,11 +24,17 @@ exits non-zero with no result line:
    `fwd_tile_plan`; each grouped GEMM row prints its share of the bound and
    what its CTAs walked against `grouped_plan_counts` (a mismatch fails),
    and the odd shapes add NaN rows past the last group and an expert that
-   ends mid-chunk before one with rows 1e3 times larger;
+   ends mid-chunk before one with rows 1e3 times larger; the paged decode
+   (#5) at the serving shape and at a rollout (32 slots of 4096 cached
+   tokens) prints its split count and the wrapper's ms beside the bytes
+   bound, and holds two launches to the same bits;
 4. serving: `PagedGenerator.generate` on Qwen3-8B at full width and depth
    with random bf16 weights from the seed; 6 requests on 4 slots (one GRPO
    group of two); launch counters of its kernels; a teacher-forced re-check
    of the decoded logprobs; one sampled run; prefill and decode tokens/s;
+   then the paged decode's own device time (torch.profiler) at the shapes
+   of 3, beside the bytes bound: only after the serving loop's timings,
+   since a profiler window slows the host's later launches;
 5. training: `TrainEngine.train_step` on Qwen3-30B-A3B at full width, depth
    cut to 4 layers, random f32 masters from the seed, 4 steps on one packed
    8192-token row of 5 documents; loss, grad norm, lr, step time, tokens/s
@@ -44,10 +50,10 @@ exits non-zero with no result line:
    16/8 heads and the grouped GEMMs at 16 experts (moe_heavy's shapes);
    then the fp8 kernels (#11-#13) at every moe_heavy fp8 shape and odd ones
    (every expert start offset inside a 128-row tile, 128 aligned rows, M
-   below a tile), in both operand-type variants; #12 and #13 also print
+   below a tile), in both operand-type variants; #11-#13 also print
    the launch alone on operands already in their layout, TFLOP/s, the
    share of the bound and their parent's time, and hold two launches to
-   the same bits and their walks to `fp8_plan_counts`;
+   the same bits (#12 and #13 also their walks to `fp8_plan_counts`);
 7. sft: the `sft` CLI's `main(["--config", recipes/sft_moe_heavy.py])` in a
    temporary directory: bench.py's moe_heavy config at full width and depth
    (fused CE, remat "save_attn_residuals"), 6 steps through `Trainer.fit`;
@@ -210,8 +216,8 @@ PEAK_FP8 = 1979e12
 HBM_BYTES_S = 3.35e12
 
 MAX_NEW = 32
-# the times of the WMMA and mma.sync kernels that #8's, #16's, #12's and
-# #13's wgmma/TMA kernels replaced, as PERF.md §6 records them
+# the times of the WMMA, mma.sync and CUDA-core kernels that #8's, #16's,
+# #12's, #13's, #5's and #11's redesigns replaced, as PERF.md §6 records them
 # (chip_smoke.py runs, NVIDIA H100 80GB HBM3, 700.00 W), printed beside the
 # kernels that replaced them
 PARENT_MS = {("ce_fwd", "sft"): "34.13-34.26", ("ce_fwd", "longctx"): "118.12-118.26",
@@ -220,7 +226,11 @@ PARENT_MS = {("ce_fwd", "sft"): "34.13-34.26", ("ce_fwd", "longctx"): "118.12-11
              # the mma.sync kernels #12 and #13 replaced: a layer's 6 calls of
              # #12 and 3 of #13 at the sft_fp8 shapes
              ("fp8_grouped_gemm", "sft_fp8"): "7.11-7.43",
-             ("fp8_grouped_dw", "sft_fp8"): "6.22"}
+             ("fp8_grouped_dw", "sft_fp8"): "6.22",
+             # the CUDA-core paged decode #5 replaced, and the mma.sync #11:
+             # q + k + v + o at M16384
+             ("paged_decode", "serve"): "0.0865-0.0883",
+             ("fp8_gemm", "sft_fp8"): "1.16-1.19"}
 
 
 def say(phase: str, **kv) -> None:
@@ -333,6 +343,9 @@ def phase_build() -> None:
                 injected_waits=sum(mangled in x for x in injected))
         elif "ce_lse_combine_kernel" in ln:
             say("build", kernel="ce_lse_combine_kernel", **regs)
+        elif "paged_decode_kernel" in ln:
+            say("build", kernel="paged_decode_kernel",
+                smem_bytes=lib.xt_paged_decode_smem_bytes(128), **regs)
         elif "fused_moe_mlp_kernel" in ln:
             say("build", kernel="fused_moe_mlp_kernel",
                 smem_bytes=lib.xt_fused_moe_mlp_smem_bytes(), **regs,
@@ -346,7 +359,7 @@ def phase_build() -> None:
         elif fp8g:
             mode, ta, tb, out = fp8g.groups()
             types = ("e4m3", "e5m2")
-            say("build", kernel=f"fp8_grouped_kernel<{('gg', 'dw')[int(mode)]}, "
+            say("build", kernel=f"fp8_grouped_kernel<{('gg', 'dw', 'dense')[int(mode)]}, "
                                 f"{types[int(ta)]}x{types[int(tb)]}, "
                                 f"{'f32' if out == 'f' else 'bf16'}>",
                 smem_bytes=lib.xt_fp8_grouped_smem_bytes(int(out == "f")), **regs,
@@ -356,8 +369,6 @@ def phase_build() -> None:
 def phase_kernels(torch, seed: int) -> list[dict]:
     from xtuner_tpu_torch.ops.attention.flash import (BIG_LSE, flash_attention,
                                                       flash_attention_plain)
-    from xtuner_tpu_torch.ops.attention.paged_decode import (paged_decode_attn,
-                                                             paged_decode_attn_plain)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -387,37 +398,10 @@ def phase_kernels(torch, seed: int) -> list[dict]:
                              f"{out_err} (<= {FLASH_OUT_ATOL}), lse {lse_err} "
                              f"(<= {FLASH_LSE_ATOL}), padding rows ok {pad_ok}")
 
-    # paged decode at the slice's decode: 4 slots, block 128, one inactive
-    bs, mb, n_layers = 128, 16, 2
-    lens = [1000, 0, 517, 1900]
-    nb = len(lens) * mb + 1
-    pk = torch.randn((n_layers, nb, bs, hkv, d), generator=g, device=dev).bfloat16()
-    pv = torch.randn((n_layers, nb, bs, hkv, d), generator=g, device=dev).bfloat16()
-    qd = torch.randn((len(lens), 1, hq, d), generator=g, device=dev).bfloat16()
-    table = torch.zeros((len(lens), mb), dtype=torch.int32)
-    nxt = 1
-    for bi, n in enumerate(lens):
-        if n:
-            for t in range(-(-(n + 1) // bs)):
-                table[bi, t] = nxt
-                nxt += 1
-    table = table.to(dev)
-    seq_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
-    od = paged_decode_attn(qd, pk, pv, 1, table, seq_lens, scale=scale)
-    ref_d = paged_decode_attn_plain(qd, pk, pv, 1, table, seq_lens, scale=scale)
-    torch.cuda.synchronize()
-    d_err = (od - ref_d).abs().max().item()
-    finite = bool(torch.isfinite(od).all())
-    p_ms = cuda_ms(lambda: paged_decode_attn(qd, pk, pv, 1, table, seq_lens, scale=scale))
-    p_plain = cuda_ms(lambda: paged_decode_attn_plain(qd, pk, pv, 1, table, seq_lens,
-                                                      scale=scale))
-    say("kernel", name="paged_decode", shape=f"B{len(lens)}xC1xHq{hq}xHkv{hkv}xD{d}xBS{bs}",
-        seq_lens=",".join(map(str, lens)), err=f"{d_err:.3e}", finite=finite,
-        ms=f"{p_ms:.4f}", plain_ms=f"{p_plain:.4f}")
-    if not (d_err <= PAGED_ATOL and finite):
-        raise AssertionError(f"paged decode kernel disagrees with its plain version: "
-                             f"{d_err} (<= {PAGED_ATOL}), finite {finite}")
-    active = [n + 1 for n in lens if n]  # keys each active slot reads (cache + this token)
+    # paged decode (#5) at PAGED_SHAPES; its device time alone comes later
+    # (`phase_paged_device_time`)
+    rows_paged = {label: check_paged(torch, seed, label, lens, mb)
+                  for label, lens, mb in PAGED_SHAPES}
     say("kernel", name="library", flash_fwd_sdpa_ms=f_lib, why=repr(f_why),
         paged_decode="none: no PyTorch call reads a block-table KV cache")
     return [
@@ -429,12 +413,136 @@ def phase_kernels(torch, seed: int) -> list[dict]:
         {"name": "paged_decode", "route": "cuda",
          "source": "xtuner_tpu_torch/csrc/paged_decode.cu",
          "replaces": "xtuner_tpu/ops/attention/paged_decode.py:66", "path": "serve",
-         "launches": 0,
-         "max_abs_err": d_err, "ms": p_ms, "plain_ms": p_plain,
-         **least_ms(4 * sum(active) * hq * d,
-                 4 * sum(active) * hkv * d + len(lens) * hq * d * (2 + 4), PEAK_BF16),
-         "library_ms": None},
+         "launches": 0, **rows_paged["serve"], "library_ms": None},
     ]
+
+
+# #5's shapes, Qwen3-8B's attention (Hq 32, Hkv 8, D 128, blocks of 128,
+# one query token a slot): the slice's decode (4 slots, one inactive, a
+# 16-entry table), then a rollout (32 slots of 4096 cached tokens, a
+# 64-entry table: an engine sized for 8192 tokens)
+PAGED_SHAPES = (("serve", [1000, 0, 517, 1900], 16), ("rollout", [4096] * 32, 64))
+PAGED_HQ, PAGED_HKV, PAGED_D, PAGED_BS = 32, 8, 128, 128
+
+
+def paged_inputs(torch, seed: int, lens: list, mb: int, n_layers: int = 2):
+    """#5's inputs at one of PAGED_SHAPES, from `seed`: an `n_layers`-layer
+    pool holding just the slots' blocks (block 0 the inactive slots', each
+    active slot's in order from block 1), q, the table and the lengths."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 9)
+    hq, hkv, d, bs = PAGED_HQ, PAGED_HKV, PAGED_D, PAGED_BS
+    nb = 1 + sum(-(-(n + 1) // bs) for n in lens if n)
+    pk = torch.randn((n_layers, nb, bs, hkv, d), generator=g, device=dev).bfloat16()
+    pv = torch.randn((n_layers, nb, bs, hkv, d), generator=g, device=dev).bfloat16()
+    qd = torch.randn((len(lens), 1, hq, d), generator=g, device=dev).bfloat16()
+    table = torch.zeros((len(lens), mb), dtype=torch.int32)
+    nxt = 1
+    for bi, n in enumerate(lens):
+        if n:
+            for t in range(-(-(n + 1) // bs)):
+                table[bi, t] = nxt
+                nxt += 1
+    return qd, pk, pv, table.to(dev), torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+def paged_bound(lens: list) -> dict:
+    """#5's least time: each active slot's cached keys and this token's, K
+    and V read once (bf16), q read (bf16) and out written (f32) once; the
+    operations of S and O over the same keys."""
+    keys = sum(n + 1 for n in lens if n)
+    return least_ms(4 * keys * PAGED_HQ * PAGED_D,
+                    4 * keys * PAGED_HKV * PAGED_D + len(lens) * PAGED_HQ * PAGED_D * (2 + 4),
+                    PEAK_BF16)
+
+
+def check_paged(torch, seed: int, label: str, lens: list, mb: int) -> dict:
+    """#5 against its plain version at one of PAGED_SHAPES (layer 1 of
+    `paged_inputs`): error, finite, two launches' bits, ms through the
+    wrapper, the plain version's, the bytes bound and its share. Returns
+    the kernel row's numbers."""
+    from xtuner_tpu_torch.ops.attention.paged_decode import (paged_decode_attn,
+                                                             paged_decode_attn_plain,
+                                                             paged_decode_split_plan)
+
+    hq, hkv, d, bs = PAGED_HQ, PAGED_HKV, PAGED_D, PAGED_BS
+    qd, pk, pv, table, seq_lens = paged_inputs(torch, seed, lens, mb)
+    scale = d ** -0.5
+
+    def kern():
+        return paged_decode_attn(qd, pk, pv, 1, table, seq_lens, scale=scale)
+
+    od, again = kern(), kern()
+    ref_d = paged_decode_attn_plain(qd, pk, pv, 1, table, seq_lens, scale=scale)
+    torch.cuda.synchronize()
+    d_err = (od - ref_d).abs().max().item()
+    finite, same = bool(torch.isfinite(od).all()), torch.equal(od, again)
+    del ref_d, again
+    p_ms = cuda_ms(kern)
+    p_plain = cuda_ms(lambda: paged_decode_attn_plain(qd, pk, pv, 1, table, seq_lens,
+                                                      scale=scale), iters=3, warmup=1)
+    b = paged_bound(lens)
+    splits = paged_decode_split_plan(len(lens), hkv, mb,
+                                     torch.cuda.get_device_properties(0).multi_processor_count)
+    say("kernel", name="paged_decode", shape=label,
+        dims=f"B{len(lens)}xC1xHq{hq}xHkv{hkv}xD{d}xBS{bs}xMB{mb}", splits=splits,
+        kv_mb=f"{4 * sum(n + 1 for n in lens if n) * hkv * d / 1e6:.1f}",
+        seq_lens=",".join(map(str, sorted(set(lens)))), err=f"{d_err:.3e}", finite=finite,
+        same_bits=same, ms=f"{p_ms:.4f}", plain_ms=f"{p_plain:.4f}",
+        bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"],
+        share_of_bound=f"{b['bound_ms'] / p_ms:.3f}",
+        parent_ms_perf_md=PARENT_MS.get(("paged_decode", label), "not measured"))
+    if not (d_err <= PAGED_ATOL and finite and same):
+        raise AssertionError(f"paged decode kernel ({label}) disagrees with its plain version: "
+                             f"{d_err} (<= {PAGED_ATOL}), finite {finite}, two launches "
+                             f"same bits {same}")
+    return {"max_abs_err": d_err, "ms": p_ms, "plain_ms": p_plain, **b}
+
+
+def phase_paged_device_time(torch, seed: int, kernels: list[dict]) -> None:
+    """#5's device time alone (`kernel_device_ms`) at each of PAGED_SHAPES,
+    on `check_paged`'s inputs made again; the serve row of `kernels` gains
+    `kernel_ms` and `kernel_share_of_bound`. It runs after the serving
+    phase's timed requests: a profiler window leaves the process slower to
+    launch from the host (the serving decode step by 10-15 ms on an H100,
+    `tools/bench_serve_decode.py --profile-after`), and that loop is
+    host-bound, so the serving phase opens its own profiler window only
+    after its timings, as it did before #5 was timed alone."""
+    from xtuner_tpu_torch.ops.attention.paged_decode import paged_decode_attn
+
+    row = next(k for k in kernels if k["name"] == "paged_decode")
+    for label, lens, mb in PAGED_SHAPES:
+        qd, pk, pv, table, seq_lens = paged_inputs(torch, seed, lens, mb)
+        k_ms = kernel_device_ms(torch, lambda: paged_decode_attn(
+            qd, pk, pv, 1, table, seq_lens, scale=PAGED_D ** -0.5), "paged_decode_kernel")
+        b = paged_bound(lens)
+        say("kernel", name="paged_decode", shape=label, kernel_ms=f"{k_ms:.4f}",
+            bound_ms=f"{b['bound_ms']:.4f}", kernel_share_of_bound=f"{b['bound_ms'] / k_ms:.3f}")
+        if label == "serve":
+            row.update(kernel_ms=k_ms, kernel_share_of_bound=b["bound_ms"] / k_ms)
+        del qd, pk, pv, table, seq_lens
+
+
+def kernel_device_ms(torch, fn, kernel: str, iters: int = 20) -> float:
+    """Mean device time of the kernels named `kernel` that `iters` calls of
+    `fn` launch (torch.profiler): the launch alone, without the host's
+    time between launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel in e.name]
+    if not times:
+        raise AssertionError(f"{kernel}: no device launch in the profile of {iters} calls")
+    if len(times) != iters:  # the profiler may drop events; the mean stands
+        say("kernel", name=kernel, profiled_launches=len(times), calls=iters)
+    return sum(times) / len(times)
 
 
 def doc_lengths(rng, total: int, docs: int, pad: int) -> list[int]:
@@ -1189,7 +1297,8 @@ def phase_fp8_kernels(torch, seed: int) -> list[dict]:
     from a top-8 routing with one expert empty), in e4m3 x e4m3 and with an
     e5m2 gradient, and at odd shapes (M not a multiple of 128, K = 768 and
     384, a 1-row expert, rows past the last group). Prints per GEMM the
-    kernel's ms (the wrapper, its K-major copies included), the plain
+    kernel's ms (the wrapper, its K-major copies included; timed rows also
+    the launch alone on operands already in its layout), the plain
     version's, TFLOP/s, the bound, the error against plain (relative to the
     largest entry) and the mean relative error of the fp8 product against
     the unquantised bf16 one; and what `torch._scaled_mm` /
@@ -1286,17 +1395,26 @@ def phase_fp8_kernels(torch, seed: int) -> list[dict]:
         x, w, xq, sx, wq, sw = operands(m, k, n, a_dt, b_dt)
         kern = lambda: fg.fp8_gemm_tilewise(xq, sx, wq, sw)  # noqa: E731
         plain = lambda: fg.fp8_gemm_tilewise_plain(xq, sx, wq, sw, out_dtype=torch.float32)  # noqa
+        wt = fg.k_major(wq).view(wq.dtype)  # the launch alone: W laid out K-major beforehand
+        alone = lambda: fg.fp8_gemm_launch(xq, sx, wt, sw)  # noqa: E731
         kt, nt = k // 128, n // 128
-        check("fp8_gemm", f"{label} {tag[a_dt]}x{tag[b_dt]} M{m} K{k} N{n}", kern(), plain(),
-              _mm_f32(x, w), FP8_RTOL, uses, (kern, plain), 2 * m * k * n,
+        n0 = fg.fp8_gemm_tilewise.launches
+        got = kern()
+        if not torch.equal(got, alone()):
+            raise AssertionError(f"fp8_gemm {label}: two launches give different bits")
+        if fg.fp8_gemm_tilewise.launches != n0 + 2:
+            raise AssertionError(f"fp8_gemm {label}: two launches counted "
+                                 f"{fg.fp8_gemm_tilewise.launches - n0}")
+        check("fp8_gemm", f"{label} {tag[a_dt]}x{tag[b_dt]} M{m} K{k} N{n}", got, plain(),
+              _mm_f32(x, w), FP8_RTOL, uses, (kern, plain, alone), 2 * m * k * n,
               m * k + 4 * m * kt + k * n + 4 * kt * nt + 2 * m * n)
         if uses:
             # torch._scaled_mm with tile-wise scales, both outer-dim-major, as it takes them
-            wt = fg.k_major(wq).view(e4)
+            wt8 = wt.view(e4)
             add_library("fp8_gemm", f"{label}: torch._scaled_mm", uses, lambda: torch._scaled_mm(
-                xq, wt.t(), scale_a=sx.t().contiguous().t(), scale_b=sw.t().contiguous().t(),
+                xq, wt8.t(), scale_a=sx.t().contiguous().t(), scale_b=sw.t().contiguous().t(),
                 out_dtype=torch.bfloat16))
-        del x, w, xq, sx, wq, sw
+        del x, w, xq, sx, wq, sw, wt, got
 
     # ---- #12 and #13 at the expert GEMMs: 131072 routed rows, E16, top-8;
     # then odd shapes: every expert start offset inside a 128-row tile with
@@ -1392,8 +1510,9 @@ def phase_fp8_kernels(torch, seed: int) -> list[dict]:
         library=repr("none: no PyTorch call takes one fp8 scale per 128-row tile of a ragged "
                      "contraction"))
     rows["fp8_grouped_dw"]["library_ms"] = None
-    for name in ("fp8_grouped_gemm", "fp8_grouped_dw"):
+    for name in ("fp8_gemm", "fp8_grouped_gemm", "fp8_grouped_dw"):
         r = rows[name]
+        r.update(kernel_ms=alone_ms[name], kernel_share_of_bound=r["bound_ms"] / alone_ms[name])
         say("kernel", name=name, per_layer_ms=f"{r['ms']:.4f}",
             per_layer_kernel_ms=f"{alone_ms[name]:.4f}", bound_ms=f"{r['bound_ms']:.4f}",
             share_of_bound=f"{r['bound_ms'] / r['ms']:.3f}",
@@ -2781,9 +2900,8 @@ def sft_memory(torch, eng, batch, smi: str) -> None:
 def profile_window(torch, name: str, fn, top: int = 8, annotations=()) -> None:
     """Wall time, device-busy time (sum of kernel durations), kernel count,
     device time by kind (the port's fp8 kernels #11, #12 and #13 each, its
-    block-sparse forward #14 and backward #15 each, and its others, cuBLAS
-    GEMMs, the rest) and the
-    top kernels by device
+    paged decode #5, its block-sparse forward #14 and backward #15 each,
+    and its others, cuBLAS GEMMs, the rest) and the top kernels by device
     time of one call under torch.profiler. For each name in `annotations`,
     the device time of the kernels launched inside `record_function(name)`
     ranges is its own kind, each kernel taken out of the kind it would
@@ -2803,12 +2921,14 @@ def profile_window(torch, name: str, fn, top: int = 8, annotations=()) -> None:
         # the port's kernels sit in a top-level anonymous namespace;
         # PyTorch's own sit in at::native::(anonymous namespace)
         own = k.removeprefix("void ").startswith("(anonymous namespace)::")
-        if own and "::fp8_gemm_kernel" in k:  # #11
+        if own and "::fp8_grouped_kernel<2" in k:  # #11, the dense mode
             return "port_fp8_gemm"
         if own and "::fp8_grouped_kernel<0" in k:  # #12, forward and dgrad
             return "port_fp8_grouped"
         if own and "::fp8_grouped_kernel<1" in k:  # #13, the wgrad
             return "port_fp8_wgrad"
+        if own and "::paged_decode_kernel" in k:  # #5
+            return "port_paged_decode"
         if own and "::bs_fwd_kernel" in k:  # #14
             return "port_block_sparse_fwd"
         if own and "::bs_" in k:  # #15: delta, the inverse table, dq, dk/dv
@@ -2870,6 +2990,8 @@ def main() -> int:
     kernels += phase_train_kernels(torch, args.seed)
     launches = {"serve": phase_engine(torch, args.seed, smi)}
     release(torch, "serve")
+    phase_paged_device_time(torch, args.seed, kernels)
+    release(torch, "paged_device_time")
     launches["train"] = phase_train(torch, args.seed, smi)
     release(torch, "train")
     kernels += phase_ce_kernels(torch, args.seed)

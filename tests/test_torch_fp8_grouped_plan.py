@@ -1,13 +1,15 @@
-"""The fp8 grouped kernels' work orders (TPU kernels #12 and #13) in plain
-torch, against the JAX package.
+"""The fp8 grouped kernels' work orders (TPU kernels #12 and #13, and #11
+on the same kernel) in plain torch, against the JAX package.
 
 The Hopper kernel (`csrc/fp8_grouped.cu`) walks #12 over
 `grouped_tile_plan`'s expert-pure 128-row tiles in 128-deep scale steps,
 promoting each step's product into an f32 sum, and #13 over
 `fp8_dw_items`: per (expert, K tile, N tile) the global 128-row tiles that
 overlap the expert's rows, with the codes of a straddling tile zeroed
-byte by byte in 128-byte-swizzled shared memory. `fp8_grouped_tiled_plain`
-and `fp8_dw_walk_plain` do the same in that order on the CPU. Here:
+byte by byte in 128-byte-swizzled shared memory; #11, the dense GEMM, is
+#12's walk with one group of all M rows. `fp8_grouped_tiled_plain`,
+`fp8_dw_walk_plain` and `fp8_gemm_tiled_plain` do the same in that order
+on the CPU. Here:
 
 - both against JAX's `fp8_grouped_gemm` and `fp8_grouped_gemm_dw` in
   interpret mode at K in {256, 512, 1024}, e4m3 and e5m2, f32 out, within
@@ -17,6 +19,10 @@ and `fp8_dw_walk_plain` do the same in that order on the CPU. Here:
   above 512, #13 leaves rows 512-767 of every dW unwritten), and at M <
   128 (JAX wants M % 256 == 0), against the float64 oracles of
   tests/fp8_oracles.py;
+- #11's mirror against JAX's `fp8_gemm_tilewise` in interpret mode at K in
+  {256, 512, 1024} and M not a multiple of 128, e4m3 x e4m3, e5m2 x e4m3
+  and e4m3 x e5m2 (2e-5), against the float64 tile oracle at K = 768, and
+  against #12's mirror over one group;
 - the launch functions refuse, before any pointer reaches the kernel,
   operands off the card and operands that do not fit the kernel's layout;
 - the plans: each row covered exactly once, each tile inside one expert,
@@ -40,7 +46,7 @@ from xtuner_tpu_torch.ops import fp8_gemm as tgemm
 from xtuner_tpu_torch.ops import fp8_grouped as tgrp
 from xtuner_tpu_torch.ops.bf16_grouped import grouped_tile_plan
 
-from fp8_oracles import grouped_oracle, rowtile_oracle
+from fp8_oracles import grouped_oracle, rowtile_oracle, tile_oracle
 
 KERNEL_TOL = 2e-5
 TILE = 128
@@ -127,6 +133,79 @@ def test_tiled_plain_at_k768_matches_the_tile_oracle(a_dtype, case):
     np.testing.assert_allclose(got.numpy(), grouped_oracle(xq, sx, wq, sw, sizes),
                                rtol=KERNEL_TOL, atol=KERNEL_TOL)
     assert not got[sum(sizes):].any()
+
+
+# ------------------------------------------------ #11: one group of M rows
+GEMM_TYPES = [("e4m3", "e4m3"), ("e5m2", "e4m3"), ("e4m3", "e5m2")]
+
+
+def _gemm_operands(m, k, n, a_dtype, b_dtype, seed):
+    """x (m, k) per (row, 128-col) tile and w (k, n) per 128 x 128 block,
+    quantised by both packages."""
+    x, w = _data((m, k), seed), _data((k, n), seed + 1) * np.float32(0.05)
+    jx = jgemm.quantize_tilewise(jnp.asarray(x), 128, _DT[a_dtype][0])
+    jw = jgemm.quantize_blockwise(jnp.asarray(w), 128, _DT[b_dtype][0])
+    tx = tgemm.quantize_tilewise(_t(x), 128, _DT[a_dtype][1])
+    tw = tgemm.quantize_blockwise(_t(w), 128, _DT[b_dtype][1])
+    return jx, jw, tx, tw
+
+
+@pytest.mark.parametrize("types", GEMM_TYPES, ids=["x".join(t) for t in GEMM_TYPES])
+@pytest.mark.parametrize("k", [256, 512, 1024])
+def test_gemm_tiled_plain_matches_jax_kernel(k, types):
+    """M = 200: a full 128-row tile and a short one (JAX pads M to 256)."""
+    m, n = 200, 256
+    (jxq, jsx), (jwq, jsw), (xq, sx), (wq, sw) = _gemm_operands(m, k, n, *types, seed=k + 21)
+    want = np.asarray(jgemm.fp8_gemm_tilewise(jxq, jsx, jwq, jsw, out_dtype=jnp.float32,
+                                              interpret=True))
+    got = tgemm.fp8_gemm_tiled_plain(xq, sx, wq, sw)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    np.testing.assert_allclose(got.numpy(), want, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+
+
+@pytest.mark.parametrize("m", [77, 200, 256])
+@pytest.mark.parametrize("types", GEMM_TYPES, ids=["x".join(t) for t in GEMM_TYPES])
+def test_gemm_tiled_plain_at_k768_matches_the_tile_oracle(types, m):
+    k, n = 768, 384
+    _, _, (xq, sx), (wq, sw) = _gemm_operands(m, k, n, *types, seed=m + 5)
+    got = tgemm.fp8_gemm_tiled_plain(xq, sx, wq, sw)
+    np.testing.assert_allclose(got.numpy(), tile_oracle(xq, sx, wq, sw), rtol=KERNEL_TOL,
+                               atol=KERNEL_TOL)
+
+
+def test_gemm_tiled_plain_is_the_grouped_walk_over_one_group():
+    """The dense mode runs #12's walk with one group of all M rows: the two
+    mirrors agree, and the plan counts one group's tiles."""
+    m, k, n = 300, 512, 256
+    _, _, (xq, sx), (wq, sw) = _gemm_operands(m, k, n, "e4m3", "e4m3", seed=31)
+    one = torch.tensor([m], dtype=torch.int32)
+    np.testing.assert_allclose(
+        tgemm.fp8_gemm_tiled_plain(xq, sx, wq, sw).numpy(),
+        tgrp.fp8_grouped_tiled_plain(xq, sx, wq[None], sw[None], one).numpy(),
+        rtol=KERNEL_TOL, atol=KERNEL_TOL)
+    assert tgrp.fp8_plan_counts(one, m, "gg", k, n) == (3 * 2, 0, 3 * 2 * 4)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("cpu", "CUDA device"),
+    ("k_mismatch", "do not fit"),   # wt's K differs from xq's
+    ("not_k_major", "do not fit"),  # wq (K, N) passed as it is
+    ("sw_shape", "do not fit"),
+])
+def test_gemm_launch_refuses_what_the_kernel_cannot_take(case, match):
+    """`fp8_gemm_launch` hands raw pointers to TMA maps: a CPU tensor or a
+    shape outside its layout raises instead of reaching them."""
+    e4 = torch.float8_e4m3fn
+    xq, sx = torch.zeros((200, 256), dtype=e4), torch.ones((200, 2))
+    wt, sw = torch.zeros((384, 256), dtype=e4), torch.ones((2, 3))
+    if case == "k_mismatch":
+        wt = wt[:, :128].contiguous()
+    elif case == "not_k_major":
+        wt = torch.zeros((256, 384), dtype=e4)
+    elif case == "sw_shape":
+        sw = sw.T.contiguous()
+    with pytest.raises(ValueError, match=match):
+        tgemm.fp8_gemm_launch(xq, sx, wt, sw)
 
 
 # ---------------------------------------------------------------- #13: wgrad

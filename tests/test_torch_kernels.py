@@ -18,8 +18,10 @@ from xtuner_tpu_torch.ops.attention.flash import (BIG_LSE, flash_attention,
                                                   flash_bwd_plain, fwd_tile_plan,
                                                   fwd_tiles_walked, group_sum,
                                                   max_free_launches, reset_launches)
-from xtuner_tpu_torch.ops.attention.paged_decode import (paged_decode_attn,
-                                                         paged_decode_attn_plain)
+from xtuner_tpu_torch.ops.attention.paged_decode import (_sm_count, paged_decode_attn,
+                                                         paged_decode_attn_plain,
+                                                         paged_decode_split_plain,
+                                                         paged_decode_split_plan)
 from xtuner_tpu_torch.ops.bf16_grouped import (bf16_grouped_linear, grouped_gemm_bf16,
                                                grouped_gemm_bf16_dw, grouped_gemm_dw_plain,
                                                grouped_gemm_plain, grouped_plan_counts,
@@ -187,16 +189,69 @@ def _paged(dev, b, c, hq, hkv, bs, lens, seed=0):
     (2, 1, 4, 2, 32, [40, 70]),                # 2 query rows
     (1, 3, 4, 4, 16, [33]),                    # 3 rows, padded to 4
     (1, 4, 8, 2, 16, [50]),                    # 16 rows, the most a CTA takes
+    (4, 1, 8, 2, 16, [31, 1, 0, 47]),          # seq_len + C on a block edge, one token
+    (2, 2, 8, 2, 32, [30, 1]),                 # C = 2 ending on an edge
+    (2, 1, 32, 8, 256, [700, 255]),            # blocks of 256: four 64-row chunks
+    (2, 1, 8, 2, 48, [100, 47]),               # 48-row chunks
+    (32, 1, 32, 8, 128, [4096] * 32),          # a rollout: 32 slots x 4096 cached
 ])
 def test_paged_decode_kernel_matches_plain(cuda, b, c, hq, hkv, bs, lens):
     q, pk, pv, table, seq_lens = _paged(cuda, b, c, hq, hkv, bs, lens)
     n0 = paged_decode_attn.launches
     out = paged_decode_attn(q, pk, pv, 1, table, seq_lens, scale=128 ** -0.5)
+    again = paged_decode_attn(q, pk, pv, 1, table, seq_lens, scale=128 ** -0.5)
     torch.cuda.synchronize()
-    assert paged_decode_attn.launches == n0 + 1
+    assert paged_decode_attn.launches == n0 + 2
+    assert torch.equal(out, again)  # the splits merge in a fixed order
     ref = paged_decode_attn_plain(q, pk, pv, 1, table, seq_lens, scale=128 ** -0.5)
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= PAGED_ATOL
+
+
+def test_paged_decode_kernel_skips_pad_and_unused_entries(cuda):
+    """Slots past seq_len + C hold NaN (never written) and table entries < 0
+    or >= NB name no block: the kernel reads neither, as its work order in
+    plain torch (`paged_decode_split_plain`, the plan's split count) does."""
+    b, c, hq, hkv, bs, lens = 3, 1, 8, 2, 16, [37, 70, 20]
+    q, pk, pv, table, seq_lens = _paged(cuda, b, c, hq, hkv, bs, lens)
+    clean_k, clean_v = pk.clone(), pv.clone()
+    nb = pk.shape[1]
+    for bi, n in enumerate(lens):
+        t, s = divmod(n + c, bs)
+        if s:
+            pk[1, table[bi, t], s:] = float("nan")
+            pv[1, table[bi, t], s:] = float("nan")
+    ref = paged_decode_attn_plain(q, clean_k, clean_v, 1, table, seq_lens, scale=128 ** -0.5)
+    out = paged_decode_attn(q, pk, pv, 1, table, seq_lens, scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and (out - ref).abs().max().item() <= PAGED_ATOL
+    table[1, 1], table[1, 3] = -1, nb
+    splits = paged_decode_split_plan(b, hkv, table.shape[1], _sm_count(cuda.index or 0))
+    out = paged_decode_attn(q, clean_k, clean_v, 1, table, seq_lens, scale=128 ** -0.5)
+    ref = paged_decode_split_plain(q, clean_k, clean_v, 1, table, seq_lens,
+                                   scale=128 ** -0.5, splits=splits)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and (out - ref).abs().max().item() <= PAGED_ATOL
+
+
+def test_paged_decode_kernel_on_two_streams(cuda):
+    """Launches on two streams at once each merge their own splits: the
+    merge tickets are one buffer per stream."""
+    b, hkv = 32, 8
+    q, pk, pv, table, seq_lens = _paged(cuda, b, 1, 32, hkv, 128, [4096] * b)
+    q2 = q.flip(0).contiguous()
+    want = [paged_decode_attn(x, pk, pv, 1, table, seq_lens, scale=128 ** -0.5)
+            for x in (q, q2)]
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(4):
+        for s, x, acc in zip(streams, (q, q2), got):
+            with torch.cuda.stream(s):
+                acc.append(paged_decode_attn(x, pk, pv, 1, table, seq_lens, scale=128 ** -0.5))
+    torch.cuda.synchronize()
+    for w, outs in zip(want, got):
+        assert all(torch.equal(w, o) for o in outs)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -606,13 +661,28 @@ def test_fp8_gemm_kernel_matches_plain(cuda, m, k, n, a_dtype, b_dtype):
     wq, sw = fg.quantize_blockwise(torch.randn((k, n), generator=g, device=cuda) * 0.05,
                                    dtype=dt[b_dtype])
     fg.reset_launches()
+    wt = fg.k_major(wq).view(wq.dtype)
     for out_dtype in (torch.bfloat16, torch.float32):
         got = fg.fp8_gemm_tilewise(xq, sx, wq, sw, out_dtype=out_dtype)
         want = fg.fp8_gemm_tilewise_plain(xq, sx, wq, sw, out_dtype=torch.float32)
+        again = fg.fp8_gemm_launch(xq, sx, wt, sw, out_dtype)  # counts its launch too
         torch.cuda.synchronize()
-        assert got.dtype == out_dtype
+        assert got.dtype == out_dtype and torch.equal(got, again)
         assert _rel_err(got, want) <= (FP8_RTOL if out_dtype == torch.bfloat16 else FP8_DW_RTOL)
-    assert fg.fp8_gemm_tilewise.launches == 2
+    assert fg.fp8_gemm_tilewise.launches == 4
+
+
+def test_fp8_gemm_kernel_takes_no_rows(cuda):
+    from xtuner_tpu_torch.ops import fp8_gemm as fg
+
+    xq, sx, wq, sw = _fp8_operands(cuda, 0, 256, 384)
+    fg.reset_launches()
+    wt = fg.k_major(wq).view(wq.dtype)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = fg.fp8_gemm_tilewise(xq, sx, wq, sw, out_dtype=out_dtype)
+        assert got.shape == (0, 384) and got.dtype == out_dtype
+        assert fg.fp8_gemm_launch(xq, sx, wt, sw, out_dtype).shape == (0, 384)
+    assert fg.fp8_gemm_tilewise.launches == 0
 
 
 # expert starts at 0, 1, 15, 16, 17 and 127 of a 128-row tile, an empty

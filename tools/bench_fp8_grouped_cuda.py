@@ -1,7 +1,8 @@
-"""Time the port's tile-wise fp8 grouped GEMM kernels (#12, forward and
-dgrad; #13, the wgrad) on the card at the sft_fp8 path's shapes.
+"""Time the port's tile-wise fp8 GEMM kernels (#12, forward and dgrad;
+#13, the wgrad; #11, the attention projections' dense GEMM, on #12's
+kernel) on the card at the sft_fp8 path's shapes.
 
-    python tools/bench_fp8_grouped_cuda.py [--tag NAME] [--iters N]
+    python tools/bench_fp8_grouped_cuda.py [--tag NAME] [--iters N] [--kernels 11,12,13]
 
 The shapes are one moe_heavy MoE layer's (recipes/sft_moe_heavy_fp8.py):
 131072 routed rows (2 x 8192 tokens, top-8) over 16 experts, group sizes
@@ -9,7 +10,9 @@ from a seeded top-8 routing with expert 5 empty, as chip_smoke.py makes
 them; #12 at K1024 N768 (gate and up forward, down's dgrad) and K768 N1024
 (down forward, gate's and up's dgrad), with an e4m3 and an e5m2 A (the
 dgrad's gradient under `e5m2_grads`); #13 at both shapes, e4m3 x e4m3 and
-e4m3 x e5m2. Each row prints the CUDA-event ms of the launch alone on
+e4m3 x e5m2; #11 at the q, k, v and o projections (M = 16384, K x N 1024 x
+2048, 1024 x 1024 twice, 2048 x 1024), an e5m2 dgrad and an e5m2 wgrad
+(K = 16384). Each row prints the CUDA-event ms of the launch alone on
 operands already in the kernel's layout and of the wrapper (its K-major or
 row-tile copies included) and of those copies alone, TFLOP/s, the share of
 the bound (operations at 1,979 TFLOP/s or bytes at 3.35 TB/s, the
@@ -69,7 +72,9 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tag", default="")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--kernels", default="11,12,13")
     args = ap.parse_args()
+    kernels = {f"#{k}" for k in args.kernels.split(",")}
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA card")
     from xtuner_tpu_torch.ops import fp8_gemm as fg
@@ -85,9 +90,9 @@ def main() -> None:
     tag = {e4: "e4m3", e5: "e5m2"}
     has_launch = hasattr(fgr, "fp8_grouped_gemm_launch")
 
-    def emit(kernel, k, n, types, flops, nbytes, fns, got, want):
+    def emit(kernel, k, n, types, flops, nbytes, fns, got, want, rows=m, experts=e):
         bound = max(flops / PEAK_FP8, nbytes / HBM_BYTES_S) * 1e3
-        row = {"tag": args.tag, "kernel": kernel, "experts": e, "m": m, "k": k, "n": n,
+        row = {"tag": args.tag, "kernel": kernel, "experts": experts, "m": rows, "k": k, "n": n,
                "types": types, "bound_ms": bound,
                "bound_by": "operations" if flops / PEAK_FP8 >= nbytes / HBM_BYTES_S else "bytes"}
         ref = want()
@@ -103,7 +108,30 @@ def main() -> None:
         row["card"] = smi
         print(json.dumps(row), flush=True)
 
+    for label, mm, k, n, a_dt, b_dt in (
+            ("q", TOKENS, 1024, 2048, e4, e4), ("k", TOKENS, 1024, 1024, e4, e4),
+            ("v", TOKENS, 1024, 1024, e4, e4), ("o", TOKENS, 2048, 1024, e4, e4),
+            ("q dgrad", TOKENS, 2048, 1024, e5, e4), ("q wgrad", 1024, TOKENS, 2048, e4, e5)):
+        if "#11" not in kernels:
+            break
+        kt, nt = k // 128, n // 128
+        xq, sx = fg.quantize_tilewise(torch.randn((mm, k), generator=g, device=dev), dtype=a_dt)
+        wq, sw = fg.quantize_blockwise(torch.randn((k, n), generator=g, device=dev) * 0.02,
+                                       dtype=b_dt)
+        wt = fg.k_major(wq).view(wq.dtype)
+        fns = {"alone": (lambda: fg.fp8_gemm_launch(xq, sx, wt, sw))
+               if hasattr(fg, "fp8_gemm_launch") else None,
+               "wrapper": lambda: fg.fp8_gemm_tilewise(xq, sx, wq, sw),
+               "layout": lambda: fg.k_major(wq)}
+        emit(f"#11 {label}", k, n, f"{tag[a_dt]}x{tag[b_dt]}", 2 * mm * k * n,
+             mm * k + 4 * mm * kt + k * n + 4 * kt * nt + 2 * mm * n, fns,
+             lambda: fg.fp8_gemm_tilewise(xq, sx, wq, sw, out_dtype=torch.float32),
+             lambda: fg.fp8_gemm_tilewise_plain(xq, sx, wq, sw, out_dtype=torch.float32),
+             rows=mm, experts=1)
+        del xq, sx, wq, sw, wt
     for k, n in SHAPES:
+        if not kernels & {"#12", "#13"}:
+            break
         kt, nt = k // 128, n // 128
         w = torch.randn((e, k, n), generator=g, device=dev) * 0.02
         wq, sw = fgr.quantize_blockwise_stack(w)

@@ -1,4 +1,5 @@
-// C-token GQA decode attention over a paged KV pool, for Hopper (sm_90a).
+// C-token GQA decode attention over a paged KV pool, for Hopper (sm_90a):
+// split-KV, a TMA ring, mma.sync products.
 //
 // Replaces the TPU kernel xtuner_tpu/ops/attention/paged_decode.py::_kernel
 // (pallas_call in paged_decode_attn). Same function: q (B, C, Hq, D) bf16;
@@ -8,265 +9,465 @@
 // the pool slots s <= seq_lens[b] + i. Returns (B, C, Hq, D) f32.
 // Window and sinks are not taken here (the wrapper raises).
 //
-// What bounds it on the H100: decode reads every cached K/V byte once per
-// step for a few FLOPs per byte (C * Hq / Hkv query rows per kv head), so
-// it is bound by HBM bandwidth and by memory latency: B * Hkv CTAs (32 for
-// 4 slots x 8 kv heads) leave most of the 132 SMs idle, so each CTA must
-// keep many loads in flight. Splitting the sequence across CTAs (split-K)
-// and double-buffering the block loads are left to a later PR.
+// What bounds it on the H100: decode reads every cached K/V byte once for
+// 2-8 operations per byte (C * Hq / Hkv <= 16 query rows per kv head), so
+// HBM bandwidth bounds it (3.35 TB/s). The (slot, kv head) pairs are few
+// (32 at 4 slots x 8 kv heads, on 132 SMs), so one CTA per pair cannot
+// fill the card, and each CTA must keep its loads in flight while it
+// computes.
 //
 // Design:
-// - One CTA of 128 threads per (kv head g, slot b); it handles the C * rep
-//   query rows of that head group, so each K/V byte is read once per group.
-// - It walks the block table entries [0, ceil((seq_len + C) / BS)), reading
-//   each block id from device memory. In the pool layout the (BS, D) slice
-//   of one kv head has its rows strided by Hkv * D.
-// - Each block's K and V slices are staged in shared memory with 16-byte
-//   loads, eight per thread issued before any is used, and only up to the
-//   block's last valid slot.
-// - With one 4-warp CTA per SM there is no other warp to hide latency
-//   behind, so every stage is written for instruction-level parallelism:
-//   the query-row count is a template parameter (1, 2, 4, 8 or 16) so every
-//   row loop unrolls into independent accumulators.
-// - Scores from shared memory: thread s owns key row s and accumulates its
-//   dot products with all query rows (f32, pre-scaled by scale * log2(e),
-//   read as broadcasts); K rows are padded by 16 bytes so the 16-byte reads
-//   of 32 different rows do not collide on the same banks.
-// - Online softmax in base 2 and f32, one warp per query row.
-// - PV from shared memory: thread d owns output dim d for every query row.
+// - Split-KV. The grid is (splits, Hkv, B). The host picks the split count
+//   from B, Hkv and MB alone (ops/attention/paged_decode.py::
+//   paged_decode_split_plan: about 2 CTAs per SM, one wave, if every table
+//   were full), so it never reads seq_lens (that would synchronise once
+//   per layer on a host-bound loop). Against 1 and 4 (timed by
+//   tools/bench_paged_decode_cuda.py on an H100 80GB HBM3 at 700 W): 2 is
+//   fastest at the serving shape and within 6% of the best at uniform
+//   rollouts; 4 is 3-8% faster at rollouts of mixed lengths. On the device each slot cuts its own
+//   n_blk = ceil((seq_len + C) / BS) blocks into that many splits of
+//   ceil(n_blk / splits) whole blocks, so a slot's splits are even whatever
+//   MB is; a split past the slot's last block exits at once. A persistent
+//   grid over a device-built work list would need a prefix pass over
+//   seq_lens first; with ~97 KB of shared memory two CTAs share an SM, so
+//   one's prologue and combine overlap the other's stream instead.
+// - Loads in flight. Warp 4 (lane 0) streams the split's blocks in chunks
+//   of CR rows (the largest multiple of 16 up to 64 that divides BS)
+//   through a 3-stage ring: per chunk four TMA loads (K and V, each two
+//   64-column halves of CR rows, 128-byte swizzled) out of the pool viewed
+//   as (L NB, BS, Hkv, D), batch coordinate layer * NB + block id,
+//   completing on the stage's full mbarrier; the consumer warps release a
+//   stage on its empty mbarrier. Up to 96 KB in flight per CTA.
+// - Products on mma.sync m16n8k16 bf16: the <= 16 query rows are exactly
+//   one m16 tile (wgmma's 64-row tile would waste >= 75% and is not
+//   needed at a few operations per byte). Each of the 4 consumer warps
+//   takes 16 keys of every chunk and keeps its own online softmax (f32,
+//   base 2, running max and sum) and O (16 x 128 f32 in registers): S = Q
+//   K^T with Q as A fragments held for the whole walk and K by ldmatrix
+//   from the swizzled stage, then O += P V with V by ldmatrix.trans. P goes
+//   in as two bf16 parts, hi = bf16(p) and lo = bf16(p - hi), so the
+//   product keeps ~16 bits of p and the result stays f32-exact to ~1e-6
+//   (a bf16 P alone misses PAGED_ATOL, 2e-4, at tens of keys).
+// - Right-pad: slots >= seq_len + C hold whatever the pool holds (never
+//   written by this sequence); their scores are set to -inf and their V
+//   rows zeroed in registers, so they never reach O.
+// - Combine. The 4 warps' (m, l, O) merge in warp order through shared
+//   memory (the ring's space, free after the walk). A slot with one split
+//   writes out = O / l at once. Otherwise each split writes its partial (O
+//   unnormalised, m and l per row, f32) into the workspace the wrapper
+//   allocates (once per stream, as the tickets), fences, and takes a
+//   ticket (atomicAdd on a per-(slot, kv head) int); the CTA that draws
+//   the last ticket merges the partials in split order and resets the
+//   ticket to 0 for the next launch. One launch per call, and two launches
+//   give the same bits: the merge order is fixed, and which CTA runs it
+//   changes nothing.
 // - Inactive slots (all-zero table, seq_len 0) read the trash block 0 and
-//   stay finite; their output is discarded by the caller. Right-pad KV from
-//   a bucketed prefill lies past seq_len and is never read.
+//   stay finite; their output is discarded by the caller. Table entries
+//   < 0 or >= NB are skipped (no load, no products).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
 
 constexpr int D = 128;
-constexpr int NTHREADS = 128;
-constexpr int NWARPS = NTHREADS / 32;
-constexpr int MAXR = 16;  // query rows per CTA (C * rep)
-constexpr int VEC = 8;    // bf16 per 16-byte load
-constexpr int LDK = D + VEC;  // padded K row in shared memory (bf16)
-constexpr int BATCH = 8;  // loads in flight per thread while staging
+constexpr int NCONS = 128;              // four consumer warps
+constexpr int NTHREADS = NCONS + 32;    // and the producer warp
+constexpr int MAXR = 16;                // query rows per CTA (C * rep)
+constexpr int STAGES = 3;
+constexpr int MAX_CR = 64;              // rows of a ring stage
+constexpr int LDO = D + 8;              // padded O row of the warp combine (floats)
+constexpr int MAX_SPLITS = 256;         // the merge's (m, l) of every split fit COMBINE
+constexpr int MAX_DEVICES = 64;         // devices whose shared-memory opt-in is remembered
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ void bf16x8_to_float(uint4 raw, float* out) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
+// a ring stage: K then V, each two 64-column halves of cr rows x 128 bytes
+__host__ __device__ constexpr uint32_t stage_bytes(int cr) { return 4u * cr * 128; }
+// the warp combine: O [4][MAXR][LDO], m [4][MAXR], l [4][MAXR] (f32)
+constexpr uint32_t COMBINE = (NCONS / 32) * MAXR * (LDO + 2) * 4;
+static_assert(2 * MAX_SPLITS * MAXR * 4 <= COMBINE, "the merge's (m, l) fit");
+
+struct Layout {
+  uint32_t bar;    // full [STAGES], empty [STAGES] (after the ring or the combine)
+  uint32_t flag;   // int: this CTA merges the splits
+  uint32_t bytes;  // + 1024 alignment slack
+};
+__host__ __device__ inline Layout layout(int cr) {
+  const uint32_t ring = STAGES * stage_bytes(cr);
+  Layout l;
+  l.bar = ring > COMBINE ? ring : COMBINE;
+  l.flag = l.bar + 16 * STAGES;
+  l.bytes = l.flag + 16 + 1024;
+  return l;
+}
+
+struct Args {
+  const __nv_bfloat16* q;
+  const int* table;
+  const int* seq_lens;
+  float* out;
+  float* ws;     // (B, Hkv, splits, rows, D) partial O, then (B, Hkv, splits, rows, 2) (m, l)
+  int* tickets;  // (B * Hkv), zero between launches
+  int C, Hq, Hkv, NB, BS, MB, layer, splits, cr;
+  float sl2;     // scale * log2(e)
+};
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+// D(16 x 8, f32) += A(16 x 16, bf16) B(16 x 8, bf16)
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// (x, y) as bf16 pairs hi = bf16(.) and lo = bf16(. - hi)
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 2)
+paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, const Args a) {
+  const int sp = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
+  const int C = a.C, BS = a.BS, cr = a.cr;
+  // this split's blocks [t0, t1) of the slot's n_blk
+  const int end = a.seq_lens[b] + C;  // slots [0, end) hold keys
+  const int n_blk = max(0, min((end + BS - 1) / BS, a.MB));
+  const int per = max(1, (n_blk + a.splits - 1) / a.splits);
+  const int nsb = max(1, (n_blk + per - 1) / per);
+  if (sp >= nsb) return;
+  const int t0 = sp * per, t1 = min(t0 + per, n_blk);
+  if (threadIdx.x == NCONS) {  // the producer: have the TMA unit fetch the maps now
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tm_k)) : "memory");
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tm_v)) : "memory");
   }
-}
 
-size_t smem_bytes(int rows, int bs) {
-  return sizeof(__nv_bfloat16) * ((size_t)bs * LDK + (size_t)bs * D)  // sK, sV
-         + sizeof(float) * ((size_t)rows * D + (size_t)rows * bs + 3 * rows);
-}
-
-// ROWS >= C * rep query rows; rows past C * rep are zero and not written out
-template <int ROWS>
-__global__ void __launch_bounds__(NTHREADS)
-paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ pool_k,
-                    const __nv_bfloat16* __restrict__ pool_v,
-                    const int* __restrict__ table,
-                    const int* __restrict__ seq_lens, float* __restrict__ out,
-                    int C, int Hq, int Hkv, int NB, int BS, int MB, int layer,
-                    float scale_log2e) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int g = blockIdx.x;
-  const int b = blockIdx.y;
-  const int rep = Hq / Hkv;
-  const int rows = C * rep;  // row r = i * rep + j: chunk token i, head g*rep+j
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);  // BS * LDK
-  __nv_bfloat16* sV = sK + (size_t)BS * LDK;                    // BS * D
-  float* sQ = reinterpret_cast<float*>(sV + (size_t)BS * D);     // ROWS * D
-  float* sS = sQ + ROWS * D;   // ROWS * BS: scores, then probabilities
-  float* sM = sS + ROWS * BS;  // ROWS: running max (base 2)
-  float* sL = sM + ROWS;       // ROWS: running denominator
-  float* sAlpha = sL + ROWS;   // ROWS: this block's rescale factor
-
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t sbase = smem_u32(smem);
+  const Layout lay = layout(cr);
+  const uint32_t sbytes = stage_bytes(cr), hbytes = cr * 128;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-
-  for (int idx = tid; idx < ROWS * D; idx += NTHREADS) {
-    const int r = idx / D, d = idx % D;
-    float x = 0.f;
-    if (r < rows) {
-      const int i = r / rep, j = r % rep;
-      x = __bfloat162float(q[(((int64_t)b * C + i) * Hq + g * rep + j) * D + d]);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(sbase + lay.bar + 8 * s, 1);
+      mbar_init(sbase + lay.bar + 8 * (STAGES + s), NCONS / 32);
     }
-    sQ[idx] = x * scale_log2e;
-  }
-  for (int r = tid; r < ROWS; r += NTHREADS) {
-    sM[r] = NEG_INF;
-    sL[r] = 0.f;
-  }
-
-  const int seq_len = seq_lens[b];
-  const int n_blk = min((seq_len + C + BS - 1) / BS, MB);
-  const int64_t row_stride = (int64_t)Hkv * D;  // between pool slots
-  float acc[ROWS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
-
-  for (int t = 0; t < n_blk; ++t) {
-    const int blk = table[(int64_t)b * MB + t];
-    if (blk < 0 || blk >= NB) continue;  // never handed out; uniform per CTA
-    const int slot0 = t * BS;
-    const int s_end = min(BS, seq_len + C - slot0);  // >= 1 for t < n_blk
-    const int64_t base = (((int64_t)layer * NB + blk) * BS * Hkv + g) * D;
-    __syncthreads();  // the previous block is done with sK, sV and sS
-
-    // ---- stage K and V rows [0, s_end) of this block: BATCH loads in
-    // flight per thread before the first store
-    const int nvec = s_end * (D / VEC);
-    for (int i0 = tid; i0 < nvec; i0 += NTHREADS * BATCH) {
-      uint4 bk[BATCH], bv[BATCH];
-#pragma unroll
-      for (int j = 0; j < BATCH; ++j) {
-        const int i = i0 + j * NTHREADS;
-        if (i < nvec) {
-          const int64_t off = base + (i / (D / VEC)) * row_stride + (i % (D / VEC)) * VEC;
-          bk[j] = *reinterpret_cast<const uint4*>(pool_k + off);
-          bv[j] = *reinterpret_cast<const uint4*>(pool_v + off);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < BATCH; ++j) {
-        const int i = i0 + j * NTHREADS;
-        if (i < nvec) {
-          *reinterpret_cast<uint4*>(sK + (i / (D / VEC)) * LDK + (i % (D / VEC)) * VEC) = bk[j];
-          reinterpret_cast<uint4*>(sV)[i] = bv[j];
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- scores: thread s owns key row s, one accumulator per query row
-    for (int s = tid; s < s_end; s += NTHREADS) {
-      float dot[ROWS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) dot[r] = 0.f;
-      const __nv_bfloat16* krow = sK + s * LDK;
-#pragma unroll 4
-      for (int c = 0; c < D / VEC; ++c) {
-        float kf[VEC];
-        bf16x8_to_float(*reinterpret_cast<const uint4*>(krow + c * VEC), kf);
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          const float4 q0 = *reinterpret_cast<const float4*>(sQ + r * D + c * VEC);
-          const float4 q1 = *reinterpret_cast<const float4*>(sQ + r * D + c * VEC + 4);
-          float p = dot[r];
-          p = fmaf(q0.x, kf[0], p);
-          p = fmaf(q0.y, kf[1], p);
-          p = fmaf(q0.z, kf[2], p);
-          p = fmaf(q0.w, kf[3], p);
-          p = fmaf(q1.x, kf[4], p);
-          p = fmaf(q1.y, kf[5], p);
-          p = fmaf(q1.z, kf[6], p);
-          p = fmaf(q1.w, kf[7], p);
-          dot[r] = p;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const bool ok = slot0 + s <= seq_len + r / rep;
-        sS[r * BS + s] = ok ? dot[r] : NEG_INF;
-      }
-    }
-    __syncthreads();
-
-    // ---- online softmax update over slots [0, s_end), one warp per row
-    for (int r = warp; r < ROWS; r += NWARPS) {
-      float* srow = sS + r * BS;
-      float mx = NEG_INF;
-      for (int s = lane; s < s_end; s += 32) mx = fmaxf(mx, srow[s]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int s = lane; s < s_end; s += 32) {
-        const float x = srow[s];
-        const float p = (x > 0.5f * NEG_INF) ? exp2f(x - m_new) : 0.f;
-        srow[s] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const float alpha = exp2f(m_old - m_new);
-        sAlpha[r] = alpha;
-        sL[r] = sL[r] * alpha + sum;
-        sM[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // ---- acc = acc * alpha + P V, thread tid owns dim tid
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] *= sAlpha[r];
-#pragma unroll 4
-    for (int s = 0; s < s_end; ++s) {
-      const float vv = __bfloat162float(sV[s * D + tid]);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(sS[r * BS + s], vv, acc[r]);
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
+  if (tid >= NCONS) {
+    // the producer: every chunk of the split's valid blocks, STAGES ahead
+    if (tid == NCONS) {
+      uint32_t pc = 0;
+      for (int t = t0; t < t1; ++t) {
+        const int blk = a.table[(int64_t)b * a.MB + t];
+        if (blk < 0 || blk >= a.NB) continue;
+        const int plane = a.layer * a.NB + blk;
+        for (int c0 = 0; c0 < BS && t * BS + c0 < end; c0 += cr, ++pc) {
+          const uint32_t s = pc % STAGES;
+          const uint32_t full = sbase + lay.bar + 8 * s, empty = full + 8 * STAGES;
+          if (pc >= (uint32_t)STAGES) mbar_wait(empty, (pc / STAGES - 1) & 1);
+          const uint32_t dst = sbase + s * sbytes;
+          mbar_expect_tx(full, sbytes);
+          tma_load(dst, &tm_k, full, 0, g, c0, plane);
+          tma_load(dst + hbytes, &tm_k, full, 64, g, c0, plane);
+          tma_load(dst + 2 * hbytes, &tm_v, full, 0, g, c0, plane);
+          tma_load(dst + 3 * hbytes, &tm_v, full, 64, g, c0, plane);
+        }
+      }
+    }
+    return;
+  }
+
+  const int warp = tid / 32, lane = tid % 32, gq = lane / 4, tq = lane % 4;
+  const int rep = a.Hq / a.Hkv, rows = C * rep;  // row r = i * rep + j: token i, head g*rep+j
+  // this thread's rows gq and gq + 8 (rows past `rows` mirror the last one)
+  // and the last slot each attends (seq_len + i)
+  const int ra = gq, rb = gq + 8;
+  const int lim_a = end - C + min(ra, rows - 1) / rep;
+  const int lim_b = end - C + min(rb, rows - 1) / rep;
+
+  // Q as m16n8k16 A fragments over D = 8 k16 steps; rows past `rows` zero
+  uint32_t qa[8][4];
+  {
+    const uint32_t* pa = nullptr;
+    const uint32_t* pb = nullptr;
+    if (ra < rows)
+      pa = reinterpret_cast<const uint32_t*>(
+          a.q + (((int64_t)b * C + ra / rep) * a.Hq + g * rep + ra % rep) * D);
+    if (rb < rows)
+      pb = reinterpret_cast<const uint32_t*>(
+          a.q + (((int64_t)b * C + rb / rep) * a.Hq + g * rep + rb % rep) * D);
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    if (r < rows) {
-      const int i = r / rep, j = r % rep;
-      const float l = sL[r];
-      out[(((int64_t)b * C + i) * Hq + g * rep + j) * D + tid] = l > 0.f ? acc[r] / l : 0.f;
+    for (int kk = 0; kk < 8; ++kk) {
+      qa[kk][0] = pa ? pa[8 * kk + tq] : 0u;
+      qa[kk][1] = pb ? pb[8 * kk + tq] : 0u;
+      qa[kk][2] = pa ? pa[8 * kk + 4 + tq] : 0u;
+      qa[kk][3] = pb ? pb[8 * kk + 4 + tq] : 0u;
     }
   }
+
+  float o[16][4];
+#pragma unroll
+  for (int n = 0; n < 16; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;  // l: this thread's columns
+  const int kb = 16 * warp;  // this warp's keys in each chunk
+  const int mi = lane >> 3;  // the 8 x 8 matrix whose row this lane addresses
+
+  uint32_t pc = 0;
+  for (int t = t0; t < t1; ++t) {
+    const int blk = a.table[(int64_t)b * a.MB + t];
+    if (blk < 0 || blk >= a.NB) continue;
+    for (int c0 = 0; c0 < BS && t * BS + c0 < end; c0 += cr, ++pc) {
+      const uint32_t s = pc % STAGES;
+      const int key0 = t * BS + c0 + kb;  // slot of this warp's first key
+      mbar_wait(sbase + lay.bar + 8 * s, (pc / STAGES) & 1);
+      if (kb < cr && key0 < end) {
+        const uint32_t kbase = sbase + s * sbytes, vbase = kbase + 2 * hbytes;
+        // S = Q K^T over keys kb.. kb + 15: two n8 tiles
+        float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        {
+          const int row = kb + ((mi >> 1) << 3) + (lane & 7);
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk) {
+            const int u = 2 * kk + (mi & 1);  // 16-byte unit of the 256-byte row
+            uint32_t r[4];
+            ldsm_x4(r, kbase + (u >> 3) * hbytes + row * 128 + (((u & 7) ^ (row & 7)) << 4));
+            mma16816(sc[0], qa[kk], r[0], r[1]);
+            mma16816(sc[1], qa[kk], r[2], r[3]);
+          }
+        }
+        // online softmax in base 2: scores past each row's last slot are -inf
+        float mx_a = NEG_INF, mx_b = NEG_INF;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int slot = key0 + 8 * j + 2 * tq + e;
+            sc[j][e] = slot <= lim_a ? sc[j][e] * a.sl2 : NEG_INF;
+            sc[j][2 + e] = slot <= lim_b ? sc[j][2 + e] * a.sl2 : NEG_INF;
+            mx_a = fmaxf(mx_a, sc[j][e]);
+            mx_b = fmaxf(mx_b, sc[j][2 + e]);
+          }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+          mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+        }
+        const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+        const float al_a = exp2f(m_a - mn_a), al_b = exp2f(m_b - mn_b);
+        m_a = mn_a;
+        m_b = mn_b;
+        uint32_t ph[4], pl[4];  // P as A fragments: hi and lo bf16 parts
+        float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float p[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            p[e] = sc[j][e] > 0.5f * NEG_INF ? exp2f(sc[j][e] - (e < 2 ? mn_a : mn_b)) : 0.f;
+          sum_a += p[0] + p[1];
+          sum_b += p[2] + p[3];
+          split_bf16(p[0], p[1], ph[2 * j], pl[2 * j]);
+          split_bf16(p[2], p[3], ph[2 * j + 1], pl[2 * j + 1]);
+        }
+        l_a = l_a * al_a + sum_a;
+        l_b = l_b * al_b + sum_b;
+#pragma unroll
+        for (int n = 0; n < 16; ++n) {
+          o[n][0] *= al_a;
+          o[n][1] *= al_a;
+          o[n][2] *= al_b;
+          o[n][3] *= al_b;
+        }
+        // O += P V over D = 16 n8 tiles; V rows past `end` zeroed
+        const bool tail = key0 + 16 > end;
+        const uint32_t keep0 = (key0 + 2 * tq < end ? 0xffffu : 0u) |
+                               (key0 + 2 * tq + 1 < end ? 0xffff0000u : 0u);
+        const uint32_t keep1 = (key0 + 8 + 2 * tq < end ? 0xffffu : 0u) |
+                               (key0 + 9 + 2 * tq < end ? 0xffff0000u : 0u);
+        const int row = kb + ((mi & 1) << 3) + (lane & 7);
+#pragma unroll
+        for (int p2 = 0; p2 < 8; ++p2) {
+          const int u = 2 * p2 + (mi >> 1);
+          uint32_t r[4];
+          ldsm_x4_t(r, vbase + (u >> 3) * hbytes + row * 128 + (((u & 7) ^ (row & 7)) << 4));
+          if (tail) {
+            r[0] &= keep0;
+            r[2] &= keep0;
+            r[1] &= keep1;
+            r[3] &= keep1;
+          }
+          mma16816(o[2 * p2], ph, r[0], r[1]);
+          mma16816(o[2 * p2], pl, r[0], r[1]);
+          mma16816(o[2 * p2 + 1], ph, r[2], r[3]);
+          mma16816(o[2 * p2 + 1], pl, r[2], r[3]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(sbase + lay.bar + 8 * (STAGES + s));
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+
+  // the warps' (m, l, O) through shared memory, merged in warp order; the
+  // ring is free: every load was waited on
+  named_sync(1, NCONS);
+  float* cO = reinterpret_cast<float*>(smem);
+  float* cM = cO + (NCONS / 32) * MAXR * LDO;
+  float* cL = cM + (NCONS / 32) * MAXR;
+  {
+    float* w = cO + warp * MAXR * LDO;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      *reinterpret_cast<float2*>(w + ra * LDO + 8 * n + 2 * tq) = make_float2(o[n][0], o[n][1]);
+      *reinterpret_cast<float2*>(w + rb * LDO + 8 * n + 2 * tq) = make_float2(o[n][2], o[n][3]);
+    }
+    if (tq == 0) {
+      cM[warp * MAXR + ra] = m_a;
+      cL[warp * MAXR + ra] = l_a;
+      cM[warp * MAXR + rb] = m_b;
+      cL[warp * MAXR + rb] = l_b;
+    }
+  }
+  named_sync(1, NCONS);
+
+  const int d = tid;  // this thread's output column
+  const int bg = b * a.Hkv + g;
+  auto out_at = [&](int r) -> float* {
+    return a.out + (((int64_t)b * C + r / rep) * a.Hq + g * rep + r % rep) * D + d;
+  };
+  float* ws_o = a.ws + (int64_t)bg * a.splits * rows * D;
+  float* ws_ml = a.ws + (int64_t)gridDim.z * a.Hkv * a.splits * rows * D +
+                 (int64_t)bg * a.splits * rows * 2;
+  for (int r = 0; r < rows; ++r) {
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NCONS / 32; ++w) M = fmaxf(M, cM[w * MAXR + r]);
+    float L = 0.f, O = 0.f;
+#pragma unroll
+    for (int w = 0; w < NCONS / 32; ++w) {
+      const float f = exp2f(cM[w * MAXR + r] - M);
+      L += cL[w * MAXR + r] * f;
+      O += cO[(w * MAXR + r) * LDO + d] * f;
+    }
+    if (nsb == 1) {
+      *out_at(r) = L > 0.f ? O / L : 0.f;
+    } else {
+      ws_o[((int64_t)sp * rows + r) * D + d] = O;
+      if (d == 0) {
+        ws_ml[((int64_t)sp * rows + r) * 2] = M;
+        ws_ml[((int64_t)sp * rows + r) * 2 + 1] = L;
+      }
+    }
+  }
+  if (nsb == 1) return;
+
+  // the last split of this (slot, kv head) to finish merges them all
+  __threadfence();
+  named_sync(1, NCONS);
+  int* flag = reinterpret_cast<int*>(smem + lay.flag);
+  if (tid == 0) *flag = atomicAdd(a.tickets + bg, 1) == nsb - 1;
+  named_sync(1, NCONS);
+  if (!*flag) return;
+  __threadfence();
+  // every split's (m, l) into shared memory at once (the warps' O is
+  // spent), then per row the O columns, their loads unrolled so that they
+  // are in flight together: the merge costs a few L2 round trips, not one
+  // per split and row
+  float* sml = cO;
+  for (int j = tid; j < 2 * nsb * rows; j += NCONS) sml[j] = __ldcg(ws_ml + j);
+  named_sync(1, NCONS);
+  for (int r = 0; r < rows; ++r) {
+    float M = NEG_INF;
+    for (int i = 0; i < nsb; ++i) M = fmaxf(M, sml[(i * rows + r) * 2]);
+    float L = 0.f, O = 0.f;
+#pragma unroll 8
+    for (int i = 0; i < nsb; ++i) {
+      const float f = exp2f(sml[(i * rows + r) * 2] - M);
+      L += sml[(i * rows + r) * 2 + 1] * f;
+      O += __ldcg(ws_o + ((int64_t)i * rows + r) * D + d) * f;
+    }
+    *out_at(r) = L > 0.f ? O / L : 0.f;
+  }
+  if (tid == 0) a.tickets[bg] = 0;
 }
 
-template <int ROWS>
-int launch(const void* q, const void* pool_k, const void* pool_v, const void* table,
-           const void* seq_lens, void* out, int B, int C, int Hq, int Hkv, int NB,
-           int BS, int MB, int layer, float scale_log2e, cudaStream_t stream) {
-  const size_t smem = smem_bytes(ROWS, BS);
-  // above 48 KB, dynamic shared memory must be opted into (per device)
-  cudaError_t e = cudaFuncSetAttribute(
-      paged_decode_kernel<ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(Hkv, B);
-  paged_decode_kernel<ROWS><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(pool_k),
-      static_cast<const __nv_bfloat16*>(pool_v), static_cast<const int*>(table),
-      static_cast<const int*>(seq_lens), static_cast<float*>(out), C, Hq, Hkv, NB, BS,
-      MB, layer, scale_log2e);
-  return (int)cudaGetLastError();
+// rows of a ring stage: the largest multiple of 16 up to 64 that divides bs
+int chunk_rows(int bs) {
+  for (int cr = MAX_CR; cr >= 16; cr -= 16)
+    if (bs % cr == 0) return cr;
+  return 0;
 }
 
 }  // namespace
 
-extern "C" int xt_paged_decode_bf16(const void* q, const void* pool_k,
-                                    const void* pool_v, const void* table,
-                                    const void* seq_lens, void* out, int B,
-                                    int C, int Hq, int Hkv, int d, int NB,
-                                    int BS, int MB, int layer, float scale,
-                                    void* stream) {
-  if (d != D || Hkv <= 0 || Hq % Hkv != 0 || C * (Hq / Hkv) > MAXR || B <= 0 ||
-      BS <= 0 || BS % 16 != 0 || MB <= 0)
+// q (B, C, Hq, D), pool_k / pool_v (L, NB, BS, Hkv, D) bf16, block_table (B,
+// MB) int32, seq_lens (B,) int32 -> out (B, C, Hq, D) f32. ws: f32 scratch
+// of B Hkv splits (C Hq / Hkv) (D + 2); tickets: B Hkv int32, zero (and
+// left zero). splits: per (slot, kv head), from paged_decode_split_plan.
+extern "C" int xt_paged_decode_bf16(const void* q, const void* pool_k, const void* pool_v,
+                                    const void* table, const void* seq_lens, void* out,
+                                    void* ws, void* tickets, int B, int C, int Hq, int Hkv,
+                                    int d, int L, int NB, int BS, int MB, int layer,
+                                    int splits, float scale, void* stream) {
+  if (d != D || B <= 0 || B > 65535 || C <= 0 || Hkv <= 0 || Hkv > 65535 || Hq % Hkv != 0 ||
+      C * (Hq / Hkv) > MAXR || BS <= 0 || BS % 16 != 0 || BS > 256 || MB <= 0 || NB <= 0 ||
+      L <= 0 || layer < 0 || layer >= L || splits <= 0 || splits > MAX_SPLITS)
     return (int)cudaErrorInvalidValue;
-  const int rows = C * (Hq / Hkv);
-  const float sl2 = scale * 1.4426950408889634f;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rows <= 1) return launch<1>(q, pool_k, pool_v, table, seq_lens, out, B, C, Hq, Hkv, NB, BS, MB, layer, sl2, st);
-  if (rows <= 2) return launch<2>(q, pool_k, pool_v, table, seq_lens, out, B, C, Hq, Hkv, NB, BS, MB, layer, sl2, st);
-  if (rows <= 4) return launch<4>(q, pool_k, pool_v, table, seq_lens, out, B, C, Hq, Hkv, NB, BS, MB, layer, sl2, st);
-  if (rows <= 8) return launch<8>(q, pool_k, pool_v, table, seq_lens, out, B, C, Hq, Hkv, NB, BS, MB, layer, sl2, st);
-  return launch<16>(q, pool_k, pool_v, table, seq_lens, out, B, C, Hq, Hkv, NB, BS, MB, layer, sl2, st);
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  const int cr = chunk_rows(BS);
+  CUtensorMap tk, tv;
+  if (!make_map(&tk, encode, pool_k, L * NB, BS, Hkv, cr) ||
+      !make_map(&tv, encode, pool_v, L * NB, BS, Hkv, cr))
+    return (int)cudaErrorInvalidValue;
+  const uint32_t smem = layout(cr).bytes;
+  // the shared-memory opt-in, once per device and size (a host call on
+  // the decode loop's every launch otherwise)
+  static uint32_t smem_set[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= MAX_DEVICES || smem_set[dev] < smem) {
+    e = cudaFuncSetAttribute(paged_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < MAX_DEVICES) smem_set[dev] = smem;
+  }
+  const Args a{static_cast<const __nv_bfloat16*>(q), static_cast<const int*>(table),
+               static_cast<const int*>(seq_lens), static_cast<float*>(out),
+               static_cast<float*>(ws), static_cast<int*>(tickets), C, Hq, Hkv, NB, BS, MB,
+               layer, splits, cr, scale * 1.4426950408889634f};
+  dim3 grid(splits, Hkv, B);
+  paged_decode_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(tk, tv, a);
+  return (int)cudaGetLastError();
+}
+
+// the dynamic shared memory of one CTA (bytes) at pool block size bs
+extern "C" int xt_paged_decode_smem_bytes(int bs) {
+  return bs > 0 && bs % 16 == 0 ? (int)layout(chunk_rows(bs)).bytes : 0;
 }

@@ -7,11 +7,22 @@ returns f32. On a CUDA tensor it launches the hand-written Hopper kernel
 `paged_decode_attn_plain`, the gather-based plain version beside it (the
 same math as the JAX engine's gather path, `paged_generate.py:345-402`).
 
+The kernel splits each (slot, kv head)'s blocks into `splits` runs of
+whole blocks (`paged_decode_split_plan`, from the shapes alone; each slot
+cuts its own blocks evenly on the device, `paged_decode_splits`), computes
+a partial softmax per run and merges the runs in order. Its work order in
+plain torch, for the tests only: `paged_decode_walk` (the blocks each
+split loads) and `paged_decode_split_plain` (the partials and the ordered
+merge).
+
 The current chunk's K/V must already be in the pool. Not ported yet:
 sliding windows and sinks (ROADMAP item [serve-rest]).
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -19,8 +30,10 @@ from ... import not_ported
 
 NEG_INF = -1e30
 HEAD_DIM = 128  # the only head_dim the kernel takes
-MAX_ROWS = 16  # C * (Hq / Hkv) query rows per CTA
-MAX_BLOCK = 256  # pool block size bound (shared-memory score tile)
+MAX_ROWS = 16  # C * (Hq / Hkv) query rows per CTA: one m16 tile
+MAX_BLOCK = 256  # pool block size bound (a TMA box has at most 256 rows)
+SPLIT_CTAS_PER_SM = 2  # the split plan's aim, were every table full
+MAX_SPLITS = 256  # the kernel merges at most this many splits
 
 
 def paged_decode_attn_plain(q, pool_k, pool_v, layer: int, block_table,
@@ -43,6 +56,107 @@ def paged_decode_attn_plain(q, pool_k, pool_v, layer: int, block_table,
     probs = torch.softmax(logits, dim=-1)
     o = torch.einsum("bgrcs,bsgd->bcgrd", probs, vv)
     return o.reshape(b, c, hq, d)
+
+
+def paged_decode_split_plan(b: int, hkv: int, mb: int, sms: int) -> int:
+    """Splits per (slot, kv head): about SPLIT_CTAS_PER_SM CTAs per SM if
+    every table held MB blocks, at most MB (and MAX_SPLITS). From the
+    shapes alone: the host never reads seq_lens."""
+    return max(1, min(mb, MAX_SPLITS, -(-SPLIT_CTAS_PER_SM * sms // (b * hkv))))
+
+
+def paged_decode_splits(n_blk: int, splits: int) -> list[tuple[int, int]]:
+    """The kernel's cut of one slot's table entries [0, n_blk) into runs
+    [t0, t1) of ceil(n_blk / splits) whole blocks; one empty run when the
+    slot has no block (it writes zeros)."""
+    per = max(1, -(-n_blk // splits))
+    return [(t0, min(t0 + per, n_blk)) for t0 in range(0, max(n_blk, 1), per)]
+
+
+def paged_decode_walk(block_table, seq_lens, c: int, bs: int, nb: int,
+                      splits: int) -> list[list[list[tuple[int, int]]]]:
+    """Per slot, per split, the (table entry, pool block) pairs the kernel's
+    CTAs load, in order: entries [0, min(ceil((seq_len + C) / BS), MB)),
+    those < 0 or >= NB skipped. The same for every kv head."""
+    table = block_table.tolist()
+    walks = []
+    for row, n in zip(table, seq_lens.tolist()):
+        n_blk = max(0, min(-(-(n + c) // bs), len(row)))
+        walks.append([[(t, row[t]) for t in range(t0, t1) if 0 <= row[t] < nb]
+                      for t0, t1 in paged_decode_splits(n_blk, splits)])
+    return walks
+
+
+def paged_decode_split_plain(q, pool_k, pool_v, layer: int, block_table, seq_lens, *,
+                             scale: float, splits: int) -> torch.Tensor:
+    """The kernel's work order in plain torch (f32): per slot the runs of
+    `paged_decode_walk`, each a partial softmax in base 2 (running max m,
+    sum l, unnormalised O over its slots < seq_len + C, row i of the chunk
+    seeing slots <= seq_len + i), merged in run order; a slot with one run
+    is O / l. Returns (B, C, Hq, D) f32."""
+    b, c, hq, d = q.shape
+    _, nb, bs, hkv, _ = pool_k.shape
+    rep = hq // hkv
+    # (B, Hkv, rows, D), row r = i * rep + j: chunk token i, head g * rep + j
+    qg = q.float().reshape(b, c, hkv, rep, d).permute(0, 2, 1, 3, 4).reshape(b, hkv, c * rep, d)
+    sl2 = scale * math.log2(math.e)
+    out = torch.zeros((b, hkv, c * rep, d), dtype=torch.float32, device=q.device)
+    walks = paged_decode_walk(block_table.cpu(), seq_lens.cpu(), c, bs, nb, splits)
+    for bi, walk in enumerate(walks):
+        n = int(seq_lens[bi])
+        lim = n + torch.arange(c * rep, device=q.device) // rep  # last slot each row sees
+        parts = []
+        for run in walk:
+            slots = torch.tensor([t * bs + s for t, _ in run for s in range(bs)],
+                                 dtype=torch.long, device=q.device)
+            blks = torch.tensor([blk for _, blk in run], dtype=torch.long, device=q.device)
+            k = pool_k[layer][blks].reshape(-1, hkv, d).float()
+            v = pool_v[layer][blks].reshape(-1, hkv, d).float()
+            keep = slots < n + c  # right-pad past the chunk is never read
+            slots, k, v = slots[keep], k[keep], v[keep]
+            s = torch.einsum("grd,sgd->grs", qg[bi], k) * sl2
+            valid = slots[None, None, :] <= lim[None, :, None]
+            s = s.masked_fill(~valid, NEG_INF)
+            m = s.amax(dim=-1) if s.shape[-1] else \
+                torch.full(s.shape[:2], NEG_INF, device=q.device)
+            p = torch.where(valid, torch.exp2(s - m[..., None]), 0.0)
+            parts.append((m, p.sum(dim=-1), torch.einsum("grs,sgd->grd", p, v)))
+        if len(parts) == 1:
+            m, l, o = parts[0]
+        else:
+            m = torch.stack([pm for pm, _, _ in parts]).amax(dim=0)
+            f = [torch.exp2(pm - m) for pm, _, _ in parts]
+            l = sum(pl * fi for (_, pl, _), fi in zip(parts, f))
+            o = sum(po * fi[..., None] for (_, _, po), fi in zip(parts, f))
+        out[bi] = torch.where(l[..., None] > 0, o / l[..., None].clamp(min=1e-30), 0.0)
+    return out.reshape(b, hkv, c, rep, d).permute(0, 2, 1, 3, 4).reshape(b, c, hq, d)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_SCRATCH: dict = {}
+
+
+def _scratch(dev: torch.device, stream: int, n_tickets: int,
+             n_ws: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's scratch for launches on `stream` of `dev`: the
+    per-(slot, kv head) merge tickets (int32, zeroed once, left zero by
+    every launch: the merging CTA resets its own) and the split workspace
+    (f32, torch.empty: each launch writes its partials before it reads
+    them). One pair per stream, so launches on two streams never draw each
+    other's tickets or share a workspace; launches on one stream run in
+    turn. Made once (grown when a launch needs more), not per call: the
+    decode loop is host-bound."""
+    t, ws = _SCRATCH.get((dev, stream), (None, None))
+    if t is None or t.numel() < n_tickets:
+        t = torch.zeros(n_tickets, dtype=torch.int32, device=dev)
+    if ws is None or ws.numel() < n_ws:
+        ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
+    _SCRATCH[(dev, stream)] = (t, ws)
+    return t, ws
 
 
 def _check_kernel_args(q, pool_k, pool_v, layer, block_table, seq_lens):
@@ -97,13 +211,17 @@ def paged_decode_attn(q, pool_k, pool_v, layer: int, block_table, seq_lens,
     from ..cuda_lib import check, load
 
     b, c, hq, d = q.shape
-    _, nb, bs, hkv, _ = pool_k.shape
+    n_layers, nb, bs, hkv, _ = pool_k.shape
+    mb = block_table.shape[1]
+    splits = paged_decode_split_plan(b, hkv, mb, _sm_count(q.device.index))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty((b, c, hq, d), dtype=torch.float32, device=q.device)
+    tickets, ws = _scratch(q.device, stream, b * hkv,
+                           b * hkv * splits * c * (hq // hkv) * (d + 2))
     err = load().xt_paged_decode_bf16(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), block_table.data_ptr(),
-        seq_lens.data_ptr(), out.data_ptr(), b, c, hq, hkv, d, nb, bs,
-        block_table.shape[1], int(layer), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        seq_lens.data_ptr(), out.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
+        b, c, hq, hkv, d, n_layers, nb, bs, mb, int(layer), splits, float(scale), stream)
     check(err, "xt_paged_decode_bf16")
     paged_decode_attn.launches += 1
     return out

@@ -51,10 +51,13 @@ SIGNATURES = {
                           _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # the dynamic shared memory of one backward CTA (bytes)
     "xt_flash_bwd_smem_bytes": [],
-    # q, pool_k, pool_v, block_table, seq_lens, out,
-    # B, C, Hq, Hkv, D, NB, BS, MB, layer, scale, stream
-    "xt_paged_decode_bf16": [_P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, pool_k, pool_v, block_table, seq_lens, out, split workspace (f32),
+    # merge tickets (int32, zero), B, C, Hq, Hkv, D, L, NB, BS, MB, layer,
+    # splits, scale, stream
+    "xt_paged_decode_bf16": [_P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # the dynamic shared memory of one paged decode CTA (bytes): block size
+    "xt_paged_decode_smem_bytes": [_I],
     # x, w, group_sizes, out, M, C, E, K, N, transpose_rhs, walked counts
     # (device int64[3] or null), stream
     "xt_grouped_gemm_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],

@@ -18,12 +18,16 @@ over x in its own dtype (`quantise`): the amax, then the f32 division cast
 to fp8 as it is stored; XLA fuses JAX's the same way.
 
 On a CUDA tensor `fp8_gemm_tilewise` launches the hand-written Hopper
-kernel (`csrc/fp8_gemm.cu`) or raises; on a CPU tensor it runs the plain
-version, the f32 dequantise-then-matmul of JAX's
-`fp8_gemm_tilewise_emulated`. The kernel takes B K-major (the fp8 tensor
-cores' operand layout), so the wrapper lays wq out as (N, K) codes: K * N
-bytes read and written once per call. K and N must be 128 multiples (the
-quantisers' tiles: `float8.py::_tile_dot` pads them); M is never padded.
+kernel (`csrc/fp8_gemm.cu`: the persistent wgmma/TMA kernel of the fp8
+grouped GEMMs, `csrc/fp8_grouped.cuh`, with one group of all M rows) or
+raises; on a CPU tensor it runs the plain version, the f32
+dequantise-then-matmul of JAX's `fp8_gemm_tilewise_emulated`. The kernel
+takes B K-major (the fp8 tensor cores' operand layout), so the wrapper
+lays wq out as (N, K) codes, K * N bytes read and written once per call,
+then calls `fp8_gemm_launch` (which the tools time alone). K and N must be
+128 multiples (the quantisers' tiles: `float8.py::_tile_dot` pads them); M
+is never padded. `fp8_gemm_tiled_plain` is the kernel's work order in plain
+torch (128-row tiles, a promotion per 128-deep step), for the tests only.
 """
 
 from __future__ import annotations
@@ -93,6 +97,24 @@ def fp8_gemm_tilewise_plain(xq, sx, wq, sw, *, tile: int = 128, out_dtype=torch.
     return y.to(out_dtype)
 
 
+def fp8_gemm_tiled_plain(xq, sx, wq, sw, *, tile: int = 128, out_dtype=torch.float32):
+    """#11 in the kernel's order, in plain torch: per 128-row tile of M
+    (the last one short), per 128-deep step t the f32 product of the codes
+    (exact), promoted as acc + part * (sx[row, t] sw[t, n / 128])."""
+    m, k = xq.shape
+    xf, wf = xq.float(), wq.float()
+    swn = sw.repeat_interleave(tile, dim=1)  # (K/tile, N)
+    out = torch.empty((m, wq.shape[1]), dtype=out_dtype, device=xq.device)
+    for r0 in range(0, m, tile):
+        rows = slice(r0, min(r0 + tile, m))
+        acc = torch.zeros((rows.stop - r0, wq.shape[1]), dtype=torch.float32, device=xq.device)
+        for t in range(k // tile):
+            ks = slice(tile * t, tile * (t + 1))
+            acc = acc + (xf[rows, ks] @ wf[ks]) * (sx[rows, t, None] * swn[t][None])
+        out[rows] = acc.to(out_dtype)
+    return out
+
+
 def check_fp8_operands(name: str, tile: int, *pairs) -> None:
     """What the fp8 kernels take: `tile` 128, fp8 codes, f32 scales, one
     device, contiguous codes."""
@@ -133,22 +155,45 @@ def fp8_gemm_tilewise(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor, sw: 
     if xq.device.type == "cpu":
         return fp8_gemm_tilewise_plain(xq, sx, wq, sw, tile=tile, out_dtype=out_dtype)
     check_fp8_operands("fp8_gemm_tilewise", tile, (xq, sx), (wq, sw))
+    return fp8_gemm_launch(xq.contiguous(), sx.contiguous(), k_major(wq).view(wq.dtype),
+                           sw.contiguous(), out_dtype)
+
+
+def fp8_gemm_launch(xq: torch.Tensor, sx: torch.Tensor, wt: torch.Tensor, sw: torch.Tensor,
+                    out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Launch #11 on operands in its layout: xq (M, K) fp8 codes, sx (M,
+    K/128) f32, wt (N, K) fp8 codes (wq K-major), sw (K/128, N/128) f32,
+    all contiguous on one card -> (M, N) out_dtype. Checked before any
+    pointer reaches a TMA map. Each launch adds one to
+    `fp8_gemm_tilewise.launches` (M = 0 launches nothing)."""
+    m, k = xq.shape
+    n, k2 = wt.shape
+    if k2 != k or k % 128 or n % 128 or sx.shape != (m, k // 128) \
+            or sw.shape != (k // 128, n // 128):
+        raise ValueError(f"fp8_gemm_tilewise kernel: xq {tuple(xq.shape)}, sx {tuple(sx.shape)}, "
+                         f"wt {tuple(wt.shape)}, sw {tuple(sw.shape)} do not fit its layout")
     if out_dtype not in _OUT_CODE:
         raise ValueError(f"fp8_gemm_tilewise kernel: out_dtype {out_dtype}, want bf16 or f32")
-    out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
+    dev = xq.device
+    if dev.type != "cuda":
+        raise ValueError(f"fp8_gemm_tilewise kernel: operands on {dev}, want a CUDA device")
+    if xq.dtype not in _FP8_CODE or wt.dtype not in _FP8_CODE or \
+            sx.dtype != torch.float32 or sw.dtype != torch.float32:
+        raise ValueError("fp8_gemm_tilewise kernel: want fp8 codes (e4m3fn or e5m2) with "
+                         "float32 scales")
+    if any(t.device != dev or not t.is_contiguous() for t in (xq, sx, wt, sw)):
+        raise ValueError("fp8_gemm_tilewise kernel: operands must be contiguous and on one "
+                         "device")
+    check_aligned("fp8_gemm_tilewise", xq, wt)
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0:
         return out
     from .cuda_lib import check, load
 
-    # every operand bound to a name until the launch: a temporary freed
-    # early could hand its memory to the next one
-    xc, sxc, wt, swc = xq.contiguous(), sx.contiguous(), k_major(wq), sw.contiguous()
-    check_aligned("fp8_gemm_tilewise", xc, wt)
     err = load().xt_fp8_gemm(
-        xc.data_ptr(), sxc.data_ptr(), wt.data_ptr(), swc.data_ptr(), out.data_ptr(),
-        m, k, n, _FP8_CODE[xq.dtype],
-        _FP8_CODE[wq.dtype], _OUT_CODE[out_dtype],
-        torch.cuda.current_stream(xq.device).cuda_stream)
+        xq.data_ptr(), sx.data_ptr(), wt.data_ptr(), sw.data_ptr(), out.data_ptr(),
+        m, k, n, _FP8_CODE[xq.dtype], _FP8_CODE[wt.dtype], _OUT_CODE[out_dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
     check(err, "xt_fp8_gemm")
     fp8_gemm_tilewise.launches += 1
     return out
