@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving path, its MoE SFT train step, its SFT
 entry point (in bf16, in tile-wise fp8 and with both kernel switches),
-bench.py's longctx_64k row, GLM-5.2's DSA head and DeepSeek-V3's MLA head,
-once on one NVIDIA card.
+bench.py's longctx_64k row, GLM-5.2's DSA head, DeepSeek-V3's MLA head,
+GLM-4.5-Air's noaux-routed MoE head and moe_heavy with MTP, once on one
+NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--breakdown]
 
@@ -124,6 +125,28 @@ exits non-zero with no result line:
    forward's walk against its plan, times, bounds, and SDPA with the
    documents' mask under the backend that takes v's head dim (or with v
    zero-padded).
+16. glm45_air_head: `recipes/sft_glm45_air_head.py` (GLM-4.5-Air's dense
+   layer and first MoE layer at full width, 3.827 B params: 96/8 heads with
+   qkv bias, 128 experts top-8 of width 1408 behind the noaux router, a
+   shared expert) through `Trainer.fit` in a temporary directory, 4 steps
+   on the recipe's own 8192-token rows, no final save: per step step ms,
+   supervised tokens/s, maxvio, the trunk's correction-bias range and peak
+   memory; after step 1 each bias entry moved by exactly the update speed
+   against its expert's load; a falling CE; the exact launches; one
+   profiled step (the flash kernels and AdamW apart); then one step
+   under `XTUNER_FUSED_MLP=1`, its step-1 losses within 2e-2 of the first
+   run's;
+17. glm45_kernels: #1 and the grouped backward (#2 + #3) at B1 L8192 with
+   96 q heads over 8 kv heads (a group of 12), on five documents and on
+   the recipe's row, against the plain versions in 1024-row chunks; the
+   bf16 grouped GEMMs (#6, #7) and #16 at E128 H4096 F1408 with the group
+   sizes of the noaux router's own top-8 route, against their plain
+   versions, `torch._grouped_mm` and (for #16) the decomposed path;
+18. moe_heavy_mtp: `recipes/sft_moe_heavy_mtp.py` (the sft recipe with one
+   MTP layer) through `Trainer.fit`, 6 steps, no final save: CE,
+   `mtp_loss` and step ms per step; the trunk's step-1 CE equal to the sft
+   phase's; the exact launches (the MTP layer's kernels and a second fused
+   CE per step).
 
 Between phases it frees what the last one held and checks that nothing
 large stays allocated, so each peak is the phase's own. Then a JSON line
@@ -226,6 +249,18 @@ DEEPSEEK_SOL_STEPS = 2
 # recipe's own packed row
 MLA_SEQ, MLA_HEADS, MLA_D, MLA_DV = 16384, 128, 192, 128
 MLA_DOCS = [8192, 4096, 2048, 1024, 1024]
+# glm45_air_head phase (recipes/sft_glm45_air_head.py through Trainer.fit):
+# step-1 CE of a random model is ln(V) + sigma^2 / 2 for logits of std
+# 0.02 * sqrt(4096): 11.93 + 0.82 = 12.75; 4 steps of one 8192-token row
+GLM45_RECIPE = "xtuner_tpu_torch/recipes/sft_glm45_air_head.py"
+GLM45_STEPS = 4
+GLM45_LOSS1 = (12.0, 13.8)
+GLM45_PARAMS = 3_826_565_248
+# moe_heavy_mtp phase: recipes/sft_moe_heavy_mtp.py; the trunk's step-1 CE
+# is the sft phase's (the same trunk weights, seed and data) up to the
+# order of an f32 sum
+MTP_RECIPE = "xtuner_tpu_torch/recipes/sft_moe_heavy_mtp.py"
+MTP_CE1_RTOL = 1e-6
 # the longctx row (recipes/bench_longctx_64k.py): step-1 CE of a random
 # model is ln(V) + sigma^2 / 2 for logits of std 0.02 * sqrt(1024):
 # 11.93 + 0.20 = 12.13; lr is 1e-5 on random labels, so the loss is not
@@ -2243,6 +2278,479 @@ def phase_mla_kernels(torch, seed: int, smi: str, recipe_seg) -> list[dict]:
     return rows
 
 
+def fit_recipe(torch, rel_recipe: str, steps=None, hooks=(), env=None):
+    """`Trainer.fit` on a recipe loaded as the `sft` CLI loads it
+    (`config_from_args`), in a temporary working directory, with `hooks`
+    added, `steps` in place of the recipe's total when given and `env` set
+    for the run; the final save is skipped (`Trainer._save` is a no-op
+    here: these runs are measured, not resumed). -> (trainer, its tracker
+    records, every kernel's launches, peak GiB, wall s)."""
+    import dataclasses
+    import os
+    import tempfile
+    from pathlib import Path
+    from unittest import mock
+
+    from xtuner_tpu_torch.train.cli import sft
+    from xtuner_tpu_torch.train.trainer import Trainer
+
+    recipe = str(Path(__file__).resolve().parent / rel_recipe)
+    cfg = sft.config_from_args(sft.build_parser().parse_args(["--config", recipe]))
+    cfg = dataclasses.replace(cfg, hooks=[*cfg.hooks, *hooks],
+                              total_steps=steps or cfg.total_steps)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="xt_fit_") as tmp, \
+            mock.patch.dict(os.environ, env or {}), \
+            mock.patch.object(Trainer, "_save", lambda self, step, mgr=None: None):
+        os.chdir(tmp)
+        try:
+            reset_train_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer = Trainer(cfg)
+            trainer.fit()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = train_launches(torch)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            recs = [json.loads(x) for x in
+                    (trainer.work_dir / "tracker.jsonl").read_text().splitlines()]
+        finally:
+            os.chdir(cwd)
+    return trainer, recs, launches, peak, wall
+
+
+class StepProbe:
+    """A `TrainerHook`: after each step, a copy of the trunk's noaux
+    correction bias (`moe_layers`), the step's expert loads by stack
+    (`TrainEngine.last_expert_load`) and its metrics."""
+
+    def __init__(self):
+        self.rows: list = []
+
+    def after_train_step(self, trainer, step: int, metrics: dict) -> None:
+        eng = trainer.engine
+        bias = eng.params["moe_layers"]["router"]["e_score_correction_bias"].detach().clone()
+        self.rows.append((step, bias, {k: v.clone() for k, v in eng.last_expert_load.items()},
+                          dict(metrics)))
+
+    def after_save_checkpoint(self, trainer, step: int) -> None:
+        pass
+
+
+def check_fit(phase: str, recs: list, steps: int, loss1: tuple) -> list:
+    """The tracker of a `fit_recipe` run: `steps` steps, finite losses and
+    grad norms, step-1 CE inside `loss1`, a falling CE, none skipped ->
+    the CE per step."""
+    import numpy as np
+
+    losses = [r["reduced_llm_loss"] for r in recs]
+    norms = [r["grad_norm"] for r in recs]
+    if [r["step"] for r in recs] != list(range(1, steps + 1)):
+        raise AssertionError(f"{phase}: tracker.jsonl has steps {[r['step'] for r in recs]}")
+    if not all(np.isfinite(losses + norms + [r["total_loss"] for r in recs])):
+        raise AssertionError(f"{phase}: non-finite loss or grad norm: {losses}, {norms}")
+    if not loss1[0] <= losses[0] <= loss1[1]:
+        raise AssertionError(f"{phase}: step-1 CE {losses[0]} outside {loss1}")
+    if steps > 1 and not losses[-1] < losses[0]:
+        raise AssertionError(f"{phase}: CE did not fall over {steps} steps: {losses}")
+    if any(r["skipped"] for r in recs):
+        raise AssertionError(f"{phase}: a step was skipped")
+    return losses
+
+
+def phase_glm45_air_head(torch, seed: int, smi: str) -> tuple[dict, dict, object]:
+    """GLM-4.5-Air's dense layer and first MoE layer at full width
+    (`recipes/sft_glm45_air_head.py`, 3.827 B params: 96/8 heads with qkv
+    bias, 128 experts top-8 of width 1408 behind the noaux router, a shared
+    expert) through `Trainer.fit`: 4 steps on the recipe's own 8192-token
+    rows, no final save (`fit_recipe`). Per step: step ms, supervised
+    tokens/s, `maxvio`, the trunk's correction-bias range and peak memory;
+    after step 1 every bias entry must have moved by exactly
+    `bias_update_speed` against the sign of its expert's load minus the
+    mean (0 where equal); CE finite and falling; the exact launches (per
+    layer and step the flash forward (#1, running max: no qk-norm) twice
+    under remat "full" and the grouped backward (#2 + #3, a q-head group of
+    12) once; per step of the MoE layer the grouped nn 4, nt 2, dw 2);
+    peak below the card's memory; one more step under the profiler, the
+    flash kernels and AdamW apart. Then a 1-step run under
+    `XTUNER_FUSED_MLP=1` (#16 forward and recompute in place of the nn
+    GEMMs): its step-1 CE and total loss within SWITCHED_LOSS_ATOL of the
+    first run's. Returns both runs' launches and the segment ids (1, L) of
+    the recipe's first row."""
+    from xtuner_tpu_torch.module.params import count_params
+
+    probe = StepProbe()
+    trainer, recs, launches, peak, wall = fit_recipe(torch, GLM45_RECIPE, hooks=[probe])
+    cfg, attn = trainer.cfg.model_cfg, trainer.cfg.model_cfg.attention
+    n = trainer.engine.num_params
+    speed = cfg.router.bias_update_speed
+    batch = next(iter(trainer.dataloader))
+    trainer.dataloader.close()
+    seg = torch.as_tensor(batch["segment_ids"][0]).to(torch.int32)
+    remat = trainer.engine.remat
+    # one more step under the profiler: the flash kernels and AdamW apart
+    # from the rest (the grouped GEMMs are the port's other kernels)
+    with annotated(torch, MLA_TARGETS):
+        profile_window(torch, "glm45_air_head_step",
+                       lambda: trainer.engine.train_step(batch, GLM45_STEPS + 1), top=12,
+                       annotations=tuple(MLA_TARGETS))
+    del trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+    say("glm45_air_head", recipe=GLM45_RECIPE, params=n,
+        layers=f"{cfg.num_hidden_layers}/46 (dense {cfg.first_k_dense_replace}, MoE "
+               f"{cfg.num_hidden_layers - cfg.first_k_dense_replace}), mtp 0/1",
+        reason=repr(f"16 B x {n / 1e9:.3f} B = {16 * n / 1e9:.1f} GB of f32 state; every "
+                    f"further MoE layer adds 2.34 B params (37.5 GB), the MTP block is one"),
+        hidden=cfg.hidden_size,
+        heads=f"{attn.num_attention_heads}/{attn.num_key_value_heads}",
+        qkv_bias=attn.qkv_bias, experts=f"{cfg.n_routed_experts}/top{cfg.num_experts_per_tok}",
+        moe_inter=cfg.moe_intermediate_size, shared=cfg.n_shared_experts,
+        router=f"{cfg.router.router_type} speed {speed}", vocab=cfg.vocab_size,
+        ce=cfg.lm_loss_cfg.mode, remat=remat, wall_s=f"{wall:.3f}", save="skipped")
+    bias_moves = None
+    for (step, bias, load, m), r in zip(probe.rows, recs):
+        say("glm45_air_head", step=step, loss=f"{r['reduced_llm_loss']:.5f}",
+            grad_norm=f"{r['grad_norm']:.5f}", lr=f"{r['lr']:.3e}",
+            tokens=int(r["consumed_tokens"]), step_ms=f"{1e3 * r['step_time']:.1f}",
+            tgs=f"{r['tgs']:.1f}", maxvio=f"{m['maxvio']:.4f}",
+            bias_min=f"{bias.min().item():.6f}", bias_max=f"{bias.max().item():.6f}",
+            skipped=int(r["skipped"]), peak_gib=f"{peak:.3f}")
+        if step == 1:
+            trunk = load["moe_layers"]
+            want = (speed * torch.sign(trunk.mean(dim=-1, keepdim=True) - trunk)).float()
+            exact = torch.equal(bias, want)
+            bias_moves = (int((bias > 0).sum()), int((bias < 0).sum()), int((bias == 0).sum()))
+            say("glm45_air_head", after_step=1, bias_exact=exact,
+                up_down_still=",".join(map(str, bias_moves)),
+                load_min_max_mean=f"{int(trunk.min())},{int(trunk.max())},"
+                                  f"{trunk.mean().item():.1f}")
+            if not exact:
+                raise AssertionError(f"the correction bias after step 1 is not "
+                                     f"+-{speed} x sign(mean - load): {bias} against {want}")
+    steady = recs[1:]
+    step_s = sum(r["step_time"] for r in steady) / len(steady)
+    tokens = sum(r["consumed_tokens"] for r in steady) / len(steady)
+    per = GLM45_STEPS * cfg.num_hidden_layers
+    moe = GLM45_STEPS * (cfg.num_hidden_layers - cfg.first_k_dense_replace)
+    want = {name: 0 for name in launches}
+    want.update(flash_fwd=2 * per, flash_bwd=per, grouped_gemm_nn=4 * moe,
+                grouped_gemm_nt=2 * moe, grouped_gemm_dw=2 * moe)
+    say("glm45_air_head", launches={k: v for k, v in launches.items() if v or want[k]},
+        expected={k: v for k, v in want.items() if v}, steady_step_ms=f"{1e3 * step_s:.1f}",
+        steady_tgs=f"{tokens / step_s:.1f}", pack_positions_s=f"{SEQ / step_s:.1f}",
+        peak_gib=f"{peak:.3f}", card_gib=f"{card_gib:.3f}", card=repr(smi))
+    losses = check_fit("glm45_air_head", recs, GLM45_STEPS, GLM45_LOSS1)
+    if n != GLM45_PARAMS or n != count_params(cfg.build().param_specs()):
+        raise AssertionError(f"{n} params, not the recipe's {GLM45_PARAMS}")
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} != what {GLM45_STEPS} steps "
+                             f"imply {want}")
+    if not peak < card_gib or bias_moves is None:
+        raise AssertionError(f"peak {peak:.3f} GiB >= the card's {card_gib:.3f}, or no "
+                             f"bias after step 1")
+
+    # the same recipe, seed and data, one step under the fused expert MLP
+    trainer, frecs, flaunches, fpeak, _ = fit_recipe(torch, GLM45_RECIPE, steps=1,
+                                                     env={"XTUNER_FUSED_MLP": "1"})
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe1 = cfg.num_hidden_layers - cfg.first_k_dense_replace
+    fwant = {name: 0 for name in flaunches}
+    fwant.update(flash_fwd=2 * cfg.num_hidden_layers, flash_bwd=cfg.num_hidden_layers,
+                 fused_moe_mlp=2 * moe1, grouped_gemm_nt=2 * moe1, grouped_gemm_dw=2 * moe1)
+    diffs = [abs(frecs[0][k] - recs[0][k]) for k in ("reduced_llm_loss", "total_loss")]
+    say("glm45_air_head", run="fused_mlp", switches=repr({"fused_mlp": "1"}),
+        loss1=f"{frecs[0]['reduced_llm_loss']:.5f}", decomposed_loss1=f"{losses[0]:.5f}",
+        total1=f"{frecs[0]['total_loss']:.5f}", decomposed_total1=f"{recs[0]['total_loss']:.5f}",
+        max_abs_diff=f"{max(diffs):.3e}", tol=SWITCHED_LOSS_ATOL,
+        step_ms=f"{1e3 * frecs[0]['step_time']:.1f}", peak_gib=f"{fpeak:.3f}",
+        launches={k: v for k, v in flaunches.items() if v or fwant[k]},
+        expected={k: v for k, v in fwant.items() if v})
+    if not max(diffs) <= SWITCHED_LOSS_ATOL:
+        raise AssertionError(f"the fused-MLP run's step-1 losses differ from the decomposed "
+                             f"run's by {diffs} (> {SWITCHED_LOSS_ATOL})")
+    if flaunches != fwant:
+        raise AssertionError(f"the fused-MLP run's launches {flaunches} != {fwant}")
+    return launches, flaunches, seg
+
+
+def sdpa_or_none(torch, q, k, v, mask, do=None):
+    """`sdpa_any_ms`, or (None, None, why) where the backward's own forward
+    call already refuses."""
+    try:
+        return sdpa_any_ms(torch, q, k, v, mask, do)
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        return None, None, f"{type(e).__name__}: {str(e).strip().splitlines()[0][:160]}"
+
+
+def phase_glm45_kernels(torch, seed: int, smi: str, recipe_seg) -> list[dict]:
+    """The kernels of the glm45_air_head path against their plain versions
+    at the shapes it gives them. #1 (running max) and the grouped backward
+    (#2 + #3) at B1 L8192 with 96 q heads over 8 kv heads (a group of 12),
+    D 128, on five documents and a padded tail and on the recipe's own row,
+    against the plain versions in PLAIN_CHUNK-row chunks
+    (`flash_plain_chunked`; dk and dv summed over each group), whether two
+    backward launches give the same bits (printed), the forward's walk
+    against its plan, SDPA with the documents' mask as the library time.
+    The bf16 grouped GEMMs (#6 nn and nt, #7) at E128 H4096 F1408 (gate|up
+    N 2816, down K 1408), M = 8192 x top-8 with the group sizes of the
+    noaux router's own top-8 route (`noaux_route` on rms-1 rows and
+    router weights of std 0.02), against their plain versions and
+    `torch._grouped_mm`. #16 forward and backward at the same shapes,
+    against its plain version, two launches the same bits, its walk
+    against `fused_mlp_plan_counts`, beside the decomposed path and
+    `torch._grouped_mm` twice."""
+    import numpy as np
+
+    from xtuner_tpu_torch.model.glm import glm_45_air
+    from xtuner_tpu_torch.module.router import noaux_route
+    from xtuner_tpu_torch.ops import fused_moe_mlp as fm
+    from xtuner_tpu_torch.ops.attention import flash as fl
+    from xtuner_tpu_torch.ops.bf16_grouped import grouped_gemm_bf16
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    rng = np.random.default_rng(seed + 11)
+    src = "xtuner_tpu_torch/csrc/"
+    air = glm_45_air()
+    b, l = 1, SEQ
+    hq, hkv = air.attention.num_attention_heads, air.attention.num_key_value_heads
+    d = air.attention.head_dim
+    rep, scale = hq // hkv, d ** -0.5
+    heads_first = lambda t: t[0].transpose(0, 1)  # (B, L, H, X) -> (H, L, X)
+    path = "glm45_air_head"
+    rows = []
+    docs_seg = _segments(torch, doc_lengths(rng, l, 5, int(rng.integers(100, 400))), l, dev)
+    for label, seg in (("docs", docs_seg), ("recipe", recipe_seg.to(dev))):
+        q = torch.randn((b, l, hq, d), generator=g, device=dev).bfloat16()
+        k, v = (torch.randn((b, l, hkv, d), generator=g, device=dev).bfloat16() for _ in "kv")
+        do = torch.randn((b, l, hq, d), generator=g, device=dev).bfloat16()
+        pairs = causal_pairs(torch, seg)
+        shape = f"B{b}xL{l}xHq{hq}xHkv{hkv}xD{d}"
+        fl.reset_launches()
+        out, lse = fl.flash_attention(q, k, v, seg)
+        torch.cuda.synchronize()
+        if fl.flash_attention.launches != 1 or fl.max_free_launches() != 0:
+            raise AssertionError("the GLM-4.5-Air forward did not launch the running-max "
+                                 "kernel once")
+        (ref_out, ref_lse), fwd_plain = timed_once(torch, lambda: flash_plain_chunked(
+            torch, q, k, v, seg, None, None, None, scale, "fwd"))
+        valid = seg[0] != 0
+        fwd_rel = _rel_rows(heads_first(out)[:, valid], ref_out[:, valid])
+        fwd_err = _abs(heads_first(out)[:, valid], ref_out[:, valid])
+        lse_err = _abs(lse[0][:, valid], ref_lse[:, valid])
+        pad_ok = bool((out[0][~valid] == 0).all())
+        del ref_out, ref_lse
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, seg, lse, delta, do, scale)
+        ref_dq, dq_plain = timed_once(torch, lambda: flash_plain_chunked(torch, *args, "dq"))
+        (ref_dk, ref_dv), dkv_plain = timed_once(torch, lambda: flash_plain_chunked(
+            torch, *args, "dkv"))
+        ref_dk, ref_dv = (t.reshape(hkv, rep, l, d).sum(1) for t in (ref_dk, ref_dv))
+        got = fl.flash_bwd(*args)
+        again = fl.flash_bwd(*args)
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        del again
+        hf = [heads_first(t) for t in got]
+        bwd_rels = [_rel_rows(t[:, valid], w[:, valid])
+                    for t, w in zip(hf, (ref_dq, ref_dk, ref_dv))]
+        bwd_err = max(_abs(t[:, valid], w[:, valid]) for t, w in zip(hf, (ref_dq, ref_dk, ref_dv)))
+        zero = all(bool((t[0][~valid] == 0).all()) for t in got)
+        del got, hf, ref_dq, ref_dk, ref_dv
+        fwd_ms = cuda_ms(lambda: fl.flash_attention(q, k, v, seg), iters=5)
+        bwd_ms = cuda_ms(lambda: fl.flash_bwd(*args), iters=5)
+        mask = block_causal_mask(torch, seg)
+        lib_fwd, backend_fwd, how_fwd = sdpa_or_none(torch, q, k, v, mask)
+        lib_bwd, backend_bwd, how_bwd = sdpa_or_none(torch, q, k, v, mask, do)
+        del mask
+        nums = fwd_numbers(torch, q, k, v, seg, None, fwd_ms, lib_fwd)
+        fwd_b = least_ms(4 * pairs * hq * d, flash_bytes(q, k), PEAK_BF16)
+        bwd_b = bwd_bound(q, k, pairs)
+        say("kernel", name="flash_fwd", shape=shape, group=rep, seq=label,
+            docs=int(seg.max()), pairs=pairs, err=f"{fwd_err:.3e}", out_rel=f"{fwd_rel:.3e}",
+            lse_err=f"{lse_err:.3e}", pad_rows_ok=pad_ok, ms=f"{fwd_ms:.4f}",
+            plain_ms=f"{fwd_plain:.1f}", sdpa_backend=backend_fwd, sdpa_how=repr(how_fwd),
+            card=repr(smi), **nums)
+        say("kernel", name="flash_bwd", shape=shape, group=rep, seq=label,
+            dq_dk_dv_rel=",".join(f"{x:.3e}" for x in bwd_rels), err=f"{bwd_err:.3e}",
+            same_bits=same, pad_rows_ok=zero, ms=f"{bwd_ms:.4f}",
+            plain_ms=f"{dq_plain + dkv_plain:.1f}", bound_ms=f"{bwd_b['bound_ms']:.4f}",
+            share_of_bound=f"{bwd_b['bound_ms'] / bwd_ms:.3f}",
+            tflops=f"{10 * pairs * hq * d / bwd_ms / 1e9:.1f}", sdpa_bwd_ms=lib_bwd,
+            sdpa_backend=backend_bwd, sdpa_how=repr(how_bwd), card=repr(smi))
+        # `same_bits` is printed, not required: at 128/128 the one-pass
+        # backward adds dq into an f32 buffer by bulk reduce-add from each
+        # k tile's CTA, in whatever order the CTAs finish
+        if not (fwd_rel <= FLASH_GRAD_RTOL and lse_err <= FLASH_LSE_ATOL and pad_ok and
+                max(bwd_rels) <= FLASH_GRAD_RTOL and zero):
+            raise AssertionError(f"the flash kernels disagree at {shape} ({label}): out "
+                                 f"{fwd_rel}, lse {lse_err}, dq/dk/dv {bwd_rels} (<= "
+                                 f"{FLASH_GRAD_RTOL}); padding rows zero {pad_ok}, {zero}")
+        common = {"route": "cuda", "seq": label, "shape": shape,
+                  "plain_is": f"the plain version in {PLAIN_CHUNK}-row chunks"}
+        rows.append({"name": "flash_fwd", "source": src + "flash_fwd.cu",
+                     "replaces": "xtuner_tpu/ops/attention/flash.py:82", "path": path,
+                     "max_abs_err": max(fwd_err, lse_err), "ms": fwd_ms, "plain_ms": fwd_plain,
+                     **fwd_b, "library_ms": lib_fwd,
+                     "library_is": f"SDPA {backend_fwd}, {how_fwd}", **common})
+        for r in bwd_rows(path, {"max_abs_err": bwd_err, "ms": bwd_ms,
+                                 "plain_ms": dq_plain + dkv_plain, **bwd_b,
+                                 "library_ms": lib_bwd}):
+            rows.append({**r, **common, "library_is": f"SDPA backward {backend_bwd}, "
+                                                      f"{how_bwd}"})
+        del q, k, v, do, out, lse, delta, args
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- the MoE layer's grouped GEMMs and #16 at E128 H4096 F1408, sizes
+    # from the noaux router's own top-8 route of 8192 tokens
+    e, hid, f, topk = (air.n_routed_experts, air.hidden_size, air.moe_intermediate_size,
+                       air.num_experts_per_tok)
+    tok = torch.randn((SEQ, hid), generator=g, device=dev)
+    router = {"w": torch.randn((hid, e), generator=g, device=dev) * 0.02,
+              "e_score_correction_bias": torch.zeros(e, device=dev)}
+    idx = noaux_route(router, air.router, tok, topk).topk_idx
+    sizes = torch.bincount(idx.flatten(), minlength=e).to(torch.int32)
+    del tok, router, idx
+    m = SEQ * topk
+    say("kernel", name="noaux_route_sizes", experts=e, rows=m,
+        min_max=f"{int(sizes.min())},{int(sizes.max())}", empty=int((sizes == 0).sum()))
+    x = torch.randn((m, hid), generator=g, device=dev).bfloat16()
+    w_gu = (torch.randn((e, hid, 2 * f), generator=g, device=dev) * 0.02).bfloat16()
+    w_dn = (torch.randn((e, f, hid), generator=g, device=dev) * 0.02).bfloat16()
+    hmid = torch.randn((m, f), generator=g, device=dev).bfloat16()
+    dy_gu = torch.randn((m, 2 * f), generator=g, device=dev).bfloat16()
+    dy_dn = torch.randn((m, hid), generator=g, device=dev).bfloat16()
+    rows += grouped_rows(torch, path, grouped_cases(
+        x, hmid, w_gu, w_dn, dy_gu, dy_dn, sizes, e), m, e, iters=5, plain_iters=2)
+    del hmid, dy_gu, dy_dn
+
+    fm.reset_launches()
+    out, gu = fm.fused_moe_mlp_fwd(x, w_gu, w_dn, sizes)
+    out2, gu2 = fm.fused_moe_mlp_fwd(x, w_gu, w_dn, sizes)
+    repeat = torch.equal(out, out2) and torch.equal(gu, gu2)
+    del out2, gu2
+    walked = fm.fused_mlp_tiles_walked()
+    plan = tuple(2 * c for c in fm.fused_mlp_plan_counts(sizes, m, hid, f))
+    ref_out, ref_gu = fm.fused_moe_mlp_plain(x, w_gu, w_dn, sizes)
+    torch.cuda.synchronize()
+    err = max(_abs(out, ref_out), _abs(gu, ref_gu))
+    rel = max(_rel(out, ref_out), _rel(gu, ref_gu))
+    del out, gu, ref_out, ref_gu
+    co = torch.randn((m, hid), generator=g, device=dev)
+    grads = []
+    for fn, dtype in ((fm.fused_moe_mlp, torch.bfloat16),
+                      (lambda *a: fm.fused_moe_mlp_plain(*a)[0], torch.float32)):
+        leaves = [t.detach().to(dtype).requires_grad_(True) for t in (x, w_gu, w_dn)]
+        (fn(*leaves, sizes).float() * co).sum().backward()
+        grads.append([t.grad for t in leaves])
+        del leaves
+    g_rel = max(_rel(a, r_) for a, r_ in zip(*grads))
+    del grads, co
+    gc.collect()
+    torch.cuda.empty_cache()
+    shape = f"M{m}xE{e}xH{hid}xF{f}"
+    ms = cuda_ms(lambda: fm.fused_moe_mlp_fwd(x, w_gu, w_dn, sizes), iters=5)
+    plain = cuda_ms(lambda: fm.fused_moe_mlp_plain(x, w_gu, w_dn, sizes), iters=2, warmup=1)
+
+    def decomposed():
+        gu_ = grouped_gemm_bf16(x, w_gu, sizes)
+        mid = (torch.nn.functional.silu(gu_[:, :f].float()) * gu_[:, f:].float()).bfloat16()
+        return grouped_gemm_bf16(mid, w_dn, sizes)
+
+    dec_ms = cuda_ms(decomposed, iters=5)
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+
+    def grouped_mm_pair():
+        gu_ = torch._grouped_mm(x, w_gu, offs=offs)
+        mid = (torch.nn.functional.silu(gu_[:, :f].float()) * gu_[:, f:].float()).bfloat16()
+        return torch._grouped_mm(mid, w_dn, offs=offs)
+
+    pair_ms, pair_why = library_ms(torch, grouped_mm_pair)
+    flops = 6 * m * hid * f
+    nbytes = 2 * m * hid * 2 + 2 * m * 2 * f + 2 * e * hid * 2 * f + 2 * e * f * hid
+    bound = least_ms(flops, nbytes, PEAK_BF16)
+    say("kernel", name="fused_moe_mlp", shape=shape, empty=int((sizes == 0).sum()),
+        out_gu_err=f"{err:.3e}", out_gu_rel=f"{rel:.3e}", grad_rel=f"{g_rel:.3e}",
+        bitwise_repeat=repeat, walked=walked, plan=plan, ms=f"{ms:.4f}",
+        plain_ms=f"{plain:.4f}", decomposed_ms=f"{dec_ms:.4f}", grouped_mm_pair_ms=pair_ms,
+        why=repr(pair_why), tflops=f"{flops / ms / 1e9:.1f}",
+        bound_ms=f"{bound['bound_ms']:.4f}", bound_by=bound["bound_by"],
+        share_of_bound=f"{bound['bound_ms'] / ms:.3f}", card=repr(smi))
+    if not (rel <= GG_RTOL and g_rel <= GG_RTOL and repeat and walked == plan):
+        raise AssertionError(f"fused_moe_mlp disagrees with its plain version at {shape}: "
+                             f"out/gu {rel}, grads {g_rel} (<= {GG_RTOL}), two launches "
+                             f"the same bits {repeat}, walked {walked} against {plan}")
+    rows.append({"name": "fused_moe_mlp", "route": "cuda", "source": src + "fused_moe_mlp.cu",
+                 "replaces": "xtuner_tpu/ops/fused_moe_mlp.py:48", "path": path + "_fused",
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain, **bound,
+                 # no one PyTorch call fuses the two GEMMs and the activation
+                 "library_ms": None})
+    del x, w_gu, w_dn
+    reset_train_launches()
+    return rows
+
+
+def phase_moe_heavy_mtp(torch, smi: str, sft_loss1: float) -> dict:
+    """`recipes/sft_moe_heavy_mtp.py` (the sft recipe with one MTP layer)
+    through `Trainer.fit`, 6 steps, no final save (`fit_recipe`): per step
+    the trunk's CE, `mtp_loss` and step ms; the trunk's step-1 CE equal to
+    the sft phase's `sft_loss1` within MTP_CE1_RTOL (the same trunk
+    weights, seed and data: MTP does not change the trunk's forward);
+    `mtp_loss` finite and positive; the exact launches: per step the 10
+    trunk layers and the MTP layer each run flash (max-free) once and the
+    grouped backward once, nn 4, nt 2 and dw 2, and the fused CE twice (the
+    trunk's and the MTP depth's)."""
+    import numpy as np
+
+    trainer, recs, launches, peak, wall = fit_recipe(torch, MTP_RECIPE)
+    cfg = trainer.cfg.model_cfg
+    n = trainer.engine.num_params
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("moe_heavy_mtp", recipe=MTP_RECIPE, params=n, layers=cfg.num_hidden_layers,
+        mtp_layers=cfg.mtp_num_layers, mtp_loss_coef=cfg.mtp_loss_coef,
+        ce=cfg.lm_loss_cfg.mode, wall_s=f"{wall:.3f}", save="skipped")
+    for r in recs:
+        say("moe_heavy_mtp", step=r["step"], loss=f"{r['reduced_llm_loss']:.5f}",
+            mtp_loss=f"{r['mtp_loss']:.5f}", total_loss=f"{r['total_loss']:.5f}",
+            grad_norm=f"{r['grad_norm']:.5f}", maxvio=f"{r['maxvio']:.4f}",
+            step_ms=f"{1e3 * r['step_time']:.1f}", tgs=f"{r['tgs']:.1f}",
+            skipped=int(r["skipped"]))
+    steady = recs[1:]
+    step_s = sum(r["step_time"] for r in steady) / len(steady)
+    layers = cfg.num_hidden_layers + cfg.mtp_num_layers
+    per = SFT_STEPS * layers
+    want = {name: 0 for name in launches}
+    want.update(flash_fwd_max_free=per, flash_bwd=per, grouped_gemm_nn=4 * per,
+                grouped_gemm_nt=2 * per, grouped_gemm_dw=2 * per, ce_fwd=2 * SFT_STEPS,
+                ce_coeff=2 * SFT_STEPS * ce_chunks(SFT_ROWS * SEQ, cfg.vocab_size),
+                ce_dh=2 * SFT_STEPS, ce_dw=2 * SFT_STEPS)
+    rel = abs(recs[0]["reduced_llm_loss"] - sft_loss1) / sft_loss1
+    say("moe_heavy_mtp", launches={k: v for k, v in launches.items() if v or want[k]},
+        expected={k: v for k, v in want.items() if v}, steady_step_ms=f"{1e3 * step_s:.1f}",
+        peak_gib=f"{peak:.3f}", ce1=f"{recs[0]['reduced_llm_loss']:.6f}",
+        sft_ce1=f"{sft_loss1:.6f}", ce1_rel=f"{rel:.3e}", tol=MTP_CE1_RTOL, card=repr(smi))
+    check_fit("moe_heavy_mtp", recs, SFT_STEPS, SFT_LOSS1)
+    mtp = [r["mtp_loss"] for r in recs]
+    if not (all(np.isfinite(mtp)) and min(mtp) > 0):
+        raise AssertionError(f"mtp_loss {mtp}")
+    if not rel <= MTP_CE1_RTOL:
+        raise AssertionError(f"the trunk's step-1 CE {recs[0]['reduced_llm_loss']} is not the "
+                             f"sft phase's {sft_loss1} (relative {rel} > {MTP_CE1_RTOL})")
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} != what {SFT_STEPS} steps imply "
+                             f"{want}")
+    return launches
+
+
 def switch_state() -> dict:
     """The dk/dv path and the fused-MLP switch as the port reads them
     (bench.py records the first as `attn_bwd`)."""
@@ -3391,6 +3899,13 @@ def main() -> int:
         phase_deepseek_mla(torch, args.seed, smi)
     release(torch, "deepseek_mla")
     kernels += phase_mla_kernels(torch, args.seed, smi, recipe_seg)
+    release(torch, "mla_kernels")
+    launches["glm45_air_head"], launches["glm45_air_head_fused"], air_seg = \
+        phase_glm45_air_head(torch, args.seed, smi)
+    release(torch, "glm45_air_head")
+    kernels += phase_glm45_kernels(torch, args.seed, smi, air_seg)
+    release(torch, "glm45_kernels")
+    launches["moe_heavy_mtp"] = phase_moe_heavy_mtp(torch, smi, losses[0])
     for kern in kernels:
         kern["launches"] = launches[kern["path"]][kern["name"]]
         kern.pop("_bound_parts", None)

@@ -288,10 +288,13 @@ def test_deepseek_presets_match_jax_and_resolve():
     assert isinstance(cfg, tds.DeepSeekV3Config) and cfg.model_type == "deepseek_v3"
     assert cfg.attention.qk_head_dim == 192 and cfg.attention.head_dim == 64
     assert cfg.rope_scaling_cfg.rope_type == "yarn"
-    with pytest.raises(NotImplementedError, match=r"\[moe\]"):
-        cfg.build().param_specs()
-    with pytest.raises(NotImplementedError, match=r"\[moe\]"):
-        tds.deepseek_v3_tiny().build().param_specs()
+    # the MoE models build: the same parameter tree as JAX's, MTP included
+    for t, j in ((cfg, jds.deepseek_v3()), (tds.deepseek_v3_tiny(), jds.deepseek_v3_tiny())):
+        tspecs = dict(tree_paths(t.build().param_specs()))
+        jspecs = dict(tree_paths(j.build().param_specs()))
+        assert sorted(tspecs) == sorted(jspecs)
+        assert all(tuple(tspecs[k].shape) == tuple(jspecs[k].shape) for k in jspecs)
+    assert ("mtp_layers", "proj", "w") in dict(tree_paths(cfg.build().param_specs()))
 
 
 def test_deepseek_config_from_hf_matches_jax():
@@ -331,7 +334,12 @@ def test_mla_paths_still_unported_raise():
     cfg = tmla.MLAConfig(**ATTN)
     with pytest.raises(NotImplementedError, match=r"\[serve-rest\]"):
         tmla.mla_cached_forward({}, cfg, None, None, None, None, None, 0)
-    # MoE layers with MLA attention wait for [moe], whatever the router
+    # MoE layers with MLA attention build under either router; the
+    # per-layer window pattern still waits for [moe]
     moe = tds.deepseek_v3_tiny(router=GreedyRouterConfig())
-    with pytest.raises(NotImplementedError, match=r"MLAConfig attention.*\[moe\]"):
+    specs = moe.build().param_specs()
+    assert "e_score_correction_bias" not in specs["moe_layers"]["router"]
+    assert specs["moe_layers"]["attn"]["kv_a_proj"]["w"].shape[0] == 2
+    moe.layer_window_pattern = [4, None]
+    with pytest.raises(NotImplementedError, match=r"window pattern.*\[moe\]"):
         moe.build().param_specs()

@@ -153,12 +153,23 @@ def test_greedy_route_matches_jax(scoring, norm):
 
 
 def test_noaux_router_and_replay_raise():
-    p = {"w": torch.zeros(4, 2), "e_score_correction_bias": torch.zeros(2)}
+    """`route` dispatches to the noaux router as JAX's does
+    (`tests/test_torch_moe_noaux.py` holds it to JAX in depth); replay
+    still raises ([moe])."""
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((40, 32), dtype=np.float32)
+    p = {"w": rng.standard_normal((32, 8), dtype=np.float32) * 0.3,
+         "e_score_correction_bias": rng.standard_normal((8,), dtype=np.float32) * 0.1}
+    j = jrouter.route(jax.tree.map(jnp.asarray, p), jrouter.NoAuxRouterConfig(n_group=2),
+                      jnp.asarray(x), 3)
+    t = trouter.route({k: _t(v) for k, v in p.items()}, trouter.NoAuxRouterConfig(n_group=2),
+                      _t(x), 3)
+    np.testing.assert_array_equal(t.topk_idx.numpy(), np.asarray(j.topk_idx))
+    for a, b in ((t.topk_weights, j.topk_weights), (t.probs, j.probs)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=TOL, rtol=TOL)
     with pytest.raises(NotImplementedError, match=r"\[moe\]"):
-        trouter.route(p, trouter.NoAuxRouterConfig(), torch.zeros(3, 4), 1)
-    with pytest.raises(NotImplementedError, match=r"\[moe\]"):
-        trouter.route(p, trouter.GreedyRouterConfig(), torch.zeros(3, 4), 1,
-                      forced_idx=torch.zeros(3, 1))
+        trouter.route({k: _t(v) for k, v in p.items()}, trouter.GreedyRouterConfig(), _t(x), 1,
+                      forced_idx=torch.zeros(40, 1))
 
 
 def test_balancing_and_z_loss_match_jax():

@@ -49,6 +49,17 @@ CURVE_RTOL = 1e-4
 VOCAB, SEQ = 512, 64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's tiny CPU ops: many threads
+    gain nothing at these sizes and stall badly when several test
+    processes share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 
@@ -245,20 +256,27 @@ def test_moe_presets_match_jax():
 
 
 def test_unported_moe_options_raise():
-    _, tcfg = _cfgs(mtp_num_layers=1)
+    """MTP and the noaux router are ported (tests/test_torch_moe_noaux.py);
+    what still raises: the window pattern ([moe]), the a2a dispatcher
+    ([parallelism]) and the unported remat policies ([train-slice])."""
+    _, tcfg = _cfgs(layer_window_pattern=[16, None])
     with pytest.raises(NotImplementedError, match=r"\[moe\]"):
         tcfg.build().param_specs()
     _, tcfg = _cfgs()
     tcfg.router = NoAuxRouterConfig()
-    with pytest.raises(NotImplementedError, match=r"\[moe\]"):
-        TEngine(tcfg, toptim.AdamWConfig(), toptim.LRConfig(), TMesh(), 2, device="cpu")
+    eng = TEngine(tcfg, toptim.AdamWConfig(), toptim.LRConfig(), TMesh(), 2, device="cpu")
+    assert eng.noaux_speed == tcfg.router.bias_update_speed
     jcfg, tcfg = _cfgs()
     params = params_from_numpy(jax.tree.map(
         np.asarray, j_init_params(jcfg.build().param_specs(), jax.random.key(0))), tcfg, "cpu")
+    seq = TSeq.from_input_ids(np.ones((1, 8), np.int32))
     with pytest.raises(NotImplementedError, match="train-slice"):
-        tcfg.build().loss(params, TSeq.from_input_ids(np.ones((1, 8), np.int32)),
-                          torch.zeros(1, 8, dtype=torch.long), torch.ones(1, 8), 8.0,
-                          compute_dtype=torch.float32, remat="dots")
+        tcfg.build().loss(params, seq, torch.zeros(1, 8, dtype=torch.long), torch.ones(1, 8),
+                          8.0, compute_dtype=torch.float32, remat="dots")
+    tcfg.dispatcher = "a2a"
+    with pytest.raises(NotImplementedError, match=r"\[parallelism\]"):
+        tcfg.build().loss(params, seq, torch.zeros(1, 8, dtype=torch.long), torch.ones(1, 8),
+                          8.0, compute_dtype=torch.float32, remat="none")
 
 
 # ------------------------------------------------------------- 5-step curve

@@ -33,6 +33,7 @@ from xtuner_tpu_torch.datasets import config as tdata
 from xtuner_tpu_torch.model.moe import MoEConfig
 from xtuner_tpu_torch.module.attention import MHAConfig
 from xtuner_tpu_torch.module.params import params_from_numpy, tree_paths
+from xtuner_tpu_torch.module.router import NoAuxRouterConfig
 from xtuner_tpu_torch.train import trainer as ttrainer
 from xtuner_tpu_torch.train.cli import sft as tsft
 from xtuner_tpu_torch.utils.config import Config
@@ -43,6 +44,17 @@ RECIPE = REPO / "xtuner_tpu_torch" / "recipes" / "sft_moe_heavy.py"
 CURVE_RTOL = 1e-4
 CURVE_KEYS = ("reduced_llm_loss", "grad_norm", "total_loss", "lr", "consumed_tokens",
               "maxvio", "skipped")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's tiny CPU ops: many threads
+    gain nothing at these sizes and stall badly when several test
+    processes share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _model_kw():
@@ -209,6 +221,32 @@ def test_resume_continues_the_uninterrupted_run(tmp_path):
     np.testing.assert_allclose(np.array(got), np.array(want), rtol=1e-6)
     ckpts = second.work_dir / "checkpoints"
     assert sorted(p.name for p in ckpts.iterdir()) == ["step-3", "step-5"]  # max_keep 2
+
+
+def test_resume_restores_the_noaux_bias(tmp_path):
+    """The noaux router's correction bias is a param of the checkpoint, not
+    optimizer state: a resumed run starts from the bias the first run
+    ended with, and its optimizer state has no moments for it."""
+    model = _tcfg(tmp_path).model_cfg
+    model.router = NoAuxRouterConfig()
+    first = ttrainer.Trainer(_tcfg(tmp_path, total_steps=2, model_cfg=model), device="cpu")
+    first.fit()
+    bias = first.engine.params["moe_layers"]["router"]["e_score_correction_bias"].clone()
+    steps = (bias.abs() / 0.001).round()  # two updates of +-0.001 each
+    torch.testing.assert_close(bias.abs(), steps * 0.001, rtol=0, atol=1e-9)
+    assert steps.max() == 2
+    second = ttrainer.Trainer(_tcfg(tmp_path, total_steps=3, resume=True, model_cfg=model),
+                              device="cpu")
+    assert second.start_step == 2
+    torch.testing.assert_close(
+        second.engine.params["moe_layers"]["router"]["e_score_correction_bias"], bias,
+        rtol=0, atol=0)
+    store = second.engine.params["moe_layers"]["router"]["e_score_correction_bias"] \
+        .untyped_storage().data_ptr()
+    assert all(p.untyped_storage().data_ptr() != store for p in second.engine.optimizer.params)
+    assert len(second.engine.opt_state["m"]) == len(second.engine.optimizer.params)
+    second.fit()
+    assert _tracker(second)[-1]["step"] == 3
 
 
 def test_selective_resume(tmp_path):

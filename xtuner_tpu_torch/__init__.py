@@ -19,7 +19,11 @@ and in tile-wise fp8 (`ops/float8.py`); GLM-5.2's DSA sparse attention
 (`module/dsa.py`) in `model/dense.py::Dense`, its dense head layers
 trained through `recipes/sft_glm52_dsa_head.py`; bench.py's longctx row
 (`recipes/bench_longctx_64k.py`) under remat "save_out_lse" with JAX's
-two-pass dk/dv and fused expert-MLP switches. Every TPU kernel of the JAX
+two-pass dk/dv and fused expert-MLP switches; DeepSeek-V3's MLA
+(`module/mla.py`); the aux-free (noaux) router with its post-step bias
+update and multi-token prediction (`module/mtp.py`), with MHA, MLA or DSA
+in the MoE layers (`recipes/sft_glm45_air_head.py`,
+`recipes/sft_moe_heavy_mtp.py`). Every TPU kernel of the JAX
 package has its Hopper kernel. What is not ported raises
 `NotImplementedError` naming its ROADMAP.md item.
 """

@@ -7,6 +7,10 @@ semantics, which `torch.optim.AdamW` does not share:
 - the update is `-lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)`: eps outside
   the square root, decay scaled by lr and added to the Adam direction;
 - weight decay applies only to >= 2-D params (`_decay_mask`);
+- buffers (`is_buffer`: the noaux router's correction bias) are not
+  optimizer params at all: no moments, no decay. JAX hands the stacked
+  (L, E) bias to optax like any other leaf, so its AdamW decays it by
+  lr x wd each step (a fault of the reference, ROADMAP.md);
 - the schedule is evaluated at the count of updates made so far, starting
   from 0, so the first update uses `schedule(0)` (0 under a warmup); a
   skipped step does not advance the count.
@@ -117,6 +121,13 @@ def _decay_mask(p: torch.Tensor) -> bool:
     Stacked layer params count by their per-layer dims plus the layer dim,
     as in the JAX tree."""
     return p.dim() >= 2
+
+
+def is_buffer(name: str) -> bool:
+    """A leaf that no gradient or optimizer update touches: the noaux
+    router's correction bias, which only the engine's post-step bias
+    update moves (DeepSeek-V3 keeps it as a buffer)."""
+    return name == "e_score_correction_bias"
 
 
 class AdamW:

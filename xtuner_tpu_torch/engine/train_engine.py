@@ -8,18 +8,28 @@ The constructor takes what `Trainer` passes, as the JAX one does.
 each one forward/backward with the loss denominator summed over the whole
 batch, gradients accumulated in f32; then the global-norm clip, AdamW
 (`config/optim.py`), and the JAX package's metrics, plus `dsa_index_loss`
-(summed over the micro-batches) for a DSA model. A step whose grad norm is
-not finite (or above `skip_grad_norm_threshold`) is skipped: params and
-optimizer state stay as they were.
+for a DSA model and `mtp_loss` for an MTP model (each summed over the
+micro-batches). A step whose grad norm is not finite (or above
+`skip_grad_norm_threshold`) is skipped: params and optimizer state stay as
+they were.
+
+The noaux router's `e_score_correction_bias` is a buffer: no gradient and
+no optimizer state (`config/optim.py::is_buffer`). After a step that was
+not skipped, each routed stack's bias moves by `bias_update_speed` toward
+uniform load (`module/router.py::update_noaux_bias`) from the step's
+expert loads summed over the micro-batches: `moe_layers` from the trunk's
+rows, `mtp_layers` from the MTP depths' (summed into one row when the
+depths share one layer). `maxvio` averages max / mean load over the trunk's
+and the MTP's rows together. `last_expert_load` keeps the step's loads by
+stack.
 
 Memory: masters are stored stacked like the JAX tree; the model trains on
 per-layer views of them that are autograd leaves, so each layer's gradient
 is a tensor of its own and the stacked master is never copied. AdamW
 updates the masters in place through those views.
 
-Not ported yet: the noaux router's post-step bias update ([moe]), LoRA
-freezing ([lora]), custom loss functions, meshes and sharded batches
-(Queue 1, parallelism), HF load and save ([serve-rest]).
+Not ported yet: LoRA freezing ([lora]), custom loss functions, meshes and
+sharded batches (Queue 1, parallelism), HF load and save ([serve-rest]).
 """
 
 from __future__ import annotations
@@ -28,10 +38,12 @@ import numpy as np
 import torch
 
 from .. import not_ported
-from ..config.optim import AdamW, AdamWConfig, LRConfig, _decay_mask, build_lr_schedule
+from ..config.optim import (AdamW, AdamWConfig, LRConfig, _decay_mask, build_lr_schedule,
+                            is_buffer)
 from ..data_proto import SequenceContext
 from ..model.dense import num_layers
-from ..module.params import count_params, init_params, tree_map
+from ..module.params import count_params, init_params
+from ..module.router import update_noaux_bias
 from ..parallel.mesh import MeshConfig
 
 
@@ -48,21 +60,25 @@ def resolve_device(device=None) -> torch.device:
 
 def _leaf_views(master: dict):
     """A tree for the model whose layer stacks are lists of per-layer dicts
-    of leaf views, plus [(view, decay)] pairs for the optimizer."""
+    of leaf views, plus [(view, decay)] pairs for the optimizer. Buffers
+    (`is_buffer`) are plain views, outside the pairs."""
     pairs = []
 
-    def leaf(t, decay):
-        v = t.detach().requires_grad_(True)  # shares storage with the master
-        pairs.append((v, decay))
+    def views(name, sub, pick):
+        if isinstance(sub, dict):
+            return {k: views(k, v, pick) for k, v in sub.items()}
+        if is_buffer(name):
+            return pick(sub).detach()
+        v = pick(sub).detach().requires_grad_(True)  # shares storage with the master
+        pairs.append((v, _decay_mask(sub)))
         return v
 
     tree = {}
     for key, sub in master.items():
         if key.endswith("layers"):
-            tree[key] = [tree_map(lambda t, i=i: leaf(t[i], _decay_mask(t)), sub)
-                         for i in range(num_layers(sub))]
+            tree[key] = [views(key, sub, lambda t, i=i: t[i]) for i in range(num_layers(sub))]
         else:
-            tree[key] = tree_map(lambda t: leaf(t, _decay_mask(t)), sub)
+            tree[key] = views(key, sub, lambda t: t)
     return tree, pairs
 
 
@@ -74,9 +90,6 @@ class TrainEngine:
 
     def __init__(self, model_cfg, optim_cfg: AdamWConfig, lr_cfg: LRConfig,
                  mesh_cfg: MeshConfig, total_steps: int, *, device=None):
-        router = getattr(model_cfg, "router", None)
-        if router is not None and getattr(router, "router_type", "") == "noaux":
-            raise not_ported("the noaux router's post-step bias update", "moe")
         if getattr(model_cfg, "lora_cfg", None) is not None:
             raise not_ported("LoRA training", "lora")
         if getattr(optim_cfg, "type", "adamw") != "adamw":
@@ -91,8 +104,12 @@ class TrainEngine:
         self.remat = mesh_cfg.remat
         self.device = resolve_device(device)
         self.lr_schedule = build_lr_schedule(optim_cfg, lr_cfg, total_steps)
+        router = getattr(model_cfg, "router", None)
+        self.noaux_speed = (router.bias_update_speed
+                            if getattr(router, "router_type", "") == "noaux" else None)
         self.params = None
         self.optimizer = None
+        self.last_expert_load: dict = {}
 
     @property
     def num_params(self) -> int:
@@ -142,8 +159,12 @@ class TrainEngine:
                     "num_tokens": out.num_tokens}
             if out.expert_load is not None:
                 mets["expert_load"] = out.expert_load.float()
+            if out.mtp_expert_load is not None:
+                mets["mtp_expert_load"] = out.mtp_expert_load.float()
             if out.dsa_index_loss is not None:
                 mets["dsa_index_loss"] = out.dsa_index_loss.detach()
+            if out.mtp_loss is not None:
+                mets["mtp_loss"] = out.mtp_loss.detach()
             for k, v in mets.items():
                 sums[k] = sums[k] + v if k in sums else v
 
@@ -162,14 +183,25 @@ class TrainEngine:
             self.optimizer.step(grads)
         for p in self._leaves:
             p.grad = None
+        # the routed stacks' loads: the trunk's rows, then the MTP depths'
+        self.last_expert_load = {stack: sums[key] for stack, key in
+                                 (("moe_layers", "expert_load"),
+                                  ("mtp_layers", "mtp_expert_load")) if key in sums}
+        if ok and self.noaux_speed is not None:
+            for stack, load in self.last_expert_load.items():
+                bias = self.params[stack]["router"]["e_score_correction_bias"]
+                if load.shape[0] != bias.shape[0]:  # depths sharing one MTP layer
+                    load = load.sum(dim=0, keepdim=True)
+                update_noaux_bias(bias, load, self.noaux_speed)
 
         metrics = {"total_loss": float(sums["total_loss"])}
-        if "expert_load" in sums:
-            load = sums["expert_load"]
+        if self.last_expert_load:
+            load = torch.cat(list(self.last_expert_load.values()))
             metrics["maxvio"] = float(
                 (load.max(dim=-1).values / load.mean(dim=-1).clamp(min=1e-6)).mean())
-        if "dsa_index_loss" in sums:  # the port's tracker key for the indexer loss
-            metrics["dsa_index_loss"] = float(sums["dsa_index_loss"])
+        for key in ("dsa_index_loss", "mtp_loss"):  # the port's tracker keys for these
+            if key in sums:
+                metrics[key] = float(sums[key])
         n_tok = int(sums["num_tokens"])
         metrics["reduced_llm_loss"] = float(sums["sum_ce"]) / max(n_tok, 1)
         metrics["consumed_tokens"] = n_tok

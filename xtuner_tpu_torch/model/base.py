@@ -23,20 +23,27 @@ from ..module.mla import MLAConfig
 
 @dataclass
 class ModelOutputs:
-    """What `loss()` returns; the engine sums every `*loss*` field. The JAX
-    class's MTP and hidden-state fields come with those features."""
+    """What `loss()` returns; the engine sums every `*loss*` field, in
+    JAX's field order. JAX's `hidden_states` field comes with the feature
+    that reads it."""
 
     loss: Optional[torch.Tensor] = None
     sum_ce: Optional[torch.Tensor] = None
     num_tokens: Optional[torch.Tensor] = None
     balancing_loss: Optional[torch.Tensor] = None
     z_loss: Optional[torch.Tensor] = None
+    # multi-token prediction: mtp_loss_coef x the mean CE over the depths
+    mtp_loss: Optional[torch.Tensor] = None
     # DSA lightning-indexer distillation (the indexer's only gradient path),
     # summed into total_loss by name
     dsa_index_loss: Optional[torch.Tensor] = None
-    # per-layer expert token counts (L_moe, E): read by the engine's maxvio
-    # metric; NOT a loss field
+    # per-layer expert token counts (L_moe, E): read by the engine's noaux
+    # bias update and maxvio metric; NOT a loss field
     expert_load: Optional[torch.Tensor] = None
+    # the MTP layers' expert token counts (mtp depths, E), kept apart so the
+    # engine can update the mtp_layers router stack (summing the depths
+    # when they share one layer)
+    mtp_expert_load: Optional[torch.Tensor] = None
 
     def total_loss(self):
         total = 0.0

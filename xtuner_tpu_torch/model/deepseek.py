@@ -7,9 +7,13 @@ object with a transformers `DeepseekV3Config`'s attributes, field for field
 as in JAX: MLA attention with 128 heads (q_lora 1536, kv_lora 512, q/k
 dim 128 + 64, v dim 128) and yarn rope (factor 40 over 4096 positions).
 
-Building the MoE model raises ([moe]: the noaux router and MTP). The three
-dense head layers train on their own through a `DenseConfig` built from
-`deepseek_v3()`'s fields (`recipes/sft_deepseek_v3_mla_head.py`).
+Both build as MoE models: MLA in the dense and MoE layers, the noaux
+router with 8 groups (top-4 kept) and routed scaling 2.5, a shared expert
+and one MTP layer; `deepseek_v3_tiny` is held to JAX on the CPU. One
+DeepSeek-V3 MoE layer (11.3 B params) does not fit one card beside its
+optimizer state ([parallelism]); the three dense head layers train on
+their own through a `DenseConfig` built from `deepseek_v3()`'s fields
+(`recipes/sft_deepseek_v3_mla_head.py`).
 """
 
 from __future__ import annotations

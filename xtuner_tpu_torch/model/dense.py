@@ -221,9 +221,11 @@ class Dense:
 
         return remat_wrap(pre, attend, post, remat)
 
-    def _dsa_layer_fn(self, cos, sin, segment_ids, compute_dtype, remat: str):
-        """One DSA decoder layer `(x, lp) -> (x, indexer loss)` (JAX
-        `_layer_forward`'s DSA branch) under the remat policy."""
+    def _dsa_layer_fn(self, ffn, cos, sin, segment_ids, compute_dtype, remat: str):
+        """One DSA decoder layer `(x, lp) -> (*ffn(x, normed h, lp), indexer
+        loss)` (JAX `_layer_forward`'s DSA branch) under the remat policy;
+        `ffn` is the MLP or MoE block after the post-attention norm, `lp`
+        already in the compute dtype, returning a tuple led by x."""
         cfg = self.cfg
         zc = cfg.rms_norm_type == "zero_centered"
 
@@ -234,13 +236,25 @@ class Dense:
                                          rope_scaling=cfg.rope_scaling_cfg)
             x = x + h
             h = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps, zc)
-            return x + mlp_forward(lp["mlp"], h, cfg.hidden_act, cfg.float8_cfg), idx_loss
+            return (*ffn(x, h, lp), idx_loss)
 
         if remat == "none":
             return layer
         if remat == "full":  # the whole layer, indexer included, as JAX's checkpoint
             return lambda x, lp: checkpoint(layer, x, lp, use_reentrant=False)
         raise not_ported(f"remat policy {remat!r} with DSA attention", "train-slice")
+
+    def _dense_ffn(self, x, h, lp):
+        return (x + mlp_forward(lp["mlp"], h, self.cfg.hidden_act, self.cfg.float8_cfg),)
+
+    def _dense_layer_fn(self, cos, sin, segment_ids, compute_dtype, remat: str):
+        """One dense decoder layer `(x, lp) -> (x, indexer loss or None)`."""
+        if _is_dsa(self.cfg.attention):
+            return self._dsa_layer_fn(self._dense_ffn, cos, sin, segment_ids, compute_dtype,
+                                      remat)
+        fn = self._layer_fn(lambda x, o, lp: self._dense_post(x, o, lp, compute_dtype),
+                            cos, sin, segment_ids, compute_dtype, remat)
+        return lambda x, lp: (fn(x, lp), None)
 
     def _embed_and_rope(self, params, seq_ctx, compute_dtype):
         self.check_ported()
@@ -262,19 +276,13 @@ class Dense:
         indexer loss (None without DSA))."""
         x, cos, sin, seg = self._embed_and_rope(params, seq_ctx, compute_dtype)
         stack = params["layers"]
-        if _is_dsa(self.cfg.attention):
-            layer_fn = self._dsa_layer_fn(cos, sin, seg, compute_dtype, remat)
-            idx_losses = []
-            for i in range(num_layers(stack)):
-                x, idx_loss = layer_fn(x, layer_params(stack, i))
-                idx_losses.append(idx_loss)
-            return self._final_norm(params, x, compute_dtype), torch.stack(idx_losses).sum()
-        layer_fn = self._layer_fn(
-            lambda x, o, lp: self._dense_post(x, o, lp, compute_dtype),
-            cos, sin, seg, compute_dtype, remat)
+        layer_fn = self._dense_layer_fn(cos, sin, seg, compute_dtype, remat)
+        idx_losses = []
         for i in range(num_layers(stack)):
-            x = layer_fn(x, layer_params(stack, i))
-        return self._final_norm(params, x, compute_dtype), None
+            x, idx_loss = layer_fn(x, layer_params(stack, i))
+            idx_losses.append(idx_loss)
+        idx = torch.stack(idx_losses).sum() if _is_dsa(self.cfg.attention) else None
+        return self._final_norm(params, x, compute_dtype), idx
 
     def forward(self, params, seq_ctx, compute_dtype=torch.bfloat16, remat: str = "full"):
         """-> final hidden states (B, L, H) in compute dtype."""

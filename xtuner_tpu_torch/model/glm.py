@@ -5,10 +5,12 @@ shared expert, the sigmoid noaux router with routed scaling, an MTP head;
 GLM-5.2 with DSA sparse-MLA attention (`module/dsa.py`), the JAX default
 `select_granularity` "token" kept.
 
-Building the MoE model from either raises ([moe]: the noaux router and
-MTP). GLM-5.2's three dense head layers train on their own through a
-`DenseConfig` built from `glm_52()`'s fields
-(`recipes/sft_glm52_dsa_head.py`).
+Both build as MoE models (the noaux router, MTP; GLM-5.2's DSA in the
+dense and MoE layers). GLM-4.5-Air's dense layer and first MoE layer train
+at full width through `recipes/sft_glm45_air_head.py`; a GLM-5.2 MoE
+layer (9.7 B params) waits for [parallelism], and its three dense head
+layers train on their own through a `DenseConfig` built from `glm_52()`'s
+fields (`recipes/sft_glm52_dsa_head.py`).
 """
 
 from __future__ import annotations

@@ -1,16 +1,28 @@
 """Dropless MoE transformer (counterpart: `xtuner_tpu/model/moe.py`).
 
 `MoEConfig`, `MoE.param_specs`, the MoE layer forward (attention, then the
-routed expert MLP of `module/moe_layer.py`, plus shared experts), the
-training `forward` and `loss` with the balancing and z losses, the
-`first_k_dense_replace` dense stack, and the Qwen3-MoE presets. Each
-layer runs under the remat policy of `model/dense.py::remat_wrap`; a tied
-head reaches the CE as `embed.T`, which `mode="fused"` reads as the
-vocab-major embedding it is.
+routed expert MLP of `module/moe_layer.py` behind the greedy or the noaux
+router, plus shared experts), the training `forward` and `loss` with the
+balancing and z losses, the `first_k_dense_replace` dense stack,
+multi-token prediction (`_mtp_loss`, `module/mtp.py`) and the Qwen3-MoE
+presets. Attention is JAX's dispatch, DSA > MLA > MHA, in the dense and
+the MoE layers alike; a DSA layer's indexer loss joins `dsa_index_loss`.
+Each layer runs under the remat policy of `model/dense.py::remat_wrap`
+(a DSA layer: `Dense._dsa_layer_fn`); a tied head reaches the CE as
+`embed.T`, which `mode="fused"` reads as the vocab-major embedding it is.
 
-Not ported yet: multi-token prediction, the per-layer window pattern,
-deepstack injection and routing replay ([moe]), HF interop
-([serve-rest]).
+MTP: `mtp_layers` stacks `mtp_num_layers` MoE layers with their fuse
+projection and norms (one physical layer under `mtp_share_weights`).
+Depth k fuses the hidden state before it (the trunk's before the final
+norm, for k = 0) with the embedding of the token k + 1 further on, runs
+the layer, and scores the final-normed output against labels shifted
+k + 1 within each document; `mtp_loss` is `mtp_loss_coef` times the mean
+CE over the depths. Its routers' balancing and z rows follow the trunk's
+in the aux means, and their loads come back as `mtp_expert_load` for the
+engine's bias update.
+
+Not ported yet: the per-layer window pattern, deepstack injection and
+routing replay ([moe]), HF interop ([serve-rest]).
 """
 
 from __future__ import annotations
@@ -23,13 +35,17 @@ import torch
 from .. import not_ported
 from ..loss.ce_loss import ce_loss
 from ..loss.moe_loss import balancing_loss, z_loss
-from ..module.attention import MHAConfig, mha_param_specs
+from ..module.attention import MHAConfig
 from ..module.mlp import mlp_forward, mlp_param_specs
 from ..module.moe_layer import expert_mlp_param_specs, moe_mlp_forward
+from ..module.mtp import mtp_extra_param_specs, mtp_fuse, shift_for_mtp
 from ..module.params import ParamSpec, cast_tree, stack_specs
 from ..module.router import GreedyRouterConfig, RouterConfig, router_param_specs
 from .base import ModelOutputs
-from .dense import Dense, DenseConfig, layer_params, num_layers
+from .dense import (Dense, DenseConfig, _attn_param_specs, _is_dsa, embed_tokens,
+                    layer_params, num_layers)
+
+MTP_EXTRAS = ("proj", "hidden_norm", "embed_norm")
 
 
 @dataclass
@@ -48,6 +64,9 @@ class MoEConfig(DenseConfig):
     layer_window_pattern: Optional[list] = None
     dispatcher: str = "gspmd"
     mtp_num_layers: int = 0
+    mtp_loss_coef: float = 0.3
+    # one physical MTP layer reused by every depth
+    mtp_share_weights: bool = False
 
     def build(self) -> "MoE":
         return MoE(self)
@@ -58,22 +77,14 @@ class MoE(Dense):
         self.cfg = cfg
 
     def check_ported(self) -> None:
-        cfg = self.cfg
-        if cfg.router.router_type != "greedy":
-            raise not_ported("the aux-free (noaux) router", "moe")
-        if not isinstance(cfg.attention, MHAConfig):
-            raise not_ported(f"MoE layers with {type(cfg.attention).__name__} attention",
-                             "moe")
         super().check_ported()
-        if cfg.mtp_num_layers > 0:
-            raise not_ported("multi-token prediction (mtp_num_layers > 0)", "moe")
-        if cfg.layer_window_pattern:
+        if self.cfg.layer_window_pattern:
             raise not_ported("a per-layer window pattern", "moe")
 
     def moe_layer_param_specs(self) -> dict:
         cfg = self.cfg
         specs = {
-            "attn": mha_param_specs(cfg.attention, cfg.hidden_size, cfg.init_scale),
+            "attn": _attn_param_specs(cfg),
             "input_norm": ParamSpec((cfg.hidden_size,), init="ones"),
             "post_attn_norm": ParamSpec((cfg.hidden_size,), init="ones"),
             "router": router_param_specs(cfg.router, cfg.hidden_size, cfg.n_routed_experts),
@@ -98,19 +109,22 @@ class MoE(Dense):
                                                 cfg.first_k_dense_replace)
         specs["moe_layers"] = stack_specs(self.moe_layer_param_specs(),
                                           cfg.num_hidden_layers - cfg.first_k_dense_replace)
+        if cfg.mtp_num_layers > 0:
+            mtp = {**self.moe_layer_param_specs(),
+                   **mtp_extra_param_specs(cfg.hidden_size, cfg.init_scale)}
+            specs["mtp_layers"] = stack_specs(
+                mtp, 1 if cfg.mtp_share_weights else cfg.mtp_num_layers)
         if not cfg.tie_word_embeddings:
             specs["lm_head"] = {"w": ParamSpec((cfg.hidden_size, cfg.vocab_size),
                                                scale=cfg.init_scale)}
         return specs
 
     # ------------------------------------------------------------------
-    def _moe_post(self, x, o, lp, valid, compute_dtype):
-        """The MoE layer after the flash kernel: o-proj, residual, norm,
-        routed experts (+ shared) -> (x, balancing loss, z loss, expert
-        load (E,))."""
+    def _moe_ffn(self, x, h, lp, valid, compute_dtype):
+        """The MoE block after the post-attention norm: routed experts (+
+        shared) -> (x, balancing loss, z loss, expert load (E,)); `lp`
+        already in the compute dtype."""
         cfg = self.cfg
-        lp = cast_tree(lp, compute_dtype)
-        x, h = self._attn_out(x, o, lp)
         moe_out, r, load = moe_mlp_forward(
             lp["experts"], lp["router"], cfg.router, h,
             num_experts=cfg.n_routed_experts, top_k=cfg.num_experts_per_tok,
@@ -118,51 +132,116 @@ class MoE(Dense):
             dispatcher=cfg.dispatcher, fp8_cfg=cfg.float8_cfg)
         if "shared_experts" in lp:
             moe_out = moe_out + mlp_forward(lp["shared_experts"], h, cfg.hidden_act)
-        x = x + moe_out
         bal, _ = balancing_loss(r.probs, r.topk_idx, valid, cfg.n_routed_experts,
                                 cfg.num_experts_per_tok)
-        return x, bal, z_loss(r.logits, valid), load
+        return x + moe_out, bal, z_loss(r.logits, valid), load
 
-    def _forward_aux(self, params, seq_ctx, compute_dtype, remat):
-        """-> (hidden (B, L, H), bal (L_moe,), z (L_moe,), load (L_moe, E))."""
+    def _moe_post(self, x, o, lp, valid, compute_dtype):
+        """The MoE layer after the flash kernel: o-proj, residual, norm,
+        then `_moe_ffn`."""
+        lp = cast_tree(lp, compute_dtype)
+        x, h = self._attn_out(x, o, lp)
+        return self._moe_ffn(x, h, lp, valid, compute_dtype)
+
+    def _moe_layer_fn(self, cos, sin, segment_ids, valid, compute_dtype, remat: str):
+        """One MoE decoder layer `(x, lp) -> (x, bal, z, load, indexer loss
+        or None)` under the remat policy."""
+        if _is_dsa(self.cfg.attention):
+            return self._dsa_layer_fn(
+                lambda x, h, lp: self._moe_ffn(x, h, lp, valid, compute_dtype),
+                cos, sin, segment_ids, compute_dtype, remat)
+        fn = self._layer_fn(lambda x, o, lp: self._moe_post(x, o, lp, valid, compute_dtype),
+                            cos, sin, segment_ids, compute_dtype, remat)
+        return lambda x, lp: (*fn(x, lp), None)
+
+    def _trunk(self, params, seq_ctx, compute_dtype, remat):
+        """The dense and MoE stacks -> (x (B, L, H) before the final norm,
+        bal (L_moe,), z (L_moe,), load (L_moe, E), the indexer losses'
+        sum (None without DSA), (cos, sin, segment ids, valid))."""
         x, cos, sin, seg = self._embed_and_rope(params, seq_ctx, compute_dtype)
         valid = (seg != 0).reshape(-1)
+        idx = []
         if "dense_layers" in params:
-            dense_fn = self._layer_fn(
-                lambda x, o, lp: self._dense_post(x, o, lp, compute_dtype),
-                cos, sin, seg, compute_dtype, remat)
+            dense_fn = self._dense_layer_fn(cos, sin, seg, compute_dtype, remat)
             for i in range(num_layers(params["dense_layers"])):
-                x = dense_fn(x, layer_params(params["dense_layers"], i))
-
-        moe_fn = self._layer_fn(
-            lambda x, o, lp: self._moe_post(x, o, lp, valid, compute_dtype),
-            cos, sin, seg, compute_dtype, remat)
+                x, idx_loss = dense_fn(x, layer_params(params["dense_layers"], i))
+                idx.append(idx_loss)
+        moe_fn = self._moe_layer_fn(cos, sin, seg, valid, compute_dtype, remat)
         bals, zls, loads = [], [], []
         stack = params["moe_layers"]
         for i in range(num_layers(stack)):
-            x, bal, zl, load = moe_fn(x, layer_params(stack, i))
+            x, bal, zl, load, idx_loss = moe_fn(x, layer_params(stack, i))
             bals.append(bal)
             zls.append(zl)
             loads.append(load)
-        x = self._final_norm(params, x, compute_dtype)
-        return x, torch.stack(bals), torch.stack(zls), torch.stack(loads)
+            idx.append(idx_loss)
+        idx_sum = torch.stack(idx).sum() if _is_dsa(self.cfg.attention) else None
+        return (x, torch.stack(bals), torch.stack(zls), torch.stack(loads), idx_sum,
+                (cos, sin, seg, valid))
 
     def forward(self, params, seq_ctx, compute_dtype=torch.bfloat16, remat: str = "full"):
-        return self._forward_aux(params, seq_ctx, compute_dtype, remat)[0]
+        x = self._trunk(params, seq_ctx, compute_dtype, remat)[0]
+        return self._final_norm(params, x, compute_dtype)
 
     def loss(self, params, seq_ctx, shifted_labels, loss_weights, global_denom,
              compute_dtype=torch.bfloat16, remat: str = "full") -> ModelOutputs:
         cfg = self.cfg
-        hidden, bal, zl, load = self._forward_aux(params, seq_ctx, compute_dtype, remat)
+        x, bal, zl, load, idx_loss, ctx = self._trunk(params, seq_ctx, compute_dtype, remat)
+        hidden = self._final_norm(params, x, compute_dtype)
         w = self.lm_head_weight(params).to(compute_dtype)
         lm, sum_ce, num_tokens = ce_loss(hidden, w, shifted_labels, loss_weights,
                                          global_denom, cfg.lm_loss_cfg)
         out = ModelOutputs(loss=lm, sum_ce=sum_ce, num_tokens=num_tokens, expert_load=load)
+        if cfg.mtp_num_layers > 0:
+            mtp, mtp_bal, mtp_zl, mtp_load, mtp_idx = self._mtp_loss(
+                params, x, ctx, seq_ctx.input_ids, shifted_labels, loss_weights,
+                global_denom, compute_dtype, remat)
+            out.mtp_loss = mtp
+            out.mtp_expert_load = mtp_load
+            bal = torch.cat([bal, mtp_bal])
+            zl = torch.cat([zl, mtp_zl])
+            if idx_loss is not None:
+                idx_loss = idx_loss + mtp_idx
+        if idx_loss is not None:
+            out.dsa_index_loss = cfg.dsa_index_loss_coef * idx_loss
         if cfg.balancing_loss_coef > 0:
             out.balancing_loss = cfg.balancing_loss_coef * bal.mean()
         if cfg.z_loss_coef > 0:
             out.z_loss = cfg.z_loss_coef * zl.mean()
         return out
+
+    def _mtp_loss(self, params, h, ctx, input_ids, shifted_labels, loss_weights,
+                  global_denom, compute_dtype, remat):
+        """The MTP depths over the trunk state `h` (before the final norm)
+        -> (mtp_loss, bal (depths,), z (depths,), load (depths, E), the
+        indexer losses' sum (None without DSA))."""
+        cfg = self.cfg
+        cos, sin, seg, valid = ctx
+        w_head = self.lm_head_weight(params).to(compute_dtype)
+        layer_fn = self._moe_layer_fn(cos, sin, seg, valid, compute_dtype, remat)
+        stack = params["mtp_layers"]
+        n_phys = num_layers(stack)
+        ids, labels, weights = input_ids, shifted_labels, loss_weights
+        losses, bals, zls, loads, idx = [], [], [], [], []
+        for depth in range(cfg.mtp_num_layers):
+            lp = layer_params(stack, min(depth, n_phys - 1))
+            ids = shift_for_mtp(ids, seg, 0)
+            labels = shift_for_mtp(labels, seg, -100)
+            weights = shift_for_mtp(weights, seg, 0.0)
+            extras = cast_tree({k: lp[k] for k in MTP_EXTRAS}, compute_dtype)
+            fused = mtp_fuse(extras, h, embed_tokens(params, ids, compute_dtype),
+                             cfg.rms_norm_eps)
+            h, bal, zl, load, idx_loss = layer_fn(fused, lp)
+            lm, _, _ = ce_loss(self._final_norm(params, h, compute_dtype), w_head, labels,
+                               weights, global_denom, cfg.lm_loss_cfg)
+            losses.append(lm)
+            bals.append(bal)
+            zls.append(zl)
+            loads.append(load)
+            idx.append(idx_loss)
+        loss = cfg.mtp_loss_coef * sum(losses) / len(losses)
+        idx_sum = torch.stack(idx).sum() if _is_dsa(cfg.attention) else None
+        return loss, torch.stack(bals), torch.stack(zls), torch.stack(loads), idx_sum
 
 
 # ----------------------------------------------------------------------

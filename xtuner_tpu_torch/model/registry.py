@@ -1,9 +1,10 @@
 """Model registry: name -> config factory (counterpart:
 `xtuner_tpu/model/registry.py`).
 
-The Qwen3 dense and Qwen3-MoE names, "glm-5.2" and "deepseek-v3" (their
-MoE models raise [moe] when built; `recipes/sft_glm52_dsa_head.py` and
-`recipes/sft_deepseek_v3_mla_head.py` train their dense heads).
+The Qwen3 dense and Qwen3-MoE names, "glm-4.5-air", "glm-5.2" and
+"deepseek-v3" (`recipes/sft_glm45_air_head.py` trains GLM-4.5-Air's dense
+layer and first MoE layer; `recipes/sft_glm52_dsa_head.py` and
+`recipes/sft_deepseek_v3_mla_head.py` the other two's dense heads).
 Qwen2, the other MoE families, VLM and hybrid presets and loading an HF
 checkpoint directory are not ported yet (ROADMAP items [moe], [serve-rest]).
 """
@@ -21,6 +22,7 @@ model_mapping: dict[str, Callable] = {
     "qwen3-8b": qwen.qwen3_8b,
     "qwen3-moe-30b-a3": moe.qwen3_moe_30b_a3,
     "qwen3-moe-235b-a22": moe.qwen3_moe_235b_a22,
+    "glm-4.5-air": glm.glm_45_air,
     "glm-5.2": glm.glm_52,
     "deepseek-v3": deepseek.deepseek_v3,
 }

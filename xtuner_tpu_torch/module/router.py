@@ -1,9 +1,13 @@
 """MoE routers (counterpart: `xtuner_tpu/module/router.py`).
 
 `GreedyRouterConfig` and `greedy_route` (softmax or sigmoid scoring, top-k,
-`norm_topk_prob`, routed scaling), with the router math in fp32.
-`NoAuxRouterConfig` (aux-free sigmoid routing with its correction bias) and
-rollout-routing replay raise: ROADMAP item [moe].
+`norm_topk_prob`, routed scaling), with the router math in fp32;
+`NoAuxRouterConfig` and `noaux_route`, DeepSeek's aux-free router (sigmoid
+scores, the `e_score_correction_bias` added for selection only,
+group-limited top-k), and `update_noaux_bias`, its post-step bias update
+(the engine calls it). The noaux selection takes ties as `jax.lax.top_k`
+does, the lowest index first (`topk_lowest_first`). Rollout-routing replay
+raises: ROADMAP item [moe].
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ class GreedyRouterConfig:
 
 @dataclass
 class NoAuxRouterConfig:
-    """Same fields as the JAX config; routing with it raises ([moe])."""
+    """Same fields as the JAX config."""
 
     router_type: Literal["noaux"] = "noaux"
     scoring_func: Literal["sigmoid"] = "sigmoid"
@@ -75,10 +79,62 @@ def greedy_route(p: dict, cfg: GreedyRouterConfig, x: torch.Tensor, top_k: int) 
     return RouterOutput(topk_weights, topk_idx, logits, probs)
 
 
+def topk_lowest_first(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """`jax.lax.top_k` over the last dim: the k largest values in
+    descending order, equal values taken lowest index first. A stable
+    descending sort keeps that order; `torch.topk` promises none among
+    equals."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
+def noaux_route(p: dict, cfg: NoAuxRouterConfig, x: torch.Tensor, top_k: int) -> RouterOutput:
+    """DeepSeek's aux-free router (JAX `noaux_route`): experts are selected
+    on sigmoid scores plus the correction bias (a buffer: no gradient
+    reaches it), within the `topk_group` best of `n_group` groups, a
+    group's score being the sum of its top-2 biased scores; the combine
+    weights are the unbiased scores of the selected experts, normalised,
+    times `routed_scaling_factor`. `probs` are the sigmoid scores."""
+    logits = x.float() @ p["w"].float()
+    if "b" in p:
+        logits = logits + p["b"].float()
+    scores = torch.sigmoid(logits)
+    biased = scores + p["e_score_correction_bias"].detach().float()[None, :]
+    n, e = biased.shape
+    if cfg.n_group > 1:
+        grouped = biased.reshape(n, cfg.n_group, e // cfg.n_group)
+        top2 = topk_lowest_first(grouped, 2)[0].sum(dim=-1)  # (N, n_group)
+        keep = topk_lowest_first(top2, cfg.topk_group)[1]
+        group_mask = torch.zeros((n, cfg.n_group), dtype=torch.bool, device=x.device)
+        group_mask.scatter_(1, keep, True)
+        biased = biased.masked_fill(
+            ~group_mask.repeat_interleave(e // cfg.n_group, dim=1), float("-inf"))
+    topk_idx = topk_lowest_first(biased, top_k)[1]
+    topk_weights = torch.gather(scores, 1, topk_idx)
+    if cfg.norm_topk_prob:
+        topk_weights = topk_weights / topk_weights.sum(dim=-1, keepdim=True).clamp(min=1e-20)
+    topk_weights = topk_weights * cfg.routed_scaling_factor
+    return RouterOutput(topk_weights, topk_idx, logits, scores)
+
+
 def route(p: dict, cfg: RouterConfig, x: torch.Tensor, top_k: int,
           forced_idx=None) -> RouterOutput:
-    if cfg.router_type != "greedy":
-        raise not_ported("the aux-free (noaux) router", "moe")
+    """The router `cfg` names. `forced_idx` (rollout-routing replay) raises
+    ([moe])."""
     if forced_idx is not None:
         raise not_ported("rollout-routing replay (forced expert ids)", "moe")
-    return greedy_route(p, cfg, x, top_k)
+    if cfg.router_type == "greedy":
+        return greedy_route(p, cfg, x, top_k)
+    return noaux_route(p, cfg, x, top_k)
+
+
+@torch.no_grad()
+def update_noaux_bias(bias: torch.Tensor, expert_load: torch.Tensor,
+                      update_speed: float) -> None:
+    """The post-step correction-bias update (JAX `update_noaux_bias`), in
+    place: each entry moves by `update_speed` toward uniform load, up where
+    its expert took fewer tokens than the layer's mean, down where more.
+    bias, expert_load: (..., E), e.g. stacked (L, E); the mean is per row."""
+    load = expert_load.float()
+    err = load.mean(dim=-1, keepdim=True) - load
+    bias.copy_((bias.float() + update_speed * torch.sign(err)).to(bias.dtype))

@@ -250,8 +250,8 @@ class Trainer:
                 tgs = metrics["consumed_tokens"] / step_time
                 eta = (self.total_steps - step) * step_time
                 if step % cfg.log_interval == 0 or step == self.total_steps:
-                    idx = (f"dsa_index_loss {metrics['dsa_index_loss']:.4f} "
-                           if "dsa_index_loss" in metrics else "")
+                    idx = "".join(f"{k} {metrics[k]:.4f} " for k in
+                                  ("dsa_index_loss", "mtp_loss") if k in metrics)
                     logger.info(
                         f"Step {step}/{self.total_steps} lr {metrics['lr']:.3e} "
                         f"text_tokens {metrics['consumed_tokens']:.0f} "
