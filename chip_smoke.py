@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path, its MoE SFT train step, its SFT
-entry point (in bf16, in tile-wise fp8 and with both kernel switches),
-bench.py's longctx_64k row, GLM-5.2's DSA head, DeepSeek-V3's MLA head,
-GLM-4.5-Air's noaux-routed MoE head and moe_heavy with MTP, once on one
-NVIDIA card.
+"""Drive the PyTorch port's serving path (Qwen3-8B, and gpt-oss-20b whole),
+its MoE SFT train step, its SFT entry point (in bf16, in tile-wise fp8 and
+with both kernel switches), bench.py's longctx_64k row, GLM-5.2's DSA head,
+DeepSeek-V3's MLA head, GLM-4.5-Air's noaux-routed MoE head and moe_heavy
+with MTP, once on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--breakdown]
 
@@ -29,6 +29,24 @@ exits non-zero with no result line:
    (#5) at the serving shape and at a rollout (32 slots of 4096 cached
    tokens) prints its split count and the wrapper's ms beside the bytes
    bound, and holds two launches to the same bits;
+3a. gpt_oss_kernels: the kernels of gpt-oss-20b's serving path against
+   their plain versions at its shapes: #1 at (D, Dv) = (64, 64), B1 L8192
+   Hq64/8 on five documents, with the window of 128 and in full (the sinks
+   folded in once; the walked k tiles against `fwd_tile_plan` with the
+   window; SDPA with the window as a dense mask; the bound on the
+   in-window pairs); #5 at D 64 with the window and the sinks at the
+   serving shape and a rollout (32 slots of 4096); #6 (nn) at E32 H2880
+   F2880 on a decode step's 16 routed rows and a 1000-token prefill's 4000;
+3b. serve_gpt_oss: `PagedGenerator.generate` on gpt-oss-20b at full size
+   (20.9 B params, 24 layers, bf16, random weights from the seed) with
+   `record_routing=True`: 6 requests on 4 slots (prompts up to 1000
+   tokens, one GRPO pair), 32 new tokens each; prefill and decode tokens/s,
+   ms a decode step, peak memory, the exact launches of #1, #5 and #6,
+   `routed_experts`, a teacher-forced re-check of the logprobs beside the
+   share of positions whose re-prefill routing equals the recorded one
+   (by layer), and what the gate|up concatenation the engine avoids costs.
+   These two run before serving: its profile windows slow every later host
+   launch, and both decode loops are host-bound;
 4. serving: `PagedGenerator.generate` on Qwen3-8B at full width and depth
    with random bf16 weights from the seed; 6 requests on 4 slots (one GRPO
    group of two); launch counters of its kernels; a teacher-forced re-check
@@ -146,7 +164,11 @@ exits non-zero with no result line:
    MTP layer) through `Trainer.fit`, 6 steps, no final save: CE,
    `mtp_loss` and step ms per step; the trunk's step-1 CE equal to the sft
    phase's; the exact launches (the MTP layer's kernels and a second fused
-   CE per step).
+   CE per step);
+19. gpt_oss_profile: gpt-oss-20b's engine made again, then torch.profiler
+   windows of 4 prefills of 1000 tokens and of 16 decode steps (device
+   time by kind: #5, the port's other kernels, cuBLAS, the rest). Last,
+   since a profiler window slows every later host launch.
 
 Between phases it frees what the last one held and checks that nothing
 large stays allocated, so each peak is the phase's own. Then a JSON line
@@ -284,6 +306,30 @@ PEAK_FP8 = 1979e12
 HBM_BYTES_S = 3.35e12
 
 MAX_NEW = 32
+# gpt-oss-20b (`model/gpt_oss.py`): the serving phase's model and shapes.
+# Its prefill attention is #1 at (64, 64) (64 q heads over 8 kv heads), a
+# window of 128 on even layers and full attention on odd ones; its decode
+# attention #5 at D 64 with the sinks; its expert GEMMs #6 (nn) at E32
+# H2880 F2880 (gate|up K2880 N5760, down K2880 N2880)
+OSS_MODEL = "gpt-oss-20b"
+OSS_PARAMS = 20_908_120_896
+OSS_SEQ, OSS_HQ, OSS_HKV, OSS_D, OSS_WINDOW = 8192, 64, 8, 64, 128
+OSS_EXPERTS, OSS_TOPK, OSS_H, OSS_F = 32, 4, 2880, 2880
+OSS_SLOTS = 4
+# the teacher-forced re-check's fallback. A routing flip (a top-4 set that
+# differs between decode and the re-prefill) moves every later layer's
+# input, so on random weights the flips compound with depth: two prefills
+# of one sequence at two paddings (the same kernels, only the GEMM shapes
+# differ) route alike in all 24 layers at only ~35% of the generated
+# positions, while layer 0 agrees at 99.5-100% (this phase's own figures
+# on an NVIDIA H100 80GB HBM3 at 700 W, seed 0). So
+# where flips break TF_MAX_ATOL / TF_MEAN_ATOL, the bound holds on the
+# positions whose routing agrees in every layer, at least
+# OSS_ALL_LAYERS_AGREE_MIN of the positions must be such, and layer 0 (whose
+# router reads the decode and prefill attention outputs directly) must
+# agree at OSS_ROUTING_AGREE_MIN of the positions
+OSS_ROUTING_AGREE_MIN = 0.9
+OSS_ALL_LAYERS_AGREE_MIN = 0.1
 # the times of the WMMA, mma.sync and CUDA-core kernels that #8's, #16's,
 # #12's, #13's, #5's and #11's redesigns replaced, as PERF.md §6 records them
 # (chip_smoke.py runs, NVIDIA H100 80GB HBM3, 700.00 W), printed beside the
@@ -411,6 +457,7 @@ def phase_build() -> None:
         sweep = re.search(r"ce_sweep_kernelILb(\d)E", ln)
         fp8g = re.search(r"fp8_grouped_kernelILi(\d)ELi(\d)ELi(\d)E(f|13__nv_bfloat16)E", ln)
         bsk = re.search(r"bs_(fwd|dq|dkv)_kernelILi(\d+)ELi(\d+)EE", ln)
+        paged = re.search(r"paged_decode_kernelILi(\d+)E", ln)
         after = ptxas[i + 1:i + 3]
         regs = {"registers": repr(next((x for x in after if "registers" in x), "?")),
                 "spills": repr(next((x for x in after if "spill" in x), "?"))}
@@ -426,9 +473,10 @@ def phase_build() -> None:
                 injected_waits=sum(mangled in x for x in injected))
         elif "ce_lse_combine_kernel" in ln:
             say("build", kernel="ce_lse_combine_kernel", **regs)
-        elif "paged_decode_kernel" in ln:
-            say("build", kernel="paged_decode_kernel",
-                smem_bytes=lib.xt_paged_decode_smem_bytes(128), **regs)
+        elif paged:
+            d = int(paged.group(1))
+            say("build", kernel=f"paged_decode_kernel<{d}>",
+                smem_bytes=lib.xt_paged_decode_smem_bytes(128, d), **regs)
         elif "fused_moe_mlp_kernel" in ln:
             say("build", kernel="fused_moe_mlp_kernel",
                 smem_bytes=lib.xt_fused_moe_mlp_smem_bytes(), **regs,
@@ -506,15 +554,26 @@ def phase_kernels(torch, seed: int) -> list[dict]:
 # 64-entry table: an engine sized for 8192 tokens)
 PAGED_SHAPES = (("serve", [1000, 0, 517, 1900], 16), ("rollout", [4096] * 32, 64))
 PAGED_HQ, PAGED_HKV, PAGED_D, PAGED_BS = 32, 8, 128, 128
+PAGED_DIMS = (PAGED_HQ, PAGED_HKV, PAGED_D, PAGED_BS)
+# gpt-oss-20b's decode (Hq 64, Hkv 8, D 64, blocks of 128, per-head sinks):
+# (label, lens, table entries, window, sinks) on a windowed and a full
+# layer, at the serving phase's shape and at a rollout
+OSS_DIMS = (64, 8, 64, 128)
+OSS_PAGED_SHAPES = (("serve_window", [1000, 0, 517, 1900], 16, 128, True),
+                    ("serve_full", [1000, 0, 517, 1900], 16, None, True),
+                    ("rollout_window", [4096] * 32, 64, 128, True),
+                    ("rollout_full", [4096] * 32, 64, None, False))
 
 
-def paged_inputs(torch, seed: int, lens: list, mb: int, n_layers: int = 2):
+def paged_inputs(torch, seed: int, lens: list, mb: int, n_layers: int = 2,
+                 dims: tuple = PAGED_DIMS, sinks: bool = False):
     """#5's inputs at one of PAGED_SHAPES, from `seed`: an `n_layers`-layer
     pool holding just the slots' blocks (block 0 the inactive slots', each
-    active slot's in order from block 1), q, the table and the lengths."""
+    active slot's in order from block 1), q, the table, the lengths and,
+    with `sinks`, per-head sink logits (None without)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 9)
-    hq, hkv, d, bs = PAGED_HQ, PAGED_HKV, PAGED_D, PAGED_BS
+    hq, hkv, d, bs = dims
     nb = 1 + sum(-(-(n + 1) // bs) for n in lens if n)
     pk = torch.randn((n_layers, nb, bs, hkv, d), generator=g, device=dev).bfloat16()
     pv = torch.randn((n_layers, nb, bs, hkv, d), generator=g, device=dev).bfloat16()
@@ -526,49 +585,58 @@ def paged_inputs(torch, seed: int, lens: list, mb: int, n_layers: int = 2):
             for t in range(-(-(n + 1) // bs)):
                 table[bi, t] = nxt
                 nxt += 1
-    return qd, pk, pv, table.to(dev), torch.tensor(lens, dtype=torch.int32, device=dev)
+    snk = torch.randn((hq,), generator=g, device=dev) if sinks else None
+    return (qd, pk, pv, table.to(dev), torch.tensor(lens, dtype=torch.int32, device=dev),
+            snk)
 
 
-def paged_bound(lens: list) -> dict:
-    """#5's least time: each active slot's cached keys and this token's, K
-    and V read once (bf16), q read (bf16) and out written (f32) once; the
+def paged_bound(lens: list, dims: tuple = PAGED_DIMS, window=None) -> dict:
+    """#5's least time: each active slot's keys it sees (its cached keys
+    and this token's, only the last `window` of them with a window), K and
+    V read once (bf16), q read (bf16) and out written (f32) once; the
     operations of S and O over the same keys."""
-    keys = sum(n + 1 for n in lens if n)
-    return least_ms(4 * keys * PAGED_HQ * PAGED_D,
-                    4 * keys * PAGED_HKV * PAGED_D + len(lens) * PAGED_HQ * PAGED_D * (2 + 4),
+    hq, hkv, d, _ = dims
+    keys = sum(min(n + 1, window or n + 1) for n in lens if n)
+    return least_ms(4 * keys * hq * d, 4 * keys * hkv * d + len(lens) * hq * d * (2 + 4),
                     PEAK_BF16)
 
 
-def check_paged(torch, seed: int, label: str, lens: list, mb: int) -> dict:
-    """#5 against its plain version at one of PAGED_SHAPES (layer 1 of
-    `paged_inputs`): error, finite, two launches' bits, ms through the
-    wrapper, the plain version's, the bytes bound and its share. Returns
-    the kernel row's numbers."""
-    from xtuner_tpu_torch.ops.attention.paged_decode import (paged_decode_attn,
+def check_paged(torch, seed: int, label: str, lens: list, mb: int, dims: tuple = PAGED_DIMS,
+                window=None, sinks: bool = False) -> dict:
+    """#5 against its plain version at one of PAGED_SHAPES or
+    OSS_PAGED_SHAPES (layer 1 of `paged_inputs`): error, finite, two
+    launches' bits, ms through the wrapper, the plain version's, the bytes
+    bound and its share. Returns the kernel row's numbers."""
+    from xtuner_tpu_torch.ops.attention.paged_decode import (max_window_blocks,
+                                                             paged_decode_attn,
                                                              paged_decode_attn_plain,
                                                              paged_decode_split_plan)
 
-    hq, hkv, d, bs = PAGED_HQ, PAGED_HKV, PAGED_D, PAGED_BS
-    qd, pk, pv, table, seq_lens = paged_inputs(torch, seed, lens, mb)
-    scale = d ** -0.5
+    hq, hkv, d, bs = dims
+    qd, pk, pv, table, seq_lens, snk = paged_inputs(torch, seed, lens, mb, dims=dims,
+                                                    sinks=sinks)
+    kw = dict(scale=d ** -0.5, window=window, sinks=snk)
 
     def kern():
-        return paged_decode_attn(qd, pk, pv, 1, table, seq_lens, scale=scale)
+        return paged_decode_attn(qd, pk, pv, 1, table, seq_lens, **kw)
 
     od, again = kern(), kern()
-    ref_d = paged_decode_attn_plain(qd, pk, pv, 1, table, seq_lens, scale=scale)
+    ref_d = paged_decode_attn_plain(qd, pk, pv, 1, table, seq_lens, **kw)
     torch.cuda.synchronize()
-    d_err = (od - ref_d).abs().max().item()
+    live = seq_lens > 0  # an inactive slot's output is discarded (undefined without sinks)
+    d_err = (od[live] - ref_d[live]).abs().max().item()
     finite, same = bool(torch.isfinite(od).all()), torch.equal(od, again)
     del ref_d, again
     p_ms = cuda_ms(kern)
-    p_plain = cuda_ms(lambda: paged_decode_attn_plain(qd, pk, pv, 1, table, seq_lens,
-                                                      scale=scale), iters=3, warmup=1)
-    b = paged_bound(lens)
-    splits = paged_decode_split_plan(len(lens), hkv, mb,
+    p_plain = cuda_ms(lambda: paged_decode_attn_plain(qd, pk, pv, 1, table, seq_lens, **kw),
+                      iters=3, warmup=1)
+    b = paged_bound(lens, dims, window)
+    walk_mb = min(mb, max_window_blocks(window, 1, bs)) if window else mb
+    splits = paged_decode_split_plan(len(lens), hkv, walk_mb,
                                      torch.cuda.get_device_properties(0).multi_processor_count)
     say("kernel", name="paged_decode", shape=label,
-        dims=f"B{len(lens)}xC1xHq{hq}xHkv{hkv}xD{d}xBS{bs}xMB{mb}", splits=splits,
+        dims=f"B{len(lens)}xC1xHq{hq}xHkv{hkv}xD{d}xBS{bs}xMB{mb}", window=window,
+        sinks=sinks, splits=splits,
         kv_mb=f"{4 * sum(n + 1 for n in lens if n) * hkv * d / 1e6:.1f}",
         seq_lens=",".join(map(str, sorted(set(lens)))), err=f"{d_err:.3e}", finite=finite,
         same_bits=same, ms=f"{p_ms:.4f}", plain_ms=f"{p_plain:.4f}",
@@ -583,27 +651,34 @@ def check_paged(torch, seed: int, label: str, lens: list, mb: int) -> dict:
 
 
 def phase_paged_device_time(torch, seed: int, kernels: list[dict]) -> None:
-    """#5's device time alone (`kernel_device_ms`) at each of PAGED_SHAPES,
-    on `check_paged`'s inputs made again; the serve row of `kernels` gains
-    `kernel_ms` and `kernel_share_of_bound`. It runs after the serving
-    phase's timed requests: a profiler window leaves the process slower to
-    launch from the host (the serving decode step by 10-15 ms on an H100,
-    `tools/bench_serve_decode.py --profile-after`), and that loop is
-    host-bound, so the serving phase opens its own profiler window only
-    after its timings, as it did before #5 was timed alone."""
+    """#5's device time alone (`kernel_device_ms`) at each of PAGED_SHAPES
+    and OSS_PAGED_SHAPES, on `check_paged`'s inputs made again; the rows of
+    `kernels` at those shapes gain `kernel_ms` and `kernel_share_of_bound`.
+    It runs after the serving phases' timed requests: a profiler window
+    leaves the process slower to launch from the host (the serving decode
+    step by 10-15 ms on an H100, `tools/bench_serve_decode.py
+    --profile-after`), and that loop is host-bound, so the serving phases
+    open no profiler window before their timings end."""
     from xtuner_tpu_torch.ops.attention.paged_decode import paged_decode_attn
 
-    row = next(k for k in kernels if k["name"] == "paged_decode")
-    for label, lens, mb in PAGED_SHAPES:
-        qd, pk, pv, table, seq_lens = paged_inputs(torch, seed, lens, mb)
+    shapes = [("serve", label, lens, mb, PAGED_DIMS, None, False)
+              for label, lens, mb in PAGED_SHAPES]
+    shapes += [("serve_gpt_oss", label, lens, mb, OSS_DIMS, window, sinks)
+               for label, lens, mb, window, sinks in OSS_PAGED_SHAPES]
+    for path, label, lens, mb, dims, window, sinks in shapes:
+        qd, pk, pv, table, seq_lens, snk = paged_inputs(torch, seed, lens, mb, dims=dims,
+                                                        sinks=sinks)
         k_ms = kernel_device_ms(torch, lambda: paged_decode_attn(
-            qd, pk, pv, 1, table, seq_lens, scale=PAGED_D ** -0.5), "paged_decode_kernel")
-        b = paged_bound(lens)
-        say("kernel", name="paged_decode", shape=label, kernel_ms=f"{k_ms:.4f}",
+            qd, pk, pv, 1, table, seq_lens, scale=dims[2] ** -0.5, window=window, sinks=snk),
+            "paged_decode_kernel")
+        b = paged_bound(lens, dims, window)
+        say("kernel", name="paged_decode", path=path, shape=label, kernel_ms=f"{k_ms:.4f}",
             bound_ms=f"{b['bound_ms']:.4f}", kernel_share_of_bound=f"{b['bound_ms'] / k_ms:.3f}")
-        if label == "serve":
-            row.update(kernel_ms=k_ms, kernel_share_of_bound=b["bound_ms"] / k_ms)
-        del qd, pk, pv, table, seq_lens
+        for row in kernels:
+            if row["name"] == "paged_decode" and row["path"] == path and \
+                    row.get("shape", "serve") == label:
+                row.update(kernel_ms=k_ms, kernel_share_of_bound=b["bound_ms"] / k_ms)
+        del qd, pk, pv, table, seq_lens, snk
 
 
 def kernel_device_ms(torch, fn, kernel: str, iters: int = 20) -> float:
@@ -3238,6 +3313,361 @@ def release(torch, phase: str) -> None:
         raise AssertionError(f"{left:.3f} GiB still allocated after the {phase} phase")
 
 
+def window_pairs(torch, seg, window) -> int:
+    """(query, key) pairs on the documents' causal triangles inside a
+    sliding `window` (all of them without one); padding excluded."""
+    if not window:
+        return causal_pairs(torch, seg)
+    total = 0
+    for row in seg.cpu():
+        ids, counts = torch.unique_consecutive(row, return_counts=True)
+        for i, n in zip(ids.tolist(), counts.tolist()):
+            if i:
+                w = min(n, window)
+                total += w * (w + 1) // 2 + (n - w) * window
+    return total
+
+
+def window_mask(torch, seg, window):
+    """`block_causal_mask` cut to a sliding window (the full mask without
+    one): SDPA's dense mask for #1 at a windowed layer."""
+    mask = block_causal_mask(torch, seg)
+    if window:
+        pos = torch.arange(seg.shape[-1], device=seg.device)
+        mask = mask & (pos[:, None] - pos[None, :] < window)
+    return mask
+
+
+def flash_plain_by_group(torch, q, k, v, seg, scale: float, window):
+    """`flash_attention_plain` one kv head's q-head group at a time: the
+    same f32 math, with an (L, L) score slab per group of Hq / Hkv heads
+    (2.1 GB f32 at L8192 and 8 heads) instead of one for all heads."""
+    from xtuner_tpu_torch.ops.attention.flash import flash_attention_plain
+
+    rep = q.shape[2] // k.shape[2]
+    outs, lses = [], []
+    for g in range(k.shape[2]):
+        o, lse = flash_attention_plain(q[:, :, g * rep:(g + 1) * rep], k[:, :, g:g + 1],
+                                       v[:, :, g:g + 1], seg, scale, window=window)
+        outs.append(o)
+        lses.append(lse)
+    return torch.cat(outs, dim=2), torch.cat(lses, dim=1)
+
+
+def phase_gpt_oss_kernels(torch, seed: int, smi: str) -> list[dict]:
+    """The kernels of gpt-oss-20b's serving path against their plain
+    versions at its shapes: #1 at (64, 64), B1 L8192 Hq64/8 on five
+    documents and a padded tail, with the window of 128 and in full (the
+    walked k tiles against `fwd_tile_plan` with the window; the sinks
+    folded in once, against the plain fold), SDPA with the window as a
+    dense mask as the library time, the bound on the in-window pairs; #5 at
+    D 64 at OSS_PAGED_SHAPES; #6 (nn) at E32 H2880 F2880 on a decode step's
+    rows (4 slots x top-4) and a 1000-token prefill's, beside
+    `torch._grouped_mm`."""
+    import numpy as np
+
+    from xtuner_tpu_torch.ops.attention import flash as fl
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 17)
+    rng = np.random.default_rng(seed + 17)
+    l, hq, hkv, d = OSS_SEQ, OSS_HQ, OSS_HKV, OSS_D
+    seg = _segments(torch, doc_lengths(rng, l, 5, 250), l, dev)
+    q, k, v = (torch.randn((1, l, h, d), generator=g, device=dev).bfloat16()
+               for h in (hq, hkv, hkv))
+    sinks = torch.randn((hq,), generator=g, device=dev)
+    scale = d ** -0.5
+    valid = seg[0] != 0
+    rows = []
+    for window in (OSS_WINDOW, None):
+        fl.reset_launches()
+        out, lse = fl.flash_attention(q, k, v, seg, window=window)
+        torch.cuda.synchronize()
+        walked, full = fl.fwd_tiles_walked()
+        walk, plan_full = fl.fwd_tile_plan(seg, window)
+        plan = (int(walk.sum()) * hq, int(plan_full.sum()) * hq)
+        fl.reset_launches()
+        ref_out, ref_lse = flash_plain_by_group(torch, q, k, v, seg, scale, window)
+        out_err = _abs(out[:, valid], ref_out[:, valid])
+        lse_err = _abs(lse[..., valid], ref_lse[..., valid])
+        pad_ok = bool((out[:, ~valid] == 0).all()) and \
+            bool((lse[..., ~valid] == fl.BIG_LSE).all())
+        # the sinks, folded after the kernel, against the plain fold
+        s_out, s_lse = fl.flash_attention(q, k, v, seg, window=window, sinks=sinks)
+        r_out, r_lse = fl.fold_sinks(ref_out, ref_lse, sinks)
+        sink_err = _abs(s_out[:, valid], r_out[:, valid])
+        sink_lse_err = _abs(s_lse[..., valid], r_lse[..., valid])
+        sink_pad_ok = bool((s_out[:, ~valid] == 0).all()) and \
+            bool(torch.isfinite(s_out.float()).all())
+        del ref_out, ref_lse, s_out, s_lse, r_out, r_lse
+        ms = cuda_ms(lambda: fl.flash_attention(q, k, v, seg, window=window))
+        plain = cuda_ms(lambda: flash_plain_by_group(torch, q, k, v, seg, scale, window),
+                        iters=1, warmup=1)
+        mask = window_mask(torch, seg, window)
+        lib, why = sdpa_ms(torch, q, k, v, mask)
+        del mask
+        pairs = window_pairs(torch, seg, window)
+        least = least_ms(2 * pairs * hq * (d + d), flash_bytes(q, k, dv=d), PEAK_BF16)
+        say("kernel", name="flash_fwd", path="serve_gpt_oss",
+            shape=f"B1xL{l}xHq{hq}xHkv{hkv}xD{d}", window=window, out_err=f"{out_err:.3e}",
+            lse_err=f"{lse_err:.3e}", pad_rows_ok=pad_ok, sinks_out_err=f"{sink_err:.3e}",
+            sinks_lse_err=f"{sink_lse_err:.3e}",
+            ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}", sdpa_ms=lib, why=repr(why),
+            pairs=pairs, tflops=f"{2 * pairs * hq * 2 * d / ms / 1e9:.1f}",
+            bound_ms=f"{least['bound_ms']:.4f}", bound_by=least["bound_by"],
+            share_of_bound=f"{least['bound_ms'] / ms:.3f}", tiles_walked=walked,
+            tiles_full=full, plan_walked_full=f"{plan[0]},{plan[1]}", card=repr(smi))
+        if (walked, full) != plan:
+            raise AssertionError(f"#1 at 64/64 (window {window}) walked {walked} k tiles "
+                                 f"({full} full) where its plan says {plan}")
+        if not (out_err <= FLASH_OUT_ATOL and lse_err <= FLASH_LSE_ATOL and pad_ok and
+                sink_err <= FLASH_OUT_ATOL and sink_lse_err <= FLASH_LSE_ATOL and sink_pad_ok):
+            raise AssertionError(f"#1 at 64/64 (window {window}) disagrees with its plain "
+                                 f"version: out {out_err}, lse {lse_err}, padding {pad_ok}, "
+                                 f"with sinks {sink_err}, {sink_lse_err} (finite, padding "
+                                 f"{sink_pad_ok})")
+        rows.append({"name": "flash_fwd", "route": "cuda",
+                     "source": "xtuner_tpu_torch/csrc/flash_fwd.cu",
+                     "replaces": "xtuner_tpu/ops/attention/flash.py:82",
+                     "path": "serve_gpt_oss",
+                     "shape": f"B1xL{l}xHq{hq}/{hkv}xD{d}, window {window or 'none'}",
+                     "launches": 0, "max_abs_err": max(out_err, lse_err, sink_err, sink_lse_err),
+                     "ms": ms,
+                     "plain_ms": plain, **least, "library_ms": lib})
+    del q, k, v
+    for label, lens, mb, window, snk in OSS_PAGED_SHAPES:
+        nums = check_paged(torch, seed, label, lens, mb, OSS_DIMS, window, snk)
+        rows.append({"name": "paged_decode", "route": "cuda",
+                     "source": "xtuner_tpu_torch/csrc/paged_decode.cu",
+                     "replaces": "xtuner_tpu/ops/attention/paged_decode.py:66",
+                     "path": "serve_gpt_oss", "shape": label, "launches": 0, **nums,
+                     "library_ms": None})
+    e, h, f = OSS_EXPERTS, OSS_H, OSS_F
+    w_gu = (torch.randn((e, h, 2 * f), generator=g, device=dev) * 0.02).bfloat16()
+    w_dn = (torch.randn((e, f, h), generator=g, device=dev) * 0.02).bfloat16()
+    for label, tokens in (("decode", OSS_SLOTS), ("prefill", 1000)):
+        m = tokens * OSS_TOPK
+        sizes = routed_sizes(torch, rng, tokens, e, OSS_TOPK, e - 1, dev)
+        x = torch.randn((m, h), generator=g, device=dev).bfloat16()
+        hmid = torch.randn((m, f), generator=g, device=dev).bfloat16()
+        cases = grouped_cases(x, hmid, w_gu, w_dn, None, None, sizes, e, kinds=("nn",))
+        # the bytes the function must move: the weights of the experts that
+        # have rows (a decode step's 16 rows touch fewer than 32)
+        touched = int((sizes > 0).sum())
+        cases = [(*c[:6], c[6] - 2 * (e - touched) * c[4][1].shape[1] * c[4][1].shape[2])
+                 for c in cases]
+        for row in grouped_rows(torch, "serve_gpt_oss", cases, m, e, iters=20, plain_iters=2):
+            row["shape"] = f"{label} M{m} E{e} ({touched} with rows) H{h} F{f}"
+            rows.append(row)
+    return rows
+
+
+def phase_serve_gpt_oss(torch, seed: int, smi: str) -> dict:
+    """`PagedGenerator.generate` on gpt-oss-20b at full width and depth with
+    random bf16 weights from the seed and `record_routing=True`: 6 requests
+    on 4 slots (prompts up to 1000 tokens, past the window of 128 and across
+    block edges; one GRPO pair), MAX_NEW new tokens each; prefill and decode
+    tokens/s, ms a decode step, peak memory, the exact launches of #1, #5
+    and #6; `routed_experts`' shape and range; the teacher-forced re-check
+    of the logprobs with the share of positions whose re-prefill routing
+    equals the recorded one; and what one concatenation of a layer's
+    gate|up (which the engine's fused gate|up buffer avoids) costs. No
+    profiler window opens here (`phase_gpt_oss_profile` runs at the end)."""
+    import numpy as np
+
+    from xtuner_tpu_torch.model.generate import GenerateConfig, _forward_cached, init_cache
+    from xtuner_tpu_torch.model.paged_generate import PagedGenerator
+    from xtuner_tpu_torch.model.registry import get_model_config
+    from xtuner_tpu_torch.module.params import count_params, init_params
+    from xtuner_tpu_torch.ops import bf16_grouped as bg
+    from xtuner_tpu_torch.ops.attention.flash import flash_attention
+    from xtuner_tpu_torch.ops.attention.paged_decode import paged_decode_attn
+
+    dev = torch.device("cuda")
+    cfg = get_model_config(OSS_MODEL)
+    model = cfg.build()
+    specs = model.param_specs()
+    n_params = count_params(specs)
+    if n_params != OSS_PARAMS:
+        raise AssertionError(f"{OSS_MODEL}: {n_params} params, JAX's preset has {OSS_PARAMS}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(specs, torch.Generator(device=dev).manual_seed(seed), dev,
+                         torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gib = torch.cuda.memory_allocated() / 2**30
+    rng = np.random.default_rng(seed + 3)
+    lens = [1000, 1, *rng.integers(130, 1000, size=3).tolist()]
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in lens]
+    reqs = [{"prompt_ids": prompts[0], "group": "g0"}, {"prompt_ids": prompts[0], "group": "g0"},
+            *[{"prompt_ids": p} for p in prompts[1:]]]
+    greedy = GenerateConfig(max_length=2048, max_new_tokens=MAX_NEW, do_sample=False,
+                            prefill_chunk=0, prefix_cache=False)
+    t0 = time.perf_counter()
+    eng = PagedGenerator(model, params, greedy, max_batch=OSS_SLOTS, block_size=128,
+                         record_routing=True)
+    torch.cuda.synchronize()
+    say("serve_gpt_oss", model=OSS_MODEL, params=n_params, layers=cfg.num_hidden_layers,
+        hidden=cfg.hidden_size, heads=f"{OSS_HQ}/{OSS_HKV}x{OSS_D}",
+        experts=f"{cfg.n_routed_experts}top{cfg.num_experts_per_tok}",
+        windows=cfg.layer_window_pattern, dtype="bf16", init_s=f"{init_s:.3f}",
+        weights_gib=f"{weights_gib:.3f}", engine_init_s=f"{time.perf_counter() - t0:.3f}",
+        init_peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}")
+    eng.generate([{"prompt_ids": prompts[1], "max_new_tokens": 2}])  # warm-up
+    eng._prefill = _Timed(torch, eng._prefill)
+    eng._decode_step = _Timed(torch, eng._decode_step)
+    flash_attention.launches = 0
+    paged_decode_attn.launches = 0
+    bg.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd": flash_attention.launches,
+                "paged_decode": paged_decode_attn.launches,
+                "grouped_gemm_nn": bg.grouped_gemm_bf16.launches["nn"]}
+    n_layers = cfg.num_hidden_layers
+    want = {"flash_fwd": n_layers * eng._prefill.calls,
+            "paged_decode": n_layers * eng._decode_step.calls,
+            "grouped_gemm_nn": 2 * n_layers * (eng._prefill.calls + eng._decode_step.calls)}
+    n_gen = [len(o["token_ids"]) for o in outs]
+    say("serve_gpt_oss", requests=len(reqs), slots=OSS_SLOTS, wall_s=f"{wall:.3f}",
+        prefill_calls=eng._prefill.calls, prefill_s=f"{eng._prefill.seconds:.4f}",
+        decode_steps=eng._decode_step.calls, decode_s=f"{eng._decode_step.seconds:.4f}",
+        generated=n_gen, launches=launches, want=want,
+        peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}")
+    if eng._prefill.calls != len(prompts):
+        raise AssertionError(f"{eng._prefill.calls} prefills for {len(prompts)} prompts: "
+                             f"the GRPO sibling did not share its leader's prompt")
+    if launches != want:
+        raise AssertionError(f"launches {launches}, the steps imply {want}")
+    for o in outs:
+        r = o["routed_experts"]
+        if not o["token_ids"] or len(o["logprobs"]) != len(o["token_ids"]) or \
+                not all(0 <= t < cfg.vocab_size for t in o["token_ids"]) or \
+                not np.isfinite(o["logprobs"]).all():
+            raise AssertionError(f"bad output {o['finish_reason']} {o['token_ids'][:8]}")
+        if r.shape != (len(o["token_ids"]), n_layers, OSS_TOPK) or r.min() < 0 or \
+                r.max() >= OSS_EXPERTS or (np.diff(np.sort(r, -1), axis=-1) == 0).any():
+            raise AssertionError(f"routed_experts {r.shape}: want ({len(o['token_ids'])}, "
+                                 f"{n_layers}, {OSS_TOPK}) distinct ids in [0, {OSS_EXPERTS})")
+        if o["finish_reason"] == "length" and len(o["token_ids"]) != MAX_NEW:
+            raise AssertionError(f"length finish with {len(o['token_ids'])} tokens")
+    if outs[0]["token_ids"][0] != outs[1]["token_ids"][0] or \
+            not np.array_equal(outs[0]["routed_experts"][0], outs[1]["routed_experts"][0]):
+        raise AssertionError("the GRPO sibling's first token or routing differs from its "
+                             "leader's (greedy, one prompt)")
+    eng.check_block_conservation()
+    if eng.cache.tables:
+        raise AssertionError("sequences left in the pool")
+    prefilled, decoded = sum(lens), sum(n_gen) - len(outs)
+    say("serve_gpt_oss", prefill_tokens=prefilled,
+        prefill_tok_s=f"{prefilled / eng._prefill.seconds:.1f}", decode_tokens=decoded,
+        decode_tok_s=f"{decoded / eng._decode_step.seconds:.1f}",
+        decode_ms_per_step=f"{1e3 * eng._decode_step.seconds / eng._decode_step.calls:.3f}",
+        card=repr(smi))
+
+    # teacher-forced re-check: prompt + generated tokens in one flash
+    # prefill, with its routing at the positions that produced the tokens
+    def teacher_forced(prompt, toks, extra_pad):
+        ids = prompt + toks
+        n = len(ids)
+        pb = -(-n // 64) * 64 + extra_pad
+        padded = torch.zeros((1, pb), dtype=torch.long, device=dev)
+        padded[0, :n] = torch.tensor(ids, device=dev)
+        pos = torch.clamp(torch.arange(pb, device=dev), max=n - 1)[None]
+        mask = (torch.arange(pb, device=dev) < n)[None]
+        logits, _, routing = _forward_cached(model, params, padded, pos,
+                                             init_cache(model, 1, pb, torch.bfloat16, dev),
+                                             0, torch.bfloat16, mask, record_routing=True)
+        p = len(prompt)
+        lps = torch.log_softmax(logits[0, p - 1:p - 1 + len(toks)], dim=-1)
+        lps = lps.gather(1, torch.tensor(toks, device=dev)[:, None])[:, 0].cpu()
+        return lps, np.sort(routing[0, p - 1:p - 1 + len(toks)].cpu().numpy(), -1)
+
+    diffs, floor, layers, floor_layers = [], [], [], []
+    for req, o in zip(reqs, outs):
+        tf, rout = teacher_forced(req["prompt_ids"], o["token_ids"], 0)
+        tf_pad, rout_pad = teacher_forced(req["prompt_ids"], o["token_ids"], 64)
+        diffs.append((tf - torch.tensor(o["logprobs"])).abs())
+        floor.append((tf - tf_pad).abs())
+        # (positions, layers): the same top-4 set in decode and re-prefill
+        layers.append((rout == np.sort(o["routed_experts"], -1)).all(-1))
+        floor_layers.append((rout == rout_pad).all(-1))
+    diffs, floor = torch.cat(diffs), torch.cat(floor)
+    layers, floor_layers = np.concatenate(layers), np.concatenate(floor_layers)
+    agree = torch.from_numpy(layers.all(1))
+    share, layer0 = agree.float().mean().item(), float(layers[:, 0].mean())
+    tf_max, tf_mean = diffs.max().item(), diffs.mean().item()
+    held = "all positions"
+    if not (tf_max <= TF_MAX_ATOL and tf_mean <= TF_MEAN_ATOL) and \
+            share >= OSS_ALL_LAYERS_AGREE_MIN and layer0 >= OSS_ROUTING_AGREE_MIN:
+        tf_max, tf_mean = diffs[agree].max().item(), diffs[agree].mean().item()
+        held = "positions whose routing agrees in every layer"
+    say("serve_gpt_oss", teacher_forced_max_abs=f"{diffs.max().item():.4e}",
+        mean_abs=f"{diffs.mean().item():.4e}", held_on=repr(held),
+        held_max_abs=f"{tf_max:.4e}", held_mean_abs=f"{tf_mean:.4e}",
+        tol=f"max<={TF_MAX_ATOL},mean<={TF_MEAN_ATOL}", positions=int(agree.numel()),
+        routing_agree_all_layers=f"{share:.4f}", routing_agree_layer0=f"{layer0:.4f}",
+        routing_agree_by_layer=",".join(f"{x:.3f}" for x in layers.mean(0)),
+        prefill_vs_prefill_max_abs=f"{floor.max().item():.4e}",
+        prefill_vs_prefill_mean_abs=f"{floor.mean().item():.4e}",
+        prefill_vs_prefill_routing_agree_all_layers=f"{floor_layers.all(1).mean():.4f}")
+    if not (tf_max <= TF_MAX_ATOL and tf_mean <= TF_MEAN_ATOL):
+        raise AssertionError(f"teacher-forced logprobs disagree with decode on {held}: max "
+                             f"{tf_max}, mean {tf_mean} (routing agrees in every layer at "
+                             f"{share:.4f} of the positions, at layer 0 at {layer0:.4f})")
+
+    # what the fused gate|up buffer saves: one layer's concatenation of its
+    # gate and up weights, as `moe_mlp_forward` would make it every call
+    ex = params["moe_layers"]["experts"]
+    g0, u0 = ex["gate_proj"][0], ex["up_proj"][0]
+    cat_ms = cuda_ms(lambda: torch.cat([g0, u0], dim=2), iters=5, warmup=1)
+    cat_bytes = 2 * (g0.numel() + u0.numel()) * g0.element_size()
+    say("serve_gpt_oss", gate_up_cat_ms_per_layer=f"{cat_ms:.4f}",
+        gate_up_cat_gb_per_layer=f"{cat_bytes / 1e9:.3f}",
+        avoided_ms_per_decode_step=f"{cat_ms * n_layers:.3f}",
+        cat_bound_ms_per_layer=f"{cat_bytes / HBM_BYTES_S * 1e3:.4f}")
+    return launches
+
+
+def phase_gpt_oss_profile(torch, seed: int) -> None:
+    """Where gpt-oss-20b's serving time goes (torch.profiler): the model
+    and engine of `phase_serve_gpt_oss` made again, then one window of 4
+    prefills of 1000-token prompts and one of 16 decode steps over those 4
+    slots (#5 as `port_paged_decode_ms`; in the decode window
+    `port_kernels_ms` is #6 alone, cuBLAS the attention projections, the
+    router and the head). It runs last: a profiler window slows every
+    later host launch in the process."""
+    import numpy as np
+
+    from xtuner_tpu_torch.model.generate import GenerateConfig
+    from xtuner_tpu_torch.model.paged_generate import PagedGenerator
+    from xtuner_tpu_torch.model.registry import get_model_config
+    from xtuner_tpu_torch.module.params import init_params
+
+    dev = torch.device("cuda")
+    model = get_model_config(OSS_MODEL).build()
+    params = init_params(model.param_specs(), torch.Generator(device=dev).manual_seed(seed),
+                         dev, torch.bfloat16)
+    rng = np.random.default_rng(seed + 5)
+    vocab = model.cfg.vocab_size
+    greedy = GenerateConfig(max_length=2048, max_new_tokens=MAX_NEW, do_sample=False,
+                            prefill_chunk=0, prefix_cache=False)
+    eng = PagedGenerator(model, params, greedy, max_batch=OSS_SLOTS, block_size=128)
+    eng.generate([{"prompt_ids": [1, 2, 3], "max_new_tokens": 2}])  # warm-up
+    queue = [{"prompt_ids": rng.integers(0, vocab, size=1000).tolist(), "_idx": i}
+             for i in range(OSS_SLOTS)]
+    results: dict = {}
+    profile_window(torch, "gpt_oss_prefill_4x1000",
+                   lambda: [eng._admit(i, queue.pop(0)) for i in range(OSS_SLOTS)])
+    profile_window(torch, "gpt_oss_decode_16_steps",
+                   lambda: [eng.tick(queue, results) for _ in range(16)])
+
+
 class _Timed:
     """Wraps an engine step method: host clock around the call, ending in a
     device synchronize, so the time is device work plus launch overhead."""
@@ -3868,7 +4298,13 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels(torch, args.seed)
     kernels += phase_train_kernels(torch, args.seed)
-    launches = {"serve": phase_engine(torch, args.seed, smi)}
+    kernels += phase_gpt_oss_kernels(torch, args.seed, smi)
+    release(torch, "gpt_oss_kernels")
+    # before serve: serve's profile windows slow every later host launch,
+    # and the serving decode loops are host-bound
+    launches = {"serve_gpt_oss": phase_serve_gpt_oss(torch, args.seed, smi)}
+    release(torch, "serve_gpt_oss")
+    launches["serve"] = phase_engine(torch, args.seed, smi)
     release(torch, "serve")
     phase_paged_device_time(torch, args.seed, kernels)
     release(torch, "paged_device_time")
@@ -3906,6 +4342,8 @@ def main() -> int:
     kernels += phase_glm45_kernels(torch, args.seed, smi, air_seg)
     release(torch, "glm45_kernels")
     launches["moe_heavy_mtp"] = phase_moe_heavy_mtp(torch, smi, losses[0])
+    release(torch, "moe_heavy_mtp")
+    phase_gpt_oss_profile(torch, args.seed)
     for kern in kernels:
         kern["launches"] = launches[kern["path"]][kern["name"]]
         kern.pop("_bound_parts", None)

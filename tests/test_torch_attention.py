@@ -91,9 +91,18 @@ def test_flash_bf16_matches_fp32_oracle():
 
 @pytest.mark.parametrize("kw", [{"window": 8}, {"sinks": torch.zeros(4)}, {"causal": False}])
 def test_flash_unported_options_raise(kw):
+    """Non-causal attention raises; the forward takes a window and sinks
+    (tests/test_torch_gpt_oss.py holds it to JAX), and the backward with
+    either raises."""
     q, k, v, seg = _packed(b=1, l=64, d=16)
+    if "causal" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            flash_attention(_t(q), _t(k), _t(v), _t(seg), **kw)
+        return
+    tq = _t(q).requires_grad_(True)
+    out, _ = flash_attention(tq, _t(k), _t(v), _t(seg), **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_attention(_t(q), _t(k), _t(v), _t(seg), **kw)
+        out.sum().backward()
 
 
 def _mha_case(seed=0):
@@ -148,8 +157,10 @@ def test_cached_forward_unported_options_raise():
     c = torch.zeros((1, 8, 2, 128))
     with pytest.raises(NotImplementedError, match="serve-rest"):
         tattn.mha_cached_forward(tp, tattn.MHAConfig(**kw), x, cos, sin, c, c, 4)
+    # sinks and windows are ported at cache_len 0 (tests/test_torch_gpt_oss.py);
+    # gated attention still raises
     with pytest.raises(NotImplementedError, match="serve-rest"):
-        tattn.mha_cached_forward(tp, tattn.MHAConfig(**kw, with_sinks=True), x, cos, sin,
+        tattn.mha_cached_forward(tp, tattn.MHAConfig(**kw, with_gate=True), x, cos, sin,
                                  c, c, 0)
 
 
@@ -189,9 +200,18 @@ def test_paged_decode_matches_jax_kernel(c):
 
 
 def test_paged_decode_unported_options_raise():
+    """Once a refusal: a window and sinks are ported. Held to JAX's kernel
+    at head dim 128 with window 4 (slots at 63 see one block's tail) and
+    sinks, at the active slots."""
     q, pk, pv, table, lens = _paged_case()
-    with pytest.raises(NotImplementedError, match="serve-rest"):
-        paged_decode_attn(_t(q), _t(pk), _t(pv), 0, _t(table), _t(lens), scale=1.0, window=4)
+    sinks = np.linspace(-1.0, 2.0, 8).astype(np.float32)
+    want = j_paged_decode(jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv), 0,
+                          jnp.asarray(table), jnp.asarray(lens), scale=D ** -0.5, window=4,
+                          sinks=jnp.asarray(sinks), interpret=True)
+    got = paged_decode_attn(_t(q), _t(pk), _t(pv), 0, _t(table), _t(lens), scale=D ** -0.5,
+                            window=4, sinks=_t(sinks))
+    np.testing.assert_allclose(got.numpy()[lens > 0], np.asarray(want)[lens > 0], atol=TOL,
+                               rtol=TOL)
 
 
 def test_paged_write_matches_jax():

@@ -229,11 +229,15 @@ def test_unported_dsa_options_raise():
                           torch.zeros(1, 16, dtype=torch.long), torch.ones(1, 16), 16.0,
                           compute_dtype=torch.float32, remat="save_attn_residuals")
     # MoE layers with DSA attention build (tests/test_torch_moe_noaux.py
-    # holds them to JAX); the per-layer window pattern still waits for [moe]
+    # holds them to JAX); a per-layer window pattern builds too, and its
+    # training forward still waits for [moe] (the check comes first, before
+    # any weight is read)
     moe = tglm.glm_52()
     moe.router = GreedyRouterConfig()
     moe.mtp_num_layers = 0
     assert "idx_q_proj" in moe.build().param_specs()["moe_layers"]["attn"]
     moe.layer_window_pattern = [128, None]
+    assert "idx_q_proj" in moe.build().param_specs()["moe_layers"]["attn"]
     with pytest.raises(NotImplementedError, match=r"window pattern.*\[moe\]"):
-        moe.build().param_specs()
+        moe.build().loss(None, TSeq.from_input_ids(np.ones((1, 16), np.int32)),
+                         torch.zeros(1, 16, dtype=torch.long), torch.ones(1, 16), 16.0)

@@ -241,8 +241,15 @@ def test_kernel_checks_take_the_kernels_head_dims():
         v = torch.zeros((1, 64, hkv, dv), dtype=torch.bfloat16)
         return q, k, v, torch.ones((1, 64), dtype=torch.int32)
 
-    assert tflash.KERNEL_DIMS == ((128, 128), (192, 128))
+    assert tflash.KERNEL_DIMS == ((128, 128), (192, 128), (64, 64))
+    assert tflash.BWD_KERNEL_DIMS == ((128, 128), (192, 128))
     for d, dv in tflash.KERNEL_DIMS:
+        tflash._check_kernel_args(*tensors(d, dv))
+    q, k, v, seg = tensors(64, 64)  # the forward's alone: the backward refuses it
+    with pytest.raises(ValueError, match="head_dim"):
+        tflash._check_bwd_args(q, k, v, seg, torch.zeros((1, 4, 64)), torch.zeros((1, 4, 64)),
+                               q, "b")
+    for d, dv in tflash.BWD_KERNEL_DIMS:
         q, k, v, seg = tensors(d, dv)
         tflash._check_kernel_args(q, k, v, seg)
         lse = torch.zeros((1, 4, 64))
@@ -262,5 +269,8 @@ def test_unported_options_raise():
     q, k, v, seg = _packed(1, 64, 2, 2, 1, seed=6)
     with pytest.raises(NotImplementedError, match="train-slice"):
         tflash.flash_attention(_t(q), _t(k), _t(v), _t(seg), causal=False)
-    with pytest.raises(NotImplementedError, match="serve-rest"):
-        tflash.flash_attention(_t(q), _t(k), _t(v), _t(seg), window=16)
+    # the forward takes a window; its backward does not yet ([moe])
+    tq = _t(q).requires_grad_(True)
+    out, _ = tflash.flash_attention(tq, _t(k), _t(v), _t(seg), window=16)
+    with pytest.raises(NotImplementedError, match=r"\[moe\]"):
+        out.sum().backward()

@@ -15,10 +15,11 @@ import torch
 
 from xtuner_tpu_torch.ops.attention.flash import (BIG_LSE, flash_attention,
                                                   flash_attention_plain, flash_bwd,
-                                                  flash_bwd_plain, fwd_tile_plan,
+                                                  flash_bwd_plain, fold_sinks, fwd_tile_plan,
                                                   fwd_tiles_walked, group_sum,
                                                   max_free_launches, reset_launches)
-from xtuner_tpu_torch.ops.attention.paged_decode import (_sm_count, paged_decode_attn,
+from xtuner_tpu_torch.ops.attention.paged_decode import (_sm_count, max_window_blocks,
+                                                         paged_decode_attn,
                                                          paged_decode_attn_plain,
                                                          paged_decode_split_plain,
                                                          paged_decode_split_plan)
@@ -164,13 +165,13 @@ def test_flash_forward_two_launches_agree_bitwise(cuda):
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
-def _paged(dev, b, c, hq, hkv, bs, lens, seed=0):
+def _paged(dev, b, c, hq, hkv, bs, lens, seed=0, d=128):
     g = torch.Generator(device=dev).manual_seed(seed)
     mb = -(-(max(lens) + c) // bs)
     nb = b * mb + 1
-    pk = torch.randn((2, nb, bs, hkv, 128), generator=g, device=dev).bfloat16()
-    pv = torch.randn((2, nb, bs, hkv, 128), generator=g, device=dev).bfloat16()
-    q = torch.randn((b, c, hq, 128), generator=g, device=dev).bfloat16()
+    pk = torch.randn((2, nb, bs, hkv, d), generator=g, device=dev).bfloat16()
+    pv = torch.randn((2, nb, bs, hkv, d), generator=g, device=dev).bfloat16()
+    q = torch.randn((b, c, hq, d), generator=g, device=dev).bfloat16()
     table = torch.zeros((b, mb), dtype=torch.int32)
     perm = np.random.default_rng(seed).permutation(np.arange(1, nb)).tolist()
     for bi, n in enumerate(lens):
@@ -254,13 +255,81 @@ def test_paged_decode_kernel_on_two_streams(cuda):
         assert all(torch.equal(w, o) for o in outs)
 
 
+# gpt-oss's attention: head dim 64 for q, k and v, 64 q heads over 8 kv
+# heads, a window of 128 on even layers and full attention on odd ones,
+# per-head sinks (folded into out and lse after the kernel)
+@pytest.mark.parametrize("b,l,hq,hkv,docs,pad,lens", [
+    (1, 1024, 64, 8, 1, 24, None),    # gpt-oss's prefill: 1000 tokens in a 1024 bucket
+    (1, 4096, 64, 8, 5, 250, None),   # five documents at L4096
+    (2, 640, 8, 4, 0, 0, [256, 128, 128]),  # boundaries on tile edges, a padding tile
+    (1, 700, 8, 2, 0, 0, [5, 100, 17, 60, 1, 127, 300]),  # documents shorter than a tile
+    (1, 65, 4, 1, 0, 0, [40, 25]),    # L < 64
+])
+@pytest.mark.parametrize("window", [None, 128, 8, 300])
+@pytest.mark.parametrize("with_sinks", [False, True])
+def test_flash_kernel_64_window_sinks_matches_plain(cuda, b, l, hq, hkv, docs, pad, lens,
+                                                    window, with_sinks):
+    q, k, v, seg = _packed(cuda, b, l, hq, hkv, max(docs, 1), pad, d=64, dv=64)
+    if lens is not None:
+        seg = _with_lens(seg, lens)
+    sinks = torch.linspace(-2.0, 3.0, hq, device=cuda) if with_sinks else None
+    reset_launches()
+    out, lse = flash_attention(q, k, v, seg, window=window, sinks=sinks)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == 1
+    ref_out, ref_lse = flash_attention_plain(q, k, v, seg, 64 ** -0.5, window=window)
+    if sinks is not None:
+        ref_out, ref_lse = fold_sinks(ref_out, ref_lse, sinks)
+    _check_flash(out, lse, ref_out, ref_lse, seg)
+    # tiles wholly outside the window are never walked
+    walk, full = fwd_tile_plan(seg, window)
+    assert fwd_tiles_walked() == (int(walk.sum()) * hq, int(full.sum()) * hq)
+
+
+@pytest.mark.parametrize("b,c,hq,hkv,bs,lens,window", [
+    (4, 1, 64, 8, 128, [1000, 0, 517, 1900], 128),  # gpt-oss's decode, a windowed layer
+    (4, 1, 64, 8, 128, [1000, 0, 517, 1900], None),  # and a full one
+    (4, 1, 64, 8, 128, [127, 128, 129, 255], 128),   # the window's first slot on both
+                                                     # sides of a block edge
+    (3, 1, 8, 2, 16, [37, 15, 63], 20),              # windows across small blocks
+    (2, 2, 8, 2, 16, [31, 0], 16),                   # C = 2
+    (1, 4, 8, 2, 16, [50], 5),                       # 16 rows, a window inside a block
+    (32, 1, 64, 8, 128, [4096] * 32, 128),           # a rollout: 32 slots x 4096 cached
+    (32, 1, 64, 8, 128, [4096] * 32, None),
+])
+@pytest.mark.parametrize("with_sinks", [False, True])
+def test_paged_decode_kernel_64_window_sinks_matches_plain(cuda, b, c, hq, hkv, bs, lens,
+                                                          window, with_sinks):
+    """Head dim 64 with the window and the sinks, against the gather plain
+    version and the kernel's work order (`paged_decode_split_plain` at the
+    split count the wrapper plans over the in-window blocks)."""
+    q, pk, pv, table, seq_lens = _paged(cuda, b, c, hq, hkv, bs, lens, d=64)
+    sinks = torch.linspace(-1.0, 2.5, hq, device=cuda) if with_sinks else None
+    kw = dict(scale=64 ** -0.5, window=window, sinks=sinks)
+    n0 = paged_decode_attn.launches
+    out = paged_decode_attn(q, pk, pv, 1, table, seq_lens, **kw)
+    again = paged_decode_attn(q, pk, pv, 1, table, seq_lens, **kw)
+    torch.cuda.synchronize()
+    assert paged_decode_attn.launches == n0 + 2 and torch.equal(out, again)
+    live = seq_lens > 0
+    ref = paged_decode_attn_plain(q, pk, pv, 1, table, seq_lens, **kw)
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert (out[live] - ref[live]).abs().max().item() <= PAGED_ATOL
+    mb = table.shape[1]
+    if window:
+        mb = min(mb, max_window_blocks(window, c, bs))
+    splits = paged_decode_split_plan(b, hkv, mb, _sm_count(cuda.index or 0))
+    walk = paged_decode_split_plain(q, pk, pv, 1, table, seq_lens, splits=splits, **kw)
+    assert (out - walk).abs().max().item() <= PAGED_ATOL
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q, k, v, seg = _packed(cuda, 1, 64, 4, 2, 1, 0)
     with pytest.raises(ValueError, match="bfloat16"):
         flash_attention(q.float(), k.float(), v.float(), seg)
-    with pytest.raises(ValueError, match="head_dim"):
-        flash_attention(q[..., :64].contiguous(), k[..., :64].contiguous(),
-                        v[..., :64].contiguous(), seg)
+    with pytest.raises(ValueError, match="head_dim"):  # (32, 32): no kernel
+        flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                        v[..., :32].contiguous(), seg)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, seg)
     with pytest.raises(ValueError, match="head_dim"):  # (128, 64): no kernel

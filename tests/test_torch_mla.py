@@ -334,12 +334,13 @@ def test_mla_paths_still_unported_raise():
     cfg = tmla.MLAConfig(**ATTN)
     with pytest.raises(NotImplementedError, match=r"\[serve-rest\]"):
         tmla.mla_cached_forward({}, cfg, None, None, None, None, None, 0)
-    # MoE layers with MLA attention build under either router; the
-    # per-layer window pattern still waits for [moe]
+    # MoE layers with MLA attention build under either router; a per-layer
+    # window pattern builds, and its training forward still waits for [moe]
     moe = tds.deepseek_v3_tiny(router=GreedyRouterConfig())
     specs = moe.build().param_specs()
     assert "e_score_correction_bias" not in specs["moe_layers"]["router"]
     assert specs["moe_layers"]["attn"]["kv_a_proj"]["w"].shape[0] == 2
     moe.layer_window_pattern = [4, None]
+    assert moe.build().param_specs()["moe_layers"]["attn"]["kv_a_proj"]["w"].shape[0] == 2
     with pytest.raises(NotImplementedError, match=r"window pattern.*\[moe\]"):
-        moe.build().param_specs()
+        moe.build().loss(None, None, None, None, 1.0)

@@ -444,8 +444,9 @@ def test_moe_heavy_mtp_recipe():
 
 def test_still_unported_moe_options_raise():
     cfg = tds.deepseek_v3_tiny(layer_window_pattern=[4, None])
+    cfg.build().param_specs()  # builds; its training forward raises
     with pytest.raises(NotImplementedError, match=r"window pattern.*\[moe\]"):
-        cfg.build().param_specs()
+        cfg.build().forward(None, None)
     p = {"w": torch.zeros(4, 2), "e_score_correction_bias": torch.zeros(2)}
     with pytest.raises(NotImplementedError, match=r"replay.*\[moe\]"):
         trouter.route(p, trouter.NoAuxRouterConfig(), torch.zeros(3, 4), 1,

@@ -257,11 +257,16 @@ def test_moe_presets_match_jax():
 
 def test_unported_moe_options_raise():
     """MTP and the noaux router are ported (tests/test_torch_moe_noaux.py);
-    what still raises: the window pattern ([moe]), the a2a dispatcher
-    ([parallelism]) and the unported remat policies ([train-slice])."""
-    _, tcfg = _cfgs(layer_window_pattern=[16, None])
+    what still raises: training with the window pattern ([moe]), the a2a
+    dispatcher ([parallelism]) and the unported remat policies
+    ([train-slice])."""
+    jcfg, tcfg = _cfgs(layer_window_pattern=[16, None])
+    params = params_from_numpy(jax.tree.map(
+        np.asarray, j_init_params(jcfg.build().param_specs(), jax.random.key(0))), tcfg, "cpu")
     with pytest.raises(NotImplementedError, match=r"\[moe\]"):
-        tcfg.build().param_specs()
+        tcfg.build().loss(params, TSeq.from_input_ids(np.ones((1, 8), np.int32)),
+                          torch.zeros(1, 8, dtype=torch.long), torch.ones(1, 8), 8.0,
+                          compute_dtype=torch.float32, remat="none")
     _, tcfg = _cfgs()
     tcfg.router = NoAuxRouterConfig()
     eng = TEngine(tcfg, toptim.AdamWConfig(), toptim.LRConfig(), TMesh(), 2, device="cpu")

@@ -6,13 +6,17 @@
 // (pallas_call in _flash_forward), both of its variants: running max, and
 // max-free (taken when a proven bound on |scaled logit| is <= 45). Same
 // function: q, k (B, L, Hq or Hkv, D), v (B, L, Hkv, DV) bf16, (D, DV) =
-// (128, 128) or MLA's (192, 128), segment_ids
+// (128, 128), MLA's (192, 128) or gpt-oss's (64, 64), segment_ids
 // (B, L) int32 (0 = padding). A first small kernel (tile_table.cuh) builds
 // the backward's table of 64-row tiles over the ids padded to Lp, a
 // multiple of 128 (flash.py _tile_table: {lowest non-zero id, highest, the
 // id if the tile holds one document and no padding else 0}), into scratch
 // the wrapper gives, so the host does no work per call. Key m is visible
-// to query l iff seg[l] == seg[m] != 0 and m <= l. Returns out (B, L, Hq,
+// to query l iff seg[l] == seg[m] != 0 and m <= l, and with a sliding
+// window w > 0 (a kernel argument; 0 = full attention, so one
+// instantiation serves gpt-oss's windowed and full layers) l - m < w
+// (JAX _tile_mask). Sinks are folded into out and lse outside the kernel,
+// as JAX folds them (ops/attention/flash.py::fold_sinks). Returns out (B, L, Hq,
 // D) bf16 and lse (B, Hq, L) f32 in natural log; a row with no visible key
 // gets out = 0 and lse = 1e30; out is (B, L, Hq, DV).
 //
@@ -50,10 +54,14 @@
 // - The walk: k tiles from the first whose segment range meets the q
 //   tile's (warp 0 finds it by ballots over the tile table) up to the
 //   diagonal, skipping any that does not meet it; producer and consumers
-//   read the same predicate. A tile wholly inside the q tile's one
-//   document and below the diagonal skips the per-element mask (JAX
-//   _tile_full); only tiles on the diagonal, a document boundary or
-//   padding are masked.
+//   read the same predicate. With a window the search starts at the k tile
+//   that holds the q tile's first row's first visible key, so tiles wholly
+//   outside the window are never loaded: a windowed layer walks at most
+//   ceil(w / 128) + 1 tiles a q tile, O(L w), not O(L^2 / 2). A tile
+//   wholly inside the q tile's one document, below the diagonal and (with
+//   a window) wholly inside it skips the per-element mask (JAX
+//   _tile_full); only tiles on the diagonal, a document boundary, the
+//   window's edge or padding are masked.
 // - Epilogue: out = O / l (0 where nothing was visible) to bf16, staged in
 //   the warpgroup's own rows of the Q buffer in the swizzled layout and
 //   written by two TMA stores (rows past L are not written); lse by the
@@ -69,15 +77,18 @@
 //   counter, and thread 0 of every CTA adds its walked and full k tiles to
 //   a second counter when one is given (the plan check of chip_smoke.py).
 // - Deterministic: no atomics touch out or lse.
-// - (D, DV) in {(128, 128), (192, 128)}, templates (DV = 128: O and P take
-//   the registers of D = 128; only the S product and the Q and K tiles
-//   grow), and causal only (anything else returns an error).
+// - (D, DV) in {(128, 128), (192, 128), (64, 64)}, templates (DV = 128: O
+//   and P take the registers of D = 128; only the S product and the Q and
+//   K tiles grow; at 64/64 Q, K and V are one 64-column box each, O is 64
+//   x 64 (32 registers a thread) and PV runs on wgmma m64n64k16), and
+//   causal only (anything else returns an error).
 // - ptxas (nvcc -Xptxas -v, sm_90a, CUDA 12.9): one kernel holds both
 //   variants (the bound is read on the device): at 128/128 254 registers,
 //   0 bytes of spills, 164,936 bytes of dynamic shared memory (one CTA per
-//   SM); at 192/128 238 registers, 0 spills, 214,088 bytes. A three-stage
-//   ring fits too at 128/128, and ran slower than two at L65536 and L8192.
-//   chip_smoke.py's build phase prints both instantiations.
+//   SM); at 192/128 238 registers, 0 spills, 214,088 bytes; at 64/64 232
+//   registers, 0 spills, 83,016 bytes. A three-stage ring fits too at
+//   128/128, and ran slower than two at L65536 and L8192. chip_smoke.py's
+//   build phase prints every instantiation.
 
 #include "sm90.cuh"
 #include "tile_table.cuh"
@@ -99,7 +110,7 @@ constexpr float MAX_FREE_BOUND = 45.f;
 constexpr uint32_t HALF = BN * 128;  // one 64-column box of a 128-row tile: 16 KB
 template <int D, int DV>
 struct Smem {
-  static_assert(DV == 128 && D % 64 == 0, "O and P are 64 x 128 per warpgroup");
+  static_assert((DV == 128 || DV == 64) && D % 64 == 0, "O is 64 x DV per warpgroup");
   static constexpr uint32_t QT = (D / 64) * HALF, KT = (D / 64) * HALF, VT = (DV / 64) * HALF;
   static constexpr uint32_t OFF_Q = 0;
   static constexpr uint32_t OFF_K = OFF_Q + QT;
@@ -118,6 +129,7 @@ struct Args {
   int* max_free_count;                // device int or null
   unsigned long long* tile_count;     // [walked, full] or null
   int B, L, Lp, Hq, Hkv;
+  int window;  // > 0: key m visible to query l only if l - m < window; 0: full
   float scale_log2e;
 };
 
@@ -149,12 +161,15 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* tm_k, const CUtensorM
 
 // P of one (64 q rows, 128 keys) tile from S in the accumulator layout
 // (rows row0 + 8 r, columns 8 j + 2 tq + cc for s[4 j + 2 r + cc]), packed
-// to bf16 A fragments; m, l and O updated for the running-max variant
-template <bool MAX_FREE, bool MASK>
-__device__ __forceinline__ void softmax_tile(float (&s)[64], uint32_t (&pa)[32], float (&o)[64],
+// to bf16 A fragments; m, l and O (NO = DV / 2 registers, the same layout)
+// updated for the running-max variant. A key is visible to row r if it is
+// in its document, at or below qpos[r] and above klo[r] (the window)
+template <bool MAX_FREE, bool MASK, int NO>
+__device__ __forceinline__ void softmax_tile(float (&s)[64], uint32_t (&pa)[32], float (&o)[NO],
                                              float (&m)[2], float (&l)[2], float c,
                                              const int* kseg, int k0, int L,
-                                             const int (&qs)[2], const int (&qpos)[2], int tq) {
+                                             const int (&qs)[2], const int (&qpos)[2],
+                                             const int (&klo)[2], int tq) {
   int ks[32];
   if (MASK) {
 #pragma unroll
@@ -165,7 +180,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], uint32_t (&pa)[32],
   }
   auto visible = [&](int i) {
     const int j = i / 4, r = (i / 2) % 2, cc = i % 2;
-    return qs[r] != 0 && ks[2 * j + cc] == qs[r] && k0 + 8 * j + 2 * tq + cc <= qpos[r];
+    const int kpos = k0 + 8 * j + 2 * tq + cc;
+    return qs[r] != 0 && ks[2 * j + cc] == qs[r] && kpos <= qpos[r] && kpos > klo[r];
   };
   if (MAX_FREE) {
 #pragma unroll
@@ -198,8 +214,9 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], uint32_t (&pa)[32],
       const float p = exp2f(s[i] - mx[(i / 2) % 2]);  // masked: exp2(-inf) = 0
       l[(i / 2) % 2] += p;
       s[i] = p;
-      o[i] *= alpha[(i / 2) % 2];
     }
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] *= alpha[(i / 2) % 2];
   }
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
@@ -242,6 +259,8 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap* tm_q, const CUtensor
   const int4 t0 = tiles[2 * i], t1 = tiles[2 * i + 1];
   const int qmin = min(t0.x, t1.x), qmax = max(t0.y, t1.y);
   const int quni = t0.z == t1.z ? t0.z : 0;
+  // with a window, the k tile that holds the first row's first visible key
+  const int j_lo = a.window > 0 ? max(0, q0 - a.window + 1) / BN : 0;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -255,9 +274,9 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap* tm_q, const CUtensor
     for (int c = 0; c < D / 64; ++c)
       tma_load(sbase + C::OFF_Q + c * HALF, tm_q, bar_q, 64 * c, h, q0, b);
   }
-  if (threadIdx.x < 32) {  // the first k tile to walk, 32 tiles at a time from tile 0
+  if (threadIdx.x < 32) {  // the first k tile to walk, 32 tiles at a time from j_lo
     int first = i + 1;
-    for (int base = 0; base <= i; base += 32) {
+    for (int base = j_lo; base <= i; base += 32) {
       const int j = base + lane;
       const unsigned hit = __ballot_sync(0xffffffffu, j <= i && meets(tiles, j, qmin, qmax));
       if (hit) {
@@ -276,17 +295,21 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap* tm_q, const CUtensor
       jn = next_tile(tiles, jn + 1, i, qmin, qmax);
     }
 
-  int qpos[2], qs[2];
+  int qpos[2], qs[2], klo[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     qpos[r] = q0 + 64 * wg + row0 + 8 * r;
     qs[r] = qpos[r] < a.L ? seg[qpos[r]] : 0;
+    klo[r] = a.window > 0 ? qpos[r] - a.window : -1;  // keys above it are in the window
   }
   const float c = a.scale_log2e;
-  float o[64], s[64], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  constexpr int NO = DV / 2;  // O's registers: 64 x DV over the warpgroup
+  float o[NO], s[64], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   uint32_t pa[32];
 #pragma unroll
-  for (int e = 0; e < 64; ++e) o[e] = s[e] = 0.f;
+  for (int e = 0; e < 64; ++e) s[e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < NO; ++e) o[e] = 0.f;
   const uint32_t sQ = sbase + C::OFF_Q + wg * (64 * 128);  // this warpgroup's 64 rows
   mbar_wait(bar_q, 0);
 
@@ -294,7 +317,8 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap* tm_q, const CUtensor
   for (int j = j_first; j <= i; ++t) {
     const int j_next = next_tile(tiles, j + 1, i, qmin, qmax);
     const int4 ka = tiles[2 * j], kb = tiles[2 * j + 1];
-    const bool full = j < i && quni != 0 && ka.z == quni && kb.z == quni;  // JAX _tile_full
+    const bool full = j < i && quni != 0 && ka.z == quni && kb.z == quni &&
+                      (a.window == 0 || q0 + BM - 1 - j * BN < a.window);  // JAX _tile_full
     const int stage = t % STAGES;
     const uint32_t phase = (t / STAGES) & 1;
     const uint32_t sK = sbase + C::OFF_K + stage * C::KT;
@@ -329,17 +353,22 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap* tm_q, const CUtensor
 
     n_full += full;
     if (full)
-      softmax_tile<MAX_FREE, false>(s, pa, o, m, l, c, seg, j * BN, a.L, qs, qpos, tq);
+      softmax_tile<MAX_FREE, false>(s, pa, o, m, l, c, seg, j * BN, a.L, qs, qpos, klo, tq);
     else
-      softmax_tile<MAX_FREE, true>(s, pa, o, m, l, c, seg, j * BN, a.L, qs, qpos, tq);
+      softmax_tile<MAX_FREE, true>(s, pa, o, m, l, c, seg, j * BN, a.L, qs, qpos, klo, tq);
 
-    // O += P V (64 q rows x 128, over the 128 keys)
+    // O += P V (64 q rows x DV, over the 128 keys)
     mbar_wait(bar_v + 8 * stage, phase);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk)
-      wgmma_m64n128_rs<1>(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-                          desc(sV + kk * 2048, HALF, 1024));
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      if constexpr (DV == 128)
+        wgmma_m64n128_rs<1>(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                            desc(sV + kk * 2048, HALF, 1024));
+      else
+        wgmma_m64n64_rs<1>(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                           desc(sV + kk * 2048, HALF, 1024));
+    }
     wg_commit();
     j = j_next;
   }
@@ -347,7 +376,8 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap* tm_q, const CUtensor
   reg_fence(o);
 
   // epilogue: the quad's row sums; out = O / l to bf16 in this warpgroup's
-  // rows of the Q buffer (its S products are done), then two TMA stores
+  // rows of the Q buffer (its S products are done; DV / 64 boxes of 64
+  // columns, within the Q buffer's D / 64), then one TMA store a box
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -357,7 +387,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap* tm_q, const CUtensor
   }
   unsigned char* stg = smem + C::OFF_Q;
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int R = 64 * wg + row0 + 8 * r;
@@ -369,7 +399,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap* tm_q, const CUtensor
   named_sync(1 + wg, 128);
   const bool store = threadIdx.x % 128 == 0 && q0 + 64 * wg < a.L;
   if (store) {
-    for (int half = 0; half < 2; ++half)
+    for (int half = 0; half < DV / 64; ++half)
       tma_store(tm_o, sbase + C::OFF_Q + half * HALF + wg * (64 * 128), 64 * half, h,
                 q0 + 64 * wg, b);
     tma_store_commit();
@@ -434,24 +464,28 @@ int launch(const void* q, const void* k, const void* v, const void* seg, void* t
 }  // namespace
 
 // q (B, L, Hq, d), k (B, L, Hkv, d), v (B, L, Hkv, dv), out (B, L, Hq, dv)
-// bf16, (d, dv) = (128, 128) or (192, 128); seg (B, L) int32; tiles:
-// scratch of (B, Lp / 64, 4) int32, Lp = L rounded up to 128; lse (B, Hq,
-// L) f32. bound: device f32 or null (always the running-max variant);
+// bf16, (d, dv) = (128, 128), (192, 128) or (64, 64); seg (B, L) int32;
+// tiles: scratch of (B, Lp / 64, 4) int32, Lp = L rounded up to 128; lse
+// (B, Hq, L) f32. window: > 0 a sliding window, 0 full attention. bound:
+// device f32 or null (always the running-max variant);
 // max_free_count: device int32 or null; tile_count: device uint64 [walked,
 // full] or null.
 extern "C" int xt_flash_fwd_bf16(const void* q, const void* k, const void* v, const void* seg,
                                  void* tiles, void* out, void* lse, int B, int L, int Hq,
-                                 int Hkv, int d, int dv, float scale, const void* bound,
-                                 void* max_free_count, void* tile_count, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || L <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
+                                 int Hkv, int d, int dv, float scale, int window,
+                                 const void* bound, void* max_free_count, void* tile_count,
+                                 void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || L <= 0 || B <= 0 || window < 0)
+    return (int)cudaErrorInvalidValue;
   const Args a{static_cast<const int*>(seg), static_cast<const int4*>(tiles),
                static_cast<float*>(lse), static_cast<const float*>(bound),
                static_cast<int*>(max_free_count),
                static_cast<unsigned long long*>(tile_count), B, L, (L + BM - 1) / BM * BM, Hq,
-               Hkv, scale * LOG2E};
+               Hkv, window, scale * LOG2E};
   cudaStream_t st = (cudaStream_t)stream;
   if (d == 128 && dv == 128) return launch<128, 128>(q, k, v, seg, tiles, out, a, st);
   if (d == 192 && dv == 128) return launch<192, 128>(q, k, v, seg, tiles, out, a, st);
+  if (d == 64 && dv == 64) return launch<64, 64>(q, k, v, seg, tiles, out, a, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -460,5 +494,6 @@ extern "C" int xt_flash_fwd_bf16(const void* q, const void* k, const void* v, co
 extern "C" int xt_flash_fwd_smem_bytes(int d, int dv) {
   if (d == 128 && dv == 128) return (int)Smem<128, 128>::BYTES;
   if (d == 192 && dv == 128) return (int)Smem<192, 128>::BYTES;
+  if (d == 64 && dv == 64) return (int)Smem<64, 64>::BYTES;
   return 0;
 }

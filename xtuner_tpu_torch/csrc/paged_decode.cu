@@ -2,12 +2,15 @@
 // split-KV, a TMA ring, mma.sync products.
 //
 // Replaces the TPU kernel xtuner_tpu/ops/attention/paged_decode.py::_kernel
-// (pallas_call in paged_decode_attn). Same function: q (B, C, Hq, D) bf16;
-// pool_k/pool_v (L, NB, BS, Hkv, D) bf16; block_table (B, MB) int32;
-// seq_lens (B,) int32 = tokens cached before this chunk. Chunk token i of
-// slot b sits at seq_lens[b] + i (already written to the pool) and attends
-// the pool slots s <= seq_lens[b] + i. Returns (B, C, Hq, D) f32.
-// Window and sinks are not taken here (the wrapper raises).
+// (pallas_call in paged_decode_attn). Same function: q (B, C, Hq, D) bf16,
+// D = 128 or gpt-oss's 64 (a template); pool_k/pool_v (L, NB, BS, Hkv, D)
+// bf16; block_table (B, MB) int32; seq_lens (B,) int32 = tokens cached
+// before this chunk. Chunk token i of slot b sits at seq_lens[b] + i
+// (already written to the pool) and attends the pool slots s <= seq_lens[b]
+// + i, and with a sliding window w > 0 only those with seq_lens[b] + i - s
+// < w. Optional per-head sinks (Hq,) f32 join each row's softmax
+// denominator once (JAX _kernel's finalize: the sink in base 2 takes part
+// in the max, exp2(sink - m) adds to the sum). Returns (B, C, Hq, D) f32.
 //
 // What bounds it on the H100: decode reads every cached K/V byte once for
 // 2-8 operations per byte (C * Hq / Hkv <= 16 query rows per kv head), so
@@ -24,17 +27,22 @@
 //   per layer on a host-bound loop). Against 1 and 4 (timed by
 //   tools/bench_paged_decode_cuda.py on an H100 80GB HBM3 at 700 W): 2 is
 //   fastest at the serving shape and within 6% of the best at uniform
-//   rollouts; 4 is 3-8% faster at rollouts of mixed lengths. On the device each slot cuts its own
-//   n_blk = ceil((seq_len + C) / BS) blocks into that many splits of
-//   ceil(n_blk / splits) whole blocks, so a slot's splits are even whatever
-//   MB is; a split past the slot's last block exits at once. A persistent
+//   rollouts; 4 is 3-8% faster at rollouts of mixed lengths. On the device
+//   each slot cuts its blocks [start, n_blk) into that many splits of
+//   ceil((n_blk - start) / splits) whole blocks, so a slot's splits are
+//   even whatever MB is; a split past the slot's last block exits at once.
+//   n_blk = ceil((seq_len + C) / BS); start is 0, or with a window JAX's
+//   _start_block, floor(max(seq_len + 1 - w, 0) / BS): the block of the
+//   first slot any row can see, so blocks wholly outside the window are
+//   never loaded (a window of 128 over blocks of 128 leaves at most two
+//   blocks a slot, and the wrapper plans the splits for that many). A persistent
 //   grid over a device-built work list would need a prefix pass over
 //   seq_lens first; with ~97 KB of shared memory two CTAs share an SM, so
 //   one's prologue and combine overlap the other's stream instead.
 // - Loads in flight. Warp 4 (lane 0) streams the split's blocks in chunks
 //   of CR rows (the largest multiple of 16 up to 64 that divides BS)
-//   through a 3-stage ring: per chunk four TMA loads (K and V, each two
-//   64-column halves of CR rows, 128-byte swizzled) out of the pool viewed
+//   through a 3-stage ring: per chunk 2 D / 64 TMA loads (K and V, each D /
+//   64 64-column boxes of CR rows, 128-byte swizzled) out of the pool viewed
 //   as (L NB, BS, Hkv, D), batch coordinate layer * NB + block id,
 //   completing on the stage's full mbarrier; the consumer warps release a
 //   stage on its empty mbarrier. Up to 96 KB in flight per CTA.
@@ -42,7 +50,7 @@
 //   one m16 tile (wgmma's 64-row tile would waste >= 75% and is not
 //   needed at a few operations per byte). Each of the 4 consumer warps
 //   takes 16 keys of every chunk and keeps its own online softmax (f32,
-//   base 2, running max and sum) and O (16 x 128 f32 in registers): S = Q
+//   base 2, running max and sum) and O (16 x D f32 in registers): S = Q
 //   K^T with Q as A fragments held for the whole walk and K by ldmatrix
 //   from the swizzled stage, then O += P V with V by ldmatrix.trans. P goes
 //   in as two bf16 parts, hi = bf16(p) and lo = bf16(p - hi), so the
@@ -50,7 +58,8 @@
 //   (a bf16 P alone misses PAGED_ATOL, 2e-4, at tens of keys).
 // - Right-pad: slots >= seq_len + C hold whatever the pool holds (never
 //   written by this sequence); their scores are set to -inf and their V
-//   rows zeroed in registers, so they never reach O.
+//   rows zeroed in registers, so they never reach O. Slots below a row's
+//   window (in the first walked block) get -inf scores: p is exactly 0.
 // - Combine. The 4 warps' (m, l, O) merge in warp order through shared
 //   memory (the ring's space, free after the walk). A slot with one split
 //   writes out = O / l at once. Otherwise each split writes its partial (O
@@ -60,7 +69,15 @@
 //   the last ticket merges the partials in split order and resets the
 //   ticket to 0 for the next launch. One launch per call, and two launches
 //   give the same bits: the merge order is fixed, and which CTA runs it
-//   changes nothing.
+//   changes nothing. The sinks join in the last normalisation only (after
+//   the split merge, or at once for a slot with one split), never in a
+//   partial, so a sink counts once whatever the split count. A split whose
+//   blocks all lie outside the table (entries < 0 or >= NB) writes the
+//   neutral partial m = -1e30, l = 0, O = 0, which the merge weighs by 0
+//   (or by 1 with l = 0 when every split is empty: out 0).
+// - ptxas (nvcc -Xptxas -v, sm_90a, CUDA 12.9): D 128 166 registers, 0
+//   spills, 99,392 bytes of dynamic shared memory at blocks of 128 (two
+//   CTAs an SM); D 64 124 registers, 0 spills, 50,240 bytes.
 // - Inactive slots (all-zero table, seq_len 0) read the trash block 0 and
 //   stay finite; their output is discarded by the caller. Table entries
 //   < 0 or >= NB are skipped (no load, no products).
@@ -69,32 +86,39 @@
 
 namespace {
 
-constexpr int D = 128;
 constexpr int NCONS = 128;              // four consumer warps
 constexpr int NTHREADS = NCONS + 32;    // and the producer warp
 constexpr int MAXR = 16;                // query rows per CTA (C * rep)
 constexpr int STAGES = 3;
 constexpr int MAX_CR = 64;              // rows of a ring stage
-constexpr int LDO = D + 8;              // padded O row of the warp combine (floats)
-constexpr int MAX_SPLITS = 256;         // the merge's (m, l) of every split fit COMBINE
+constexpr int MAX_SPLITS = 256;         // splits a slot merges: MERGE_BYTES holds their (m, l)
 constexpr int MAX_DEVICES = 64;         // devices whose shared-memory opt-in is remembered
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-// a ring stage: K then V, each two 64-column halves of cr rows x 128 bytes
-__host__ __device__ constexpr uint32_t stage_bytes(int cr) { return 4u * cr * 128; }
+// a ring stage: K then V, each D / 64 64-column boxes of cr rows x 128 bytes
+__host__ __device__ constexpr uint32_t stage_bytes(int cr, int d) {
+  return 2u * (d / 64) * cr * 128;
+}
+// padded O row of the warp combine (floats)
+__host__ __device__ constexpr int ldo(int d) { return d + 8; }
 // the warp combine: O [4][MAXR][LDO], m [4][MAXR], l [4][MAXR] (f32)
-constexpr uint32_t COMBINE = (NCONS / 32) * MAXR * (LDO + 2) * 4;
-static_assert(2 * MAX_SPLITS * MAXR * 4 <= COMBINE, "the merge's (m, l) fit");
+__host__ __device__ constexpr uint32_t combine_bytes(int d) {
+  return (NCONS / 32) * MAXR * (ldo(d) + 2) * 4;
+}
+// the split merge: every split's (m, l) per row (f32)
+constexpr uint32_t MERGE_BYTES = 2 * MAX_SPLITS * MAXR * 4;
 
 struct Layout {
   uint32_t bar;    // full [STAGES], empty [STAGES] (after the ring or the combine)
   uint32_t flag;   // int: this CTA merges the splits
   uint32_t bytes;  // + 1024 alignment slack
 };
-__host__ __device__ inline Layout layout(int cr) {
-  const uint32_t ring = STAGES * stage_bytes(cr);
+__host__ __device__ inline Layout layout(int cr, int d) {
+  const uint32_t ring = STAGES * stage_bytes(cr, d);
+  const uint32_t after = combine_bytes(d) > MERGE_BYTES ? combine_bytes(d) : MERGE_BYTES;
   Layout l;
-  l.bar = ring > COMBINE ? ring : COMBINE;
+  l.bar = ring > after ? ring : after;
   l.flag = l.bar + 16 * STAGES;
   l.bytes = l.flag + 16 + 1024;
   return l;
@@ -104,10 +128,12 @@ struct Args {
   const __nv_bfloat16* q;
   const int* table;
   const int* seq_lens;
+  const float* sinks;  // (Hq,) sink logits, or null
   float* out;
   float* ws;     // (B, Hkv, splits, rows, D) partial O, then (B, Hkv, splits, rows, 2) (m, l)
   int* tickets;  // (B * Hkv), zero between launches
   int C, Hq, Hkv, NB, BS, MB, layer, splits, cr;
+  int window;    // > 0: a sliding window; 0: full attention
   float sl2;     // scale * log2(e)
 };
 
@@ -141,18 +167,33 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint3
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
+// out = O / L of one row after the merge, with the row's sink (base 2)
+// joining the max and the sum once
+__device__ __forceinline__ float finish_row(float M, float L, float O, const Args& a, int head) {
+  if (a.sinks != nullptr) {
+    const float sk = a.sinks[head] * LOG2E;
+    const float mn = fmaxf(M, sk), f = exp2f(M - mn);
+    O *= f;
+    L = L * f + exp2f(sk - mn);
+  }
+  return L > 0.f ? O / L : 0.f;
+}
+
+template <int D>
 __global__ void __launch_bounds__(NTHREADS, 2)
 paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, const Args a) {
+  constexpr int LDO = ldo(D);
   const int sp = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int C = a.C, BS = a.BS, cr = a.cr;
-  // this split's blocks [t0, t1) of the slot's n_blk
+  // this split's blocks [t0, t1) of the slot's [start, n_blk)
   const int end = a.seq_lens[b] + C;  // slots [0, end) hold keys
   const int n_blk = max(0, min((end + BS - 1) / BS, a.MB));
-  const int per = max(1, (n_blk + a.splits - 1) / a.splits);
-  const int nsb = max(1, (n_blk + per - 1) / per);
+  const int start = a.window > 0 ? min(max(a.seq_lens[b] + 1 - a.window, 0) / BS, n_blk) : 0;
+  const int per = max(1, (n_blk - start + a.splits - 1) / a.splits);
+  const int nsb = max(1, (n_blk - start + per - 1) / per);
   if (sp >= nsb) return;
-  const int t0 = sp * per, t1 = min(t0 + per, n_blk);
+  const int t0 = start + sp * per, t1 = min(t0 + per, n_blk);
   if (threadIdx.x == NCONS) {  // the producer: have the TMA unit fetch the maps now
     asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tm_k)) : "memory");
     asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tm_v)) : "memory");
@@ -162,8 +203,8 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   const uint32_t sbase = smem_u32(smem);
-  const Layout lay = layout(cr);
-  const uint32_t sbytes = stage_bytes(cr), hbytes = cr * 128;
+  const Layout lay = layout(cr, D);
+  const uint32_t sbytes = stage_bytes(cr, D), hbytes = cr * 128;
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -188,10 +229,10 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
           if (pc >= (uint32_t)STAGES) mbar_wait(empty, (pc / STAGES - 1) & 1);
           const uint32_t dst = sbase + s * sbytes;
           mbar_expect_tx(full, sbytes);
-          tma_load(dst, &tm_k, full, 0, g, c0, plane);
-          tma_load(dst + hbytes, &tm_k, full, 64, g, c0, plane);
-          tma_load(dst + 2 * hbytes, &tm_v, full, 0, g, c0, plane);
-          tma_load(dst + 3 * hbytes, &tm_v, full, 64, g, c0, plane);
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load(dst + c * hbytes, &tm_k, full, 64 * c, g, c0, plane);
+            tma_load(dst + (D / 64 + c) * hbytes, &tm_v, full, 64 * c, g, c0, plane);
+          }
         }
       }
     }
@@ -200,14 +241,17 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
 
   const int warp = tid / 32, lane = tid % 32, gq = lane / 4, tq = lane % 4;
   const int rep = a.Hq / a.Hkv, rows = C * rep;  // row r = i * rep + j: token i, head g*rep+j
-  // this thread's rows gq and gq + 8 (rows past `rows` mirror the last one)
-  // and the last slot each attends (seq_len + i)
+  // this thread's rows gq and gq + 8 (rows past `rows` mirror the last one),
+  // the last slot each attends (seq_len + i) and, with a window, the slot
+  // below its first one
   const int ra = gq, rb = gq + 8;
   const int lim_a = end - C + min(ra, rows - 1) / rep;
   const int lim_b = end - C + min(rb, rows - 1) / rep;
+  const int lo_a = a.window > 0 ? lim_a - a.window : -1;
+  const int lo_b = a.window > 0 ? lim_b - a.window : -1;
 
-  // Q as m16n8k16 A fragments over D = 8 k16 steps; rows past `rows` zero
-  uint32_t qa[8][4];
+  // Q as m16n8k16 A fragments over D / 16 k16 steps; rows past `rows` zero
+  uint32_t qa[D / 16][4];
   {
     const uint32_t* pa = nullptr;
     const uint32_t* pb = nullptr;
@@ -218,7 +262,7 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
       pb = reinterpret_cast<const uint32_t*>(
           a.q + (((int64_t)b * C + rb / rep) * a.Hq + g * rep + rb % rep) * D);
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {
       qa[kk][0] = pa ? pa[8 * kk + tq] : 0u;
       qa[kk][1] = pb ? pb[8 * kk + tq] : 0u;
       qa[kk][2] = pa ? pa[8 * kk + 4 + tq] : 0u;
@@ -226,9 +270,9 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
     }
   }
 
-  float o[16][4];
+  float o[D / 8][4];
 #pragma unroll
-  for (int n = 0; n < 16; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;  // l: this thread's columns
   const int kb = 16 * warp;  // this warp's keys in each chunk
   const int mi = lane >> 3;  // the 8 x 8 matrix whose row this lane addresses
@@ -242,29 +286,30 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
       const int key0 = t * BS + c0 + kb;  // slot of this warp's first key
       mbar_wait(sbase + lay.bar + 8 * s, (pc / STAGES) & 1);
       if (kb < cr && key0 < end) {
-        const uint32_t kbase = sbase + s * sbytes, vbase = kbase + 2 * hbytes;
+        const uint32_t kbase = sbase + s * sbytes, vbase = kbase + (D / 64) * hbytes;
         // S = Q K^T over keys kb.. kb + 15: two n8 tiles
         float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
         {
           const int row = kb + ((mi >> 1) << 3) + (lane & 7);
 #pragma unroll
-          for (int kk = 0; kk < 8; ++kk) {
-            const int u = 2 * kk + (mi & 1);  // 16-byte unit of the 256-byte row
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const int u = 2 * kk + (mi & 1);  // 16-byte unit of the 2 D-byte row
             uint32_t r[4];
             ldsm_x4(r, kbase + (u >> 3) * hbytes + row * 128 + (((u & 7) ^ (row & 7)) << 4));
             mma16816(sc[0], qa[kk], r[0], r[1]);
             mma16816(sc[1], qa[kk], r[2], r[3]);
           }
         }
-        // online softmax in base 2: scores past each row's last slot are -inf
+        // online softmax in base 2: scores past each row's last slot, or
+        // below its window, are -inf
         float mx_a = NEG_INF, mx_b = NEG_INF;
 #pragma unroll
         for (int j = 0; j < 2; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int slot = key0 + 8 * j + 2 * tq + e;
-            sc[j][e] = slot <= lim_a ? sc[j][e] * a.sl2 : NEG_INF;
-            sc[j][2 + e] = slot <= lim_b ? sc[j][2 + e] * a.sl2 : NEG_INF;
+            sc[j][e] = slot <= lim_a && slot > lo_a ? sc[j][e] * a.sl2 : NEG_INF;
+            sc[j][2 + e] = slot <= lim_b && slot > lo_b ? sc[j][2 + e] * a.sl2 : NEG_INF;
             mx_a = fmaxf(mx_a, sc[j][e]);
             mx_b = fmaxf(mx_b, sc[j][2 + e]);
           }
@@ -293,13 +338,13 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
         l_a = l_a * al_a + sum_a;
         l_b = l_b * al_b + sum_b;
 #pragma unroll
-        for (int n = 0; n < 16; ++n) {
+        for (int n = 0; n < D / 8; ++n) {
           o[n][0] *= al_a;
           o[n][1] *= al_a;
           o[n][2] *= al_b;
           o[n][3] *= al_b;
         }
-        // O += P V over D = 16 n8 tiles; V rows past `end` zeroed
+        // O += P V over D / 8 n8 tiles; V rows past `end` zeroed
         const bool tail = key0 + 16 > end;
         const uint32_t keep0 = (key0 + 2 * tq < end ? 0xffffu : 0u) |
                                (key0 + 2 * tq + 1 < end ? 0xffff0000u : 0u);
@@ -307,7 +352,7 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
                                (key0 + 9 + 2 * tq < end ? 0xffff0000u : 0u);
         const int row = kb + ((mi & 1) << 3) + (lane & 7);
 #pragma unroll
-        for (int p2 = 0; p2 < 8; ++p2) {
+        for (int p2 = 0; p2 < D / 16; ++p2) {
           const int u = 2 * p2 + (mi >> 1);
           uint32_t r[4];
           ldsm_x4_t(r, vbase + (u >> 3) * hbytes + row * 128 + (((u & 7) ^ (row & 7)) << 4));
@@ -342,7 +387,7 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
   {
     float* w = cO + warp * MAXR * LDO;
 #pragma unroll
-    for (int n = 0; n < 16; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       *reinterpret_cast<float2*>(w + ra * LDO + 8 * n + 2 * tq) = make_float2(o[n][0], o[n][1]);
       *reinterpret_cast<float2*>(w + rb * LDO + 8 * n + 2 * tq) = make_float2(o[n][2], o[n][3]);
     }
@@ -355,7 +400,10 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
   }
   named_sync(1, NCONS);
 
-  const int d = tid;  // this thread's output column
+  // this thread's output column, and its first row: D = 64 takes two rows
+  // at a time
+  const int d = tid % D, r0 = tid / D;
+  constexpr int RSTEP = NCONS / D;
   const int bg = b * a.Hkv + g;
   auto out_at = [&](int r) -> float* {
     return a.out + (((int64_t)b * C + r / rep) * a.Hq + g * rep + r % rep) * D + d;
@@ -363,7 +411,7 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
   float* ws_o = a.ws + (int64_t)bg * a.splits * rows * D;
   float* ws_ml = a.ws + (int64_t)gridDim.z * a.Hkv * a.splits * rows * D +
                  (int64_t)bg * a.splits * rows * 2;
-  for (int r = 0; r < rows; ++r) {
+  for (int r = r0; r < rows; r += RSTEP) {
     float M = NEG_INF;
 #pragma unroll
     for (int w = 0; w < NCONS / 32; ++w) M = fmaxf(M, cM[w * MAXR + r]);
@@ -375,7 +423,7 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
       O += cO[(w * MAXR + r) * LDO + d] * f;
     }
     if (nsb == 1) {
-      *out_at(r) = L > 0.f ? O / L : 0.f;
+      *out_at(r) = finish_row(M, L, O, a, g * rep + r % rep);
     } else {
       ws_o[((int64_t)sp * rows + r) * D + d] = O;
       if (d == 0) {
@@ -401,7 +449,7 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
   float* sml = cO;
   for (int j = tid; j < 2 * nsb * rows; j += NCONS) sml[j] = __ldcg(ws_ml + j);
   named_sync(1, NCONS);
-  for (int r = 0; r < rows; ++r) {
+  for (int r = r0; r < rows; r += RSTEP) {
     float M = NEG_INF;
     for (int i = 0; i < nsb; ++i) M = fmaxf(M, sml[(i * rows + r) * 2]);
     float L = 0.f, O = 0.f;
@@ -411,7 +459,7 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
       L += sml[(i * rows + r) * 2 + 1] * f;
       O += __ldcg(ws_o + ((int64_t)i * rows + r) * D + d) * f;
     }
-    *out_at(r) = L > 0.f ? O / L : 0.f;
+    *out_at(r) = finish_row(M, L, O, a, g * rep + r % rep);
   }
   if (tid == 0) a.tickets[bg] = 0;
 }
@@ -423,29 +471,16 @@ int chunk_rows(int bs) {
   return 0;
 }
 
-}  // namespace
-
-// q (B, C, Hq, D), pool_k / pool_v (L, NB, BS, Hkv, D) bf16, block_table (B,
-// MB) int32, seq_lens (B,) int32 -> out (B, C, Hq, D) f32. ws: f32 scratch
-// of B Hkv splits (C Hq / Hkv) (D + 2); tickets: B Hkv int32, zero (and
-// left zero). splits: per (slot, kv head), from paged_decode_split_plan.
-extern "C" int xt_paged_decode_bf16(const void* q, const void* pool_k, const void* pool_v,
-                                    const void* table, const void* seq_lens, void* out,
-                                    void* ws, void* tickets, int B, int C, int Hq, int Hkv,
-                                    int d, int L, int NB, int BS, int MB, int layer,
-                                    int splits, float scale, void* stream) {
-  if (d != D || B <= 0 || B > 65535 || C <= 0 || Hkv <= 0 || Hkv > 65535 || Hq % Hkv != 0 ||
-      C * (Hq / Hkv) > MAXR || BS <= 0 || BS % 16 != 0 || BS > 256 || MB <= 0 || NB <= 0 ||
-      L <= 0 || layer < 0 || layer >= L || splits <= 0 || splits > MAX_SPLITS)
-    return (int)cudaErrorInvalidValue;
+template <int D>
+int launch(const void* pool_k, const void* pool_v, const Args& a, int B, int L,
+           cudaStream_t stream) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  const int cr = chunk_rows(BS);
   CUtensorMap tk, tv;
-  if (!make_map(&tk, encode, pool_k, L * NB, BS, Hkv, cr) ||
-      !make_map(&tv, encode, pool_v, L * NB, BS, Hkv, cr))
+  if (!make_map(&tk, encode, pool_k, L * a.NB, a.BS, a.Hkv, a.cr, D) ||
+      !make_map(&tv, encode, pool_v, L * a.NB, a.BS, a.Hkv, a.cr, D))
     return (int)cudaErrorInvalidValue;
-  const uint32_t smem = layout(cr).bytes;
+  const uint32_t smem = layout(a.cr, D).bytes;
   // the shared-memory opt-in, once per device and size (a host call on
   // the decode loop's every launch otherwise)
   static uint32_t smem_set[MAX_DEVICES] = {};
@@ -453,21 +488,47 @@ extern "C" int xt_paged_decode_bf16(const void* q, const void* pool_k, const voi
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev >= MAX_DEVICES || smem_set[dev] < smem) {
-    e = cudaFuncSetAttribute(paged_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+    e = cudaFuncSetAttribute(paged_decode_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     if (dev < MAX_DEVICES) smem_set[dev] = smem;
   }
-  const Args a{static_cast<const __nv_bfloat16*>(q), static_cast<const int*>(table),
-               static_cast<const int*>(seq_lens), static_cast<float*>(out),
-               static_cast<float*>(ws), static_cast<int*>(tickets), C, Hq, Hkv, NB, BS, MB,
-               layer, splits, cr, scale * 1.4426950408889634f};
-  dim3 grid(splits, Hkv, B);
-  paged_decode_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(tk, tv, a);
+  dim3 grid(a.splits, a.Hkv, B);
+  paged_decode_kernel<D><<<grid, NTHREADS, smem, stream>>>(tk, tv, a);
   return (int)cudaGetLastError();
 }
 
-// the dynamic shared memory of one CTA (bytes) at pool block size bs
-extern "C" int xt_paged_decode_smem_bytes(int bs) {
-  return bs > 0 && bs % 16 == 0 ? (int)layout(chunk_rows(bs)).bytes : 0;
+}  // namespace
+
+// q (B, C, Hq, D), pool_k / pool_v (L, NB, BS, Hkv, D) bf16 (D 64 or 128),
+// block_table (B, MB) int32, seq_lens (B,) int32, sinks (Hq,) f32 or null
+// -> out (B, C, Hq, D) f32. ws: f32 scratch of B Hkv splits (C Hq / Hkv)
+// (D + 2); tickets: B Hkv int32, zero (and left zero). splits: per (slot,
+// kv head), from paged_decode_split_plan. window: > 0 a sliding window, 0
+// full attention.
+extern "C" int xt_paged_decode_bf16(const void* q, const void* pool_k, const void* pool_v,
+                                    const void* table, const void* seq_lens, const void* sinks,
+                                    void* out, void* ws, void* tickets, int B, int C, int Hq,
+                                    int Hkv, int d, int L, int NB, int BS, int MB, int layer,
+                                    int splits, int window, float scale, void* stream) {
+  if ((d != 64 && d != 128) || B <= 0 || B > 65535 || C <= 0 || Hkv <= 0 || Hkv > 65535 ||
+      Hq % Hkv != 0 || C * (Hq / Hkv) > MAXR || BS <= 0 || BS % 16 != 0 || BS > 256 ||
+      MB <= 0 || NB <= 0 || L <= 0 || layer < 0 || layer >= L || splits <= 0 ||
+      splits > MAX_SPLITS || window < 0)
+    return (int)cudaErrorInvalidValue;
+  const Args a{static_cast<const __nv_bfloat16*>(q), static_cast<const int*>(table),
+               static_cast<const int*>(seq_lens), static_cast<const float*>(sinks),
+               static_cast<float*>(out), static_cast<float*>(ws), static_cast<int*>(tickets),
+               C, Hq, Hkv, NB, BS, MB, layer, splits, chunk_rows(BS), window,
+               scale * LOG2E};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return d == 64 ? launch<64>(pool_k, pool_v, a, B, L, st)
+                 : launch<128>(pool_k, pool_v, a, B, L, st);
+}
+
+// the dynamic shared memory of one CTA (bytes) at pool block size bs and
+// head dim d (0 for what the kernel does not take)
+extern "C" int xt_paged_decode_smem_bytes(int bs, int d) {
+  return bs > 0 && bs % 16 == 0 && (d == 64 || d == 128) ? (int)layout(chunk_rows(bs), d).bytes
+                                                          : 0;
 }

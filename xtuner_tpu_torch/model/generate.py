@@ -3,7 +3,12 @@
 
 `GenerateConfig` keeps the JAX fields and defaults. `_forward_cached` is the
 prefill forward the paged engine runs (cache_len 0): a Python loop over the
-layers where the JAX package scans. `_sample` / `_filter_logits` draw from a
+layers where the JAX package scans, dense and MoE layers (the routed
+experts of `module/moe_layer.py` and the shared expert), each with its
+sliding window (`layer_windows`, JAX `_layer_windows_py`: gpt-oss's
+`layer_window_pattern` over the MoE stack, or `sliding_window`), and with
+`record_routing` the (B, C, nL_moe, K) expert ids of every MoE layer, as
+JAX returns them. `_sample` / `_filter_logits` draw from a
 `torch.Generator` (JAX keys become generators, so sampled ids differ from
 `jax.random`; greedy ids do not). The dense batch `generate()` and its
 penalties / min_tokens / logit_bias / top_logprobs are not ported yet
@@ -21,6 +26,7 @@ from .. import not_ported
 from ..loss.ce_loss import lm_logits
 from ..module.attention import mha_cached_forward
 from ..module.mlp import mlp_forward
+from ..module.moe_layer import moe_mlp_forward
 from ..module.params import cast_tree, tree_map
 from ..module.rope import _rope_dim, rope_cos_sin
 from ..ops.rms_norm import rms_norm
@@ -86,12 +92,37 @@ def init_cache(model, batch_size: int, max_length: int, dtype=torch.bfloat16,
     return caches
 
 
+def layer_windows(cfg, stack_name: str, n_layers: int) -> list[int]:
+    """Per-layer sliding window as python ints, 0 = full attention (JAX
+    `_layer_windows_py`): a `layer_window_pattern` (gpt-oss) alternates
+    over the MoE stack; otherwise every layer takes `sliding_window` when
+    `use_sliding_window` is set."""
+    pattern = getattr(cfg, "layer_window_pattern", None)
+    if stack_name == "moe_layers" and pattern:
+        return [int(pattern[i % len(pattern)] or 0) for i in range(n_layers)]
+    w = cfg.sliding_window if cfg.use_sliding_window else None
+    return [0 if w is None else int(w)] * n_layers
+
+
+def mlp_or_moe(lp, cfg, h, compute_dtype):
+    """The layer's MLP after the post-attention norm: the routed experts
+    (+ the shared expert) of an MoE layer, else the dense MLP. Returns
+    (out (B, C, H), the MoE layer's (B, C, K) expert ids or None)."""
+    if "experts" not in lp:
+        return mlp_forward(lp["mlp"], h, cfg.hidden_act), None
+    out, r, _ = moe_mlp_forward(
+        lp["experts"], lp["router"], cfg.router, h, num_experts=cfg.n_routed_experts,
+        top_k=cfg.num_experts_per_tok, act=cfg.hidden_act, compute_dtype=compute_dtype)
+    if "shared_experts" in lp:
+        out = out + mlp_forward(lp["shared_experts"], h, cfg.hidden_act)
+    return out, r.topk_idx.reshape(h.shape[0], h.shape[1], -1)
+
+
 def _layer_cached(model, lp, cfg, x, cos, sin, cache_k, cache_v, cache_len,
                   compute_dtype, kv_mask=None, window=None):
     """One decoder layer over a prefill chunk; cache_k/v are this layer's
-    (B, S, Hkv, D) views, written in place."""
-    if "experts" in lp:
-        raise not_ported("MoE layers", "moe")
+    (B, S, Hkv, D) views, written in place. Returns (x, cache_k, cache_v,
+    the MoE layer's (B, C, K) expert ids or None)."""
     lp = cast_tree(lp, compute_dtype)
     zc = cfg.rms_norm_type == "zero_centered"
     h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps, zc)
@@ -100,32 +131,36 @@ def _layer_cached(model, lp, cfg, x, cos, sin, cache_k, cache_v, cache_len,
         window=window, kv_mask=kv_mask)
     x = x + h
     h = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps, zc)
-    return x + mlp_forward(lp["mlp"], h, cfg.hidden_act), cache_k, cache_v, None
+    h, routing = mlp_or_moe(lp, cfg, h, compute_dtype)
+    return x + h, cache_k, cache_v, routing
 
 
 def _forward_cached(model, params, ids, positions, caches, cache_len: int,
                     compute_dtype, kv_mask=None, record_routing: bool = False,
                     with_hidden: bool = False):
-    """ids: (B, C) -> (logits (B, C, V) f32, caches, routing None).
-    The caches are written in place and returned."""
-    if record_routing:
-        raise not_ported("record_routing", "moe")
+    """ids: (B, C) -> (logits (B, C, V) f32, caches, routing): routing is
+    the (B, C, nL_moe, K) expert ids of the MoE layers with
+    `record_routing` (None without it, or without MoE layers). The caches
+    are written in place and returned."""
     if with_hidden:
         raise not_ported("MTP trunk hidden (with_hidden)", "serve-rest")
     cfg = model.cfg
-    if cfg.use_sliding_window:
-        raise not_ported("sliding-window layers", "serve-rest")
     x = params["embed"]["w"][ids].to(compute_dtype)
     cos, sin = rope_cos_sin(positions, _rope_dim(cfg.attention), cfg.rope_theta,
                             cfg.rope_scaling_cfg, cfg.max_position_embeddings)
-    for (_name, stack), (ck, cv) in zip(_stacks(model, params), caches):
+    routings = []
+    for (name, stack), (ck, cv) in zip(_stacks(model, params), caches):
+        windows = layer_windows(cfg, name, ck.shape[0])
         for i, lp in enumerate(layer_slices(stack, ck.shape[0])):
-            x, _, _, _ = _layer_cached(model, lp, cfg, x, cos, sin, ck[i], cv[i],
-                                       cache_len, compute_dtype, kv_mask)
+            x, _, _, routing = _layer_cached(model, lp, cfg, x, cos, sin, ck[i], cv[i],
+                                             cache_len, compute_dtype, kv_mask,
+                                             window=windows[i])
+            if record_routing and routing is not None:
+                routings.append(routing)
     x = rms_norm(x, params["final_norm"].float(), cfg.rms_norm_eps,
                  cfg.rms_norm_type == "zero_centered")
     logits = lm_logits(x.to(compute_dtype), model.lm_head_weight(params).to(compute_dtype))
-    return logits, caches, None
+    return logits, caches, torch.stack(routings, dim=2) if routings else None
 
 
 def categorical(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:

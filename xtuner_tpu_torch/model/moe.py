@@ -21,8 +21,14 @@ CE over the depths. Its routers' balancing and z rows follow the trunk's
 in the aux means, and their loads come back as `mtp_expert_load` for the
 engine's bias update.
 
-Not ported yet: the per-layer window pattern, deepstack injection and
-routing replay ([moe]), HF interop ([serve-rest]).
+`layer_window_pattern` (gpt-oss: a window of 128 on even MoE layers, full
+attention on odd ones) builds, and the serving engines read it per layer
+(`model/generate.py::layer_windows`). The training forward of a model with
+a window pattern or attention sinks raises: the flash backward kernels
+(#2-#4) take no window or sinks yet ([moe], the gpt-oss training slice).
+
+Not ported yet: deepstack injection and routing replay ([moe]), HF
+interop ([serve-rest]).
 """
 
 from __future__ import annotations
@@ -76,10 +82,12 @@ class MoE(Dense):
     def __init__(self, cfg: MoEConfig):
         self.cfg = cfg
 
-    def check_ported(self) -> None:
-        super().check_ported()
-        if self.cfg.layer_window_pattern:
-            raise not_ported("a per-layer window pattern", "moe")
+    def check_trainable(self) -> None:
+        """The training forward's refusals beyond `check_ported`."""
+        cfg = self.cfg
+        if cfg.layer_window_pattern or getattr(cfg.attention, "with_sinks", False):
+            raise not_ported("training with a per-layer window pattern or attention sinks "
+                             "(the flash backward #2-#4 takes no window or sinks yet)", "moe")
 
     def moe_layer_param_specs(self) -> dict:
         cfg = self.cfg
@@ -158,6 +166,7 @@ class MoE(Dense):
         """The dense and MoE stacks -> (x (B, L, H) before the final norm,
         bal (L_moe,), z (L_moe,), load (L_moe, E), the indexer losses'
         sum (None without DSA), (cos, sin, segment ids, valid))."""
+        self.check_trainable()
         x, cos, sin, seg = self._embed_and_rope(params, seq_ctx, compute_dtype)
         valid = (seg != 0).reshape(-1)
         idx = []

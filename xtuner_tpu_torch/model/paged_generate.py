@@ -1,10 +1,16 @@
 """Paged-KV serving engine with continuous batching (counterpart:
 `xtuner_tpu/model/paged_generate.py`).
 
-The same engine as the JAX one, for dense MHA models:
+The same engine as the JAX one, for dense and MoE models with MHA
+attention (gpt-oss's sinks and per-layer sliding windows included):
 
 - one batched C=1 decode step over `max_batch` slots with per-slot
   sequence lengths and block tables; continuous admission as slots free up;
+- MoE layers through the routed experts of `module/moe_layer.py` (the
+  grouped GEMM kernel on a card) and the shared expert; with
+  `record_routing`, each finished request's `routed_experts`, an (N, nL,
+  K) int array: per generated token the expert ids of every MoE layer, the
+  first from the prompt's last position (JAX `_finish`);
 - whole-prompt prefill, right-padded to a 64-token bucket, through the
   dense `_forward_cached` (flash attention), then a scatter of the prompt
   KV into pool blocks;
@@ -16,14 +22,16 @@ PyTorch runs eagerly, so the JAX jitted programs become plain methods and
 the `lax.scan` over layers a Python loop. The pool is updated in place where
 the JAX engine donates it. On a card, decode attention always runs the
 hand-written paged-decode kernel (the JAX engine keeps its Pallas kernel
-opt-in) and prefill attention the flash-forward kernel.
+opt-in) and prefill attention the flash-forward kernel, each with the
+layer's window and the sinks. The engine lays each MoE stack's gate and
+up weights out as one gate|up buffer in `params` (`fuse_gate_up`: the
+same values), so no step concatenates them.
 
 Not ported yet, each raising NotImplementedError with its ROADMAP.md item:
 chunked prefill, the prefix cache, int8 KV, MTP speculation, penalties /
-min_tokens / logit_bias, top_logprobs, sliding windows, sinks, gated
-attention, MLA's compressed-KV and DSA decode ([serve-rest]);
-record_routing and MoE layers ([moe]). The port has no hybrid GDN config
-yet ([hybrid]).
+min_tokens / logit_bias, top_logprobs, gated attention, MLA's
+compressed-KV and DSA decode ([serve-rest]). The port has no hybrid GDN
+config yet ([hybrid]).
 """
 
 from __future__ import annotations
@@ -37,13 +45,15 @@ import torch
 from .. import not_ported
 from ..module.attention import MHAConfig, project_qkv
 from ..module.kv_cache import PagedKVCache, paged_write
-from ..module.mlp import linear, mlp_forward
+from ..module.mlp import linear
+from ..module.moe_layer import fuse_gate_up
 from ..module.params import cast_tree
 from ..module.rope import _rope_dim, rope_cos_sin
 from ..ops.attention.paged_decode import paged_decode_attn
 from ..ops.rms_norm import rms_norm
 from .generate import (GenerateConfig, _forward_cached, _stacks, categorical,
-                       init_cache, layer_slices, lm_logits, penalties_active)
+                       init_cache, layer_slices, layer_windows, lm_logits, mlp_or_moe,
+                       penalties_active)
 
 
 def paged_eligible(model_cfg) -> bool:
@@ -51,14 +61,10 @@ def paged_eligible(model_cfg) -> bool:
     return isinstance(model_cfg.attention, MHAConfig)
 
 
-def _check_ported(cfg, gen_cfg: GenerateConfig, record_routing: bool) -> None:
+def _check_ported(cfg, gen_cfg: GenerateConfig) -> None:
     if not paged_eligible(cfg):
         raise not_ported("MLA/DSA attention", "serve-rest")
     cfg.attention.check_ported()
-    if record_routing:
-        raise not_ported("record_routing", "moe")
-    if cfg.use_sliding_window:
-        raise not_ported("sliding-window layers", "serve-rest")
     for flag, what in (
             (gen_cfg.prefill_chunk, "chunked prefill (prefill_chunk > 0)"),
             (gen_cfg.prefix_cache, "the prefix cache (prefix_cache=True)"),
@@ -123,10 +129,10 @@ def _paged_layer_decode(lp, cfg, x, cos, sin, pool_k, pool_v, layer: int,
     """One decoder layer, C-token decode chunk against the paged pool.
 
     x: (B, C, H); seq_lens: (B,) int32 tokens already cached (chunk token i
-    is written at seq_lens+i, attending slots <= seq_lens+i). The chunk's
-    K/V is written into the pool IN PLACE before attention reads it."""
-    if window:
-        raise not_ported("sliding-window decode", "serve-rest")
+    is written at seq_lens+i, attending slots <= seq_lens+i, and with a
+    window > 0 only those after seq_lens+i-window). The chunk's K/V is
+    written into the pool IN PLACE before attention reads it. Returns (x,
+    pool_k, pool_v, the MoE layer's (B, C, K) expert ids or None)."""
     lp = cast_tree(lp, compute_dtype)
     attn = cfg.attention
     b, c, _ = x.shape
@@ -137,7 +143,8 @@ def _paged_layer_decode(lp, cfg, x, cos, sin, pool_k, pool_v, layer: int,
         paged_write(pool_k, layer, block_table, seq_lens + i, k[:, i])
         paged_write(pool_v, layer, block_table, seq_lens + i, v[:, i])
     o = paged_decode_attn(q.to(pool_k.dtype), pool_k, pool_v, layer, block_table,
-                          seq_lens, scale=attn.head_dim ** -0.5)
+                          seq_lens, scale=attn.head_dim ** -0.5, window=window,
+                          sinks=lp["attn"].get("sinks"))
     o = linear(o.reshape(b, c, -1).to(compute_dtype), lp["attn"]["o_proj"])
     x = x + o
     h = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps, zc)
@@ -145,10 +152,11 @@ def _paged_layer_decode(lp, cfg, x, cos, sin, pool_k, pool_v, layer: int,
 
 
 def _paged_mlp(lp, cfg, x, h, compute_dtype, pool_k, pool_v):
-    """Decode-layer MLP tail; x, h: (B, C, H), h post-attn normed."""
-    if "experts" in lp:
-        raise not_ported("MoE layers", "moe")
-    return x + mlp_forward(lp["mlp"], h, cfg.hidden_act), pool_k, pool_v, None
+    """Decode-layer MLP or MoE tail (JAX `_paged_mlp`); x, h: (B, C, H), h
+    post-attn normed. Returns (x, pool_k, pool_v, (B, C, K) expert ids or
+    None)."""
+    h, routing = mlp_or_moe(lp, cfg, h, compute_dtype)
+    return x + h, pool_k, pool_v, routing
 
 
 def _scatter_blocks(pool: torch.Tensor, layer0: int, block_table: torch.Tensor,
@@ -177,6 +185,7 @@ class _Slot:
     remaining: int = 0
     tokens: list = field(default_factory=list)
     logprobs: list = field(default_factory=list)
+    routings: list = field(default_factory=list)  # per token (nL, K) expert ids
     done: bool = True  # free
 
 
@@ -186,8 +195,11 @@ class PagedGenerator:
     requests: dicts {"prompt_ids": list[int], "max_new_tokens"?: int,
     "group"?: hashable, "temperature"/"top_p"/"top_k"?} — same-`group`
     requests share prompt blocks. `generate(requests)` returns per-request
-    dicts with generated token ids, logprobs and finish_reason.
-    `rng` is a `torch.Generator` on the params' device.
+    dicts with generated token ids, logprobs and finish_reason (and, for an
+    MoE model with `record_routing`, routed_experts (N, nL, K)).
+    `rng` is a `torch.Generator` on the params' device. Each MoE stack's
+    gate and up weights in `params` become views of one gate|up buffer
+    (`module/moe_layer.py::fuse_gate_up`, the same values).
     """
 
     PREFILL_BUCKET = 64
@@ -199,8 +211,9 @@ class PagedGenerator:
                  record_routing: bool = False,
                  rng: Optional[torch.Generator] = None):
         cfg = model.cfg
-        _check_ported(cfg, gen_cfg, record_routing)
+        _check_ported(cfg, gen_cfg)
         self.model, self.params, self.gen_cfg = model, params, gen_cfg
+        self.record_routing = record_routing
         self.device = params["embed"]["w"].device
         self.compute_dtype = compute_dtype
         self.pad_token_id = pad_token_id
@@ -210,11 +223,16 @@ class PagedGenerator:
         if num_blocks is None:
             num_blocks = self.max_blocks * max_batch + 1  # worst case, all unshared
         # per-layer parameter views (the scan's xs), with their pool layer
+        # and window (0: full attention)
         self._layers = []
-        for _name, stack in _stacks(model, params):
+        for name, stack in _stacks(model, params):
             n = stack["input_norm"].shape[0]
+            if "experts" in stack:
+                fuse_gate_up(stack["experts"])
             base = len(self._layers)
-            self._layers += [(base + i, lp) for i, lp in enumerate(layer_slices(stack, n))]
+            wins = layer_windows(cfg, name, n)
+            self._layers += [(base + i, lp, wins[i])
+                             for i, lp in enumerate(layer_slices(stack, n))]
         attn = cfg.attention
         self.cache = PagedKVCache(len(self._layers), num_blocks, block_size,
                                   attn.num_key_value_heads, attn.head_dim,
@@ -235,7 +253,8 @@ class PagedGenerator:
 
     # ---------------- device steps ----------------
     def _decode_step(self, tok, seq_lens, block_table, active, row):
-        """One batched C=1 decode step -> (new_tok (B,), logprob (B,))."""
+        """One batched C=1 decode step -> (new_tok (B,), logprob (B,),
+        routing (B, nL_moe, K) with `record_routing`, else None)."""
         model, cfg, dtype = self.model, self.model.cfg, self.compute_dtype
         params = self.params
         x = params["embed"]["w"][tok][:, None].to(dtype)
@@ -243,29 +262,35 @@ class PagedGenerator:
                                 cfg.rope_theta, cfg.rope_scaling_cfg,
                                 cfg.max_position_embeddings)
         pool_k, pool_v = self.cache.pool_k, self.cache.pool_v
-        for layer, lp in self._layers:
-            x, pool_k, pool_v, _ = _paged_layer_decode(
+        routings = []
+        for layer, lp, win in self._layers:
+            x, pool_k, pool_v, routing = _paged_layer_decode(
                 lp, cfg, x, cos, sin, pool_k, pool_v, layer, block_table,
-                seq_lens, dtype)
+                seq_lens, dtype, win)
+            if self.record_routing and routing is not None:
+                routings.append(routing[:, -1])
         x = rms_norm(x, params["final_norm"].float(), cfg.rms_norm_eps,
                      cfg.rms_norm_type == "zero_centered")[:, -1]
         logits = lm_logits(x.to(dtype), model.lm_head_weight(params).to(dtype))
         new_tok = _sample_rows(logits, self._rng, row, self.cls)
         lp = torch.log_softmax(logits, dim=-1).gather(1, new_tok[:, None])[:, 0]
         new_tok = torch.where(active, new_tok, self.pad_token_id)
-        return new_tok, lp
+        return new_tok, lp, torch.stack(routings, dim=1) if routings else None
 
     def _prefill(self, p_bucket: int, prompt, positions, kv_mask, table,
                  last_idx: int, row):
         """Dense prefill over a (1, P_bucket) right-padded prompt, then
         scatter the prompt KV into pool blocks (right-pad KV lands past
         seq_len: decode never attends it and the first decoded tokens
-        overwrite it). Returns (tok (1,), logprob (1,), last logits (1, V))."""
+        overwrite it). Returns (tok (1,), logprob (1,), last logits (1, V),
+        the last position's (nL_moe, K) expert ids with `record_routing`,
+        else None)."""
         model, dtype, bs = self.model, self.compute_dtype, self.block_size
         n_blocks = -(-p_bucket // bs)
         caches = init_cache(model, 1, p_bucket, dtype, self.device)
-        logits, caches, _ = _forward_cached(model, self.params, prompt, positions,
-                                            caches, 0, dtype, kv_mask)
+        logits, caches, routing = _forward_cached(model, self.params, prompt, positions,
+                                                  caches, 0, dtype, kv_mask,
+                                                  self.record_routing)
         li = 0
         for ck, cv in caches:
             _scatter_blocks(self.cache.pool_k, li, table[:n_blocks],
@@ -276,7 +301,8 @@ class PagedGenerator:
         last = logits[:, last_idx]
         tok = _sample_rows(last, self._rng, row, self.cls)
         lp = torch.log_softmax(last, dim=-1).gather(1, tok[:, None])[:, 0]
-        return tok, lp, last
+        rout = None if routing is None else routing[0, last_idx]
+        return tok, lp, last, rout
 
     # ---------------- host loop ----------------
     def _admit(self, slot_idx: int, req: dict) -> None:
@@ -299,7 +325,7 @@ class PagedGenerator:
         shared = (leader is not None and leader[0] in self.cache.tables
                   and self.cache.seq_lens[leader[0]] == p_len)
         if shared:
-            leader_seq, leader_logits = leader
+            leader_seq, leader_logits, rout = leader
             # share the block-aligned prefix, copy the ragged tail block
             self.cache.share_prefix(leader_seq, seq_id)
             aligned = self.cache.seq_lens[seq_id]
@@ -328,22 +354,27 @@ class PagedGenerator:
             dev = self.device
             positions = torch.clamp(torch.arange(pb, device=dev), max=p_len - 1)[None]
             kv_mask = (torch.arange(pb, device=dev) < p_len)[None]
-            tok_a, lp_a, last = self._prefill(
+            tok_a, lp_a, last, rout = self._prefill(
                 pb, torch.from_numpy(padded[None]).to(dev), positions, kv_mask,
                 torch.from_numpy(table).to(dev), p_len - 1, row1)
+            if rout is not None:
+                rout = rout.cpu().numpy()
             if group is not None:
-                self._group_leader[group] = (seq_id, last)
+                self._group_leader[group] = (seq_id, last, rout)
         slot.req = req
         slot.seq_id = seq_id
         slot.remaining = budget - 1  # the sampled first token
         slot.tokens = [int(tok_a[0])]
         slot.logprobs = [float(lp_a[0])]
+        slot.routings = [rout] if rout is not None else []
         slot.done = False
 
     def _finish(self, slot: _Slot, reason: str) -> dict:
         req = slot.req
         out = {"request": req, "token_ids": slot.tokens,
                "logprobs": slot.logprobs, "finish_reason": reason}
+        if slot.routings:
+            out["routed_experts"] = np.stack(slot.routings)  # (N, nL, K)
         self.cache.release(slot.seq_id)
         group = (req or {}).get("group")
         leader = self._group_leader.get(group) if group is not None else None
@@ -425,12 +456,15 @@ class PagedGenerator:
             table[i, :len(ids)] = ids
         row = _row_params(self.gen_cfg, [s.req for s in self.slots], b)
         dev = self.device
-        new_tok, lp = self._decode_step(
+        new_tok, lp, rout = self._decode_step(
             torch.from_numpy(tok).to(dev), torch.from_numpy(lens).to(dev),
             torch.from_numpy(table).to(dev), torch.from_numpy(active).to(dev), row)
         new_tok, lp = new_tok.cpu().numpy(), lp.cpu().numpy()
+        rout = None if rout is None else rout.cpu().numpy()
         for i in active_idx:
             s = self.slots[i]
             s.tokens.append(int(new_tok[i]))
             s.logprobs.append(float(lp[i]))
+            if rout is not None:
+                s.routings.append(rout[i])
             s.remaining -= 1

@@ -1,10 +1,12 @@
 """Model registry: name -> config factory (counterpart:
 `xtuner_tpu/model/registry.py`).
 
-The Qwen3 dense and Qwen3-MoE names, "glm-4.5-air", "glm-5.2" and
-"deepseek-v3" (`recipes/sft_glm45_air_head.py` trains GLM-4.5-Air's dense
-layer and first MoE layer; `recipes/sft_glm52_dsa_head.py` and
-`recipes/sft_deepseek_v3_mla_head.py` the other two's dense heads).
+The Qwen3 dense and Qwen3-MoE names, "glm-4.5-air", "glm-5.2",
+"deepseek-v3", "gpt-oss-20b" and "gpt-oss-120b"
+(`recipes/sft_glm45_air_head.py` trains GLM-4.5-Air's dense layer and
+first MoE layer; `recipes/sft_glm52_dsa_head.py` and
+`recipes/sft_deepseek_v3_mla_head.py` the other two's dense heads;
+`PagedGenerator` serves gpt-oss-20b whole).
 Qwen2, the other MoE families, VLM and hybrid presets and loading an HF
 checkpoint directory are not ported yet (ROADMAP items [moe], [serve-rest]).
 """
@@ -14,7 +16,7 @@ from __future__ import annotations
 from typing import Callable
 
 from .. import not_ported
-from . import deepseek, glm, moe, qwen
+from . import deepseek, glm, gpt_oss, moe, qwen
 
 model_mapping: dict[str, Callable] = {
     "qwen3-0-6b": qwen.qwen3_0_6b,
@@ -25,6 +27,8 @@ model_mapping: dict[str, Callable] = {
     "glm-4.5-air": glm.glm_45_air,
     "glm-5.2": glm.glm_52,
     "deepseek-v3": deepseek.deepseek_v3,
+    "gpt-oss-20b": gpt_oss.gpt_oss_20b,
+    "gpt-oss-120b": gpt_oss.gpt_oss_120b,
 }
 
 

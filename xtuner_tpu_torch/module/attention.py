@@ -12,8 +12,10 @@ attention over `mha_qkv` and keep only the flash output and lse.
 `mha_cached_forward` is ported for the prefill the paged engine runs: a
 whole right-padded prompt at `cache_len = 0`. Its attention is causal over
 one segment with the padding masked out, which is what the flash forward
-computes with `segment_ids = kv_mask`. Query rows at padding get zeros
-there where the JAX einsum gives unused values; real rows agree.
+computes with `segment_ids = kv_mask`, with the layer's sliding window and
+GPT-OSS sinks (JAX `mha_cached_forward`'s mask and sink softmax) passed to
+it. Query rows at padding get zeros there where the JAX einsum gives
+unused values; real rows agree.
 
 The training projections run in fp8 when the model's `float8_cfg` is
 enabled (`module/mlp.py::linear` -> `ops/float8.py::fp8_matmul`), as JAX's
@@ -21,8 +23,9 @@ enabled (`module/mlp.py::linear` -> `ops/float8.py::fp8_matmul`), as JAX's
 JAX.
 
 Not ported yet: a non-zero `cache_len` (chunked prefill and the dense
-decode engine), output gating, sinks and sliding windows ([serve-rest]) and
-LoRA ([lora]).
+decode engine) and output gating ([serve-rest]), sliding windows and sinks
+in training ([moe]: the flash backward takes neither yet) and LoRA
+([lora]).
 """
 
 from __future__ import annotations
@@ -71,8 +74,6 @@ class MHAConfig:
         """Raise for the variants the port does not run yet."""
         if self.with_gate:
             raise not_ported("gated attention (with_gate)", "serve-rest")
-        if self.with_sinks:
-            raise not_ported("attention sinks", "serve-rest")
 
 
 def mha_param_specs(cfg: MHAConfig, hidden_size: int, init_scale: float = 0.02) -> dict:
@@ -128,8 +129,9 @@ def mha_qkv(p: dict, cfg: MHAConfig, x, cos, sin, window: Optional[int] = None,
     """The training attention before the flash kernel: x (B, L, hidden) ->
     contiguous q (B, L, Hq, D), k, v (B, L, Hkv, D) and the max-logit
     bound (None without qk-norm)."""
-    if window:
-        raise not_ported("sliding-window attention", "serve-rest")
+    if window or cfg.with_sinks:
+        raise not_ported("sliding-window attention or sinks in training (the flash "
+                         "backward #2-#4 takes neither yet)", "moe")
     if lora_scaling != 1.0 or any(k.startswith("lora") for k in p["q_proj"]):
         raise not_ported("LoRA projections", "lora")
     q, k, v = project_qkv(p, cfg, x, cos, sin, fp8_cfg)
@@ -155,14 +157,14 @@ def mha_cached_forward(p: dict, cfg: MHAConfig, x, cos, sin, cache_k, cache_v,
                        cache_len: int, window: Optional[int] = None,
                        kv_mask: Optional[torch.Tensor] = None):
     """Prefill of a fresh cache. x: (B, C, H); cache_k/v: (B, S_max, Hkv, D)
-    with C <= S_max; kv_mask (B, S_max) bool, False = padding slot.
-    Writes the chunk's K/V into cache[:, :C] IN PLACE (the JAX function
-    returns an updated copy) and returns (out (B, C, H), cache_k, cache_v)."""
+    with C <= S_max; kv_mask (B, S_max) bool, False = padding slot; window:
+    a sliding window (None or <= 0: full); the sinks are `p["sinks"]` when
+    present. Writes the chunk's K/V into cache[:, :C] IN PLACE (the JAX
+    function returns an updated copy) and returns (out (B, C, H), cache_k,
+    cache_v)."""
     if cache_len != 0:
         raise not_ported("attention over a non-empty dense cache (cache_len > 0)",
                          "serve-rest")
-    if window:
-        raise not_ported("sliding-window attention", "serve-rest")
     b, c, _ = x.shape
     q, k, v = project_qkv(p, cfg, x, cos, sin)
     cache_k[:, :c] = k
@@ -174,6 +176,8 @@ def mha_cached_forward(p: dict, cfg: MHAConfig, x, cos, sin, cache_k, cache_v,
     # at cache_len 0 causality keeps every slot past C out of reach, so
     # attending the chunk's own K/V (in the cache dtype) is attending the cache
     o, _ = flash_attention(q.to(cache_k.dtype), k.to(cache_k.dtype),
-                           v.to(cache_v.dtype), seg, scale=cfg.head_dim ** -0.5)
+                           v.to(cache_v.dtype), seg, scale=cfg.head_dim ** -0.5,
+                           window=window if window and window > 0 else None,
+                           sinks=p.get("sinks"))
     o = o.to(x.dtype).reshape(b, c, cfg.q_dim())
     return linear(o, p["o_proj"]), cache_k, cache_v

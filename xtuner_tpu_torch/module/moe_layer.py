@@ -23,8 +23,16 @@ fused (E, H, 2F) weight: the wgrad quantises g with one scale per 128-row
 tile over all its columns, so a fused (M, 2F) gradient would get other
 scales than two (M, F) ones.
 
+gpt-oss's clipped experts (act "swiglu_clipped", `ops/act_fn.py`) take the
+decomposed or the fp8 branch, as in JAX: the fused branch is silu only.
+
+`fuse_gate_up` lays a stack's gate and up weights out as the two halves of
+one gate|up buffer; `gate_up_weight` then reads that buffer as a view
+where it would otherwise concatenate the two (1.06 GB a layer at
+gpt-oss-20b's E32 H2880 F2880). The values are the same either way.
+
 Not ported yet: the a2a and agrs dispatchers and expert parallelism
-(Queue 1, parallelism) and `swiglu_clipped` ([leaf-ops]).
+(Queue 1, parallelism).
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ import os
 import torch
 
 from .. import not_ported
-from ..ops.act_fn import get_act_fn
+from ..ops.act_fn import gated_act
 from ..ops.bf16_grouped import bf16_grouped_linear
 from ..ops.float8 import fp8_enabled
 from ..ops.fp8_grouped import fp8_grouped_linear
@@ -54,6 +62,39 @@ def expert_mlp_param_specs(hidden_size: int, moe_intermediate_size: int,
     }
 
 
+def fuse_gate_up(experts: dict) -> None:
+    """Replace `experts["gate_proj"]` and `["up_proj"]` (..., H, F), IN
+    PLACE, by the two halves of one (..., H, 2F) buffer holding the same
+    values (`gate_up_weight` reads it without a copy). A no-op where they
+    already are."""
+    g, u = experts["gate_proj"], experts["up_proj"]
+    if _halves_of_one(g, u):
+        return
+    f = g.shape[-1]
+    gu = torch.cat([g, u], dim=-1)
+    experts["gate_proj"], experts["up_proj"] = gu[..., :f], gu[..., f:]
+
+
+def _halves_of_one(g: torch.Tensor, u: torch.Tensor) -> bool:
+    """Whether g and u are the left and right halves of one contiguous
+    (..., 2F) tensor."""
+    f = g.shape[-1]
+    want = torch.empty((*g.shape[:-1], 2 * f), device="meta").stride()
+    return (g.shape == u.shape and g.dtype == u.dtype and g.stride() == u.stride() == want
+            and g.untyped_storage().data_ptr() == u.untyped_storage().data_ptr()
+            and u.storage_offset() == g.storage_offset() + f)
+
+
+def gate_up_weight(p: dict, dtype) -> torch.Tensor:
+    """gate|up as one (E, H, 2F) weight in `dtype`: a view where gate_proj
+    and up_proj are the halves of one buffer (`fuse_gate_up`), else their
+    concatenation."""
+    g, u = p["gate_proj"].to(dtype), p["up_proj"].to(dtype)
+    if _halves_of_one(g, u):
+        return g.as_strided((*g.shape[:-1], 2 * g.shape[-1]), g.stride())
+    return torch.cat([g, u], dim=2)
+
+
 def moe_mlp_forward(p: dict, router_p: dict, router_cfg: RouterConfig, x: torch.Tensor,
                     *, num_experts: int, top_k: int, act: str = "silu",
                     compute_dtype=torch.bfloat16, dispatcher: str = "gspmd",
@@ -62,8 +103,6 @@ def moe_mlp_forward(p: dict, router_p: dict, router_cfg: RouterConfig, x: torch.
     Dropless: every routed token is computed."""
     if dispatcher != "gspmd":
         raise not_ported(f"the {dispatcher!r} MoE dispatcher", "parallelism")
-    if act == "swiglu_clipped":
-        raise not_ported("swiglu_clipped experts", "leaf-ops")
     b, l, h = x.shape
     x2d = x.reshape(b * l, h)
     r: RouterOutput = route(router_p, router_cfg, x2d, top_k, forced_idx=forced_topk_idx)
@@ -77,20 +116,19 @@ def moe_mlp_forward(p: dict, router_p: dict, router_cfg: RouterConfig, x: torch.
 
         gate = gg(info.sorted_tokens, p["gate_proj"]).float()
         up = gg(info.sorted_tokens, p["up_proj"]).float()
-        hidden = (get_act_fn(act)(gate) * up).to(compute_dtype)
+        hidden = gated_act(gate, up, act).to(compute_dtype)
         out = gg(hidden, p["down_proj"])
         combined = unpermute(out, info, b * l)
         return combined.reshape(b, l, h).to(compute_dtype), r, info.group_sizes
     f = p["gate_proj"].shape[2]
-    w_cat = torch.cat([p["gate_proj"].to(compute_dtype), p["up_proj"].to(compute_dtype)],
-                      dim=2)
+    w_cat = gate_up_weight(p, compute_dtype)
     if act == "silu" and os.environ.get("XTUNER_FUSED_MLP", "0") != "0":
         out = fused_moe_mlp(info.sorted_tokens, w_cat, p["down_proj"].to(compute_dtype),
                             info.group_sizes)
     else:
         gu = bf16_grouped_linear(info.sorted_tokens, w_cat, info.group_sizes)
         gate, up = gu[:, :f].float(), gu[:, f:].float()
-        hidden = (get_act_fn(act)(gate) * up).to(compute_dtype)
+        hidden = gated_act(gate, up, act).to(compute_dtype)
         out = bf16_grouped_linear(hidden, p["down_proj"].to(compute_dtype), info.group_sizes)
     combined = unpermute(out, info, b * l)
     return combined.reshape(b, l, h).to(compute_dtype), r, info.group_sizes

@@ -88,8 +88,9 @@ def params_from_numpy(np_tree, cfg, device, dtype=torch.float32):
     `cfg.build().param_specs()`: embed.w (V, H), final_norm, the untied
     lm_head.w (H, V), and the layer stacks with a leading L dim (`layers`
     of a dense model; `dense_layers` and `moe_layers` of an MoE model, with
-    `router.w` (H, E) and `experts.{gate,up,down}_proj` (E, in, out));
-    linear weights are (in, out). Raises ValueError naming the first path
+    `router.w` (H, E) and `experts.{gate,up,down}_proj` (E, in, out); an
+    attention's optional q/k/v/o biases `b` and per-head `sinks`, as
+    gpt-oss has them); linear weights are (in, out). Raises ValueError naming the first path
     that differs."""
     specs = dict(tree_paths(cfg.build().param_specs()))
     got = dict(tree_paths(np_tree))

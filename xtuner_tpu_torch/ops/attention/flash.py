@@ -16,8 +16,18 @@ CUDA tensor (`csrc/flash_fwd.cu`; `csrc/flash_bwd.cu`: at head dim 128 one
 pass that gives dq, dk and dv together, at MLA's q/k dim 192 and v dim 128
 a dq kernel and a dk/dv kernel) or raises, and runs the plain PyTorch
 version beside it on a CPU tensor. v, out and do have the v head dim Dv,
-which may differ from q and k's D: the kernels take (D, Dv) in
-`KERNEL_DIMS`.
+which may differ from q and k's D: the forward kernel takes (D, Dv) in
+`KERNEL_DIMS`, the backward kernels in `BWD_KERNEL_DIMS`.
+
+A sliding window (`window`: key m visible to query l only if l - m <
+window) and per-head sinks (`sinks`, (Hq,): a logit that joins each row's
+softmax denominator and weights no value) are taken by the forward, as JAX
+`_flash_forward` takes them: the window inside the kernel, whose walk
+starts at the first k tile that meets a q tile's window (`fwd_tile_plan`);
+the sinks folded into out and lse after it, in plain PyTorch as JAX folds
+them in jnp (`fold_sinks`). The backward kernels take neither yet, so the
+backward of a forward that had one raises ([moe], the gpt-oss training
+slice).
 
 `flash_attention_saving_out_lse` is the attention of remat "save_out_lse"
 (JAX saves only `attn_res_out` and `attn_lse`): it takes the function
@@ -32,8 +42,8 @@ variant. The forward's CTAs also count the k tiles they walk, and those
 they walk without the per-element mask (`fwd_tiles_walked()`);
 `fwd_tile_plan` says which tiles one launch should walk.
 
-Not ported yet: sliding windows and sinks ([serve-rest]) and non-causal
-attention ([train-slice]).
+Not ported yet: non-causal attention ([train-slice]), and a window or
+sinks in the backward ([moe]).
 """
 
 from __future__ import annotations
@@ -48,7 +58,8 @@ from .reference import make_attention_mask
 
 NEG_INF = -1e30
 BIG_LSE = 1e30  # lse sentinel for rows that see no key (padding)
-KERNEL_DIMS = ((128, 128), (192, 128))  # the (D, Dv) pairs the kernels take
+KERNEL_DIMS = ((128, 128), (192, 128), (64, 64))  # the (D, Dv) pairs the forward takes
+BWD_KERNEL_DIMS = ((128, 128), (192, 128))  # and the backward
 # |scaled logit| bound at or below which the max-free forward is exact in
 # f32 (flash.py MAX_FREE_BOUND): exp(45) is far inside the f32 range
 MAX_FREE_BOUND = 45.0
@@ -60,10 +71,10 @@ def _grouped(q, k):
     return q.float().reshape(b, l, hkv, hq // hkv, d)
 
 
-def _probs(q, k, segment_ids, scale, lse=None, max_free=False):
+def _probs(q, k, segment_ids, scale, lse=None, max_free=False, window=None):
     """(B, Hkv, rep, L, L) f32 probabilities and lse (B, Hkv, rep, L, 1)."""
     s = torch.einsum("blgrd,bmgd->bgrlm", _grouped(q, k), k.float()) * scale
-    mask = make_attention_mask(segment_ids, causal=True)[:, :, None]  # (B,1,1,L,L)
+    mask = make_attention_mask(segment_ids, causal=True, window=window)[:, :, None]
     if lse is not None:  # backward: p from the saved lse (padding rows: 1e30)
         return torch.where(mask, torch.exp(s - lse[..., None]), 0.0), lse[..., None]
     if max_free:
@@ -82,14 +93,15 @@ def _probs(q, k, segment_ids, scale, lse=None, max_free=False):
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           segment_ids: torch.Tensor, scale: float,
-                          max_free: bool = False):
+                          max_free: bool = False, window: Optional[int] = None):
     """Plain version of the forward: fp32 masked softmax over the whole
     (L, L) score matrix, with the row max (running-max variant) or without
-    it (`max_free`, exact when |scaled logit| <= MAX_FREE_BOUND).
+    it (`max_free`, exact when |scaled logit| <= MAX_FREE_BOUND); with a
+    `window`, key m is visible to query l only if l - m < window.
     q: (B, L, Hq, D); k: (B, L, Hkv, D); v: (B, L, Hkv, Dv); segment_ids:
     (B, L). Returns out (B, L, Hq, Dv) in q.dtype, lse (B, Hq, L) fp32."""
     b, l, hq, _ = q.shape
-    p, lse = _probs(q, k, segment_ids, scale, max_free=max_free)
+    p, lse = _probs(q, k, segment_ids, scale, max_free=max_free, window=window)
     out = torch.einsum("bgrlm,bmgd->blgrd", p, v.float())
     return out.reshape(b, l, hq, v.shape[-1]).to(q.dtype), lse.reshape(b, hq, l)
 
@@ -145,7 +157,7 @@ def group_sum(t_h: torch.Tensor, hkv: int, dtype) -> torch.Tensor:
     return t_h.reshape(b, l, hkv, hq // hkv, x).sum(dim=3).to(dtype)
 
 
-def _check_kernel_args(q, k, v, segment_ids, name="flash_attention"):
+def _check_kernel_args(q, k, v, segment_ids, name="flash_attention", dims=KERNEL_DIMS):
     if not (k.device == v.device == segment_ids.device == q.device):
         raise ValueError(f"{name}: q, k, v, segment_ids on different devices")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
@@ -156,9 +168,9 @@ def _check_kernel_args(q, k, v, segment_ids, name="flash_attention"):
         raise ValueError(f"{name}: k {tuple(k.shape)} does not fit q {tuple(q.shape)}")
     if segment_ids.shape != (b, l) or segment_ids.dtype != torch.int32:
         raise ValueError(f"{name}: segment_ids must be (B, L) int32")
-    if (d, v.shape[3]) not in KERNEL_DIMS:
+    if (d, v.shape[3]) not in dims:
         raise ValueError(f"{name} kernel: (head_dim, v head_dim) {(d, v.shape[3])} not in "
-                         f"{KERNEL_DIMS}")
+                         f"{dims}")
     for n, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise ValueError(f"{name} kernel: {n} is {t.dtype}, want bfloat16")
@@ -170,7 +182,7 @@ def _check_kernel_args(q, k, v, segment_ids, name="flash_attention"):
 
 
 def _check_bwd_args(q, k, v, segment_ids, lse, delta, do, name):
-    _check_kernel_args(q, k, v, segment_ids, name)
+    _check_kernel_args(q, k, v, segment_ids, name, BWD_KERNEL_DIMS)
     b, l, hq, _ = q.shape
     want = (b, l, hq, v.shape[3])
     if do.shape != want or do.dtype != torch.bfloat16 or not do.is_contiguous():
@@ -239,15 +251,17 @@ def _tile_table(seg_p: torch.Tensor) -> torch.Tensor:
     return torch.stack([lo, hi, uni, torch.zeros_like(hi)], dim=-1).contiguous()
 
 
-def fwd_tile_plan(segment_ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def fwd_tile_plan(segment_ids: torch.Tensor,
+                  window: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Which k tiles the forward kernel walks for each q tile, from the
     padded segment ids and their tile table, which the kernel builds the
     same way (for counts and tests only; nothing computes attention from
     it). Tiles are KEY_TILE rows. Returns (walk, full), (B, nt, nt) bool
-    over (q tile i, k tile j): walked iff j <= i and the k tile's segment
-    range meets the q tile's; full (no per-element mask, JAX `_tile_full`)
-    iff walked, j < i, and both tiles hold one and the same document and
-    no padding."""
+    over (q tile i, k tile j): walked iff j <= i, the k tile's segment
+    range meets the q tile's and, with a `window`, its last key is inside
+    the window of the q tile's first row; full (no per-element mask, JAX
+    `_tile_full`) iff walked, j < i, both tiles hold one and the same
+    document and no padding, and, with a window, every pair is inside it."""
     pad = -segment_ids.shape[1] % KEY_TILE
     t = _tile_table(torch.nn.functional.pad(segment_ids, (0, pad)))
     b = t.shape[0]
@@ -260,6 +274,10 @@ def fwd_tile_plan(segment_ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor
     walk = causal & (hi[:, None, :] >= lo[:, :, None]) & (lo[:, None, :] <= hi[:, :, None])
     full = walk & (idx[None, :, None] > idx[None, None, :]) & (uni[:, None, :] != 0) \
         & (uni[:, None, :] == uni[:, :, None])
+    if window:
+        q0, k0 = KEY_TILE * idx[None, :, None], KEY_TILE * idx[None, None, :]
+        walk = walk & (k0 + KEY_TILE - 1 > q0 - window)  # the last key vs the first row
+        full = full & (q0 + KEY_TILE - 1 - k0 < window)  # the last row vs the first key
     return walk, full
 
 
@@ -276,13 +294,16 @@ def fwd_outputs(q: torch.Tensor, v: torch.Tensor):
 
 
 def flash_forward(q, k, v, segment_ids, scale: float,
-                  max_logit: Optional[torch.Tensor] = None):
+                  max_logit: Optional[torch.Tensor] = None, window: Optional[int] = None):
     """The forward kernel (#1, both variants): (out (B, L, Hq, Dv) in
     q.dtype, lse (B, Hq, L) fp32); rows that see no key get out 0 and lse
-    1e30. On the CPU the variant is read from `max_logit` directly."""
+    1e30. With a `window` (> 0), key m is visible to query l only if l - m
+    < window. On the CPU the variant is read from `max_logit` directly."""
+    if window is not None and window <= 0:
+        raise ValueError(f"flash_attention: window {window} must be positive (None: full)")
     if q.device.type == "cpu":
         max_free = max_logit is not None and float(max_logit) <= MAX_FREE_BOUND
-        return flash_attention_plain(q, k, v, segment_ids, scale, max_free)
+        return flash_attention_plain(q, k, v, segment_ids, scale, max_free, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     _check_kernel_args(q, k, v, segment_ids)
@@ -298,12 +319,22 @@ def flash_forward(q, k, v, segment_ids, scale: float,
     err = load().xt_flash_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(), tiles.data_ptr(),
         out.data_ptr(), lse.data_ptr(), b, l, hq, k.shape[2], d, v.shape[3],
-        float(scale), None if bound is None else bound.data_ptr(),
+        float(scale), int(window or 0), None if bound is None else bound.data_ptr(),
         _max_free_counter(q.device).data_ptr(), _tile_counter(q.device).data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "xt_flash_fwd_bf16")
     flash_attention.launches += 1
     return out, lse
+
+
+def fold_sinks(out: torch.Tensor, lse: torch.Tensor, sinks: torch.Tensor):
+    """Fold per-head sink logits (Hq,) into the forward's out (B, L, Hq,
+    Dv) and lse (B, Hq, L), as JAX `_flash_forward` does after its kernel:
+    lse' = log(exp(lse) + exp(sink)), out' = out exp(lse - lse'). Rows that
+    saw no key (out 0, lse 1e30) keep out 0 and lse 1e30."""
+    lse_new = torch.logaddexp(lse, sinks.float()[None, :, None])
+    scale = torch.exp(lse - lse_new).transpose(1, 2)[..., None]  # (B, L, Hq, 1)
+    return (out.float() * scale).to(out.dtype), lse_new
 
 
 def flash_bwd_plain(q, k, v, segment_ids, lse, delta, do, scale, two_pass=False):
@@ -396,24 +427,31 @@ class _FlashAttention(torch.autograd.Function):
     """`_flash`'s custom VJP over `(q, k, v, max_logit) = qkv_fn(*inputs)`.
     The residuals are `inputs`, segment_ids, out and lse; lse is not
     differentiable (the JAX rule ignores its cotangent too). The forward
-    runs `qkv_fn` without grad and the flash forward; the backward re-runs
-    `qkv_fn` with grad (a pass-through when `inputs` are q, k and v), runs
-    the backward kernels on the saved out and lse along the dk/dv path read
-    when the forward ran, and backpropagates dq, dk and dv through
-    `qkv_fn`. The flash forward never re-runs."""
+    runs `qkv_fn` without grad and the flash forward (then folds `sinks`
+    in); the backward re-runs `qkv_fn` with grad (a pass-through when
+    `inputs` are q, k and v), runs the backward kernels on the saved out
+    and lse along the dk/dv path read when the forward ran, and
+    backpropagates dq, dk and dv through `qkv_fn`. The flash forward never
+    re-runs. The backward of a forward with a window or sinks raises: the
+    backward kernels take neither yet."""
 
     @staticmethod
-    def forward(ctx, qkv_fn, segment_ids, scale, *inputs):
+    def forward(ctx, qkv_fn, segment_ids, scale, window, sinks, *inputs):
         with torch.no_grad():
             q, k, v, max_logit = qkv_fn(*inputs)
-            out, lse = flash_forward(q, k, v, segment_ids, scale, max_logit)
+            out, lse = flash_forward(q, k, v, segment_ids, scale, max_logit, window)
+            if sinks is not None:
+                out, lse = fold_sinks(out, lse, sinks)
         ctx.save_for_backward(segment_ids, out, lse, *inputs)
         ctx.qkv_fn, ctx.scale, ctx.bwd = qkv_fn, scale, attn_bwd()
+        ctx.window_or_sinks = window is not None or sinks is not None
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
+        if ctx.window_or_sinks:
+            raise not_ported("the flash backward with a sliding window or sinks", "moe")
         segment_ids, out, lse, *inputs = ctx.saved_tensors
         leaves = [t.detach().requires_grad_(t.requires_grad) for t in inputs]
         with torch.enable_grad():
@@ -424,7 +462,8 @@ class _FlashAttention(torch.autograd.Function):
         want = [t for t in leaves if t.requires_grad]
         got = iter(torch.autograd.grad([t for t, _ in made], want, [g for _, g in made],
                                        allow_unused=True))
-        return (None, None, None, *(next(got) if t.requires_grad else None for t in leaves))
+        return (None, None, None, None, None,
+                *(next(got) if t.requires_grad else None for t in leaves))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -432,16 +471,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None, window=None, sinks=None,
                     max_logit: Optional[torch.Tensor] = None):
     """q, k: (B, L, Hq / Hkv, D); v: (B, L, Hkv, Dv); segment_ids (B, L)
-    int32 (0 = padding); max_logit: optional proven |scaled logit| bound.
-    Returns (out (B, L, Hq, Dv) in q.dtype, lse (B, Hq, L) fp32); rows that
-    see no key get out 0 and lse 1e30. Differentiable in q, k, v."""
+    int32 (0 = padding); max_logit: optional proven |scaled logit| bound;
+    window: a sliding window (None: full); sinks: optional (Hq,) per-head
+    sink logits. Returns (out (B, L, Hq, Dv) in q.dtype, lse (B, Hq, L)
+    fp32, both with the sinks folded in); rows that see no key get out 0
+    and lse 1e30. Differentiable in q, k, v without a window or sinks."""
     if not causal:
         raise not_ported("non-causal flash attention", "train-slice")
-    if window is not None or sinks is not None:
-        raise not_ported("flash attention with a sliding window or sinks", "serve-rest")
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     return _FlashAttention.apply(lambda *qkv: (*qkv, max_logit), segment_ids, float(scale),
-                                 q, k, v)
+                                 window, sinks, q, k, v)
 
 
 def flash_attention_saving_out_lse(qkv_fn, inputs, segment_ids: torch.Tensor, *,
@@ -450,7 +489,7 @@ def flash_attention_saving_out_lse(qkv_fn, inputs, segment_ids: torch.Tensor, *,
     (the layer of remat "save_out_lse"): returns (out, lse) as
     `flash_attention` does, keeps only `inputs`, out and lse for the
     backward, and re-runs `qkv_fn` there. Differentiable in `inputs`."""
-    return _FlashAttention.apply(qkv_fn, segment_ids, float(scale), *inputs)
+    return _FlashAttention.apply(qkv_fn, segment_ids, float(scale), None, None, *inputs)
 
 
 # forward kernel launches (either variant) since the last reset; counted by

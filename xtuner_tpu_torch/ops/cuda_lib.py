@@ -38,10 +38,10 @@ _L = ctypes.c_longlong
 # C entry points: name -> argtypes (every one returns cudaGetLastError())
 SIGNATURES = {
     # q, k, v, segment_ids, tile table scratch (B, Lp / 64, 4), out, lse, B,
-    # L, Hq, Hkv, D, Dv, scale, max_logit bound (device f32 or null),
-    # max-free launch count (device int32 or null), tiles walked and full
-    # (device int64[2] or null), stream
-    "xt_flash_fwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+    # L, Hq, Hkv, D, Dv, scale, window (0: full), max_logit bound (device
+    # f32 or null), max-free launch count (device int32 or null), tiles
+    # walked and full (device int64[2] or null), stream
+    "xt_flash_fwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
                           _P, _P, _P, _P],
     # the dynamic shared memory of one forward CTA (bytes): D, Dv
     "xt_flash_fwd_smem_bytes": [_I, _I],
@@ -53,13 +53,14 @@ SIGNATURES = {
     # the dynamic shared memory of one backward CTA (bytes): kernel (0 the
     # one pass, 1 dq, 2 dk/dv), D, Dv
     "xt_flash_bwd_smem_bytes": [_I, _I, _I],
-    # q, pool_k, pool_v, block_table, seq_lens, out, split workspace (f32),
-    # merge tickets (int32, zero), B, C, Hq, Hkv, D, L, NB, BS, MB, layer,
-    # splits, scale, stream
-    "xt_paged_decode_bf16": [_P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    # the dynamic shared memory of one paged decode CTA (bytes): block size
-    "xt_paged_decode_smem_bytes": [_I],
+    # q, pool_k, pool_v, block_table, seq_lens, sinks (f32 or null), out,
+    # split workspace (f32), merge tickets (int32, zero), B, C, Hq, Hkv, D,
+    # L, NB, BS, MB, layer, splits, window (0: full), scale, stream
+    "xt_paged_decode_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # the dynamic shared memory of one paged decode CTA (bytes): block
+    # size, head dim
+    "xt_paged_decode_smem_bytes": [_I, _I],
     # x, w, group_sizes, out, M, C, E, K, N, transpose_rhs, walked counts
     # (device int64[3] or null), stream
     "xt_grouped_gemm_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
