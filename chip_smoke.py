@@ -2,8 +2,9 @@
 """Drive the PyTorch port's serving path (Qwen3-8B, and gpt-oss-20b whole),
 its MoE SFT train step, its SFT entry point (in bf16, in tile-wise fp8 and
 with both kernel switches), bench.py's longctx_64k row, GLM-5.2's DSA head,
-DeepSeek-V3's MLA head, GLM-4.5-Air's noaux-routed MoE head and moe_heavy
-with MTP, once on one NVIDIA card.
+DeepSeek-V3's MLA head, GLM-4.5-Air's noaux-routed MoE head, moe_heavy
+with MTP and gpt-oss-20b's two-layer head in training (with rollout-routing
+replay), once on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--breakdown]
 
@@ -165,7 +166,31 @@ exits non-zero with no result line:
    `mtp_loss` and step ms per step; the trunk's step-1 CE equal to the sft
    phase's; the exact launches (the MTP layer's kernels and a second fused
    CE per step);
-19. gpt_oss_profile: gpt-oss-20b's engine made again, then torch.profiler
+19. gpt_oss_train: `recipes/sft_gpt_oss_20b_head.py` (gpt-oss-20b's first
+   two layers at full width, 2.804 B params: layer 0 a window of 128,
+   layer 1 full attention, sinks, q/k/v/o biases, 32 experts top-4 with
+   clipped swiglu) through `Trainer.fit`, 4 steps on the recipe's own
+   8192-token rows, no final save: CE, grad norm, step ms, supervised
+   tokens/s, maxvio, peak memory; a falling CE; the exact launches (#1 at
+   64/64 twice a layer and step, the split backward #2 + #3 once, nn 4,
+   nt 2, dw 2); then replay on the engine's params: a no-grad forward
+   records each layer's top-k ids, one step replays them at the second
+   half of each document (its CE within OSS_REPLAY_ATOL of the
+   unreplayed forward's; the ids used equal the forced ones), one step
+   forces every real position to those ids plus one (used as forced); one
+   profiled step (flash and AdamW apart); then 1 step under
+   `XTUNER_ATTN_BWD=two_pass` (#2 + #4), its CE within 2e-2 of the
+   first run's;
+20. gpt_oss_train_kernels: at the recipe's row, B1 L8192 Hq64/8: #1 and
+   both backward instantiations at (64, 64) with the window of 128 and in
+   full, the lse with random sinks folded in, against the plain versions
+   one q-head group at a time (two backward launches the same bits, the
+   forward's walk against `fwd_tile_plan`, dsinks against the formula in
+   f64), beside SDPA (the window as a dense mask, no sinks) and the bound
+   on the in-window pairs; the grouped GEMMs (#6 nn and nt, #7) at E32
+   H2880 F2880 on M = 8192 x top-4 rows from the softmax router's own
+   route, beside `torch._grouped_mm`;
+21. gpt_oss_profile: gpt-oss-20b's engine made again, then torch.profiler
    windows of 4 prefills of 1000 tokens and of 16 decode steps (device
    time by kind: #5, the port's other kernels, cuBLAS, the rest). Last,
    since a profiler window slows every later host launch.
@@ -179,8 +204,10 @@ of the kernels, the card's name and power limit, and last
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -330,6 +357,17 @@ OSS_SLOTS = 4
 # agree at OSS_ROUTING_AGREE_MIN of the positions
 OSS_ROUTING_AGREE_MIN = 0.9
 OSS_ALL_LAYERS_AGREE_MIN = 0.1
+# gpt_oss_train phase (recipes/sft_gpt_oss_20b_head.py through Trainer.fit):
+# step-1 CE of a random model is ln(V) + sigma^2 / 2 for logits of std
+# 0.02 * sqrt(2880): 12.21 + 0.58 = 12.79; 4 steps of one 8192-token row.
+# The replay step forces the ids a no-grad forward of the same params and
+# batch picked, so its CE differs from that forward's only where the
+# re-gathered weights round otherwise (bf16 noise)
+OSS_RECIPE = "xtuner_tpu_torch/recipes/sft_gpt_oss_20b_head.py"
+OSS_STEPS = 4
+OSS_LOSS1 = (12.0, 13.6)
+OSS_HEAD_PARAMS = 2_804_090_688
+OSS_REPLAY_ATOL = 2e-2
 # the times of the WMMA, mma.sync and CUDA-core kernels that #8's, #16's,
 # #12's, #13's, #5's and #11's redesigns replaced, as PERF.md §6 records them
 # (chip_smoke.py runs, NVIDIA H100 80GB HBM3, 700.00 W), printed beside the
@@ -412,12 +450,13 @@ def phase_build() -> None:
     # the wgmma flash kernels: registers and spills (ptxas) and the dynamic
     # shared memory of one CTA of each instantiation: the forward <D, Dv>
     # (one kernel, both variants), the one-pass backward <two_pass> at
-    # 128/128, and MLA's dq <192, 128> and dk/dv <192, 128, two_pass>
+    # 128/128, and the split dq <D, Dv, window> and dk/dv <D, Dv, two_pass,
+    # window> at 192/128 and 64/64
     lib = cuda_lib.load()
     flash = {r"flash_fwd_kernelILi(\d+)ELi(\d+)E": "fwd",
              r"flash_bwd_kernelILb(\d)E": "bwd",
-             r"flash_dq_kernelILi(\d+)ELi(\d+)E": "dq",
-             r"flash_dkv_kernelILi(\d+)ELi(\d+)ELb(\d)E": "dkv"}
+             r"flash_dq_kernelILi(\d+)ELi(\d+)ELb(\d)E": "dq",
+             r"flash_dkv_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E": "dkv"}
     for i, ln in enumerate(ptxas):
         for pattern, kind in flash.items():
             m = re.search(pattern, ln) if ln.startswith("kernel") else None
@@ -430,9 +469,11 @@ def phase_build() -> None:
                 name = f"flash_bwd_kernel<{'two_pass' if g[0] else 'grouped'}>"
                 smem = lib.xt_flash_bwd_smem_bytes(0, 128, 128)
             elif kind == "dq":
-                name, smem = f"flash_dq_kernel<{g[0]}, {g[1]}>", lib.xt_flash_bwd_smem_bytes(1, *g)
+                name = f"flash_dq_kernel<{g[0]}, {g[1]}{', window' if g[2] else ''}>"
+                smem = lib.xt_flash_bwd_smem_bytes(1, g[0], g[1])
             else:
-                name = f"flash_dkv_kernel<{g[0]}, {g[1]}, {'two_pass' if g[2] else 'grouped'}>"
+                name = (f"flash_dkv_kernel<{g[0]}, {g[1]}, {'two_pass' if g[2] else 'grouped'}"
+                        f"{', window' if g[3] else ''}>")
                 smem = lib.xt_flash_bwd_smem_bytes(2, g[0], g[1])
             after = ptxas[i + 1:i + 3]
             say("build", kernel=name, smem_bytes=smem,
@@ -3634,6 +3675,379 @@ def phase_serve_gpt_oss(torch, seed: int, smi: str) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def routed_ids():
+    """The expert ids (B L, K) each MoE layer's router returns, in call
+    order, while the context is open (`model/moe.py`'s `moe_mlp_forward`
+    wrapped; a remat "full" step routes each layer again in its
+    backward)."""
+    from unittest import mock
+
+    from xtuner_tpu_torch.model import moe
+
+    used = []
+    orig = moe.moe_mlp_forward
+
+    def spy(*a, **kw):
+        out = orig(*a, **kw)
+        used.append(out[1].topk_idx.detach().clone())
+        return out
+
+    with mock.patch.object(moe, "moe_mlp_forward", spy):
+        yield used
+
+
+def oss_forward(torch, eng, batch):
+    """The engine's model on the batch's first micro-batch, no grad and no
+    replay: (CE, each MoE layer's top-k ids (B L, K))."""
+    from xtuner_tpu_torch.data_proto import SequenceContext
+
+    mb = {k: v[0] for k, v in eng._to_device(batch).items()}
+    seq = SequenceContext(mb["input_ids"], mb["segment_ids"], mb["position_ids"])
+    with torch.no_grad(), routed_ids() as used:
+        out = eng.model.loss(eng._train_tree, seq, mb["shifted_labels"], mb["loss_weights"],
+                             mb["loss_weights"].float().sum(), compute_dtype=eng.compute_dtype,
+                             remat=eng.remat)
+    return float(out.sum_ce) / max(int(out.num_tokens), 1), list(used)
+
+
+def replay_step(torch, eng, batch, replay, step: int, n_moe: int) -> tuple:
+    """One `train_step` with `replay` ((B, L, n_moe, K) int32) as the
+    batch's rollout_routed_experts: (its metrics, its launches, whether
+    every MoE layer's forward used the forced id wherever an entry is 0 or
+    more, how many entries were forced)."""
+    rb = dict(batch, rollout_routed_experts=replay.cpu().numpy()[None])
+    reset_train_launches()
+    with routed_ids() as used:
+        m = eng.train_step(rb, step)
+    torch.cuda.synchronize()
+    launches = train_launches(torch)
+    k = replay.shape[-1]
+    ok = len(used) >= n_moe
+    forced = 0
+    for i in range(min(n_moe, len(used))):
+        want = replay[:, :, i].reshape(-1, k).to(used[i].device, used[i].dtype)
+        sel = want >= 0
+        ok = ok and torch.equal(used[i][sel], want[sel])
+        forced += int(sel.sum())
+    return m, launches, ok, forced
+
+
+def phase_gpt_oss_train(torch, seed: int, smi: str) -> tuple[dict, dict, object]:
+    """gpt-oss-20b's first two layers at full width
+    (`recipes/sft_gpt_oss_20b_head.py`, 2.804 B params: 64/8 heads of 64
+    with q/k/v/o biases and sinks, layer 0 a window of 128 and layer 1
+    full attention, 32 experts top-4 of width 2880 with clipped swiglu)
+    through `Trainer.fit`: 4 steps on the recipe's own 8192-token rows, no
+    final save (`fit_recipe`). Per step CE, grad norm, step ms, supervised
+    tokens/s, maxvio, peak memory; CE finite and falling; the exact
+    launches (per layer and step #1 twice under remat "full", the grouped
+    backward #2 + #3 once; nn 4, nt 2, dw 2); one more step under the
+    profiler (the flash kernels and AdamW apart). Then rollout-routing
+    replay on the engine as the 4 steps left it: a no-grad forward records
+    each MoE layer's top-k ids; one step replays them with the first half
+    of each document's positions (and the padding) at -1: its CE within
+    OSS_REPLAY_ATOL of the unreplayed forward's, the ids each layer used
+    equal to the forced ones wherever an entry is 0 or more; then one step
+    with every real position forced to those ids plus one (mod E), which
+    fresh routing would not pick: the ids used are those. Last, the recipe
+    for 1 step under `XTUNER_ATTN_BWD=two_pass` (#2 + #4): its step-1 CE
+    within SWITCHED_LOSS_ATOL of the first run's. Returns both runs'
+    launches and the segment ids (1, L) of the recipe's first row."""
+    from xtuner_tpu_torch.module.params import count_params
+
+    trainer, recs, launches, peak, wall = fit_recipe(torch, OSS_RECIPE)
+    cfg, attn = trainer.cfg.model_cfg, trainer.cfg.model_cfg.attention
+    eng = trainer.engine
+    n = eng.num_params
+    batch = next(iter(trainer.dataloader))
+    trainer.dataloader.close()
+    seg = torch.as_tensor(batch["segment_ids"][0]).to(torch.int32)
+    n_moe = cfg.num_hidden_layers
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+    say("gpt_oss_train", recipe=OSS_RECIPE, params=n, layers=f"{n_moe}/24",
+        windows=repr(eng.model.moe_windows(n_moe)),
+        reason=repr(f"16 B x {n / 1e9:.3f} B = {16 * n / 1e9:.1f} GB of f32 state; every "
+                    f"further pair of layers adds 1.646 B params (26.3 GB)"),
+        hidden=cfg.hidden_size, heads=f"{attn.num_attention_heads}/{attn.num_key_value_heads}",
+        head_dim=attn.head_dim, sinks=attn.with_sinks, qkv_o_bias=attn.qkv_bias and attn.o_bias,
+        experts=f"{cfg.n_routed_experts}/top{cfg.num_experts_per_tok}",
+        moe_inter=cfg.moe_intermediate_size, act=cfg.hidden_act, vocab=cfg.vocab_size,
+        ce=cfg.lm_loss_cfg.mode, remat=eng.remat, docs=int(seg.max()), wall_s=f"{wall:.3f}",
+        save="skipped")
+    for r in recs:
+        say("gpt_oss_train", step=r["step"], loss=f"{r['reduced_llm_loss']:.5f}",
+            grad_norm=f"{r['grad_norm']:.5f}", lr=f"{r['lr']:.3e}",
+            tokens=int(r["consumed_tokens"]), step_ms=f"{1e3 * r['step_time']:.1f}",
+            tgs=f"{r['tgs']:.1f}", maxvio=f"{r['maxvio']:.4f}", skipped=int(r["skipped"]),
+            peak_gib=f"{peak:.3f}")
+    steady = recs[1:]
+    step_s = sum(r["step_time"] for r in steady) / len(steady)
+    tokens = sum(r["consumed_tokens"] for r in steady) / len(steady)
+    per = n_moe
+    want = {name: 0 for name in launches}
+    step_want = dict(flash_fwd=2 * per, flash_bwd=per, grouped_gemm_nn=4 * per,
+                     grouped_gemm_nt=2 * per, grouped_gemm_dw=2 * per)
+    want.update({k_: OSS_STEPS * v_ for k_, v_ in step_want.items()})
+    say("gpt_oss_train", launches={k_: v_ for k_, v_ in launches.items() if v_ or want[k_]},
+        expected={k_: v_ for k_, v_ in want.items() if v_}, steady_step_ms=f"{1e3 * step_s:.1f}",
+        steady_tgs=f"{tokens / step_s:.1f}", pack_positions_s=f"{SEQ / step_s:.1f}",
+        peak_gib=f"{peak:.3f}", card_gib=f"{card_gib:.3f}", card=repr(smi))
+    losses = check_fit("gpt_oss_train", recs, OSS_STEPS, OSS_LOSS1)
+    if n != OSS_HEAD_PARAMS or n != count_params(cfg.build().param_specs()):
+        raise AssertionError(f"{n} params, not the recipe's {OSS_HEAD_PARAMS}")
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} != what {OSS_STEPS} steps imply "
+                             f"{want}")
+    if not peak < card_gib:
+        raise AssertionError(f"peak {peak:.3f} GiB >= the card's {card_gib:.3f}")
+
+    # ---- rollout-routing replay on the params the 4 steps left
+    k, e = cfg.num_experts_per_tok, cfg.n_routed_experts
+    fresh_ce, fresh = oss_forward(torch, eng, batch)
+    b, l = batch["input_ids"].shape[1:]
+    ids = torch.stack([t.reshape(b, l, k) for t in fresh[:n_moe]], dim=2).to(torch.int32)
+    segd = seg.to(ids.device)
+    counts = [torch.unique_consecutive(row, return_counts=True)[1] for row in segd]
+    lens = torch.cat([c.repeat_interleave(c) for c in counts])  # each position's document
+    pos = torch.as_tensor(batch["position_ids"][0]).to(ids.device).reshape(-1)
+    second_half = ((pos >= (lens + 1) // 2) & (segd.reshape(-1) != 0)).reshape(b, l)
+    replay = torch.where(second_half[..., None, None], ids, -1).to(torch.int32)
+    m, rlaunches, used_ok, forced = replay_step(torch, eng, batch, replay, OSS_STEPS + 1, n_moe)
+    one = {name: 0 for name in rlaunches}
+    one.update(step_want)
+    diff = abs(m["reduced_llm_loss"] - fresh_ce)
+    say("gpt_oss_train", run="replay", forced_entries=forced,
+        of=int(segd.ne(0).sum()) * n_moe * k, loss=f"{m['reduced_llm_loss']:.5f}",
+        unreplayed_loss=f"{fresh_ce:.5f}", abs_diff=f"{diff:.3e}", tol=OSS_REPLAY_ATOL,
+        used_equal_forced=used_ok, grad_norm=f"{m['grad_norm']:.5f}",
+        maxvio=f"{m['maxvio']:.4f}", skipped=m["skipped"],
+        launches={k_: v_ for k_, v_ in rlaunches.items() if v_ or one[k_]})
+    if not (used_ok and diff <= OSS_REPLAY_ATOL and not m["skipped"] and rlaunches == one):
+        raise AssertionError(f"the replay step: ids used equal the forced ones {used_ok}, CE "
+                             f"{m['reduced_llm_loss']} vs unreplayed {fresh_ce} (> "
+                             f"{OSS_REPLAY_ATOL}?), skipped {m['skipped']}, launches "
+                             f"{rlaunches} vs {one}")
+    real = (segd != 0)[..., None, None]
+    permuted = torch.where(real, (ids + 1) % e, -1).to(torch.int32)
+    m2, plaunches, perm_ok, pforced = replay_step(torch, eng, batch, permuted, OSS_STEPS + 2,
+                                                  n_moe)
+    say("gpt_oss_train", run="replay_permuted", forced_entries=pforced,
+        loss=f"{m2['reduced_llm_loss']:.5f}", used_equal_forced=perm_ok,
+        grad_norm=f"{m2['grad_norm']:.5f}", maxvio=f"{m2['maxvio']:.4f}",
+        skipped=m2["skipped"])
+    if not (perm_ok and pforced == int(segd.ne(0).sum()) * n_moe * k and
+            all(map(math.isfinite, (m2["reduced_llm_loss"], m2["grad_norm"])))):
+        raise AssertionError(f"the permuted replay step: ids used equal the forced ones "
+                             f"{perm_ok}, {pforced} forced, loss {m2['reduced_llm_loss']}")
+    # one more step under the profiler: the flash kernels and AdamW apart
+    # from the rest (the grouped GEMMs are the port's other kernels)
+    with annotated(torch, MLA_TARGETS):
+        profile_window(torch, "gpt_oss_train_step",
+                       lambda: eng.train_step(batch, OSS_STEPS + 3), top=12,
+                       annotations=tuple(MLA_TARGETS))
+    del trainer, eng, batch, ids, replay, permuted
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same recipe, seed and data, one step under the two-pass dk/dv
+    trainer, trecs, tlaunches, tpeak, _ = fit_recipe(torch, OSS_RECIPE, steps=1,
+                                                     env={"XTUNER_ATTN_BWD": "two_pass"})
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    twant = {name: 0 for name in tlaunches}
+    twant.update(step_want, flash_bwd=0, flash_bwd_two_pass=per)
+    tdiff = abs(trecs[0]["reduced_llm_loss"] - losses[0])
+    say("gpt_oss_train", run="two_pass", switches=repr({"attn_bwd": "two_pass"}),
+        loss1=f"{trecs[0]['reduced_llm_loss']:.5f}", grouped_loss1=f"{losses[0]:.5f}",
+        abs_diff=f"{tdiff:.3e}", tol=SWITCHED_LOSS_ATOL,
+        grad_norm=f"{trecs[0]['grad_norm']:.5f}", grouped_grad_norm=f"{recs[0]['grad_norm']:.5f}",
+        step_ms=f"{1e3 * trecs[0]['step_time']:.1f}", peak_gib=f"{tpeak:.3f}",
+        launches={k_: v_ for k_, v_ in tlaunches.items() if v_ or twant[k_]},
+        expected={k_: v_ for k_, v_ in twant.items() if v_})
+    if not tdiff <= SWITCHED_LOSS_ATOL:
+        raise AssertionError(f"the two-pass run's step-1 CE differs from the grouped run's by "
+                             f"{tdiff} (> {SWITCHED_LOSS_ATOL})")
+    if tlaunches != twant:
+        raise AssertionError(f"the two-pass run's launches {tlaunches} != {twant}")
+    return launches, tlaunches, seg
+
+
+def flash_bwd_plain_by_group(torch, q, k, v, seg, lse, delta, do, scale: float, window,
+                             two_pass: bool):
+    """`flash_bwd_plain` one kv head's q-head group at a time (the same f32
+    math with an (L, L) slab per group: 2.1 GB f32 at L8192 and 8 heads, a
+    few such at once), the outputs concatenated as `flash_bwd` gives them."""
+    from xtuner_tpu_torch.ops.attention.flash import flash_bwd_plain
+
+    rep = q.shape[2] // k.shape[2]
+    parts = []
+    for g in range(k.shape[2]):
+        hs = slice(g * rep, (g + 1) * rep)
+        parts.append(flash_bwd_plain(q[:, :, hs], k[:, :, g:g + 1], v[:, :, g:g + 1], seg,
+                                     lse[:, hs].contiguous(), delta[:, hs].contiguous(),
+                                     do[:, :, hs], scale, two_pass, window))
+    return tuple(torch.cat(ts, dim=2) for ts in zip(*parts))
+
+
+def phase_gpt_oss_train_kernels(torch, seed: int, smi: str, recipe_seg) -> list[dict]:
+    """The kernels of the gpt_oss_train path against their plain versions
+    at the recipe's shapes, on its own packed row (`recipe_seg`): #1 and
+    the backward at (64, 64), B1 L8192 with 64 q heads over 8 kv heads,
+    with the window of 128 (layer 0) and in full (layer 1), from an lse
+    with random sinks folded in, as the path gives them: the forward's out
+    and lse (sinks folded) against `flash_plain_by_group` and its walk
+    against `fwd_tile_plan`; the grouped backward (#2 + #3) and the
+    two-pass one (#2 + #4) against `flash_bwd_plain_by_group`, each output
+    the same bits over two launches; dsinks (`flash_backward`) against
+    the formula in f64. Bounds on the pairs inside the window; the library
+    time is SDPA with the window as a dense mask and no sinks (SDPA takes
+    none), under the first fused backend that takes it. Then the bf16
+    grouped GEMMs (#6 nn and nt, #7) at E32 H2880 F2880 (gate|up N 5760,
+    down K 2880) on M = 8192 x top-4 rows, the group sizes from the
+    softmax router's own top-4 route of rms-1 rows (router weights of std
+    0.02), against their plain versions and `torch._grouped_mm`."""
+    from xtuner_tpu_torch.module.router import GreedyRouterConfig, greedy_route
+    from xtuner_tpu_torch.ops.attention import flash as fl
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 23)
+    src = "xtuner_tpu_torch/csrc/"
+    seg = recipe_seg.to(dev)
+    l, hq, hkv, d = OSS_SEQ, OSS_HQ, OSS_HKV, OSS_D
+    scale = d ** -0.5
+    q, k, v, do = (torch.randn((1, l, h, d), generator=g, device=dev).bfloat16()
+                   for h in (hq, hkv, hkv, hq))
+    sinks = torch.randn((hq,), generator=g, device=dev)
+    valid = seg[0] != 0
+    shape = f"B1xL{l}xHq{hq}xHkv{hkv}xD{d}"
+    heads_first = lambda t: t[0].transpose(0, 1)  # (B, L, H, X) -> (H, L, X)
+    rows = []
+    for window in (OSS_WINDOW, None):
+        label = f"window {window or 'none'}"
+        fl.reset_launches()
+        out, lse = fl.flash_attention(q, k, v, seg, window=window, sinks=sinks)
+        torch.cuda.synchronize()
+        walked = fl.fwd_tiles_walked()
+        walk, plan_full = fl.fwd_tile_plan(seg, window)
+        plan = (int(walk.sum()) * hq, int(plan_full.sum()) * hq)
+        (ref_out, ref_lse), fwd_plain = timed_once(torch, lambda: fl.fold_sinks(
+            *flash_plain_by_group(torch, q, k, v, seg, scale, window), sinks))
+        fwd_err = max(_abs(out[:, valid], ref_out[:, valid]),
+                      _abs(lse[..., valid], ref_lse[..., valid]))
+        fwd_ok = _abs(out[:, valid], ref_out[:, valid]) <= FLASH_OUT_ATOL and \
+            _abs(lse[..., valid], ref_lse[..., valid]) <= FLASH_LSE_ATOL and walked == plan
+        del ref_out, ref_lse
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, seg, lse, delta, do, scale)
+        res = {}
+        for two_pass in (False, True):
+            want, plain_ms = timed_once(torch, lambda: flash_bwd_plain_by_group(
+                torch, *args, window, two_pass))
+            fl.reset_launches()
+            got = fl.flash_bwd(*args, two_pass, window)
+            again = fl.flash_bwd(*args, two_pass, window)
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            counted = fl.flash_bwd.launches["two_pass" if two_pass else "grouped"] == 2
+            del again
+            hf, wf = [heads_first(t) for t in got], [heads_first(t) for t in want]
+            rels = [_rel_rows(t[:, valid], w[:, valid]) for t, w in zip(hf, wf)]
+            err = max(_abs(t[:, valid], w[:, valid]) for t, w in zip(hf, wf))
+            zero = all(bool((t[0][~valid] == 0).all()) for t in got)
+            del got, want, hf, wf
+            ms = cuda_ms(lambda: fl.flash_bwd(*args, two_pass, window), iters=10)
+            res[two_pass] = (rels, err, same and counted, zero, ms, plain_ms)
+        # dsinks, plain torch outside the kernels, against the formula in f64
+        dsinks = fl.flash_backward(q, k, v, seg, out, lse, do, scale, "grouped", window,
+                                   sinks)[3]
+        ref_ds = -(torch.exp(sinks.double()[None, :, None] - lse.double()) *
+                   delta.double()).sum(dim=(0, 2))
+        ds_rel = _rel(dsinks, ref_ds)
+        fwd_ms = cuda_ms(lambda: fl.flash_attention(q, k, v, seg, window=window, sinks=sinks),
+                         iters=10)
+        mask = window_mask(torch, seg, window)
+        lib_fwd, backend_fwd, how_fwd = sdpa_or_none(torch, q, k, v, mask)
+        lib_bwd, backend_bwd, how_bwd = sdpa_or_none(torch, q, k, v, mask, do)
+        del mask
+        pairs = window_pairs(torch, seg, window)
+        fwd_b = least_ms(2 * pairs * hq * (d + d), flash_bytes(q, k, dv=d), PEAK_BF16)
+        say("kernel", name="flash_fwd", path="gpt_oss_train", shape=shape, seq="recipe",
+            window=window, docs=int(seg.max()), pairs=pairs, err=f"{fwd_err:.3e}",
+            pad_rows_ok=bool((out[:, ~valid] == 0).all()), tiles_walked=walked,
+            plan_walked_full=plan, ms=f"{fwd_ms:.4f}", plain_ms=f"{fwd_plain:.1f}",
+            bound_ms=f"{fwd_b['bound_ms']:.4f}", share_of_bound=f"{fwd_b['bound_ms'] / fwd_ms:.3f}",
+            tflops=f"{2 * pairs * hq * 2 * d / fwd_ms / 1e9:.1f}", sdpa_ms=lib_fwd,
+            sdpa_backend=backend_fwd, sdpa_how=repr(how_fwd), card=repr(smi))
+        rows.append({"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
+                     "function": f"flash_fwd_kernel<{d}, {d}>",
+                     "replaces": "xtuner_tpu/ops/attention/flash.py:82", "path": "gpt_oss_train",
+                     "shape": f"{shape}, {label}", "seq": "recipe", "max_abs_err": fwd_err,
+                     "ms": fwd_ms, "plain_ms": fwd_plain, **fwd_b, "library_ms": lib_fwd,
+                     "library_is": f"SDPA {backend_fwd}, {how_fwd}, no sinks"})
+        for two_pass in (False, True):
+            rels, err, same, zero, ms, plain_ms = res[two_pass]
+            bnd = bwd_bound(q, k, pairs, two_pass)
+            name = "flash_bwd_two_pass" if two_pass else "flash_bwd"
+            say("kernel", name=name, path="gpt_oss_train", shape=shape, seq="recipe",
+                window=window, dq_dk_dv_rel=",".join(f"{x:.3e}" for x in rels),
+                err=f"{err:.3e}", same_bits=same, pad_rows_ok=zero,
+                dsinks_rel=f"{ds_rel:.3e}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.1f}",
+                bound_ms=f"{bnd['bound_ms']:.4f}", share_of_bound=f"{bnd['bound_ms'] / ms:.3f}",
+                tflops=f"{2 * 5 * d * pairs * hq / ms / 1e9:.1f}", sdpa_bwd_ms=lib_bwd,
+                sdpa_backend=backend_bwd, sdpa_how=repr(how_bwd), card=repr(smi))
+            for line in (199, 249 if two_pass else 303):
+                rows.append({
+                    "name": name, "route": "cuda", "source": src + "flash_bwd.cu",
+                    "function": f"flash_dq_kernel<{d}, {d}{', window' if window else ''}> + "
+                                f"flash_dkv_kernel<{d}, {d}, {'two_pass' if two_pass else 'grouped'}"
+                                f"{', window' if window else ''}>",
+                    "replaces": f"xtuner_tpu/ops/attention/flash.py:{line}",
+                    "path": "gpt_oss_train_two_pass" if two_pass else "gpt_oss_train",
+                    "shape": f"{shape}, {label}", "seq": "recipe", "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": lib_bwd,
+                    "library_is": f"SDPA backward {backend_bwd}, {how_bwd}, no sinks",
+                    "plain_is": "flash_bwd_plain one q-head group at a time"})
+        worst = max(max(res[False][0]), max(res[True][0]))
+        if not (fwd_ok and worst <= FLASH_GRAD_RTOL and ds_rel <= FLASH_LSE_ATOL and
+                all(r[2] and r[3] for r in res.values())):
+            raise AssertionError(f"the flash kernels at 64/64 ({label}) disagree with their "
+                                 f"plain versions: forward ok {fwd_ok}, dq/dk/dv {res} (<= "
+                                 f"{FLASH_GRAD_RTOL}; two launches the same bits and counted; "
+                                 f"padding rows zero), dsinks {ds_rel}")
+        del out, lse, delta, args
+        gc.collect()
+        torch.cuda.empty_cache()
+    del q, k, v, do
+
+    # ---- the MoE layer's grouped GEMMs at E32 H2880 F2880, sizes from the
+    # softmax router's own top-4 route of 8192 tokens
+    e, hid, f, topk = OSS_EXPERTS, OSS_H, OSS_F, OSS_TOPK
+    tok = torch.randn((l, hid), generator=g, device=dev)
+    router = {"w": torch.randn((hid, e), generator=g, device=dev) * 0.02}
+    idx = greedy_route(router, GreedyRouterConfig(), tok, topk).topk_idx
+    sizes = torch.bincount(idx.flatten(), minlength=e).to(torch.int32)
+    del tok, router, idx
+    m = l * topk
+    say("kernel", name="softmax_route_sizes", experts=e, rows=m,
+        min_max=f"{int(sizes.min())},{int(sizes.max())}", empty=int((sizes == 0).sum()),
+        tails=f"K {hid} % 128 = {hid % 128}, N {f} % 128 = {f % 128}")
+    x = torch.randn((m, hid), generator=g, device=dev).bfloat16()
+    w_gu = (torch.randn((e, hid, 2 * f), generator=g, device=dev) * 0.02).bfloat16()
+    w_dn = (torch.randn((e, f, hid), generator=g, device=dev) * 0.02).bfloat16()
+    hmid = torch.randn((m, f), generator=g, device=dev).bfloat16()
+    dy_gu = torch.randn((m, 2 * f), generator=g, device=dev).bfloat16()
+    dy_dn = torch.randn((m, hid), generator=g, device=dev).bfloat16()
+    for row in grouped_rows(torch, "gpt_oss_train", grouped_cases(
+            x, hmid, w_gu, w_dn, dy_gu, dy_dn, sizes, e), m, e, iters=5, plain_iters=2):
+        row["shape"] = f"M{m} E{e} H{hid} F{f}, top-{topk} route"
+        rows.append(row)
+    del x, w_gu, w_dn, hmid, dy_gu, dy_dn
+    reset_train_launches()
+    return rows
+
+
 def phase_gpt_oss_profile(torch, seed: int) -> None:
     """Where gpt-oss-20b's serving time goes (torch.profiler): the model
     and engine of `phase_serve_gpt_oss` made again, then one window of 4
@@ -4343,6 +4757,11 @@ def main() -> int:
     release(torch, "glm45_kernels")
     launches["moe_heavy_mtp"] = phase_moe_heavy_mtp(torch, smi, losses[0])
     release(torch, "moe_heavy_mtp")
+    launches["gpt_oss_train"], launches["gpt_oss_train_two_pass"], oss_seg = \
+        phase_gpt_oss_train(torch, args.seed, smi)
+    release(torch, "gpt_oss_train")
+    kernels += phase_gpt_oss_train_kernels(torch, args.seed, smi, oss_seg)
+    release(torch, "gpt_oss_train_kernels")
     phase_gpt_oss_profile(torch, args.seed)
     for kern in kernels:
         kern["launches"] = launches[kern["path"]][kern["name"]]

@@ -22,6 +22,7 @@ from xtuner_tpu.ops.attention.reference import reference_attention as j_referenc
 from xtuner_tpu_torch.module import attention as tattn
 from xtuner_tpu_torch.module import kv_cache as tkv
 from xtuner_tpu_torch.module import rope as trope
+from xtuner_tpu_torch.ops.attention import flash as tflash
 from xtuner_tpu_torch.ops.attention.flash import BIG_LSE, flash_attention
 from xtuner_tpu_torch.ops.attention.paged_decode import paged_decode_attn
 from xtuner_tpu_torch.ops.attention.reference import reference_attention
@@ -91,9 +92,10 @@ def test_flash_bf16_matches_fp32_oracle():
 
 @pytest.mark.parametrize("kw", [{"window": 8}, {"sinks": torch.zeros(4)}, {"causal": False}])
 def test_flash_unported_options_raise(kw):
-    """Non-causal attention raises; the forward takes a window and sinks
-    (tests/test_torch_gpt_oss.py holds it to JAX), and the backward with
-    either raises."""
+    """Non-causal attention raises. The window and the sinks now train
+    (tests/test_torch_gpt_oss_train.py holds them to JAX): their backward
+    runs here, and what still raises is a window at the one-pass kernel's
+    (128, 128) and sinks that are not one per q head."""
     q, k, v, seg = _packed(b=1, l=64, d=16)
     if "causal" in kw:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -101,8 +103,18 @@ def test_flash_unported_options_raise(kw):
         return
     tq = _t(q).requires_grad_(True)
     out, _ = flash_attention(tq, _t(k), _t(v), _t(seg), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        out.sum().backward()
+    out.sum().backward()
+    assert torch.isfinite(tq.grad).all() and tq.grad.abs().sum() > 0
+    if "window" in kw:
+        b16 = lambda *s: torch.zeros(s, dtype=torch.bfloat16)
+        lse = torch.zeros((1, 4, 64))
+        with pytest.raises(ValueError, match="takes no sliding window"):
+            tflash._check_bwd_args(b16(1, 64, 4, 128), b16(1, 64, 2, 128), b16(1, 64, 2, 128),
+                                   torch.ones((1, 64), dtype=torch.int32), lse, lse,
+                                   b16(1, 64, 4, 128), "flash_bwd", **kw)
+    else:
+        with pytest.raises(ValueError, match="one per q head"):
+            flash_attention(_t(q), _t(k), _t(v), _t(seg), sinks=torch.zeros(3))
 
 
 def _mha_case(seed=0):

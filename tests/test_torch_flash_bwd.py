@@ -111,7 +111,7 @@ def test_backward_launches_dq_and_dkv_wrappers_once(monkeypatch):
     calls = []
     orig = tflash.flash_bwd
     monkeypatch.setattr(tflash, "flash_bwd",
-                        lambda *a: calls.append(a[-1]) or orig(*a))
+                        lambda *a, **kw: calls.append(a[8]) or orig(*a, **kw))
     for switch, two_pass in (("grouped", False), ("two_pass", True)):
         monkeypatch.setenv("XTUNER_ATTN_BWD", switch)
         tflash.reset_launches()
@@ -242,13 +242,16 @@ def test_kernel_checks_take_the_kernels_head_dims():
         return q, k, v, torch.ones((1, 64), dtype=torch.int32)
 
     assert tflash.KERNEL_DIMS == ((128, 128), (192, 128), (64, 64))
-    assert tflash.BWD_KERNEL_DIMS == ((128, 128), (192, 128))
+    assert tflash.BWD_KERNEL_DIMS == ((128, 128), (192, 128), (64, 64))
     for d, dv in tflash.KERNEL_DIMS:
         tflash._check_kernel_args(*tensors(d, dv))
-    q, k, v, seg = tensors(64, 64)  # the forward's alone: the backward refuses it
-    with pytest.raises(ValueError, match="head_dim"):
+    q, k, v, seg = tensors(64, 64)  # gpt-oss's pair: the backward takes it, with a window
+    tflash._check_bwd_args(q, k, v, seg, torch.zeros((1, 4, 64)), torch.zeros((1, 4, 64)),
+                           q, "b", window=128)
+    q, k, v, seg = tensors(128, 128)  # the one pass takes no window
+    with pytest.raises(ValueError, match="no sliding window"):
         tflash._check_bwd_args(q, k, v, seg, torch.zeros((1, 4, 64)), torch.zeros((1, 4, 64)),
-                               q, "b")
+                               q, "b", window=128)
     for d, dv in tflash.BWD_KERNEL_DIMS:
         q, k, v, seg = tensors(d, dv)
         tflash._check_kernel_args(q, k, v, seg)
@@ -256,7 +259,7 @@ def test_kernel_checks_take_the_kernels_head_dims():
         tflash._check_bwd_args(q, k, v, seg, lse, lse, torch.zeros((1, 64, 4, dv),
                                                                    dtype=torch.bfloat16), "b")
         with pytest.raises(ValueError, match="do must be"):
-            tflash._check_bwd_args(q, k, v, seg, lse, lse, q if d != dv else q[..., :64], "b")
+            tflash._check_bwd_args(q, k, v, seg, lse, lse, q if d != dv else q[..., :32], "b")
     for d, dv in ((192, 192), (128, 64), (24, 16), (256, 256)):
         with pytest.raises(ValueError, match="head_dim"):
             tflash._check_kernel_args(*tensors(d, dv))
@@ -269,8 +272,12 @@ def test_unported_options_raise():
     q, k, v, seg = _packed(1, 64, 2, 2, 1, seed=6)
     with pytest.raises(NotImplementedError, match="train-slice"):
         tflash.flash_attention(_t(q), _t(k), _t(v), _t(seg), causal=False)
-    # the forward takes a window; its backward does not yet ([moe])
+    # the backward takes a window (tests/test_torch_gpt_oss_train.py holds
+    # it to JAX); a window that is not positive raises
     tq = _t(q).requires_grad_(True)
     out, _ = tflash.flash_attention(tq, _t(k), _t(v), _t(seg), window=16)
-    with pytest.raises(NotImplementedError, match=r"\[moe\]"):
-        out.sum().backward()
+    out.sum().backward()
+    assert torch.isfinite(tq.grad).all()
+    with pytest.raises(ValueError, match="must be positive"):
+        tflash.flash_bwd(*(_t(a) for a in (q, k, v, seg)), torch.zeros((1, 2, 64)),
+                         torch.zeros((1, 2, 64)), _t(q), 1.0, window=0)

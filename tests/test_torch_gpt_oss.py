@@ -176,14 +176,27 @@ def test_flash_forward_window_sinks_matches_jax(d, window, with_sinks):
 
 
 def test_flash_backward_with_window_or_sinks_raises():
-    """The forward takes a window and sinks; the backward kernels do not
-    yet, so the backward raises instead of a wrong gradient."""
-    q, k, v, seg = _packed(1, 128, 4, 2, 16, seed=4)
-    for kw in ({"window": 8}, {"sinks": torch.zeros(4)}):
-        tq = _t(q).requires_grad_(True)
-        out, _ = tflash.flash_attention(tq, _t(k), _t(v), _t(seg), **kw)
-        with pytest.raises(NotImplementedError, match=r"window or sinks.*\[moe\]"):
-            out.sum().backward()
+    """The backward takes a window and sinks (the split kernels at 64/64
+    and 192/128 and every plain version). What still raises is a window
+    at (128, 128), whose one-pass kernel takes none, and only for CUDA
+    tensors: on the CPU the plain version runs it, with the sinks too."""
+    q, k, v, seg = _packed(1, 128, 4, 2, 128, seed=4)
+    tq, ts = _t(q).requires_grad_(True), torch.zeros(4, requires_grad=True)
+    out, _ = tflash.flash_attention(tq, _t(k), _t(v), _t(seg), window=8, sinks=ts)
+    out.sum().backward()
+    assert torch.isfinite(tq.grad).all() and ts.grad is not None
+    bf = [_t(a).bfloat16() for a in (q, k, v)]
+    lse = torch.zeros((1, 4, 128))
+    args = (*bf, _t(seg), lse, lse, bf[0], "flash_bwd")
+    tflash._check_bwd_args(*args)  # no window: the one pass takes it
+    with pytest.raises(ValueError, match=r"\(128, 128\) takes no sliding window"):
+        tflash._check_bwd_args(*args, window=8)
+    for d in (64, 192):  # the split kernels' pairs take one
+        dv = 128 if d == 192 else d
+        qd, kd, vd = (torch.zeros((1, 128, h, x), dtype=torch.bfloat16)
+                      for h, x in ((4, d), (2, d), (2, dv)))
+        tflash._check_bwd_args(qd, kd, vd, _t(seg), lse, lse,
+                               torch.zeros((1, 128, 4, dv), dtype=torch.bfloat16), "b", 8)
 
 
 def _jax_tile_plan(seg_p: np.ndarray, window: int, tile: int):
@@ -453,7 +466,9 @@ def test_gpt_oss_window_pattern_decode_matches_training_forward():
 def test_gpt_oss_presets_match_jax():
     """The registry's gpt-oss presets build the JAX trees: the same param
     paths and shapes (20,908,120,896 params at 20b), and the port's
-    training forward refuses the window pattern and the sinks."""
+    training forward takes the window pattern and the sinks (what it
+    still refuses is a replay tensor for another number of MoE layers;
+    tests/test_torch_gpt_oss_train.py holds the training to JAX)."""
     for name, jfn in (("gpt-oss-20b", jgpt.gpt_oss_20b), ("gpt-oss-120b", jgpt.gpt_oss_120b)):
         tspecs = get_model_config(name).build().param_specs()
         jspecs = jfn().build().param_specs()
@@ -468,6 +483,10 @@ def test_gpt_oss_presets_match_jax():
     assert count_params(get_model_config("gpt-oss-20b").build().param_specs()) == 20_908_120_896
     _, _, tcfg, tparams = _tiny_pair(2)
     seq = TSeq.from_input_ids(np.ones((1, 16), np.int32))
-    with pytest.raises(NotImplementedError, match=r"window pattern.*\[moe\]"):
+    out = tcfg.build().loss(tparams, seq, torch.zeros(1, 16, dtype=torch.long),
+                            torch.ones(1, 16), 16.0, compute_dtype=torch.float32)
+    assert torch.isfinite(out.loss)
+    seq.rollout_routed_experts = torch.zeros((1, 16, 3, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="rollout_routed_experts"):
         tcfg.build().loss(tparams, seq, torch.zeros(1, 16, dtype=torch.long),
                           torch.ones(1, 16), 16.0, compute_dtype=torch.float32)

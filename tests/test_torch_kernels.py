@@ -357,14 +357,17 @@ def test_flash_max_free_variant_matches_plain(cuda, bound, max_free):
     _check_flash(out, lse, ref_out, ref_lse, seg)
 
 
-def _bwd_inputs(dev, b, l, hq, hkv, docs, pad, seed=0, lens=None, d=128, dv=128):
+def _bwd_inputs(dev, b, l, hq, hkv, docs, pad, seed=0, lens=None, d=128, dv=128,
+                window=None, sinks=None):
     q, k, v, seg = _packed(dev, b, l, hq, hkv, docs, pad, seed, d, dv)
     if lens is not None:
         seg = _with_lens(seg, lens)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     do = torch.randn((b, l, hq, dv), generator=g, device=dev).bfloat16()
     scale = d ** -0.5
-    out, lse = flash_attention_plain(q, k, v, seg, scale)
+    out, lse = flash_attention_plain(q, k, v, seg, scale, window=window)
+    if sinks is not None:  # the backward's lse and out carry the sinks
+        out, lse = fold_sinks(out, lse, sinks)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     return q, k, v, seg, lse, delta, do, scale
 
@@ -484,6 +487,95 @@ def test_flash_mla_autograd_matches_plain_autograd(cuda):
         grads.append([t.grad for t in leaves])
     for got, want in zip(*grads):
         assert _rel_err(got, want) <= FLASH_GRAD_RTOL
+
+
+# gpt-oss's backward: the split kernels at (64, 64), with its window of
+# 128, small windows, one past a document's length, and in full, from an
+# lse with the sinks folded in (the kernels never see the sinks)
+OSS_BWD_SHAPES = [
+    # b, l, hq, hkv, docs, pad, lens
+    (1, 4096, 64, 8, 5, 250, None),   # gpt-oss's heads (GQA 8), five documents
+    (1, 1024, 8, 2, 3, 40, None),     # packed documents, padded tail
+    (2, 200, 4, 2, 2, 7, None),       # L not a multiple of 128 (nor of 64)
+    (1, 300, 4, 4, 0, 0, [30, 20, 50]),  # documents shorter than a tile, padding tiles
+    (1, 700, 8, 2, 0, 0, [5, 100, 17, 60, 1, 127, 300]),  # documents shorter than a tile
+    (1, 65, 4, 1, 0, 0, [40, 25]),    # L < 128: tiles past L
+]
+
+
+@pytest.mark.parametrize("two_pass", [False, True])
+@pytest.mark.parametrize("window", [None, 128, 8, 64, 300])
+@pytest.mark.parametrize("b,l,hq,hkv,docs,pad,lens", OSS_BWD_SHAPES)
+def test_flash_backward_64_window_matches_plain(cuda, b, l, hq, hkv, docs, pad, lens, window,
+                                                two_pass):
+    """dq, dk, dv at (64, 64) with a window against the plain version,
+    both switches; padding rows exactly zero."""
+    sinks = torch.linspace(-2.0, 3.0, hq, device=cuda)
+    q, k, v, seg, lse, delta, do, scale = _bwd_inputs(
+        cuda, b, l, hq, hkv, max(docs, 1), pad, lens=lens, d=64, dv=64, window=window,
+        sinks=sinks)
+    reset_launches()
+    got = flash_bwd(q, k, v, seg, lse, delta, do, scale, two_pass, window)
+    torch.cuda.synchronize()
+    assert flash_bwd.launches == {"grouped": int(not two_pass), "two_pass": int(two_pass)}
+    want = flash_bwd_plain(q, k, v, seg, lse, delta, do, scale, two_pass, window)
+    for t, w, like in zip(got, want, (q, q if two_pass else k, q if two_pass else v)):
+        assert t.shape == like.shape and t.dtype == torch.bfloat16
+        assert torch.isfinite(t.float()).all()
+        assert _rel_err(t, w) <= FLASH_GRAD_RTOL
+        assert (t[seg == 0] == 0).all()
+
+
+def test_flash_backward_64_window_two_launches_give_the_same_bits(cuda):
+    """At (64, 64) every output is written once: dq too."""
+    q, k, v, seg, lse, delta, do, scale = _bwd_inputs(cuda, 1, 2048, 16, 2, 3, 50, d=64,
+                                                      dv=64, window=128)
+    for two_pass in (False, True):
+        a = flash_bwd(q, k, v, seg, lse, delta, do, scale, two_pass, 128)
+        b = flash_bwd(q, k, v, seg, lse, delta, do, scale, two_pass, 128)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("window", [128, None])
+def test_flash_64_window_sinks_autograd_matches_plain_autograd(cuda, window):
+    """Autograd through the kernels with the window and the sinks as a leaf
+    against the plain forward, fold and autograd."""
+    q, k, v, seg = _packed(cuda, 1, 1000, 8, 2, 3, 20, seed=5, d=64, dv=64)
+    sinks = torch.linspace(-1.0, 2.0, 8, device=cuda)
+    co = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(6),
+                     device=cuda)
+    grads = []
+    for fn in (lambda q_, k_, v_, s_: flash_attention(q_, k_, v_, seg, window=window,
+                                                      sinks=s_)[0],
+               lambda q_, k_, v_, s_: fold_sinks(*flash_attention_plain(
+                   q_, k_, v_, seg, 64 ** -0.5, window=window), s_)[0]):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v, sinks)]
+        (fn(*leaves).float() * co).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        assert _rel_err(got, want) <= FLASH_GRAD_RTOL
+
+
+@pytest.mark.parametrize("two_pass", [False, True])
+@pytest.mark.parametrize("window", [128, 8])
+def test_flash_mla_backward_with_a_window_matches_plain(cuda, window, two_pass):
+    """The split kernels take a window at 192/128 too (no preset trains
+    MLA with one: the model refuses it)."""
+    q, k, v, seg, lse, delta, do, scale = _bwd_inputs(cuda, 1, 1024, 8, 2, 3, 40, d=192,
+                                                      dv=128, window=window)
+    got = flash_bwd(q, k, v, seg, lse, delta, do, scale, two_pass, window)
+    torch.cuda.synchronize()
+    want = flash_bwd_plain(q, k, v, seg, lse, delta, do, scale, two_pass, window)
+    for t, w in zip(got, want):
+        assert torch.isfinite(t.float()).all()
+        assert _rel_err(t, w) <= FLASH_GRAD_RTOL
+        assert (t[seg == 0] == 0).all()
+
+
+def test_flash_backward_one_pass_refuses_a_window(cuda):
+    q, k, v, seg, lse, delta, do, scale = _bwd_inputs(cuda, 1, 256, 4, 2, 2, 10)
+    with pytest.raises(ValueError, match="no sliding window"):
+        flash_bwd(q, k, v, seg, lse, delta, do, scale, False, 128)
 
 
 def test_flash_autograd_matches_plain_autograd(cuda):

@@ -107,8 +107,8 @@ def test_two_pass_grads_match_jax(monkeypatch, b, hq, hkv, docs, max_logit):
     leaves = [_t(x).requires_grad_(True) for x in (q, k, v)]
     calls = []
     orig = tflash.flash_bwd
-    monkeypatch.setattr(tflash, "flash_bwd",
-                        lambda *a: calls.append("two_pass" if a[-1] else "grouped") or orig(*a))
+    monkeypatch.setattr(tflash, "flash_bwd", lambda *a, **kw: calls.append(
+        "two_pass" if a[8] else "grouped") or orig(*a, **kw))
     tflash.reset_launches()
     tml = None if max_logit is None else torch.tensor(max_logit)
     out, _ = tflash.flash_attention(*leaves, _t(seg), max_logit=tml)
@@ -126,8 +126,8 @@ def test_the_switch_is_read_when_the_forward_runs(monkeypatch):
     leaves = [_t(x).requires_grad_(True) for x in (q, k, v)]
     calls = []
     orig = tflash.flash_bwd
-    monkeypatch.setattr(tflash, "flash_bwd",
-                        lambda *a: calls.append("two_pass" if a[-1] else "grouped") or orig(*a))
+    monkeypatch.setattr(tflash, "flash_bwd", lambda *a, **kw: calls.append(
+        "two_pass" if a[8] else "grouped") or orig(*a, **kw))
     monkeypatch.setenv("XTUNER_ATTN_BWD", "anything but grouped")
     out, _ = tflash.flash_attention(*leaves, _t(seg))
     monkeypatch.setenv("XTUNER_ATTN_BWD", "grouped")

@@ -443,11 +443,19 @@ def test_moe_heavy_mtp_recipe():
 
 
 def test_still_unported_moe_options_raise():
-    cfg = tds.deepseek_v3_tiny(layer_window_pattern=[4, None])
-    cfg.build().param_specs()  # builds; its training forward raises
-    with pytest.raises(NotImplementedError, match=r"window pattern.*\[moe\]"):
-        cfg.build().forward(None, None)
+    """A window (a pattern or the config's) on DSA or MLA attention
+    raises: JAX's DSA path takes none and its `mla_forward` never passes
+    one on, so the reference would drop it. The noaux router replays
+    forced ids (tests/test_torch_gpt_oss_train.py holds both routers to
+    JAX)."""
+    for cfg in (_glm_dsa_cfgs()[1], tds.deepseek_v3_tiny()):
+        for kw in ({"layer_window_pattern": [4, None]},
+                   {"use_sliding_window": True, "sliding_window": 4}):
+            windowed = dataclasses.replace(cfg, **kw)
+            windowed.build().param_specs()  # builds; its training forward raises
+            with pytest.raises(NotImplementedError, match=r"window pattern on .*\[moe\]"):
+                windowed.build().forward(None, None)
     p = {"w": torch.zeros(4, 2), "e_score_correction_bias": torch.zeros(2)}
-    with pytest.raises(NotImplementedError, match=r"replay.*\[moe\]"):
-        trouter.route(p, trouter.NoAuxRouterConfig(), torch.zeros(3, 4), 1,
-                      forced_idx=torch.zeros(3, 1, dtype=torch.long))
+    r = trouter.route(p, trouter.NoAuxRouterConfig(), torch.zeros(3, 4), 1,
+                      forced_idx=torch.tensor([[1], [-1], [0]]))
+    assert r.topk_idx[:, 0].tolist() == [1, 0, 0]

@@ -154,8 +154,10 @@ def test_greedy_route_matches_jax(scoring, norm):
 
 def test_noaux_router_and_replay_raise():
     """`route` dispatches to the noaux router as JAX's does
-    (`tests/test_torch_moe_noaux.py` holds it to JAX in depth); replay
-    still raises ([moe])."""
+    (`tests/test_torch_moe_noaux.py` holds it to JAX in depth). Replay is
+    ported (`tests/test_torch_gpt_oss_train.py` holds it to JAX): forced
+    ids give JAX's routing here too, and what still raises is a forced-id
+    tensor that is not (N, K)."""
     rng = np.random.default_rng(12)
     x = rng.standard_normal((40, 32), dtype=np.float32)
     p = {"w": rng.standard_normal((32, 8), dtype=np.float32) * 0.3,
@@ -167,9 +169,17 @@ def test_noaux_router_and_replay_raise():
     np.testing.assert_array_equal(t.topk_idx.numpy(), np.asarray(j.topk_idx))
     for a, b in ((t.topk_weights, j.topk_weights), (t.probs, j.probs)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=TOL, rtol=TOL)
-    with pytest.raises(NotImplementedError, match=r"\[moe\]"):
+    forced = np.where(np.arange(40)[:, None] % 2 == 0, 0, -1).astype(np.int32)
+    jf = jrouter.route(jax.tree.map(jnp.asarray, p), jrouter.GreedyRouterConfig(),
+                       jnp.asarray(x), 1, forced_idx=jnp.asarray(forced))
+    tf = trouter.route({k: _t(v) for k, v in p.items()}, trouter.GreedyRouterConfig(), _t(x), 1,
+                       forced_idx=_t(forced))
+    np.testing.assert_array_equal(tf.topk_idx.numpy(), np.asarray(jf.topk_idx))
+    np.testing.assert_allclose(tf.topk_weights.numpy(), np.asarray(jf.topk_weights),
+                               atol=TOL, rtol=TOL)
+    with pytest.raises(ValueError, match="forced_idx"):
         trouter.route({k: _t(v) for k, v in p.items()}, trouter.GreedyRouterConfig(), _t(x), 1,
-                      forced_idx=torch.zeros(40, 1))
+                      forced_idx=torch.zeros(40, 2))
 
 
 def test_balancing_and_z_loss_match_jax():

@@ -256,17 +256,24 @@ def test_moe_presets_match_jax():
 
 
 def test_unported_moe_options_raise():
-    """MTP and the noaux router are ported (tests/test_torch_moe_noaux.py);
-    what still raises: training with the window pattern ([moe]), the a2a
-    dispatcher ([parallelism]) and the unported remat policies
+    """MTP, the noaux router, the window pattern and routing replay are
+    ported (tests/test_torch_moe_noaux.py, tests/test_torch_gpt_oss_train.py);
+    what still raises: a replay tensor that does not fit the MoE stack, the
+    a2a dispatcher ([parallelism]) and the unported remat policies
     ([train-slice])."""
     jcfg, tcfg = _cfgs(layer_window_pattern=[16, None])
     params = params_from_numpy(jax.tree.map(
         np.asarray, j_init_params(jcfg.build().param_specs(), jax.random.key(0))), tcfg, "cpu")
-    with pytest.raises(NotImplementedError, match=r"\[moe\]"):
-        tcfg.build().loss(params, TSeq.from_input_ids(np.ones((1, 8), np.int32)),
-                          torch.zeros(1, 8, dtype=torch.long), torch.ones(1, 8), 8.0,
-                          compute_dtype=torch.float32, remat="none")
+    seq = TSeq.from_input_ids(np.ones((1, 8), np.int32))
+    out = tcfg.build().loss(params, seq, torch.zeros(1, 8, dtype=torch.long), torch.ones(1, 8),
+                            8.0, compute_dtype=torch.float32, remat="none")
+    assert torch.isfinite(out.loss)
+    n_moe = tcfg.num_hidden_layers - tcfg.first_k_dense_replace
+    seq.rollout_routed_experts = torch.zeros((1, 8, n_moe + 1, tcfg.num_experts_per_tok),
+                                             dtype=torch.int32)
+    with pytest.raises(ValueError, match="rollout_routed_experts"):
+        tcfg.build().loss(params, seq, torch.zeros(1, 8, dtype=torch.long), torch.ones(1, 8),
+                          8.0, compute_dtype=torch.float32, remat="none")
     _, tcfg = _cfgs()
     tcfg.router = NoAuxRouterConfig()
     eng = TEngine(tcfg, toptim.AdamWConfig(), toptim.LRConfig(), TMesh(), 2, device="cpu")

@@ -5,6 +5,12 @@
 // prologue, and the two warpgroup roles of a dk/dv CTA over one 64-key
 // tile. The kernels keep their walks and hand them in as refill callbacks.
 //
+// A sliding window (the flash kernels' WINDOW instantiations: key m counts
+// for query l only if l - m < window) joins the per-element masks here;
+// the kernels' walks skip the tiles wholly outside it and mark as full
+// only tiles wholly inside. The block-sparse kernels take no window, and
+// their instantiations (WINDOW = false) compile to what they were without.
+//
 // A dk/dv CTA's layout C: K (D columns) at 0, V (DV) at C::OFF_V; ring stage
 // s holds Q (C::KB bytes) then dO at C::OFF_RING + s C::SB, and the q rows'
 // lse, delta and segment ids (64 each) at C::OFF_ROWS + s C::RB; P^T (64 x 64
@@ -22,12 +28,13 @@ constexpr int BAR_P_FULL = 1, BAR_P_EMPTY = 2;  // named barriers of the dk/dv r
 constexpr float BWD_LOG2E = 1.4426950408889634f;
 
 // dS of one (64 q rows, 64 keys) tile from S and dP in the accumulator
-// layout, packed to bf16 A fragments
-template <bool MASK>
+// layout, packed to bf16 A fragments (with WINDOW, masked by the window too)
+template <bool MASK, bool WINDOW = false>
 __device__ __forceinline__ void dq_grad(const float (&s)[32], const float (&dp)[32],
                                         uint32_t (&da)[16], float c, const float (&lse2)[2],
                                         const float (&dl)[2], const int* seg, int k0,
-                                        const int (&qs)[2], const int (&qpos)[2], int tq) {
+                                        const int (&qs)[2], const int (&qpos)[2], int tq,
+                                        int window = 0) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     float ds[4];
@@ -38,7 +45,8 @@ __device__ __forceinline__ void dq_grad(const float (&s)[32], const float (&dp)[
       ds[e] = p * (dp[i] - dl[r]);
       if (MASK) {
         const int key = k0 + 8 * j + 2 * tq + cc;
-        const bool ok = qs[r] != 0 && seg[key] == qs[r] && key <= qpos[r];
+        const bool ok = qs[r] != 0 && seg[key] == qs[r] && key <= qpos[r] &&
+                        (!WINDOW || qpos[r] - key < window);
         ds[e] = ok ? ds[e] : 0.f;
       }
     }
@@ -59,8 +67,9 @@ __device__ __forceinline__ void dq_grad(const float (&s)[32], const float (&dp)[
 // stage with refill_v(t). Layout C: Q (128-row boxes) at 0, dO at C::OFF_DO,
 // C::SK K stages at C::OFF_K, C::SV V stages at C::OFF_V. seg, qs, qpos,
 // lse2 (base 2) and dl: the rows' segment ids (by key position), ids,
-// positions, lse and delta.
-template <int D, int DV, typename C, typename RefillK, typename RefillV>
+// positions, lse and delta; with WINDOW, `window` masks the items' tiles
+// that are not full.
+template <int D, int DV, typename C, bool WINDOW = false, typename RefillK, typename RefillV>
 __device__ __forceinline__ void dq_body(unsigned char* smem, uint32_t sbase, uint32_t kf,
                                         uint32_t ke, uint32_t vf, uint32_t ve, uint32_t bar_q,
                                         const int4* meta, RefillK&& refill_k,
@@ -68,7 +77,7 @@ __device__ __forceinline__ void dq_body(unsigned char* smem, uint32_t sbase, uin
                                         const int (&qs)[2], const int (&qpos)[2],
                                         const float (&lse2)[2], const float (&dl)[2], float c,
                                         float scale, const CUtensorMap* tm_dq, int h, int q0,
-                                        int b, int L) {
+                                        int b, int L, int window = 0) {
   constexpr int SK = C::SK, SV = C::SV;
   const int wg = threadIdx.x / 128, lane = threadIdx.x % 32, tq = lane % 4;
   const int row0 = 16 * ((threadIdx.x % 128) / 32) + lane / 4;
@@ -128,9 +137,9 @@ __device__ __forceinline__ void dq_body(unsigned char* smem, uint32_t sbase, uin
     __syncwarp();
     if (!run) continue;
     if (full)
-      dq_grad<false>(s, dp, da, c, lse2, dl, seg, it.x * 64, qs, qpos, tq);
+      dq_grad<false, WINDOW>(s, dp, da, c, lse2, dl, seg, it.x * 64, qs, qpos, tq, window);
     else
-      dq_grad<true>(s, dp, da, c, lse2, dl, seg, it.x * 64, qs, qpos, tq);
+      dq_grad<true, WINDOW>(s, dp, da, c, lse2, dl, seg, it.x * 64, qs, qpos, tq, window);
     // dQ += dS K (64 q rows x D, over the 64 keys)
     wg_fence();
     acc_rs<D / 64>(dq, da, sK);
@@ -155,13 +164,16 @@ __device__ __forceinline__ void dq_body(unsigned char* smem, uint32_t sbase, uin
 // warpgroup 0: S^T = K Q^T, P^T (masked) to the shared buffer, dV += P^T dO;
 // thread 0 refills the stage the last step freed with refill(stage, parity
 // of its empty barrier). dV goes to rows k0.. of head h of a (B, L, H, DV)
-// tensor (with BOUNDED, none at or past L)
-template <int D, int DV, typename C, bool BOUNDED, typename Args, typename Refill>
+// tensor (with BOUNDED, none at or past L). With WINDOW, P^T of the items
+// that are not full is masked by `window` too
+template <int D, int DV, typename C, bool BOUNDED, bool WINDOW = false, typename Args,
+          typename Refill>
 __device__ __forceinline__ void dkv_p_role(unsigned char* smem, uint32_t sbase,
                                            uint32_t bar_full, uint32_t bar_empty,
                                            const int4* meta, Refill&& refill, const Args& a,
                                            int b, int h, int H, int k0, const int (&kseg)[2],
-                                           const int (&kpos)[2], int row0, int tq, int lane) {
+                                           const int (&kpos)[2], int row0, int tq, int lane,
+                                           int window = 0) {
   constexpr int ST = C::STAGES;
   float acc[DV / 64][32], s[32];
   uint32_t pa[16];
@@ -207,7 +219,8 @@ __device__ __forceinline__ void dkv_p_role(unsigned char* smem, uint32_t sbase,
       for (int e = 0; e < 4; ++e) {
         const int i = 4 * j + e, r = e / 2, cc = e % 2;
         const float p = exp2f(fmaf(s[i], c, -lb[cc]));
-        const bool ok = it.z || (kseg[r] != 0 && qsg[cc] == kseg[r] && kpos[r] <= q0 + col + cc);
+        const bool ok = it.z || (kseg[r] != 0 && qsg[cc] == kseg[r] && kpos[r] <= q0 + col + cc &&
+                                 (!WINDOW || q0 + col + cc - kpos[r] < window));
         s[i] = ok ? p : 0.f;
       }
     }

@@ -1,8 +1,9 @@
 // Causal GQA flash-attention backward over packed rows, for Hopper (sm_90a):
 // at head dim 128, one pass that computes p and ds once per (k tile, q
 // tile) pair and feeds dq, dk and dv from them, on wgmma with a TMA ring;
-// at MLA's q/k dim 192 and v dim 128, a dq kernel and a dk/dv kernel (the
-// end of this file).
+// at MLA's q/k dim 192 and v dim 128 and at gpt-oss's 64 and 64, a dq
+// kernel and a dk/dv kernel (the end of this file), which also take a
+// sliding window.
 //
 // Replaces three TPU kernels of xtuner_tpu/ops/attention/flash.py:
 // - _dq_kernel (the dq pallas_call in _flash_bwd_rule);
@@ -73,8 +74,9 @@
 //   tiles goes through bulk reduce-adds, whose order changes from run to
 //   run, so dq is not bitwise reproducible between two runs (it agrees to
 //   rounding).
-// - Head dim 128 and causal only (anything else returns an error); MLA's
-//   (D, DV) = (192, 128) runs the two kernels at the end of this file.
+// - Head dim 128, causal and no window only (anything else returns an
+//   error); (D, DV) = (192, 128) and (64, 64) run the two kernels at the
+//   end of this file.
 // - ptxas (nvcc -Xptxas -v, sm_90a), both instantiations: 255 registers,
 //   0 bytes of spills; 200,248 bytes of dynamic shared memory (one CTA per SM).
 
@@ -126,6 +128,7 @@ struct Args {
   __nv_bfloat16* dv;
   int B, L, Lp, Hq, Hkv;
   float scale_log2e, scale;
+  int window;  // the split kernels: key m counts for query l only if l - m < window (Lp: full)
 };
 
 // P^T and dS^T of one (64 key rows, 64 q rows) tile in the accumulator
@@ -455,12 +458,24 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 }
 
 
-// ------------------------------------------------------ (D, DV) = (192, 128)
-// MLA's head dims. The one pass above would hold dK as 64 x 192 f32 per
-// warpgroup (32 registers a thread more than its 255) and need ~290 KB of
-// shared memory, so the backward at 192/128 is two kernels in the layout of
-// csrc/block_sparse.cu's backward (#15), with the dense causal walks of the
-// pass above over 64-row tiles:
+// ---------------------------------------- (D, DV) = (192, 128) and (64, 64)
+// MLA's head dims, and gpt-oss's. The one pass above would hold dK as 64 x
+// 192 f32 per warpgroup (32 registers a thread more than its 255) and need
+// ~290 KB of shared memory, so the backward at 192/128 is two kernels in
+// the layout of csrc/block_sparse.cu's backward (#15), with the dense
+// causal walks of the pass above over 64-row tiles; the same two templates
+// run gpt-oss's 64/64, whose sliding window of 128 they take as JAX's
+// _tile_mask / _tile_full do (flash.py:57-80):
+// - the dq walk starts at the key tile that holds the first key the CTA's
+//   first row sees (q0 - window + 1), and a half runs a tile only if its
+//   last key is inside the window of the half's first row;
+// - the dk/dv walk of a key tile ends at the last q tile whose first row
+//   still sees the tile's last key (q <= k0 + 63 + window - 1);
+// - a tile is full (no per-element mask) only if every pair is inside the
+//   window too; the masked ones add l - m < window to the mask.
+// Each kernel is instantiated with and without these terms (WINDOW); the
+// wrapper launches the windowed one only for a window shorter than the
+// padded row, so a full layer runs the code it ran before the window.
 // - flash_dq_kernel (#2): the forward's CTAs (128 q rows, q head, batch
 //   row), Q and dO of the 128 rows resident; 64-key tiles of K and V from
 //   the first whose segment range meets the rows' up to the diagonal,
@@ -483,11 +498,14 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 // The dq pass after its prologue and the two dk/dv roles are
 // attn_bwd64.cuh's, shared with #15: the kernels here own only their walks.
 // Every output is written once, so two launches give the same bits, dq
-// included. ptxas (nvcc -Xptxas -v, sm_90a, CUDA 12.9), 0 bytes of spills
-// in each: flash_dq_kernel 234 registers, 230,600 bytes of dynamic shared
-// memory (4 K and 3 V stages); flash_dkv_kernel 210 (grouped) and 212
-// (two-pass) registers, 225,432 bytes (4 stages). chip_smoke.py's build
-// phase prints them.
+// included. ptxas (nvcc -Xptxas -v, sm_90a, CUDA 12.9) at 192/128 without
+// the window, 0 bytes of spills in each: flash_dq_kernel 234 registers,
+// 230,600 bytes of dynamic shared memory (4 K and 3 V stages);
+// flash_dkv_kernel 210 (grouped) and 212 (two-pass) registers, 225,432
+// bytes (4 stages). At 64/64 the rings keep the same stage counts in less
+// than half the bytes (DqSmem / DkvSmem size them from TILE_CAP).
+// chip_smoke.py's build phase prints every instantiation's registers,
+// spills and shared memory.
 
 constexpr int T64 = 64;                     // rows of a key or q tile
 constexpr uint32_t TILE_CAP = 225 * 1024;   // tiles of a CTA; the rest: barriers, slack
@@ -518,15 +536,22 @@ struct DqSmem {
 // as dq_body reads it: {key tile, 0 or -1 for each half (runs it or not),
 // full bits (bit x: half x skips the mask)}; x = -1 at the end. Half x (q
 // tile 2 i + x, table entry qt[x]) runs a tile at or below its diagonal
-// whose segment range meets its own
-__device__ __forceinline__ int4 dq_next(const int4* tiles, int kt, int i, const int4 (&qt)[2]) {
+// whose segment range meets its own and, with WINDOW, whose last key is
+// inside the window of the half's first row
+template <bool WINDOW>
+__device__ __forceinline__ int4 dq_next(const int4* tiles, int kt, int i, const int4 (&qt)[2],
+                                        int win) {
   for (; kt <= 2 * i + 1; ++kt) {
     const int4 k = tiles[kt];
     int run[2], full = 0;
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
-      run[x] = kt <= 2 * i + x && meets4(k, qt[x]) ? 0 : -1;
-      if (run[x] == 0 && kt < 2 * i + x && qt[x].z != 0 && k.z == qt[x].z)
+      const int r0 = T64 * (2 * i + x);  // the half's first row
+      run[x] = kt <= 2 * i + x && meets4(k, qt[x]) && (!WINDOW || T64 * kt + T64 - 1 > r0 - win)
+                   ? 0
+                   : -1;
+      if (run[x] == 0 && kt < 2 * i + x && qt[x].z != 0 && k.z == qt[x].z &&
+          (!WINDOW || r0 + T64 - 1 - T64 * kt < win))
         full |= 1 << x;  // JAX _tile_full
     }
     if (run[0] == 0 || run[1] == 0) return make_int4(kt, run[0], run[1], full);
@@ -563,7 +588,7 @@ __device__ __forceinline__ void dq_load_v(const int4* meta, int n, uint32_t sbas
     tma_load(sbase + C::OFF_V + stage * C::VB + c * BOX64, tm_v, bar, 64 * c, g, k0, b);
 }
 
-template <int D, int DV>
+template <int D, int DV, bool WINDOW>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
                 const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
@@ -614,9 +639,12 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     for (int c = 0; c < DV / 64; ++c)
       tma_load(sbase + C::OFF_DO + c * 2 * BOX64, &tm_do, bar_q, 64 * c, h, q0, b);
   }
-  if (threadIdx.x < 32) {  // the first key tile that meets either half, 32 at a time
+  if (threadIdx.x < 32) {
+    // the first key tile that meets either half, 32 at a time from the one
+    // that holds the first key the CTA's first row sees in the window
     int first = 2 * i + 2;
-    for (int base = 0; base <= 2 * i + 1; base += 32) {
+    for (int base = WINDOW ? max(0, (q0 - a.window + 1) / T64) : 0; base <= 2 * i + 1;
+         base += 32) {
       const int j = base + lane;
       bool ok = false;
       if (j <= 2 * i + 1) {
@@ -636,7 +664,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   int kn = *first_s, produced = 0;
   bool done = false;
   auto load_next_k = [&](int stage) {
-    const int4 it = dq_next(tiles, kn, i, qt);
+    const int4 it = dq_next<WINDOW>(tiles, kn, i, qt, a.window);
     dq_load_k<D, DV>(it, meta, stage, sbase, kf, &tm_k, g, b);
     done = it.x < 0;
     if (!done) kn = it.x + 1, ++produced;
@@ -668,8 +696,9 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     lse2[r] = a.lse[o] * LOG2E;
     dl[r] = a.delta[o];
   }
-  dq_body<D, DV, C>(smem, sbase, kf, ke, vf, ve, bar_q, meta, refill_k, refill_v, seg, qs, qpos,
-                    lse2, dl, a.scale_log2e, a.scale, &tm_dq, h, q0, b, a.L);
+  dq_body<D, DV, C, WINDOW>(smem, sbase, kf, ke, vf, ve, bar_q, meta, refill_k, refill_v, seg,
+                            qs, qpos, lse2, dl, a.scale_log2e, a.scale, &tm_dq, h, q0, b, a.L,
+                            a.window);
 }
 
 template <int D, int DV>
@@ -693,17 +722,18 @@ struct DkvSmem {
 };
 
 // thread 0's walk of one dk/dv CTA: for each of n_heads q heads from
-// h_first, the q tiles from the key tile kt to `last` whose segment range
-// meets the key tile's (kt4)
+// h_first, the q tiles from the key tile kt to `last` (inside the window)
+// whose segment range meets the key tile's (kt4)
 struct KvWalk {
   const int4* tiles;
   int4 kt4;
-  int kt, last, h_first, n_heads;
+  int kt, last, h_first, n_heads, win;
   int q, r;  // the next q tile, the head index
   bool done;
 };
 
 // the next item: {q tile, q head, full, 0}; x = -1 at the end
+template <bool WINDOW>
 __device__ __forceinline__ int4 kv_next(KvWalk& w) {
   while (w.r < w.n_heads) {
     if (w.q > w.last) {
@@ -714,7 +744,8 @@ __device__ __forceinline__ int4 kv_next(KvWalk& w) {
     const int j = w.q++;
     const int4 t = w.tiles[j];
     if (!meets4(t, w.kt4)) continue;
-    const int full = j > w.kt && w.kt4.z != 0 && t.z == w.kt4.z;  // JAX _tile_full
+    const int full = j > w.kt && w.kt4.z != 0 && t.z == w.kt4.z &&
+                     (!WINDOW || T64 * (j - w.kt) + T64 - 1 < w.win);  // JAX _tile_full
     return make_int4(j, w.h_first + w.r, full, 0);
   }
   return make_int4(-1, -1, 0, 0);
@@ -722,12 +753,12 @@ __device__ __forceinline__ int4 kv_next(KvWalk& w) {
 
 // the walk's next item into ring stage `stage`: Q and dO by TMA, lse,
 // delta and the segment ids by bulk copy (the end marker: a bare arrival)
-template <int D, int DV>
+template <int D, int DV, bool WINDOW>
 __device__ __forceinline__ void kv_produce(KvWalk& w, int4* meta, int stage, uint32_t sbase,
                                            uint32_t bar_full, const CUtensorMap* tm_q,
                                            const CUtensorMap* tm_do, const Args& a, int b) {
   using C = DkvSmem<D, DV>;
-  const int4 it = kv_next(w);
+  const int4 it = kv_next<WINDOW>(w);
   const uint32_t bar = bar_full + 8 * stage;
   meta[stage] = it;
   if (it.x < 0) {
@@ -748,7 +779,7 @@ __device__ __forceinline__ void kv_produce(KvWalk& w, int4* meta, int stage, uin
   bulk_load(rows + 2 * T64 * 4, a.seg + (int64_t)b * a.Lp + q0, T64 * 4, bar);
 }
 
-template <int D, int DV, bool TWO_PASS>
+template <int D, int DV, bool TWO_PASS, bool WINDOW>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
                  const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
@@ -794,12 +825,14 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   }
   if (threadIdx.x < 32) {
     // the last q tile whose segment range meets the key tile's (the end of
-    // its last document), 32 tiles at a time from the end of the row
+    // its last document) and whose first row still sees the tile's last key
+    // in the window (q tile jw), 32 tiles at a time from there down
     int last = -1;
+    const int jw = WINDOW ? (k0 + T64 - 2 + a.window) / T64 : nkt;
     if (kt4.y != 0) {
-      for (int base = nkt - 32;; base -= 32) {
+      for (int base = min(nkt, jw + 1) - 32;; base -= 32) {
         const int j = base + lane;
-        const bool ok = j >= kt && meets4(tiles[j], kt4);
+        const bool ok = j >= kt && (!WINDOW || j <= jw) && meets4(tiles[j], kt4);
         const uint32_t m = __ballot_sync(0xffffffffu, ok);
         if (m) {
           last = base + 31 - __clz(m);
@@ -819,28 +852,28 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   }
   __syncthreads();  // barriers initialised, the walk's range found
   KvWalk walk{tiles, kt4, kt, *last_s, TWO_PASS ? ho : g * ratio, TWO_PASS ? 1 : ratio,
-              kt, 0, false};
+              a.window, kt, 0, false};
   if (threadIdx.x == 0)
     for (int s = 0; s < ST && !walk.done; ++s)
-      kv_produce<D, DV>(walk, meta, s, sbase, bar_full, &tm_q, &tm_do, a, b);
+      kv_produce<D, DV, WINDOW>(walk, meta, s, sbase, bar_full, &tm_q, &tm_do, a, b);
   mbar_wait(bar_kv, 0);
   if (wg == 0) {
     auto refill = [&](int stage, uint32_t parity) {
       if (walk.done) return;
       mbar_wait(bar_empty + 8 * stage, parity);
-      kv_produce<D, DV>(walk, meta, stage, sbase, bar_full, &tm_q, &tm_do, a, b);
+      kv_produce<D, DV, WINDOW>(walk, meta, stage, sbase, bar_full, &tm_q, &tm_do, a, b);
     };
-    dkv_p_role<D, DV, C, true>(smem, sbase, bar_full, bar_empty, meta, refill, a, b, ho, heads,
-                               k0, kseg, kpos, row0, tq, lane);
+    dkv_p_role<D, DV, C, true, WINDOW>(smem, sbase, bar_full, bar_empty, meta, refill, a, b, ho,
+                                       heads, k0, kseg, kpos, row0, tq, lane, a.window);
   } else {
     dkv_ds_role<D, DV, C, true>(smem, sbase, bar_full, bar_empty, meta, a, b, ho, heads, k0,
                                 row0, tq, lane);
   }
 }
 
-template <int D, int DV, bool TWO_PASS>
-int launch_split(const void* q, const void* k, const void* v, const void* dout, void* dq,
-                 const Args& a, cudaStream_t stream) {
+template <int D, int DV, bool TWO_PASS, bool WINDOW>
+int launch_split_w(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                   const Args& a, cudaStream_t stream) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap tq128, tdo128, tk, tv, tdq, tq64, tdo64;
@@ -852,59 +885,78 @@ int launch_split(const void* q, const void* k, const void* v, const void* dout, 
       !make_map(&tq64, encode, q, a.B, a.L, a.Hq, T64, D) ||
       !make_map(&tdo64, encode, dout, a.B, a.L, a.Hq, T64, DV))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(flash_dq_kernel<D, DV>,
+  cudaError_t e = cudaFuncSetAttribute(flash_dq_kernel<D, DV, WINDOW>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)DqSmem<D, DV>::BYTES);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(flash_dkv_kernel<D, DV, TWO_PASS>,
+  e = cudaFuncSetAttribute(flash_dkv_kernel<D, DV, TWO_PASS, WINDOW>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DkvSmem<D, DV>::BYTES);
   if (e != cudaSuccess) return (int)e;
-  flash_dq_kernel<D, DV><<<(unsigned)(a.Lp / (2 * T64)) * a.Hq * a.B, NTHREADS,
-                           DqSmem<D, DV>::BYTES, stream>>>(tq128, tdo128, tk, tv, tdq, a);
+  flash_dq_kernel<D, DV, WINDOW><<<(unsigned)(a.Lp / (2 * T64)) * a.Hq * a.B, NTHREADS,
+                                   DqSmem<D, DV>::BYTES, stream>>>(tq128, tdo128, tk, tv, tdq, a);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)(a.Lp / T64) * (TWO_PASS ? a.Hq : a.Hkv) * a.B;
-  flash_dkv_kernel<D, DV, TWO_PASS><<<grid, NTHREADS, DkvSmem<D, DV>::BYTES, stream>>>(
+  flash_dkv_kernel<D, DV, TWO_PASS, WINDOW><<<grid, NTHREADS, DkvSmem<D, DV>::BYTES, stream>>>(
       tq64, tdo64, tk, tv, a);
   return (int)cudaGetLastError();
+}
+
+// the windowed instantiations only for a window shorter than the padded row
+template <int D, int DV, bool TWO_PASS>
+int launch_split(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                 const Args& a, cudaStream_t stream) {
+  return a.window < a.Lp ? launch_split_w<D, DV, TWO_PASS, true>(q, k, v, dout, dq, a, stream)
+                         : launch_split_w<D, DV, TWO_PASS, false>(q, k, v, dout, dq, a, stream);
 }
 
 }  // namespace
 
 // q, do (B, L, Hq, d), k (B, L, Hkv, d), v (B, L, Hkv, dv) bf16, (d, dv) =
-// (128, 128) or (192, 128); lse, delta (B, Hq, Lp), seg (B, Lp) and tiles
-// (B, Lp / 64, 4) padded to Lp, a multiple of 128. At 128/128 dq is the f32
-// accumulator (zeroed by the caller), which gets dq * scale added; at
-// 192/128 it is dq (B, L, Hq, d) bf16, written once. dk, dv: (B, L, Hkv,
-// d / dv) summed over each q-head group (two_pass = 0), or (B, L, Hq, d /
-// dv) per q head (two_pass = 1).
+// (128, 128), (192, 128) or (64, 64); lse, delta (B, Hq, Lp), seg (B, Lp)
+// and tiles (B, Lp / 64, 4) padded to Lp, a multiple of 128. At 128/128 dq
+// is the f32 accumulator (zeroed by the caller), which gets dq * scale
+// added; at 192/128 and 64/64 it is dq (B, L, Hq, d) bf16, written once.
+// dk, dv: (B, L, Hkv, d / dv) summed over each q-head group (two_pass = 0),
+// or (B, L, Hq, d / dv) per q head (two_pass = 1). window: key m counts for
+// query l only if l - m < window (0: full; 128/128 takes none).
 extern "C" int xt_flash_bwd_bf16(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse, const void* delta,
                                  const void* seg, const void* tiles, void* dq, void* dk,
                                  void* dv, int B, int L, int Lp, int Hq, int Hkv, int d,
-                                 int dv_dim, float scale, int two_pass, void* stream) {
+                                 int dv_dim, float scale, int two_pass, int window,
+                                 void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || L <= 0 || B <= 0 || Lp % BK != 0 || Lp < L ||
-      Lp - L >= BK)
+      Lp - L >= BK || window < 0)
     return (int)cudaErrorInvalidValue;
   const Args a{static_cast<const float*>(lse), static_cast<const float*>(delta),
                static_cast<const int*>(seg), static_cast<const int4*>(tiles),
                static_cast<float*>(dq), static_cast<__nv_bfloat16*>(dk),
-               static_cast<__nv_bfloat16*>(dv), B, L, Lp, Hq, Hkv, scale * LOG2E, scale};
+               static_cast<__nv_bfloat16*>(dv), B, L, Lp, Hq, Hkv, scale * LOG2E, scale,
+               window > 0 && window < Lp ? window : Lp};
   cudaStream_t st = (cudaStream_t)stream;
-  if (d == D && dv_dim == D)
+  if (d == D && dv_dim == D) {
+    if (window > 0) return (int)cudaErrorInvalidValue;
     return two_pass ? launch<true>(q, k, v, dout, a, st) : launch<false>(q, k, v, dout, a, st);
+  }
   if (d == 192 && dv_dim == 128)
     return two_pass ? launch_split<192, 128, true>(q, k, v, dout, dq, a, st)
                     : launch_split<192, 128, false>(q, k, v, dout, dq, a, st);
+  if (d == 64 && dv_dim == 64)
+    return two_pass ? launch_split<64, 64, true>(q, k, v, dout, dq, a, st)
+                    : launch_split<64, 64, false>(q, k, v, dout, dq, a, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // the dynamic shared memory of one CTA (bytes): kernel 0 the one pass at
-// 128/128, 1 flash_dq_kernel and 2 flash_dkv_kernel at 192/128; 0 for a
-// pair the kernel is not built for
+// 128/128, 1 flash_dq_kernel and 2 flash_dkv_kernel at 192/128 or 64/64;
+// 0 for a pair the kernel is not built for
 extern "C" int xt_flash_bwd_smem_bytes(int kernel, int d, int dv) {
   if (kernel == 0 && d == 128 && dv == 128) return (int)SMEM_BYTES;
   if (d == 192 && dv == 128)
     return kernel == 1 ? (int)DqSmem<192, 128>::BYTES
                        : (kernel == 2 ? (int)DkvSmem<192, 128>::BYTES : 0);
+  if (d == 64 && dv == 64)
+    return kernel == 1 ? (int)DqSmem<64, 64>::BYTES
+                       : (kernel == 2 ? (int)DkvSmem<64, 64>::BYTES : 0);
   return 0;
 }

@@ -3,8 +3,9 @@
 
 The text fields of a packed batch: `(B, L)` rows where `segment_ids`
 numbers each token's document (0 = padding) and `position_ids` restart at
-every document. The VLM, deepstack and routing-replay fields of the JAX
-class are not ported yet ([moe], Queue 1 VLM).
+every document, and the rollout-routing replay field,
+`rollout_routed_experts`. The VLM and deepstack fields of the JAX class
+are not ported yet ([moe], Queue 1 VLM).
 """
 
 from __future__ import annotations
@@ -20,6 +21,9 @@ class SequenceContext:
     input_ids: torch.Tensor  # (B, L) packed token ids
     segment_ids: torch.Tensor  # (B, L) int32, 0 = padding, docs numbered from 1
     position_ids: torch.Tensor  # (B, L) restart per document
+    # R3 replay: (B, L, nL_moe, K) expert ids per MoE layer; entries < 0
+    # (prompt and padding positions) keep fresh routing
+    rollout_routed_experts: Optional[torch.Tensor] = None
 
     @classmethod
     def from_input_ids(cls, input_ids, pad_token_id: Optional[int] = None) -> "SequenceContext":

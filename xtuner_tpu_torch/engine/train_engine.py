@@ -4,7 +4,9 @@ optimizer step over a gradient-accumulation batch (counterpart:
 
 The constructor takes what `Trainer` passes, as the JAX one does.
 `init_random(seed)` draws f32 masters from a `torch.Generator`;
-`train_step(batch, step)` takes an (A, B, L) packed batch: A micro-batches,
+`train_step(batch, step)` takes an (A, B, L) packed batch (with an
+optional (A, B, L, nL_moe, K) `rollout_routed_experts`, the recorded
+routing an MoE model replays, as JAX's RL loss passes it): A micro-batches,
 each one forward/backward with the loss denominator summed over the whole
 batch, gradients accumulated in f32; then the global-norm clip, AdamW
 (`config/optim.py`), and the JAX package's metrics, plus `dsa_index_loss`
@@ -149,7 +151,8 @@ class TrainEngine:
         sums: dict = {}
         for a in range(dev["input_ids"].shape[0]):
             mb = {k: v[a] for k, v in dev.items()}
-            seq_ctx = SequenceContext(mb["input_ids"], mb["segment_ids"], mb["position_ids"])
+            seq_ctx = SequenceContext(mb["input_ids"], mb["segment_ids"], mb["position_ids"],
+                                      mb.get("rollout_routed_experts"))
             out = self.model.loss(self._train_tree, seq_ctx, mb["shifted_labels"],
                                   mb["loss_weights"], denom, compute_dtype=self.compute_dtype,
                                   remat=self.remat)

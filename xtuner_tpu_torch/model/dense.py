@@ -14,7 +14,11 @@ Attention is MHA (`module/attention.py`), plain MLA (`module/mla.py`,
 DeepSeek-V3's: `mla_project`, the flash kernels at q/k dim 192 and v dim
 128, `mla_out`) or DSA (`module/dsa.py`, GLM-5.2's sparse MLA with the
 lightning indexer); the dispatch is JAX's, DSA > MLA > MHA. MHA and MLA
-layers run under every ported remat policy (`remat_wrap`). A DSA layer
+layers run under every ported remat policy (`remat_wrap`), MHA with its
+sliding window and GPT-OSS sinks (the flash kernels take both). A window
+on MLA or DSA attention raises (`check_trainable`): JAX's `mla_forward`
+takes `window` and never passes it to its attention, and its DSA path has
+none, so the reference would drop it silently. A DSA layer
 returns its indexer loss beside x, and `loss` sets `dsa_index_loss` to
 their sum times `dsa_index_loss_coef`. Under remat "full" the whole DSA
 layer, indexer included, is one checkpoint; "none" runs it plainly, and
@@ -45,10 +49,12 @@ def remat_wrap(pre, attend, post, remat: str):
     under the remat policy `remat` (JAX `model/dense.py::_remat_policy`).
 
     `pre` is norm, projections, qk-norm and rope, returning (q, k, v,
-    max_logit); `attend(fn, *inputs)` is the flash attention over `(q, k,
-    v, max_logit) = fn(*inputs)`, which keeps `inputs`, out and lse for the
-    backward and re-runs `fn` there; `post` is the output projection,
-    residual, norm and the MLP or MoE block.
+    max_logit, sinks); `attend(fn, *inputs)` is the flash attention over
+    `(q, k, v, max_logit, sinks) = fn(*inputs)`, which keeps `inputs`, out
+    and lse for the backward and re-runs `fn` there; `post` is the output
+    projection, residual, norm and the MLP or MoE block. Every policy
+    carries the sinks into the attention as a differentiable input, and
+    `attend` carries the layer's window.
 
     - "none": plain autograd; the attention keeps q, k and v;
     - "full": the whole layer under `torch.utils.checkpoint`, recomputed in
@@ -66,8 +72,9 @@ def remat_wrap(pre, attend, post, remat: str):
       "save_attn_residuals".
 
     The other named policies raise ([train-slice])."""
-    def attend_qkv(q, k, v, max_logit):
-        return attend(lambda *qkv: (*qkv, max_logit), q, k, v)
+    def attend_qkv(q, k, v, max_logit, sinks):
+        return attend(lambda q_, k_, v_, *s: (q_, k_, v_, max_logit, s[0] if s else None),
+                      *((q, k, v) if sinks is None else (q, k, v, sinks)))
 
     def layer(x, lp):
         return post(x, attend_qkv(*pre(x, lp)), lp)
@@ -171,22 +178,34 @@ class Dense:
         return params["lm_head"]["w"]
 
     # ------------------------------------------------------------------
-    def _window(self):
+    def check_trainable(self) -> None:
+        """The training forward's refusals beyond `check_ported`: a
+        sliding window or window pattern on MLA or DSA attention, whose
+        JAX paths take none (JAX `mla_forward` accepts `window` and never
+        passes it on; DSA has no such argument) and would drop it."""
+        cfg = self.cfg
+        if not isinstance(cfg.attention, MHAConfig) and (
+                cfg.use_sliding_window or getattr(cfg, "layer_window_pattern", None)):
+            raise not_ported(f"a sliding window or window pattern on "
+                             f"{type(cfg.attention).__name__} (MLA or DSA) attention", "moe")
+
+    def _cfg_window(self):
+        """The window of a layer without a pattern (JAX `_layer_forward`):
+        the config's sliding window, or None."""
         cfg = self.cfg
         return cfg.sliding_window if cfg.use_sliding_window else None
 
     def _attn_in(self, x, lp, cos, sin, compute_dtype):
         """The layer up to the flash kernel: input norm, projections,
-        qk-norm, rope -> (q, k, v, max_logit); MLA has no qk-norm, so its
-        max_logit is None (the running-max forward)."""
+        qk-norm, rope -> (q, k, v, max_logit, sinks); MLA has no qk-norm,
+        so its max_logit is None (the running-max forward), and no sinks."""
         cfg = self.cfg
         h = rms_norm(x, lp["input_norm"].to(compute_dtype), cfg.rms_norm_eps,
                      cfg.rms_norm_type == "zero_centered")
         p = cast_tree(lp["attn"], compute_dtype)
         if isinstance(cfg.attention, MLAConfig):
-            return (*mla_project(p, cfg.attention, h, cos, sin), None)
-        return mha_qkv(p, cfg.attention, h, cos, sin, window=self._window(),
-                       fp8_cfg=cfg.float8_cfg)
+            return (*mla_project(p, cfg.attention, h, cos, sin), None, None)
+        return mha_qkv(p, cfg.attention, h, cos, sin, fp8_cfg=cfg.float8_cfg)
 
     def _attn_out(self, x, o, lp):
         """o-proj -> residual -> norm; `lp` already in the compute dtype.
@@ -204,9 +223,10 @@ class Dense:
         x, h = self._attn_out(x, o, lp)
         return x + mlp_forward(lp["mlp"], h, self.cfg.hidden_act, self.cfg.float8_cfg)
 
-    def _layer_fn(self, post, cos, sin, segment_ids, compute_dtype, remat: str):
+    def _layer_fn(self, post, cos, sin, segment_ids, compute_dtype, remat: str, window=None):
         """One decoder layer `(x, lp) -> post(x, attention out, lp)` under
-        the remat policy."""
+        the remat policy, its attention with the sliding `window` (None:
+        full)."""
         def pre(x, lp):
             return self._attn_in(x, lp, cos, sin, compute_dtype)
 
@@ -216,7 +236,8 @@ class Dense:
                  if isinstance(attn, MLAConfig) else attn.head_dim ** -0.5)
 
         def attend(qkv_fn, *inputs):
-            o, _ = flash_attention_saving_out_lse(qkv_fn, inputs, segment_ids, scale=scale)
+            o, _ = flash_attention_saving_out_lse(qkv_fn, inputs, segment_ids, scale=scale,
+                                                  window=window)
             return o
 
         return remat_wrap(pre, attend, post, remat)
@@ -253,7 +274,7 @@ class Dense:
             return self._dsa_layer_fn(self._dense_ffn, cos, sin, segment_ids, compute_dtype,
                                       remat)
         fn = self._layer_fn(lambda x, o, lp: self._dense_post(x, o, lp, compute_dtype),
-                            cos, sin, segment_ids, compute_dtype, remat)
+                            cos, sin, segment_ids, compute_dtype, remat, self._cfg_window())
         return lambda x, lp: (fn(x, lp), None)
 
     def _embed_and_rope(self, params, seq_ctx, compute_dtype):
@@ -274,6 +295,7 @@ class Dense:
     def _forward_aux(self, params, seq_ctx, compute_dtype, remat):
         """-> (final hidden states (B, L, H) in compute dtype, the summed
         indexer loss (None without DSA))."""
+        self.check_trainable()
         x, cos, sin, seg = self._embed_and_rope(params, seq_ctx, compute_dtype)
         stack = params["layers"]
         layer_fn = self._dense_layer_fn(cos, sin, seg, compute_dtype, remat)

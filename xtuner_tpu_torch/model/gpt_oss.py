@@ -6,9 +6,13 @@ alternates a sliding window of 128 (even layers) with full attention (odd
 layers). The values are JAX's, field for field.
 
 gpt-oss-20b is served whole on one card (`model/paged_generate.py`: the
-flash forward and the paged decode with the window and the sinks). Its
-training forward raises (`model/moe.py`): the flash backward takes no
-window or sinks yet.
+flash forward and the paged decode with the window and the sinks, with
+`record_routing`). It trains on one card at full width, cut to its first
+two layers (`recipes/sft_gpt_oss_20b_head.py`: the flash forward and the
+split backward kernels at head dim 64 with the window, the sinks'
+gradient, the clipped experts on the grouped GEMMs), and it trains on a
+recorded routing (`SequenceContext.rollout_routed_experts`, replayed
+under the window pattern, which JAX drops: `model/moe.py`).
 """
 
 from __future__ import annotations

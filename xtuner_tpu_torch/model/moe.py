@@ -22,13 +22,23 @@ in the aux means, and their loads come back as `mtp_expert_load` for the
 engine's bias update.
 
 `layer_window_pattern` (gpt-oss: a window of 128 on even MoE layers, full
-attention on odd ones) builds, and the serving engines read it per layer
-(`model/generate.py::layer_windows`). The training forward of a model with
-a window pattern or attention sinks raises: the flash backward kernels
-(#2-#4) take no window or sinks yet ([moe], the gpt-oss training slice).
+attention on odd ones): MoE layer i takes the window
+`model/generate.py::layer_windows` gives it, in training as in serving;
+an MHA layer's sinks ride into the flash attention beside q, k and v and
+get their gradient there. MLA and DSA layers refuse a window
+(`Dense.check_trainable`).
 
-Not ported yet: deepstack injection and routing replay ([moe]), HF
-interop ([serve-rest]).
+Rollout-routing replay (R3, JAX `model/moe.py:241-260`):
+`seq_ctx.rollout_routed_experts` (B, L, nL_moe, K) forces MoE layer i's
+expert ids to its slice wherever an entry is 0 or more
+(`module/router.py::route`); entries below 0 keep fresh routing. The
+port applies it with or without a window pattern: JAX tests the pattern
+first (`model/moe.py:219`) and so drops the replay for gpt-oss, the one
+model whose routing its serving engine records (ROADMAP.md, known faults
+in the reference).
+
+Not ported yet: deepstack injection ([moe], Queue 1 VLM), HF interop
+([serve-rest]).
 """
 
 from __future__ import annotations
@@ -38,7 +48,6 @@ from typing import Optional
 
 import torch
 
-from .. import not_ported
 from ..loss.ce_loss import ce_loss
 from ..loss.moe_loss import balancing_loss, z_loss
 from ..module.attention import MHAConfig
@@ -50,6 +59,7 @@ from ..module.router import GreedyRouterConfig, RouterConfig, router_param_specs
 from .base import ModelOutputs
 from .dense import (Dense, DenseConfig, _attn_param_specs, _is_dsa, embed_tokens,
                     layer_params, num_layers)
+from .generate import layer_windows
 
 MTP_EXTRAS = ("proj", "hidden_norm", "embed_norm")
 
@@ -82,12 +92,10 @@ class MoE(Dense):
     def __init__(self, cfg: MoEConfig):
         self.cfg = cfg
 
-    def check_trainable(self) -> None:
-        """The training forward's refusals beyond `check_ported`."""
-        cfg = self.cfg
-        if cfg.layer_window_pattern or getattr(cfg.attention, "with_sinks", False):
-            raise not_ported("training with a per-layer window pattern or attention sinks "
-                             "(the flash backward #2-#4 takes no window or sinks yet)", "moe")
+    def moe_windows(self, n: int) -> list:
+        """The window of each of the n MoE layers (None: full): the
+        pattern's or the config's (`layer_windows`)."""
+        return [w or None for w in layer_windows(self.cfg, "moe_layers", n)]
 
     def moe_layer_param_specs(self) -> dict:
         cfg = self.cfg
@@ -128,38 +136,43 @@ class MoE(Dense):
         return specs
 
     # ------------------------------------------------------------------
-    def _moe_ffn(self, x, h, lp, valid, compute_dtype):
+    def _moe_ffn(self, x, h, lp, valid, compute_dtype, forced=None):
         """The MoE block after the post-attention norm: routed experts (+
         shared) -> (x, balancing loss, z loss, expert load (E,)); `lp`
-        already in the compute dtype."""
+        already in the compute dtype; `forced` (B L, K) the replayed expert
+        ids (entries below 0 route afresh) or None."""
         cfg = self.cfg
         moe_out, r, load = moe_mlp_forward(
             lp["experts"], lp["router"], cfg.router, h,
             num_experts=cfg.n_routed_experts, top_k=cfg.num_experts_per_tok,
             act=cfg.hidden_act, compute_dtype=compute_dtype,
-            dispatcher=cfg.dispatcher, fp8_cfg=cfg.float8_cfg)
+            dispatcher=cfg.dispatcher, forced_topk_idx=forced, fp8_cfg=cfg.float8_cfg)
         if "shared_experts" in lp:
             moe_out = moe_out + mlp_forward(lp["shared_experts"], h, cfg.hidden_act)
         bal, _ = balancing_loss(r.probs, r.topk_idx, valid, cfg.n_routed_experts,
                                 cfg.num_experts_per_tok)
         return x + moe_out, bal, z_loss(r.logits, valid), load
 
-    def _moe_post(self, x, o, lp, valid, compute_dtype):
+    def _moe_post(self, x, o, lp, valid, compute_dtype, forced=None):
         """The MoE layer after the flash kernel: o-proj, residual, norm,
         then `_moe_ffn`."""
         lp = cast_tree(lp, compute_dtype)
         x, h = self._attn_out(x, o, lp)
-        return self._moe_ffn(x, h, lp, valid, compute_dtype)
+        return self._moe_ffn(x, h, lp, valid, compute_dtype, forced)
 
-    def _moe_layer_fn(self, cos, sin, segment_ids, valid, compute_dtype, remat: str):
+    def _moe_layer_fn(self, cos, sin, segment_ids, valid, compute_dtype, remat: str,
+                      window=None, forced=None):
         """One MoE decoder layer `(x, lp) -> (x, bal, z, load, indexer loss
-        or None)` under the remat policy."""
+        or None)` under the remat policy, its attention with the sliding
+        `window` (None: full), its router replaying `forced` (None: fresh
+        routing)."""
         if _is_dsa(self.cfg.attention):
             return self._dsa_layer_fn(
-                lambda x, h, lp: self._moe_ffn(x, h, lp, valid, compute_dtype),
+                lambda x, h, lp: self._moe_ffn(x, h, lp, valid, compute_dtype, forced),
                 cos, sin, segment_ids, compute_dtype, remat)
-        fn = self._layer_fn(lambda x, o, lp: self._moe_post(x, o, lp, valid, compute_dtype),
-                            cos, sin, segment_ids, compute_dtype, remat)
+        fn = self._layer_fn(
+            lambda x, o, lp: self._moe_post(x, o, lp, valid, compute_dtype, forced),
+            cos, sin, segment_ids, compute_dtype, remat, window)
         return lambda x, lp: (*fn(x, lp), None)
 
     def _trunk(self, params, seq_ctx, compute_dtype, remat):
@@ -175,10 +188,17 @@ class MoE(Dense):
             for i in range(num_layers(params["dense_layers"])):
                 x, idx_loss = dense_fn(x, layer_params(params["dense_layers"], i))
                 idx.append(idx_loss)
-        moe_fn = self._moe_layer_fn(cos, sin, seg, valid, compute_dtype, remat)
         bals, zls, loads = [], [], []
         stack = params["moe_layers"]
-        for i in range(num_layers(stack)):
+        n = num_layers(stack)
+        replay = seq_ctx.rollout_routed_experts  # (B, L, n, K) or None
+        if replay is not None and tuple(replay.shape[:3]) != (*seg.shape, n):
+            raise ValueError(f"rollout_routed_experts {tuple(replay.shape)}: want (B, L, "
+                             f"{n} MoE layers, K) for segment ids {tuple(seg.shape)}")
+        for i, window in enumerate(self.moe_windows(n)):
+            forced = None if replay is None else replay[:, :, i].reshape(-1, replay.shape[-1])
+            moe_fn = self._moe_layer_fn(cos, sin, seg, valid, compute_dtype, remat, window,
+                                        forced)
             x, bal, zl, load, idx_loss = moe_fn(x, layer_params(stack, i))
             bals.append(bal)
             zls.append(zl)
@@ -227,7 +247,8 @@ class MoE(Dense):
         cfg = self.cfg
         cos, sin, seg, valid = ctx
         w_head = self.lm_head_weight(params).to(compute_dtype)
-        layer_fn = self._moe_layer_fn(cos, sin, seg, valid, compute_dtype, remat)
+        layer_fn = self._moe_layer_fn(cos, sin, seg, valid, compute_dtype, remat,
+                                      self._cfg_window())
         stack = params["mtp_layers"]
         n_phys = num_layers(stack)
         ids, labels, weights = input_ids, shifted_labels, loss_weights

@@ -4,10 +4,11 @@ The training attention over packed rows (JAX `mha_forward`) is `mha_qkv`,
 the differentiable flash attention of `ops/attention/flash.py` (the Hopper
 kernels on a card) and `mha_out` in a row: projections, qk-norm with its
 proven max-logit bound (which lets the flash forward run its max-free
-variant), partial rotary; the attention; the output projection. The model
-calls the three itself (`model/dense.py::remat_wrap`), so that each remat
-policy can checkpoint them apart or, under "save_out_lse", run the
-attention over `mha_qkv` and keep only the flash output and lse.
+variant), partial rotary, and the GPT-OSS sinks; the attention, with the
+layer's sliding window; the output projection. The model calls the three
+itself (`model/dense.py::remat_wrap`), so that each remat policy can
+checkpoint them apart or, under "save_out_lse", run the attention over
+`mha_qkv` and keep only the flash output and lse.
 
 `mha_cached_forward` is ported for the prefill the paged engine runs: a
 whole right-padded prompt at `cache_len = 0`. Its attention is causal over
@@ -23,9 +24,7 @@ enabled (`module/mlp.py::linear` -> `ops/float8.py::fp8_matmul`), as JAX's
 JAX.
 
 Not ported yet: a non-zero `cache_len` (chunked prefill and the dense
-decode engine) and output gating ([serve-rest]), sliding windows and sinks
-in training ([moe]: the flash backward takes neither yet) and LoRA
-([lora]).
+decode engine) and output gating ([serve-rest]) and LoRA ([lora]).
 """
 
 from __future__ import annotations
@@ -124,14 +123,12 @@ def project_qkv(p: dict, cfg: MHAConfig, x, cos, sin, fp8_cfg=None):
     return q, k, v
 
 
-def mha_qkv(p: dict, cfg: MHAConfig, x, cos, sin, window: Optional[int] = None,
-            lora_scaling: float = 1.0, fp8_cfg=None):
+def mha_qkv(p: dict, cfg: MHAConfig, x, cos, sin, lora_scaling: float = 1.0, fp8_cfg=None):
     """The training attention before the flash kernel: x (B, L, hidden) ->
-    contiguous q (B, L, Hq, D), k, v (B, L, Hkv, D) and the max-logit
-    bound (None without qk-norm)."""
-    if window or cfg.with_sinks:
-        raise not_ported("sliding-window attention or sinks in training (the flash "
-                         "backward #2-#4 takes neither yet)", "moe")
+    contiguous q (B, L, Hq, D), k, v (B, L, Hkv, D), the max-logit bound
+    (None without qk-norm) and the per-head sinks `p["sinks"]` (Hq,) (None
+    without `with_sinks`), which the flash attention folds in and
+    differentiates, as JAX `mha_forward` passes them."""
     if lora_scaling != 1.0 or any(k.startswith("lora") for k in p["q_proj"]):
         raise not_ported("LoRA projections", "lora")
     q, k, v = project_qkv(p, cfg, x, cos, sin, fp8_cfg)
@@ -144,7 +141,8 @@ def mha_qkv(p: dict, cfg: MHAConfig, x, cos, sin, window: Optional[int] = None,
         if cfg.rms_norm_type == "zero_centered":
             gq, gk = 1.0 + gq, 1.0 + gk
         max_logit = cfg.head_dim ** 0.5 * gq.abs().max() * gk.abs().max()
-    return q.contiguous(), k.contiguous(), v.contiguous(), max_logit
+    sinks = p["sinks"] if cfg.with_sinks else None
+    return q.contiguous(), k.contiguous(), v.contiguous(), max_logit, sinks
 
 
 def mha_out(p: dict, cfg: MHAConfig, o, fp8_cfg=None):

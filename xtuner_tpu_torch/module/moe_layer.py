@@ -100,7 +100,9 @@ def moe_mlp_forward(p: dict, router_p: dict, router_cfg: RouterConfig, x: torch.
                     compute_dtype=torch.bfloat16, dispatcher: str = "gspmd",
                     forced_topk_idx=None, fp8_cfg=None):
     """x: (B, L, H) -> (out (B, L, H), RouterOutput, expert_load (E,) int32).
-    Dropless: every routed token is computed."""
+    Dropless: every routed token is computed. `forced_topk_idx` (B L, K):
+    the replayed expert ids (`router.py::route`; entries below 0 route
+    afresh) or None."""
     if dispatcher != "gspmd":
         raise not_ported(f"the {dispatcher!r} MoE dispatcher", "parallelism")
     b, l, h = x.shape

@@ -6,8 +6,10 @@
 scores, the `e_score_correction_bias` added for selection only,
 group-limited top-k), and `update_noaux_bias`, its post-step bias update
 (the engine calls it). The noaux selection takes ties as `jax.lax.top_k`
-does, the lowest index first (`topk_lowest_first`). Rollout-routing replay
-raises: ROADMAP item [moe].
+does, the lowest index first (`topk_lowest_first`). `route` takes
+rollout-routing replay (R3): forced expert ids where an entry is 0 or
+more, their combine weights re-gathered from the training router's
+probabilities.
 """
 
 from __future__ import annotations
@@ -17,7 +19,6 @@ from typing import Literal, NamedTuple
 
 import torch
 
-from .. import not_ported
 from .params import ParamSpec
 
 
@@ -119,13 +120,28 @@ def noaux_route(p: dict, cfg: NoAuxRouterConfig, x: torch.Tensor, top_k: int) ->
 
 def route(p: dict, cfg: RouterConfig, x: torch.Tensor, top_k: int,
           forced_idx=None) -> RouterOutput:
-    """The router `cfg` names. `forced_idx` (rollout-routing replay) raises
-    ([moe])."""
-    if forced_idx is not None:
-        raise not_ported("rollout-routing replay (forced expert ids)", "moe")
-    if cfg.router_type == "greedy":
-        return greedy_route(p, cfg, x, top_k)
-    return noaux_route(p, cfg, x, top_k)
+    """The router `cfg` names (JAX `route`). `forced_idx` (N, K) int or
+    None: rollout-routing replay (R3). An entry of 0 or more replaces the
+    fresh top-k id, and its combine weight becomes the training router's
+    probability there, normalised under `norm_topk_prob` over the row's
+    ids, times `routed_scaling_factor`; an entry below 0 keeps the fresh
+    id and weight (JAX's per-entry `where`). Logits and probs are the
+    fresh ones."""
+    out = greedy_route(p, cfg, x, top_k) if cfg.router_type == "greedy" \
+        else noaux_route(p, cfg, x, top_k)
+    if forced_idx is None:
+        return out
+    if tuple(forced_idx.shape) != tuple(out.topk_idx.shape):
+        raise ValueError(f"forced_idx {tuple(forced_idx.shape)}: want (N, K) = "
+                         f"{tuple(out.topk_idx.shape)}")
+    forced = forced_idx.to(device=out.topk_idx.device, dtype=out.topk_idx.dtype)
+    use = forced >= 0
+    idx = torch.where(use, forced, out.topk_idx)
+    w = torch.gather(out.probs, 1, idx)
+    if cfg.norm_topk_prob:
+        w = w / w.sum(dim=-1, keepdim=True).clamp(min=1e-20)
+    w = w * cfg.routed_scaling_factor
+    return RouterOutput(torch.where(use, w, out.topk_weights), idx, out.logits, out.probs)
 
 
 @torch.no_grad()

@@ -21,13 +21,18 @@ which may differ from q and k's D: the forward kernel takes (D, Dv) in
 
 A sliding window (`window`: key m visible to query l only if l - m <
 window) and per-head sinks (`sinks`, (Hq,): a logit that joins each row's
-softmax denominator and weights no value) are taken by the forward, as JAX
-`_flash_forward` takes them: the window inside the kernel, whose walk
-starts at the first k tile that meets a q tile's window (`fwd_tile_plan`);
-the sinks folded into out and lse after it, in plain PyTorch as JAX folds
-them in jnp (`fold_sinks`). The backward kernels take neither yet, so the
-backward of a forward that had one raises ([moe], the gpt-oss training
-slice).
+softmax denominator and weights no value) are taken as JAX `_flash` takes
+them. The window is inside the kernels: the forward's walk starts at the
+first k tile that meets a q tile's window (`fwd_tile_plan`); the split
+backward kernels (D != 128) start the dq walk there too, end each key
+tile's q walk at the last q tile that still sees one of its keys, and
+mask by the window on the tiles that straddle its edge. The one-pass
+backward at 128/128 takes no window: a CUDA call with one raises. The
+sinks are folded into out and lse after the forward kernel, in plain
+PyTorch as JAX folds them in jnp (`fold_sinks`); the backward kernels take
+the folded lse, so p = exp(s - lse) already carries them, and their
+gradient is `-(exp(sinks - lse) * delta)` summed over batch and rows, in
+plain PyTorch as in JAX's `_flash_bwd_rule`.
 
 `flash_attention_saving_out_lse` is the attention of remat "save_out_lse"
 (JAX saves only `attn_res_out` and `attn_lse`): it takes the function
@@ -42,8 +47,8 @@ variant. The forward's CTAs also count the k tiles they walk, and those
 they walk without the per-element mask (`fwd_tiles_walked()`);
 `fwd_tile_plan` says which tiles one launch should walk.
 
-Not ported yet: non-causal attention ([train-slice]), and a window or
-sinks in the backward ([moe]).
+Not ported yet: non-causal attention ([train-slice]), and a window in
+the one-pass backward at 128/128 (no preset trains with one).
 """
 
 from __future__ import annotations
@@ -59,7 +64,8 @@ from .reference import make_attention_mask
 NEG_INF = -1e30
 BIG_LSE = 1e30  # lse sentinel for rows that see no key (padding)
 KERNEL_DIMS = ((128, 128), (192, 128), (64, 64))  # the (D, Dv) pairs the forward takes
-BWD_KERNEL_DIMS = ((128, 128), (192, 128))  # and the backward
+BWD_KERNEL_DIMS = ((128, 128), (192, 128), (64, 64))  # and the backward
+ONE_PASS_DIMS = (128, 128)  # the backward pair that runs the one pass (no window)
 # |scaled logit| bound at or below which the max-free forward is exact in
 # f32 (flash.py MAX_FREE_BOUND): exp(45) is far inside the f32 range
 MAX_FREE_BOUND = 45.0
@@ -106,12 +112,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, l, hq, v.shape[-1]).to(q.dtype), lse.reshape(b, hq, l)
 
 
-def flash_dq_plain(q, k, v, segment_ids, lse, delta, do, scale):
+def flash_dq_plain(q, k, v, segment_ids, lse, delta, do, scale, window=None):
     """Plain version of `_dq_kernel`: dq (B, L, Hq, D) in q.dtype from the
-    saved lse and delta (B, Hq, L); do is (B, L, Hq, Dv)."""
+    saved lse and delta (B, Hq, L); do is (B, L, Hq, Dv); with a `window`,
+    key m counts for query l only if l - m < window."""
     b, l, hq, d = q.shape
     hkv = k.shape[2]
-    p, _ = _probs(q, k, segment_ids, scale, lse.reshape(b, hkv, hq // hkv, l))
+    p, _ = _probs(q, k, segment_ids, scale, lse.reshape(b, hkv, hq // hkv, l),
+                  window=window)
     dog = do.float().reshape(b, l, hkv, hq // hkv, v.shape[-1])
     dp = torch.einsum("blgrd,bmgd->bgrlm", dog, v.float())
     ds = p * (dp - delta.reshape(b, hkv, hq // hkv, l)[..., None])
@@ -119,13 +127,14 @@ def flash_dq_plain(q, k, v, segment_ids, lse, delta, do, scale):
     return dq.reshape(b, l, hq, d).to(q.dtype)
 
 
-def flash_dkv_plain(q, k, v, segment_ids, lse, delta, do, scale):
+def flash_dkv_plain(q, k, v, segment_ids, lse, delta, do, scale, window=None):
     """Plain version of `_dkv_grouped_kernel`: dk (B, L, Hkv, D) and dv
     (B, L, Hkv, Dv) summed over each kv head's q-head group, in k.dtype /
     v.dtype."""
     b, l, hq, _ = q.shape
     hkv = k.shape[2]
-    p, _ = _probs(q, k, segment_ids, scale, lse.reshape(b, hkv, hq // hkv, l))
+    p, _ = _probs(q, k, segment_ids, scale, lse.reshape(b, hkv, hq // hkv, l),
+                  window=window)
     dog = do.float().reshape(b, l, hkv, hq // hkv, v.shape[-1])
     dv = torch.einsum("bgrlm,blgrd->bmgd", p, dog)
     dp = torch.einsum("blgrd,bmgd->bgrlm", dog, v.float())
@@ -134,13 +143,14 @@ def flash_dkv_plain(q, k, v, segment_ids, lse, delta, do, scale):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_dkv_two_pass_plain(q, k, v, segment_ids, lse, delta, do, scale):
+def flash_dkv_two_pass_plain(q, k, v, segment_ids, lse, delta, do, scale, window=None):
     """Plain version of `_dkv_kernel`: dk_h (B, L, Hq, D) and dv_h (B, L,
     Hq, Dv) of each q head, not summed over the group, in q.dtype; dk_h
     scaled."""
     b, l, hq, d = q.shape
     hkv, dv_dim = k.shape[2], v.shape[-1]
-    p, _ = _probs(q, k, segment_ids, scale, lse.reshape(b, hkv, hq // hkv, l))
+    p, _ = _probs(q, k, segment_ids, scale, lse.reshape(b, hkv, hq // hkv, l),
+                  window=window)
     dog = do.float().reshape(b, l, hkv, hq // hkv, dv_dim)
     dv = torch.einsum("bgrlm,blgrd->bmgrd", p, dog)
     dp = torch.einsum("blgrd,bmgd->bgrlm", dog, v.float())
@@ -181,8 +191,11 @@ def _check_kernel_args(q, k, v, segment_ids, name="flash_attention", dims=KERNEL
         raise ValueError(f"{name} kernel: empty input")
 
 
-def _check_bwd_args(q, k, v, segment_ids, lse, delta, do, name):
+def _check_bwd_args(q, k, v, segment_ids, lse, delta, do, name, window=None):
     _check_kernel_args(q, k, v, segment_ids, name, BWD_KERNEL_DIMS)
+    if window and (q.shape[3], v.shape[3]) == ONE_PASS_DIMS:
+        raise ValueError(f"{name} kernel: the one-pass backward at {ONE_PASS_DIMS} takes no "
+                         f"sliding window")
     b, l, hq, _ = q.shape
     want = (b, l, hq, v.shape[3])
     if do.shape != want or do.dtype != torch.bfloat16 or not do.is_contiguous():
@@ -332,17 +345,21 @@ def fold_sinks(out: torch.Tensor, lse: torch.Tensor, sinks: torch.Tensor):
     Dv) and lse (B, Hq, L), as JAX `_flash_forward` does after its kernel:
     lse' = log(exp(lse) + exp(sink)), out' = out exp(lse - lse'). Rows that
     saw no key (out 0, lse 1e30) keep out 0 and lse 1e30."""
+    if sinks.shape != (lse.shape[1],):
+        raise ValueError(f"sinks {tuple(sinks.shape)}: want one per q head, "
+                         f"({lse.shape[1]},)")
     lse_new = torch.logaddexp(lse, sinks.float()[None, :, None])
     scale = torch.exp(lse - lse_new).transpose(1, 2)[..., None]  # (B, L, Hq, 1)
     return (out.float() * scale).to(out.dtype), lse_new
 
 
-def flash_bwd_plain(q, k, v, segment_ids, lse, delta, do, scale, two_pass=False):
+def flash_bwd_plain(q, k, v, segment_ids, lse, delta, do, scale, two_pass=False,
+                    window=None):
     """Plain version of `flash_bwd`: `flash_dq_plain` with
     `flash_dkv_plain` (grouped) or `flash_dkv_two_pass_plain`."""
-    dq = flash_dq_plain(q, k, v, segment_ids, lse, delta, do, scale)
+    dq = flash_dq_plain(q, k, v, segment_ids, lse, delta, do, scale, window)
     dkv = flash_dkv_two_pass_plain if two_pass else flash_dkv_plain
-    return (dq, *dkv(q, k, v, segment_ids, lse, delta, do, scale))
+    return (dq, *dkv(q, k, v, segment_ids, lse, delta, do, scale, window))
 
 
 def bwd_outputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, two_pass: bool):
@@ -355,19 +372,24 @@ def bwd_outputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, two_pass: boo
     return torch.empty_like(q), q.new_empty((b, l, hq, v.shape[-1]))
 
 
-def flash_bwd(q, k, v, segment_ids, lse, delta, do, scale: float, two_pass: bool = False):
+def flash_bwd(q, k, v, segment_ids, lse, delta, do, scale: float, two_pass: bool = False,
+              window: Optional[int] = None):
     """The backward kernels (#2 with #3, or with #4 when `two_pass`): dq
     (B, L, Hq, D) in q.dtype and dk (B, L, Hkv, D), dv (B, L, Hkv, Dv)
     summed over each kv head's q-head group, or with `two_pass` dk_h, dv_h
     (B, L, Hq, D / Dv) of each q head in q.dtype, not summed (`group_sum`
-    sums them). At head dim 128 one pass adds dq into a zeroed f32
-    accumulator by bulk reduce-adds, so dq's summation order changes from
-    run to run; dk and dv's does not. At (192, 128) a dq kernel and a dk/dv
-    kernel write every output once (the same bits run after run); the two
-    launches count as one."""
+    sums them). With a `window` (> 0), key m counts for query l only if l
+    - m < window. lse is the forward's, with any sinks folded in. At head
+    dim 128 one pass adds dq into a zeroed f32 accumulator by bulk
+    reduce-adds, so dq's summation order changes from run to run; dk and
+    dv's does not; it takes no window. At (192, 128) and (64, 64) a dq
+    kernel and a dk/dv kernel write every output once (the same bits run
+    after run); the two launches count as one."""
+    if window is not None and window <= 0:
+        raise ValueError(f"flash_bwd: window {window} must be positive (None: full)")
     if q.device.type == "cpu":
-        return flash_bwd_plain(q, k, v, segment_ids, lse, delta, do, scale, two_pass)
-    _check_bwd_args(q, k, v, segment_ids, lse, delta, do, "flash_bwd")
+        return flash_bwd_plain(q, k, v, segment_ids, lse, delta, do, scale, two_pass, window)
+    _check_bwd_args(q, k, v, segment_ids, lse, delta, do, "flash_bwd", window)
     from ..cuda_lib import check, load
 
     b, l, hq, d = q.shape
@@ -377,7 +399,7 @@ def flash_bwd(q, k, v, segment_ids, lse, delta, do, scale: float, two_pass: bool
                                    for t in (segment_ids, lse, delta))
     tiles = _tile_table(segment_ids)
     nq = (l + pad) // TILE_ROWS
-    one_pass = d == 128
+    one_pass = (d, v.shape[3]) == ONE_PASS_DIMS
     if one_pass:
         dq = torch.zeros((b, hq, nq, 2, 4, 8, 8, 4, 2, 2), dtype=torch.float32, device=q.device)
     else:
@@ -387,7 +409,8 @@ def flash_bwd(q, k, v, segment_ids, lse, delta, do, scale: float, two_pass: bool
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), segment_ids.data_ptr(), tiles.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, l, l + pad, hq, k.shape[2], d, v.shape[3],
-        float(scale), int(two_pass), torch.cuda.current_stream(q.device).cuda_stream)
+        float(scale), int(two_pass), int(window or 0),
+        torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "xt_flash_bwd_bf16")
     flash_bwd.launches["two_pass" if two_pass else "grouped"] += 1
     if not one_pass:
@@ -410,59 +433,65 @@ def attn_bwd() -> str:
     return os.environ.get("XTUNER_ATTN_BWD", "grouped")
 
 
-def flash_backward(q, k, v, segment_ids, out, lse, dout, scale: float, bwd: str):
-    """dq, dk, dv from the forward's residuals (JAX `_flash_bwd_rule`):
-    delta in plain PyTorch, then the backward kernel, grouped
-    (`bwd == "grouped"`) or per q head and the group sum."""
+def flash_backward(q, k, v, segment_ids, out, lse, dout, scale: float, bwd: str,
+                   window: Optional[int] = None, sinks: Optional[torch.Tensor] = None):
+    """dq, dk, dv and dsinks (None without sinks) from the forward's
+    residuals (JAX `_flash_bwd_rule`): delta in plain PyTorch from the
+    folded out, then the backward kernels on the folded lse, grouped
+    (`bwd == "grouped"`) or per q head and the group sum; dsinks =
+    -sum over batch and rows of exp(sinks - lse) delta, in sinks.dtype."""
     do = dout.to(q.dtype).contiguous()
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     two_pass = bwd != "grouped"
-    dq, dk, dv = flash_bwd(q, k, v, segment_ids, lse, delta, do, scale, two_pass)
+    dq, dk, dv = flash_bwd(q, k, v, segment_ids, lse, delta, do, scale, two_pass, window)
     if two_pass:
         dk, dv = group_sum(dk, k.shape[2], k.dtype), group_sum(dv, k.shape[2], v.dtype)
-    return dq, dk, dv
+    dsinks = None
+    if sinks is not None:
+        p_sink = torch.exp(sinks.float()[None, :, None] - lse)  # (B, Hq, L)
+        dsinks = -(p_sink * delta).sum(dim=(0, 2)).to(sinks.dtype)
+    return dq, dk, dv, dsinks
 
 
 class _FlashAttention(torch.autograd.Function):
-    """`_flash`'s custom VJP over `(q, k, v, max_logit) = qkv_fn(*inputs)`.
-    The residuals are `inputs`, segment_ids, out and lse; lse is not
-    differentiable (the JAX rule ignores its cotangent too). The forward
-    runs `qkv_fn` without grad and the flash forward (then folds `sinks`
-    in); the backward re-runs `qkv_fn` with grad (a pass-through when
-    `inputs` are q, k and v), runs the backward kernels on the saved out
-    and lse along the dk/dv path read when the forward ran, and
-    backpropagates dq, dk and dv through `qkv_fn`. The flash forward never
-    re-runs. The backward of a forward with a window or sinks raises: the
-    backward kernels take neither yet."""
+    """`_flash`'s custom VJP over `(q, k, v, max_logit, sinks) =
+    qkv_fn(*inputs)` (sinks None or (Hq,)). The residuals are `inputs`,
+    segment_ids, out and lse (sinks folded in); lse is not differentiable
+    (the JAX rule ignores its cotangent too). The forward runs `qkv_fn`
+    without grad and the flash forward with the `window`, then folds the
+    sinks in; the backward re-runs `qkv_fn` with grad (a pass-through when
+    `inputs` are q, k, v and the sinks), runs the backward kernels with the
+    window on the saved out and lse along the dk/dv path read when the
+    forward ran, and backpropagates dq, dk, dv and dsinks through `qkv_fn`.
+    The flash forward never re-runs."""
 
     @staticmethod
-    def forward(ctx, qkv_fn, segment_ids, scale, window, sinks, *inputs):
+    def forward(ctx, qkv_fn, segment_ids, scale, window, *inputs):
         with torch.no_grad():
-            q, k, v, max_logit = qkv_fn(*inputs)
+            q, k, v, max_logit, sinks = qkv_fn(*inputs)
             out, lse = flash_forward(q, k, v, segment_ids, scale, max_logit, window)
             if sinks is not None:
                 out, lse = fold_sinks(out, lse, sinks)
         ctx.save_for_backward(segment_ids, out, lse, *inputs)
-        ctx.qkv_fn, ctx.scale, ctx.bwd = qkv_fn, scale, attn_bwd()
-        ctx.window_or_sinks = window is not None or sinks is not None
+        ctx.qkv_fn, ctx.scale, ctx.bwd, ctx.window = qkv_fn, scale, attn_bwd(), window
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        if ctx.window_or_sinks:
-            raise not_ported("the flash backward with a sliding window or sinks", "moe")
         segment_ids, out, lse, *inputs = ctx.saved_tensors
         leaves = [t.detach().requires_grad_(t.requires_grad) for t in inputs]
         with torch.enable_grad():
-            q, k, v, _ = ctx.qkv_fn(*leaves)
+            q, k, v, _, sinks = ctx.qkv_fn(*leaves)
         grads = flash_backward(q.detach(), k.detach(), v.detach(), segment_ids, out, lse,
-                               dout, ctx.scale, ctx.bwd)
-        made = [(t, g) for t, g in zip((q, k, v), grads) if t.requires_grad]
+                               dout, ctx.scale, ctx.bwd, ctx.window,
+                               None if sinks is None else sinks.detach())
+        made = [(t, g) for t, g in zip((q, k, v, sinks), grads)
+                if t is not None and t.requires_grad]
         want = [t for t in leaves if t.requires_grad]
         got = iter(torch.autograd.grad([t for t, _ in made], want, [g for _, g in made],
                                        allow_unused=True))
-        return (None, None, None, None, None,
+        return (None, None, None, None,
                 *(next(got) if t.requires_grad else None for t in leaves))
 
 
@@ -475,21 +504,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     window: a sliding window (None: full); sinks: optional (Hq,) per-head
     sink logits. Returns (out (B, L, Hq, Dv) in q.dtype, lse (B, Hq, L)
     fp32, both with the sinks folded in); rows that see no key get out 0
-    and lse 1e30. Differentiable in q, k, v without a window or sinks."""
+    and lse 1e30. Differentiable in q, k, v and the sinks."""
     if not causal:
         raise not_ported("non-causal flash attention", "train-slice")
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    return _FlashAttention.apply(lambda *qkv: (*qkv, max_logit), segment_ids, float(scale),
-                                 window, sinks, q, k, v)
+    return _FlashAttention.apply(
+        lambda q_, k_, v_, *s: (q_, k_, v_, max_logit, s[0] if s else None), segment_ids,
+        float(scale), window, *((q, k, v) if sinks is None else (q, k, v, sinks)))
 
 
 def flash_attention_saving_out_lse(qkv_fn, inputs, segment_ids: torch.Tensor, *,
-                                   scale: float):
-    """Causal flash attention over `(q, k, v, max_logit) = qkv_fn(*inputs)`
-    (the layer of remat "save_out_lse"): returns (out, lse) as
-    `flash_attention` does, keeps only `inputs`, out and lse for the
-    backward, and re-runs `qkv_fn` there. Differentiable in `inputs`."""
-    return _FlashAttention.apply(qkv_fn, segment_ids, float(scale), None, None, *inputs)
+                                   scale: float, window: Optional[int] = None):
+    """Causal flash attention over `(q, k, v, max_logit, sinks) =
+    qkv_fn(*inputs)` (the layer of remat "save_out_lse"): returns (out,
+    lse) as `flash_attention` does, keeps only `inputs`, out and lse for
+    the backward, and re-runs `qkv_fn` there. Differentiable in `inputs`."""
+    return _FlashAttention.apply(qkv_fn, segment_ids, float(scale), window, *inputs)
 
 
 # forward kernel launches (either variant) since the last reset; counted by

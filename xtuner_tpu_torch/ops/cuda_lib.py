@@ -46,10 +46,10 @@ SIGNATURES = {
     # the dynamic shared memory of one forward CTA (bytes): D, Dv
     "xt_flash_fwd_smem_bytes": [_I, _I],
     # q, k, v, do, lse, delta, segment_ids, tile table, dq (the f32
-    # accumulator at D 128, bf16 dq at 192), dk, dv, B, L, Lp, Hq, Hkv, D,
-    # Dv, scale, two_pass, stream
+    # accumulator at D 128, bf16 dq at 192 and 64), dk, dv, B, L, Lp, Hq,
+    # Hkv, D, Dv, scale, two_pass, window (0: full), stream
     "xt_flash_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+                          _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # the dynamic shared memory of one backward CTA (bytes): kernel (0 the
     # one pass, 1 dq, 2 dk/dv), D, Dv
     "xt_flash_bwd_smem_bytes": [_I, _I, _I],
