@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path (Qwen3-8B, and gpt-oss-20b whole),
+"""Drive the PyTorch port's serving path (Qwen3-8B, and gpt-oss-20b and
+Qwen3.5-35B-A3B whole),
 its MoE SFT train step, its SFT entry point (in bf16, in tile-wise fp8 and
 with both kernel switches), bench.py's longctx_64k row, GLM-5.2's DSA head,
 DeepSeek-V3's MLA head, GLM-4.5-Air's noaux-routed MoE head, moe_heavy
@@ -48,6 +49,19 @@ exits non-zero with no result line:
    (by layer), and what the gate|up concatenation the engine avoids costs.
    These two run before serving: its profile windows slow every later host
    launch, and both decode loops are host-bound;
+3c. serve_qwen35: `PagedGenerator.generate` on Qwen3.5-35B-A3B whole
+   (34.66 B params, 40 layers: 10 periods of 3 GatedDeltaNet and 1 gated
+   full attention, bf16, random weights from the seed, each expert stack's
+   gate|up drawn as one buffer) with `record_routing=True`: 6 requests on
+   4 slots, one GRPO pair, 32 new tokens each; init time and peak, prefill
+   and decode tokens/s, ms a decode step, the serving peak, the exact
+   launches of #1, #5 and #6, `routed_experts` (N, 40, 8), and the
+   teacher-forced re-check (held where re-prefill routing agrees);
+3d. qwen35_kernels: #1 at (256, 256), both variants, at the serving
+   prefill and at B1 L8192 Hq16/2 on five documents (SDPA with a dense
+   mask as the library time); #5 at D 256 at the serving shape and a
+   rollout (32 slots of 4096); #6 (nn) at E256 H2048 F512 on a decode
+   step's 32 rows and a 1000-token prefill's 8000;
 4. serving: `PagedGenerator.generate` on Qwen3-8B at full width and depth
    with random bf16 weights from the seed; 6 requests on 4 slots (one GRPO
    group of two); launch counters of its kernels; a teacher-forced re-check
@@ -368,6 +382,40 @@ OSS_STEPS = 4
 OSS_LOSS1 = (12.0, 13.6)
 OSS_HEAD_PARAMS = 2_804_090_688
 OSS_REPLAY_ATOL = 2e-2
+# Qwen3.5-35B-A3B (`model/hybrid.py`): the hybrid serving phase's model and
+# shapes. Its 10 full-attention layers prefill through #1 at (256, 256)
+# (16 q heads over 2 kv heads, gated, causal) and decode through #5 at D
+# 256; its 30 GatedDeltaNet layers carry a per-slot state; every layer's
+# experts are #6 (nn) at E256 H2048 F512 (gate|up K2048 N1024, down K512
+# N2048)
+QWEN_MODEL = "qwen3.5-moe-35b-a3b"
+QWEN_PARAMS = 34_660_610_688
+QWEN_SEQ, QWEN_HQ, QWEN_HKV, QWEN_D = 8192, 16, 2, 256
+QWEN_EXPERTS, QWEN_TOPK, QWEN_H, QWEN_F = 256, 8, 2048, 512
+QWEN_FULL_LAYERS = 10
+QWEN_SLOTS = 4
+QWEN_DIMS = (QWEN_HQ, QWEN_HKV, QWEN_D, 128)
+QWEN_PAGED_SHAPES = (("qwen35_serve", [1000, 0, 517, 1900], 16),
+                     ("qwen35_rollout", [4096] * 32, 64))
+# the teacher-forced re-check's fallback, as gpt-oss's (OSS_ROUTING_AGREE_MIN):
+# where routing flips break the bound, it holds on the positions whose
+# routing agrees in all 40 layers, which must be at least this share. With
+# 256 experts, top-8, random bf16 weights route far more chaotically than
+# gpt-oss's 32, top-4: two prefills of one sequence at two paddings agree
+# in all 40 layers at 50% of the prompts' last positions, decode and a
+# re-prefill at 1.6% of all positions and at none of the decode positions
+# (by layer 1.00, 0.96, 0.87, 0.76, 0.63, 0.45, ..., 0.02; this phase's
+# own figures on an NVIDIA H100 80GB HBM3 at 700 W, seed 0). So the decode
+# path is also held layer by layer (`decode_vs_prefill_layers`): each
+# sub-layer's output of one decode step against a prefill's at the same
+# position, within QWEN_LAYER_RTOL (relative) through the first period (3
+# GatedDeltaNet sub-layers and a full one: every kind of decode sub-layer)
+# and before the first layer whose routing differs, which must not be
+# layer 0. bf16 alone gives ~1e-2 a sub-layer, growing with depth (the
+# flash prefill rounds P to bf16, the paged decode does not); a wrong
+# state, gate or cache gives O(1)
+QWEN_ALL_LAYERS_AGREE_MIN = 0.01
+QWEN_LAYER_RTOL = 0.1
 # the times of the WMMA, mma.sync and CUDA-core kernels that #8's, #16's,
 # #12's, #13's, #5's and #11's redesigns replaced, as PERF.md §6 records them
 # (chip_smoke.py runs, NVIDIA H100 80GB HBM3, 700.00 W), printed beside the
@@ -453,7 +501,7 @@ def phase_build() -> None:
     # 128/128, and the split dq <D, Dv, window> and dk/dv <D, Dv, two_pass,
     # window> at 192/128 and 64/64
     lib = cuda_lib.load()
-    flash = {r"flash_fwd_kernelILi(\d+)ELi(\d+)E": "fwd",
+    flash = {r"flash_fwd(?:64)?_kernelILi(\d+)ELi(\d+)E": "fwd",
              r"flash_bwd_kernelILb(\d)E": "bwd",
              r"flash_dq_kernelILi(\d+)ELi(\d+)ELb(\d)E": "dq",
              r"flash_dkv_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E": "dkv"}
@@ -463,8 +511,9 @@ def phase_build() -> None:
             if m is None:
                 continue
             g = [int(x) for x in m.groups()]
-            if kind == "fwd":
-                name, smem = f"flash_fwd_kernel<{g[0]}, {g[1]}>", lib.xt_flash_fwd_smem_bytes(*g)
+            if kind == "fwd":  # flash_fwd64_kernel at (256, 256): 64-key tiles
+                kern = "flash_fwd64_kernel" if "fwd64" in ln else "flash_fwd_kernel"
+                name, smem = f"{kern}<{g[0]}, {g[1]}>", lib.xt_flash_fwd_smem_bytes(*g)
             elif kind == "bwd":
                 name = f"flash_bwd_kernel<{'two_pass' if g[0] else 'grouped'}>"
                 smem = lib.xt_flash_bwd_smem_bytes(0, 128, 128)
@@ -3675,6 +3724,390 @@ def phase_serve_gpt_oss(torch, seed: int, smi: str) -> dict:
     return launches
 
 
+def init_fused_params(torch, specs, generator, dev):
+    """`init_params` in bf16 with each expert stack's gate and up weights
+    drawn straight into the two halves of one (..., H, 2F) buffer (the
+    same distribution), so `fuse_gate_up` has nothing to concatenate: at
+    Qwen3.5-35B-A3B's four expert stacks a concatenation beside the old
+    halves would need ~40 GiB more than the card has."""
+    from xtuner_tpu_torch.module.params import ParamSpec, init_params
+
+    def fuse(tree):
+        if not isinstance(tree, dict):
+            return tree
+        if isinstance(tree.get("gate_proj"), ParamSpec) and "up_proj" in tree:
+            g = tree["gate_proj"]
+            rest = {k: v for k, v in tree.items() if k not in ("gate_proj", "up_proj")}
+            return {**rest, "gate_up": ParamSpec((*g.shape[:-1], 2 * g.shape[-1]), g.init,
+                                                 g.scale)}
+        return {k: fuse(v) for k, v in tree.items()}
+
+    def split(tree):
+        if not isinstance(tree, dict):
+            return tree
+        if "gate_up" in tree:
+            gu = tree.pop("gate_up")
+            f = gu.shape[-1] // 2
+            tree["gate_proj"], tree["up_proj"] = gu[..., :f], gu[..., f:]
+            return tree
+        return {k: split(v) for k, v in tree.items()}
+
+    return split(init_params(fuse(specs), generator, dev, torch.bfloat16))
+
+
+def phase_qwen35_kernels(torch, seed: int, smi: str) -> list[dict]:
+    """The kernels of Qwen3.5-35B-A3B's serving path against their plain
+    versions at its shapes: #1 at (256, 256) (the 64-key tile kernel), both
+    variants (running max; max-free under a bound of 45), at the serving
+    prefill (B1, 1000 tokens in a 1024 bucket) and at B1 L8192 on five
+    documents, Hq16/2, the walked k tiles against `fwd_tile_plan` at 64-key
+    tiles, SDPA with a dense mask as the library time; #5 at D 256 at
+    QWEN_PAGED_SHAPES; #6 (nn) at E256 H2048 F512 on a decode step's rows
+    (4 slots x top-8) and a 1000-token prefill's, beside
+    `torch._grouped_mm`."""
+    import numpy as np
+
+    from xtuner_tpu_torch.ops.attention import flash as fl
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 19)
+    rng = np.random.default_rng(seed + 19)
+    hq, hkv, d = QWEN_HQ, QWEN_HKV, QWEN_D
+    scale = d ** -0.5
+    rows = []
+    for label, l, lens in (("serve_prefill", 1024, [1000]),
+                           ("docs", QWEN_SEQ, doc_lengths(rng, QWEN_SEQ, 5, 250))):
+        seg = _segments(torch, lens, l, dev)
+        q, k, v = (torch.randn((1, l, h, d), generator=g, device=dev).bfloat16()
+                   for h in (hq, hkv, hkv))
+        valid = seg[0] != 0
+        ref_out, ref_lse = flash_plain_by_group(torch, q, k, v, seg, scale, None)
+        plain = cuda_ms(lambda: flash_plain_by_group(torch, q, k, v, seg, scale, None),
+                        iters=1, warmup=1)
+        lib, why = sdpa_ms(torch, q, k, v, block_causal_mask(torch, seg))
+        pairs = causal_pairs(torch, seg)
+        least = least_ms(2 * pairs * hq * (d + d), flash_bytes(q, k, dv=d), PEAK_BF16)
+        walk, plan_full = fl.fwd_tile_plan(seg, key_tile=fl.fwd_key_tile(d, d))
+        plan = (int(walk.sum()) * hq, int(plan_full.sum()) * hq)
+        for variant, bound in (("running_max", None),
+                               ("max_free", torch.tensor(fl.MAX_FREE_BOUND, device=dev))):
+            fl.reset_launches()
+            out, lse = fl.flash_attention(q, k, v, seg, max_logit=bound)
+            again, _ = fl.flash_attention(q, k, v, seg, max_logit=bound)
+            torch.cuda.synchronize()
+            walked, full = fl.fwd_tiles_walked()
+            n_free = fl.max_free_launches()
+            fl.reset_launches()
+            out_err = _abs(out[:, valid], ref_out[:, valid])
+            lse_err = _abs(lse[..., valid], ref_lse[..., valid])
+            pad_ok = bool((out[:, ~valid] == 0).all()) and \
+                bool((lse[..., ~valid] == fl.BIG_LSE).all())
+            same = torch.equal(out, again)
+            del out, lse, again
+            ms = cuda_ms(lambda: fl.flash_attention(q, k, v, seg, max_logit=bound))
+            say("kernel", name="flash_fwd", path="serve_qwen35", variant=variant,
+                shape=f"{label} B1xL{l}xHq{hq}xHkv{hkv}xD{d}", out_err=f"{out_err:.3e}",
+                lse_err=f"{lse_err:.3e}", pad_rows_ok=pad_ok, same_bits=same,
+                max_free_launches=n_free, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+                sdpa_ms=lib, why=repr(why), pairs=pairs,
+                tflops=f"{2 * pairs * hq * 2 * d / ms / 1e9:.1f}",
+                bound_ms=f"{least['bound_ms']:.4f}", bound_by=least["bound_by"],
+                share_of_bound=f"{least['bound_ms'] / ms:.3f}", tiles_walked=walked,
+                tiles_full=full, plan_walked_full=f"{2 * plan[0]},{2 * plan[1]}",
+                card=repr(smi))
+            if (walked, full) != (2 * plan[0], 2 * plan[1]):
+                raise AssertionError(f"#1 at 256/256 ({label}, {variant}) walked {walked} k "
+                                     f"tiles ({full} full) in two launches where its plan "
+                                     f"says {plan} each")
+            if n_free != 2 * (bound is not None):
+                raise AssertionError(f"#1 at 256/256 ({variant}): {n_free} max-free launches")
+            if not (out_err <= FLASH_OUT_ATOL and lse_err <= FLASH_LSE_ATOL and pad_ok and same):
+                raise AssertionError(f"#1 at 256/256 ({label}, {variant}) disagrees with its "
+                                     f"plain version: out {out_err}, lse {lse_err}, padding "
+                                     f"{pad_ok}, two launches the same bits {same}")
+            rows.append({"name": "flash_fwd", "route": "cuda",
+                         "source": "xtuner_tpu_torch/csrc/flash_fwd.cu",
+                         "replaces": "xtuner_tpu/ops/attention/flash.py:82",
+                         "path": "serve_qwen35",
+                         "shape": f"{label} B1xL{l}xHq{hq}/{hkv}xD{d}, {variant}",
+                         "launches": 0, "max_abs_err": max(out_err, lse_err), "ms": ms,
+                         "plain_ms": plain, **least, "library_ms": lib})
+        del q, k, v, ref_out, ref_lse
+    for label, lens, mb in QWEN_PAGED_SHAPES:
+        nums = check_paged(torch, seed, label, lens, mb, QWEN_DIMS)
+        rows.append({"name": "paged_decode", "route": "cuda",
+                     "source": "xtuner_tpu_torch/csrc/paged_decode.cu",
+                     "replaces": "xtuner_tpu/ops/attention/paged_decode.py:66",
+                     "path": "serve_qwen35", "shape": label, "launches": 0, **nums,
+                     "library_ms": None})
+    e, h, f = QWEN_EXPERTS, QWEN_H, QWEN_F
+    w_gu = (torch.randn((e, h, 2 * f), generator=g, device=dev) * 0.02).bfloat16()
+    w_dn = (torch.randn((e, f, h), generator=g, device=dev) * 0.02).bfloat16()
+    for label, tokens in (("decode", QWEN_SLOTS), ("prefill", 1000)):
+        m = tokens * QWEN_TOPK
+        sizes = routed_sizes(torch, rng, tokens, e, QWEN_TOPK, 0, dev)
+        x = torch.randn((m, h), generator=g, device=dev).bfloat16()
+        hmid = torch.randn((m, f), generator=g, device=dev).bfloat16()
+        cases = grouped_cases(x, hmid, w_gu, w_dn, None, None, sizes, e, kinds=("nn",))
+        # the bytes the function must move: the weights of the experts that
+        # have rows (a decode step's 32 rows touch at most 32 of 256)
+        touched = int((sizes > 0).sum())
+        cases = [(*c[:6], c[6] - 2 * (e - touched) * c[4][1].shape[1] * c[4][1].shape[2])
+                 for c in cases]
+        for row in grouped_rows(torch, "serve_qwen35", cases, m, e, iters=20, plain_iters=2):
+            row["shape"] = f"{label} M{m} E{e} ({touched} with rows) H{h} F{f}"
+            rows.append(row)
+    return rows
+
+
+def decode_vs_prefill_layers(torch, eng, prompt: list) -> dict:
+    """One decode step of the engine against a prefill, sub-layer by
+    sub-layer: the engine prefills `prompt` and decodes its first token
+    (the hidden state after every sub-layer and its expert ids recorded
+    around `_paged_gdn_decode` and `_paged_layer_decode`), then
+    `forward_cached` prefills prompt + that token (recorded around
+    `cached_sublayer`) and the two are compared at the token's position:
+    the relative error of each sub-layer's output and whether its top-k
+    set is the same."""
+    import numpy as np
+
+    import xtuner_tpu_torch.model.paged_generate as pg
+
+    model, dev = eng.model, eng.device
+    dec, pre = [], []
+    gdn, full = pg._paged_gdn_decode, pg._paged_layer_decode
+
+    def rec_gdn(*a, **kw):
+        x, r = gdn(*a, **kw)
+        dec.append((x, r))
+        return x, r
+
+    def rec_full(*a, **kw):
+        out = full(*a, **kw)
+        dec.append((out[0], out[3]))
+        return out
+
+    pg._paged_gdn_decode, pg._paged_layer_decode = rec_gdn, rec_full
+    try:
+        tok = eng.generate([{"prompt_ids": prompt, "max_new_tokens": 2}])[0]["token_ids"][0]
+    finally:
+        pg._paged_gdn_decode, pg._paged_layer_decode = gdn, full
+    slot = 0  # the engine admits into the first free slot
+    sub = model.cached_sublayer
+
+    def rec_sub(*a, **kw):
+        out = sub(*a, **kw)
+        pre.append((out[0], out[2]))
+        return out
+
+    model.cached_sublayer = rec_sub
+    try:
+        ids = torch.tensor([prompt + [tok]], device=dev)
+        n = ids.shape[1]
+        model.forward_cached(eng.params, ids, torch.arange(n, device=dev)[None],
+                             model.init_decode_cache(1, n, torch.bfloat16, dev), 0,
+                             torch.bfloat16, record_routing=True)
+    finally:
+        del model.cached_sublayer
+    rel, same = [], []
+    for (xd, rd), (xp, rp) in zip(dec, pre):
+        a, b = xd[slot, 0].float(), xp[0, n - 1].float()
+        rel.append(((a - b).norm() / b.norm()).item())
+        same.append(bool(np.array_equal(np.sort(rd[slot, 0].cpu().numpy()),
+                                        np.sort(rp[0, n - 1].cpu().numpy()))))
+    first_flip = same.index(False) if False in same else len(same)
+    return {"rel": rel, "first_flip": first_flip, "layers": len(dec)}
+
+
+def phase_serve_qwen35(torch, seed: int, smi: str) -> dict:
+    """`PagedGenerator.generate` on Qwen3.5-35B-A3B whole (34.66 B params, 40
+    layers: 10 periods of 3 GatedDeltaNet and 1 gated full attention, bf16,
+    random weights from the seed, gate|up drawn as one buffer) with
+    `record_routing=True`: 6 requests on 4 slots (prompts of 1000 and 1
+    tokens and three of 130-1000, across the 64-token bucket and the
+    128-token block edges; one GRPO pair), MAX_NEW new tokens each; init
+    time and peak, prefill and decode tokens/s, ms a decode step, the
+    serving peak, the exact launches of #1, #5 and #6, `routed_experts`
+    (N, 40, 8) with distinct ids, the GRPO pair's first token, and the
+    teacher-forced re-check of the logprobs, held where re-prefill routing
+    equals the recorded one (that share printed by layer). No profiler
+    window opens here."""
+    import numpy as np
+
+    from xtuner_tpu_torch.model.generate import GenerateConfig
+    from xtuner_tpu_torch.model.paged_generate import PagedGenerator
+    from xtuner_tpu_torch.model.registry import get_model_config
+    from xtuner_tpu_torch.module.params import count_params
+    from xtuner_tpu_torch.ops import bf16_grouped as bg
+    from xtuner_tpu_torch.ops.attention.flash import flash_attention
+    from xtuner_tpu_torch.ops.attention.paged_decode import paged_decode_attn
+
+    dev = torch.device("cuda")
+    cfg = get_model_config(QWEN_MODEL)
+    model = cfg.build()
+    specs = model.param_specs()
+    n_params = count_params(specs)
+    if n_params != QWEN_PARAMS:
+        raise AssertionError(f"{QWEN_MODEL}: {n_params} params, JAX's preset has {QWEN_PARAMS}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_fused_params(torch, specs, torch.Generator(device=dev).manual_seed(seed), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gib = torch.cuda.memory_allocated() / 2**30
+    rng = np.random.default_rng(seed + 5)
+    lens = [1000, 1, *rng.integers(130, 1000, size=3).tolist()]
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in lens]
+    reqs = [{"prompt_ids": prompts[0], "group": "g0"}, {"prompt_ids": prompts[0], "group": "g0"},
+            *[{"prompt_ids": p} for p in prompts[1:]]]
+    greedy = GenerateConfig(max_length=2048, max_new_tokens=MAX_NEW, do_sample=False,
+                            prefill_chunk=0, prefix_cache=False)
+    t0 = time.perf_counter()
+    eng = PagedGenerator(model, params, greedy, max_batch=QWEN_SLOTS, block_size=128,
+                         record_routing=True)
+    torch.cuda.synchronize()
+    n_layers = cfg.num_hidden_layers
+    say("serve_qwen35", model=QWEN_MODEL, params=n_params, layers=n_layers,
+        pattern=",".join(cfg.layer_types_pattern), hidden=cfg.hidden_size,
+        heads=f"{QWEN_HQ}/{QWEN_HKV}x{QWEN_D}",
+        gdn=f"{cfg.linear_attention.num_v_heads}v/{cfg.linear_attention.num_k_heads}k"
+            f"x{cfg.linear_attention.head_k_dim}",
+        experts=f"{cfg.n_routed_experts}top{cfg.num_experts_per_tok}", dtype="bf16",
+        init_s=f"{init_s:.3f}", weights_gib=f"{weights_gib:.3f}",
+        engine_init_s=f"{time.perf_counter() - t0:.3f}",
+        init_peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+        pool_layers=eng.cache.pool_k.shape[0],
+        gdn_state_gib=f"{sum(s.numel() * s.element_size() + c.numel() * c.element_size() for s, c in eng.gdn_state.values()) / 2**30:.3f}")
+    eng.generate([{"prompt_ids": prompts[1], "max_new_tokens": 2}])  # warm-up
+    eng._prefill = _Timed(torch, eng._prefill)
+    eng._decode_step = _Timed(torch, eng._decode_step)
+    flash_attention.launches = 0
+    paged_decode_attn.launches = 0
+    bg.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd": flash_attention.launches,
+                "paged_decode": paged_decode_attn.launches,
+                "grouped_gemm_nn": bg.grouped_gemm_bf16.launches["nn"]}
+    want = {"flash_fwd": QWEN_FULL_LAYERS * eng._prefill.calls,
+            "paged_decode": QWEN_FULL_LAYERS * eng._decode_step.calls,
+            "grouped_gemm_nn": 2 * n_layers * (eng._prefill.calls + eng._decode_step.calls)}
+    n_gen = [len(o["token_ids"]) for o in outs]
+    say("serve_qwen35", requests=len(reqs), slots=QWEN_SLOTS, prompt_lens=lens,
+        wall_s=f"{wall:.3f}", prefill_calls=eng._prefill.calls,
+        prefill_s=f"{eng._prefill.seconds:.4f}", decode_steps=eng._decode_step.calls,
+        decode_s=f"{eng._decode_step.seconds:.4f}", generated=n_gen, launches=launches,
+        want=want, peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}")
+    if eng._prefill.calls != len(prompts):
+        raise AssertionError(f"{eng._prefill.calls} prefills for {len(prompts)} prompts: "
+                             f"the GRPO sibling did not share its leader's prompt")
+    if launches != want:
+        raise AssertionError(f"launches {launches}, the steps imply {want}")
+    for o in outs:
+        r = o["routed_experts"]
+        if not o["token_ids"] or len(o["logprobs"]) != len(o["token_ids"]) or \
+                not all(0 <= t < cfg.vocab_size for t in o["token_ids"]) or \
+                not np.isfinite(o["logprobs"]).all():
+            raise AssertionError(f"bad output {o['finish_reason']} {o['token_ids'][:8]}")
+        if r.shape != (len(o["token_ids"]), n_layers, QWEN_TOPK) or r.min() < 0 or \
+                r.max() >= QWEN_EXPERTS or (np.diff(np.sort(r, -1), axis=-1) == 0).any():
+            raise AssertionError(f"routed_experts {r.shape}: want ({len(o['token_ids'])}, "
+                                 f"{n_layers}, {QWEN_TOPK}) distinct ids in [0, "
+                                 f"{QWEN_EXPERTS})")
+        if o["finish_reason"] == "length" and len(o["token_ids"]) != MAX_NEW:
+            raise AssertionError(f"length finish with {len(o['token_ids'])} tokens")
+    if outs[0]["token_ids"][0] != outs[1]["token_ids"][0] or \
+            not np.array_equal(outs[0]["routed_experts"][0], outs[1]["routed_experts"][0]):
+        raise AssertionError("the GRPO sibling's first token or routing differs from its "
+                             "leader's (greedy, one prompt)")
+    eng.check_block_conservation()
+    if eng.cache.tables:
+        raise AssertionError("sequences left in the pool")
+    prefilled, decoded = sum(lens), sum(n_gen) - len(outs)
+    say("serve_qwen35", prefill_tokens=prefilled,
+        prefill_tok_s=f"{prefilled / eng._prefill.seconds:.1f}", decode_tokens=decoded,
+        decode_tok_s=f"{decoded / eng._decode_step.seconds:.1f}",
+        decode_ms_per_step=f"{1e3 * eng._decode_step.seconds / eng._decode_step.calls:.3f}",
+        card=repr(smi))
+
+    # teacher-forced re-check: prompt + generated tokens in one prefill (the
+    # flash forward for the full layers, the chunked recurrence for the
+    # linear ones), with its routing at the positions that made the tokens
+    def teacher_forced(prompt, toks, extra_pad):
+        ids = prompt + toks
+        n = len(ids)
+        pb = -(-n // 64) * 64 + extra_pad
+        padded = torch.zeros((1, pb), dtype=torch.long, device=dev)
+        padded[0, :n] = torch.tensor(ids, device=dev)
+        pos = torch.clamp(torch.arange(pb, device=dev), max=n - 1)[None]
+        mask = (torch.arange(pb, device=dev) < n)[None]
+        logits, _, routing = model.forward_cached(
+            params, padded, pos, model.init_decode_cache(1, pb, torch.bfloat16, dev), 0,
+            torch.bfloat16, mask, record_routing=True,
+            n_valid=torch.full((1,), n, dtype=torch.long, device=dev))
+        p = len(prompt)
+        lps = torch.log_softmax(logits[0, p - 1:p - 1 + len(toks)], dim=-1)
+        lps = lps.gather(1, torch.tensor(toks, device=dev)[:, None])[:, 0].cpu()
+        return lps, np.sort(routing[0, p - 1:p - 1 + len(toks)].cpu().numpy(), -1)
+
+    diffs, floor, layers, floor_layers = [], [], [], []
+    for req, o in zip(reqs, outs):
+        tf, rout = teacher_forced(req["prompt_ids"], o["token_ids"], 0)
+        tf_pad, rout_pad = teacher_forced(req["prompt_ids"], o["token_ids"], 64)
+        diffs.append((tf - torch.tensor(o["logprobs"])).abs())
+        floor.append((tf - tf_pad).abs())
+        layers.append((rout == np.sort(o["routed_experts"], -1)).all(-1))
+        floor_layers.append((rout == rout_pad).all(-1))
+    # by generated position (the first comes from the prefill itself)
+    by_pos = torch.stack([d[:MAX_NEW] for d in diffs if len(d) >= MAX_NEW]).mean(0)
+    agree_by_pos = np.stack([x.all(1)[:MAX_NEW] for x in layers if len(x) >= MAX_NEW]).mean(0)
+    say("serve_qwen35", tf_mean_abs_by_position=",".join(f"{x:.3f}" for x in by_pos.tolist()),
+        floor_mean_abs_by_position=",".join(f"{x:.3f}" for x in torch.stack(
+            [d[:MAX_NEW] for d in floor if len(d) >= MAX_NEW]).mean(0).tolist()),
+        routing_agree_all_layers_by_position=",".join(f"{x:.2f}" for x in agree_by_pos))
+    diffs, floor = torch.cat(diffs), torch.cat(floor)
+    layers, floor_layers = np.concatenate(layers), np.concatenate(floor_layers)
+    agree = torch.from_numpy(layers.all(1))
+    share, layer0 = agree.float().mean().item(), float(layers[:, 0].mean())
+    tf_max, tf_mean = diffs.max().item(), diffs.mean().item()
+    held = "all positions"
+    if not (tf_max <= TF_MAX_ATOL and tf_mean <= TF_MEAN_ATOL) and \
+            share >= QWEN_ALL_LAYERS_AGREE_MIN and layer0 >= OSS_ROUTING_AGREE_MIN:
+        tf_max, tf_mean = diffs[agree].max().item(), diffs[agree].mean().item()
+        held = "positions whose routing agrees in every layer"
+    say("serve_qwen35", teacher_forced_max_abs=f"{diffs.max().item():.4e}",
+        mean_abs=f"{diffs.mean().item():.4e}", held_on=repr(held),
+        held_max_abs=f"{tf_max:.4e}", held_mean_abs=f"{tf_mean:.4e}",
+        tol=f"max<={TF_MAX_ATOL},mean<={TF_MEAN_ATOL}", positions=int(agree.numel()),
+        routing_agree_all_layers=f"{share:.4f}", routing_agree_layer0=f"{layer0:.4f}",
+        routing_agree_by_layer=",".join(f"{x:.3f}" for x in layers.mean(0)),
+        prefill_vs_prefill_max_abs=f"{floor.max().item():.4e}",
+        prefill_vs_prefill_mean_abs=f"{floor.mean().item():.4e}",
+        prefill_vs_prefill_routing_agree_all_layers=f"{floor_layers.all(1).mean():.4f}",
+        peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}")
+    if not (tf_max <= TF_MAX_ATOL and tf_mean <= TF_MEAN_ATOL):
+        raise AssertionError(f"teacher-forced logprobs disagree with decode on {held}: max "
+                             f"{tf_max}, mean {tf_mean} (routing agrees in every layer at "
+                             f"{share:.4f} of the positions, at layer 0 at {layer0:.4f})")
+    # the decode path layer by layer, up to its first routing flip
+    for prompt in (prompts[0], prompts[2], prompts[1]):
+        cmp = decode_vs_prefill_layers(torch, eng, prompt)
+        held_rel = cmp["rel"][:min(cmp["first_flip"], len(cfg.layer_types_pattern))]
+        say("serve_qwen35", decode_vs_prefill_prompt=len(prompt), sublayers=cmp["layers"],
+            first_routing_flip=cmp["first_flip"],
+            rel_by_layer=",".join(f"{x:.4f}" for x in cmp["rel"]),
+            held_max_rel=f"{max(held_rel, default=0.0):.4e}", tol=QWEN_LAYER_RTOL)
+        if cmp["layers"] != n_layers or cmp["first_flip"] < 1 or \
+                max(held_rel, default=0.0) > QWEN_LAYER_RTOL:
+            raise AssertionError(f"one decode step disagrees with a prefill of the same "
+                                 f"position (prompt of {len(prompt)}): {cmp}")
+    return launches
+
+
 @contextlib.contextmanager
 def routed_ids():
     """The expert ids (B L, K) each MoE layer's router returns, in call
@@ -4718,6 +5151,10 @@ def main() -> int:
     # and the serving decode loops are host-bound
     launches = {"serve_gpt_oss": phase_serve_gpt_oss(torch, args.seed, smi)}
     release(torch, "serve_gpt_oss")
+    launches["serve_qwen35"] = phase_serve_qwen35(torch, args.seed, smi)
+    release(torch, "serve_qwen35")
+    kernels += phase_qwen35_kernels(torch, args.seed, smi)
+    release(torch, "qwen35_kernels")
     launches["serve"] = phase_engine(torch, args.seed, smi)
     release(torch, "serve")
     phase_paged_device_time(torch, args.seed, kernels)

@@ -169,11 +169,12 @@ def test_cached_forward_unported_options_raise():
     c = torch.zeros((1, 8, 2, 128))
     with pytest.raises(NotImplementedError, match="serve-rest"):
         tattn.mha_cached_forward(tp, tattn.MHAConfig(**kw), x, cos, sin, c, c, 4)
-    # sinks and windows are ported at cache_len 0 (tests/test_torch_gpt_oss.py);
-    # gated attention still raises
-    with pytest.raises(NotImplementedError, match="serve-rest"):
-        tattn.mha_cached_forward(tp, tattn.MHAConfig(**kw, with_gate=True), x, cos, sin,
-                                 c, c, 0)
+    # sinks and windows are ported at cache_len 0 (tests/test_torch_gpt_oss.py),
+    # and so is gated attention (tests/test_torch_qwen35.py); what still
+    # raises for a gate is the training forward, whose layers carry none
+    gated = tattn.MHAConfig(**kw, with_gate=True)
+    with pytest.raises(NotImplementedError, match=r"\[hybrid\]"):
+        tattn.mha_qkv(tp, gated, x, cos, sin)
 
 
 BS, D = 16, 128
@@ -243,7 +244,7 @@ def test_paged_write_matches_jax():
 def test_paged_cache_bookkeeping_matches_jax():
     """Same allocator / table / share / release sequence on both caches."""
     caches = [jkv.PagedKVCache(1, 12, 4, 1, 8, dtype=jnp.float32),
-              tkv.PagedKVCache(1, 12, 4, 1, 8, dtype=torch.float32)]
+              tkv.PagedKVCache(1, 12, 4, 1, 8, dtype=torch.float32, device="cpu")]
     for c in caches:
         c.allocator.refcount[0] = 1
         c.add_sequence(0, 10)

@@ -241,7 +241,7 @@ def test_kernel_checks_take_the_kernels_head_dims():
         v = torch.zeros((1, 64, hkv, dv), dtype=torch.bfloat16)
         return q, k, v, torch.ones((1, 64), dtype=torch.int32)
 
-    assert tflash.KERNEL_DIMS == ((128, 128), (192, 128), (64, 64))
+    assert tflash.KERNEL_DIMS == ((128, 128), (192, 128), (64, 64), (256, 256))
     assert tflash.BWD_KERNEL_DIMS == ((128, 128), (192, 128), (64, 64))
     for d, dv in tflash.KERNEL_DIMS:
         tflash._check_kernel_args(*tensors(d, dv))
@@ -252,6 +252,10 @@ def test_kernel_checks_take_the_kernels_head_dims():
     with pytest.raises(ValueError, match="no sliding window"):
         tflash._check_bwd_args(q, k, v, seg, torch.zeros((1, 4, 64)), torch.zeros((1, 4, 64)),
                                q, "b", window=128)
+    q, k, v, seg = tensors(256, 256)  # Qwen3.5's pair: the forward only
+    with pytest.raises(ValueError, match="head_dim"):
+        tflash._check_bwd_args(q, k, v, seg, torch.zeros((1, 4, 64)), torch.zeros((1, 4, 64)),
+                               q, "b")
     for d, dv in tflash.BWD_KERNEL_DIMS:
         q, k, v, seg = tensors(d, dv)
         tflash._check_kernel_args(q, k, v, seg)
@@ -260,7 +264,7 @@ def test_kernel_checks_take_the_kernels_head_dims():
                                                                    dtype=torch.bfloat16), "b")
         with pytest.raises(ValueError, match="do must be"):
             tflash._check_bwd_args(q, k, v, seg, lse, lse, q if d != dv else q[..., :32], "b")
-    for d, dv in ((192, 192), (128, 64), (24, 16), (256, 256)):
+    for d, dv in ((192, 192), (128, 64), (24, 16), (256, 128)):
         with pytest.raises(ValueError, match="head_dim"):
             tflash._check_kernel_args(*tensors(d, dv))
     q, k, v, seg = tensors(192, 128)

@@ -323,7 +323,7 @@ def test_paged_decode_window_walk_and_plan():
 
 
 def test_paged_decode_head_dims_the_kernel_takes():
-    assert tpd.HEAD_DIMS == (64, 128)
+    assert tpd.HEAD_DIMS == (64, 128, 256)  # 256: Qwen3.5 (tests/test_torch_qwen35.py)
     q, pk, pv, table, lens, sinks = _paged_case(1)
     bf = {n: _t(a).bfloat16() for n, a in (("q", q), ("pk", pk), ("pv", pv))}
     tpd._check_kernel_args(bf["q"], bf["pk"], bf["pv"], 0, _t(table), _t(lens), _t(sinks))

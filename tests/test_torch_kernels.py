@@ -15,8 +15,8 @@ import torch
 
 from xtuner_tpu_torch.ops.attention.flash import (BIG_LSE, flash_attention,
                                                   flash_attention_plain, flash_bwd,
-                                                  flash_bwd_plain, fold_sinks, fwd_tile_plan,
-                                                  fwd_tiles_walked, group_sum,
+                                                  flash_bwd_plain, fold_sinks, fwd_key_tile,
+                                                  fwd_tile_plan, fwd_tiles_walked, group_sum,
                                                   max_free_launches, reset_launches)
 from xtuner_tpu_torch.ops.attention.paged_decode import (_sm_count, max_window_blocks,
                                                          paged_decode_attn,
@@ -319,6 +319,83 @@ def test_paged_decode_kernel_64_window_sinks_matches_plain(cuda, b, c, hq, hkv, 
     if window:
         mb = min(mb, max_window_blocks(window, c, bs))
     splits = paged_decode_split_plan(b, hkv, mb, _sm_count(cuda.index or 0))
+    walk = paged_decode_split_plain(q, pk, pv, 1, table, seq_lens, splits=splits, **kw)
+    assert (out - walk).abs().max().item() <= PAGED_ATOL
+
+
+# Qwen3.5's gated full attention: head dim 256 for q, k and v, 16 q heads
+# over 2 kv heads, causal, no window, no sinks; the kernel walks 64-key
+# tiles (fwd_key_tile)
+@pytest.mark.parametrize("b,l,hq,hkv,docs,pad,lens", [
+    (1, 1024, 16, 2, 1, 24, None),    # the serving prefill: 1000 tokens in a 1024 bucket
+    (1, 4096, 16, 2, 5, 250, None),   # five documents at L4096
+    (2, 640, 8, 4, 0, 0, [256, 128, 128]),  # boundaries on tile edges, a padding tile
+    (1, 700, 8, 2, 0, 0, [5, 100, 17, 60, 1, 127, 300]),  # documents shorter than a tile
+    (1, 129, 4, 2, 0, 0, [129]),      # the last q tile holds one row
+    (1, 65, 4, 1, 0, 0, [40, 25]),    # L < 128: one q tile, its second half past L
+])
+@pytest.mark.parametrize("bound", [None, 45.0])
+def test_flash_kernel_256_matches_plain(cuda, b, l, hq, hkv, docs, pad, lens, bound):
+    """Both variants at (256, 256) (random q and k of unit scale keep every
+    scaled logit far below 45, so the max-free variant is exact), against
+    the plain version; the kernel walks the 64-key tiles of its plan."""
+    q, k, v, seg = _packed(cuda, b, l, hq, hkv, max(docs, 1), pad, d=256, dv=256)
+    if lens is not None:
+        seg = _with_lens(seg, lens)
+    reset_launches()
+    max_logit = None if bound is None else torch.tensor(bound, device=cuda)
+    out, lse = flash_attention(q, k, v, seg, max_logit=max_logit)
+    again, lse2 = flash_attention(q, k, v, seg, max_logit=max_logit)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == 2 and max_free_launches() == 2 * (bound is not None)
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+    ref_out, ref_lse = flash_attention_plain(q, k, v, seg, 256 ** -0.5,
+                                             max_free=bound is not None)
+    _check_flash(out, lse, ref_out, ref_lse, seg)
+    walk, full = fwd_tile_plan(seg, key_tile=fwd_key_tile(256, 256))
+    assert fwd_tiles_walked() == (2 * int(walk.sum()) * hq, 2 * int(full.sum()) * hq)
+
+
+def test_flash_256_running_max_beyond_the_max_free_bound(cuda):
+    """Scaled logits past 60 at (256, 256): the running-max variant stays
+    finite and agrees with the plain version."""
+    q, k, v, seg = _packed(cuda, 1, 1024, 8, 2, 1, 0, d=256, dv=256)
+    seg = _with_lens(seg, [1000])
+    q = (q.float() * 16).bfloat16()
+    scale = 256 ** -0.5
+    logits = torch.einsum("blhd,bmgd->bhlm", q.float(), k.float()[:, :, :1]) * scale
+    assert logits.abs().max().item() > 60
+    reset_launches()
+    out, lse = flash_attention(q, k, v, seg)
+    torch.cuda.synchronize()
+    assert max_free_launches() == 0
+    ref_out, ref_lse = flash_attention_plain(q, k, v, seg, scale)
+    _check_flash(out, lse, ref_out, ref_lse, seg)
+
+
+@pytest.mark.parametrize("b,c,hq,hkv,bs,lens", [
+    (4, 1, 16, 2, 128, [1000, 0, 517, 1900]),  # Qwen3.5's decode, one inactive slot
+    (32, 1, 16, 2, 128, [4096] * 32),          # a rollout: 32 slots x 4096 cached
+    (3, 1, 8, 2, 16, [37, 15, 63]),            # block edges
+    (2, 2, 8, 2, 16, [31, 0]),                 # C = 2: 8 query rows per CTA
+    (4, 1, 16, 2, 128, [127, 128, 1, 255]),    # seq_len + 1 on and off block edges
+])
+def test_paged_decode_kernel_256_matches_plain(cuda, b, c, hq, hkv, bs, lens):
+    """Head dim 256 (one CTA an SM: O and Q fill the register file), against
+    the gather plain version and the kernel's work order at the split count
+    the wrapper plans; two launches give the same bits."""
+    q, pk, pv, table, seq_lens = _paged(cuda, b, c, hq, hkv, bs, lens, d=256)
+    kw = dict(scale=256 ** -0.5)
+    n0 = paged_decode_attn.launches
+    out = paged_decode_attn(q, pk, pv, 1, table, seq_lens, **kw)
+    again = paged_decode_attn(q, pk, pv, 1, table, seq_lens, **kw)
+    torch.cuda.synchronize()
+    assert paged_decode_attn.launches == n0 + 2 and torch.equal(out, again)
+    live = seq_lens > 0
+    ref = paged_decode_attn_plain(q, pk, pv, 1, table, seq_lens, **kw)
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert (out[live] - ref[live]).abs().max().item() <= PAGED_ATOL
+    splits = paged_decode_split_plan(b, hkv, table.shape[1], _sm_count(cuda.index or 0))
     walk = paged_decode_split_plain(q, pk, pv, 1, table, seq_lens, splits=splits, **kw)
     assert (out - walk).abs().max().item() <= PAGED_ATOL
 

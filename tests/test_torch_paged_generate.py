@@ -109,7 +109,7 @@ def test_teacher_forced_logprobs_match_decode(tiny):
         ids = req["prompt_ids"] + out["token_ids"]
         logits, _, _ = _forward_cached(model, tparams, torch.tensor([ids]),
                                        torch.arange(len(ids))[None],
-                                       init_cache(model, 1, len(ids), torch.float32),
+                                       init_cache(model, 1, len(ids), torch.float32, "cpu"),
                                        0, torch.float32)
         lps = torch.log_softmax(logits[0], dim=-1)
         p = len(req["prompt_ids"])

@@ -23,8 +23,10 @@ two-pass dk/dv and fused expert-MLP switches; DeepSeek-V3's MLA
 (`module/mla.py`); the aux-free (noaux) router with its post-step bias
 update and multi-token prediction (`module/mtp.py`), with MHA, MLA or DSA
 in the MoE layers (`recipes/sft_glm45_air_head.py`,
-`recipes/sft_moe_heavy_mtp.py`). Every TPU kernel of the JAX
-package has its Hopper kernel. What is not ported raises
+`recipes/sft_moe_heavy_mtp.py`); the Qwen3.5 hybrid's serving path
+(`model/hybrid.py`, GatedDeltaNet in `module/gated_deltanet.py` and
+`ops/gated_deltanet.py`, gated attention, the hybrid paged engine). Every
+TPU kernel of the JAX package has its Hopper kernel. What is not ported raises
 `NotImplementedError` naming its ROADMAP.md item.
 """
 

@@ -6,7 +6,8 @@
 // (pallas_call in _flash_forward), both of its variants: running max, and
 // max-free (taken when a proven bound on |scaled logit| is <= 45). Same
 // function: q, k (B, L, Hq or Hkv, D), v (B, L, Hkv, DV) bf16, (D, DV) =
-// (128, 128), MLA's (192, 128) or gpt-oss's (64, 64), segment_ids
+// (128, 128), MLA's (192, 128), gpt-oss's (64, 64) or Qwen3.5's (256, 256:
+// flash_fwd64_kernel, 64-key tiles, below), segment_ids
 // (B, L) int32 (0 = padding). A first small kernel (tile_table.cuh) builds
 // the backward's table of 64-row tiles over the ids padded to Lp, a
 // multiple of 128 (flash.py _tile_table: {lowest non-zero id, highest, the
@@ -86,9 +87,10 @@
 //   variants (the bound is read on the device): at 128/128 254 registers,
 //   0 bytes of spills, 164,936 bytes of dynamic shared memory (one CTA per
 //   SM); at 192/128 238 registers, 0 spills, 214,088 bytes; at 64/64 232
-//   registers, 0 spills, 83,016 bytes. A three-stage ring fits too at
-//   128/128, and ran slower than two at L65536 and L8192. chip_smoke.py's
-//   build phase prints every instantiation.
+//   registers, 0 spills, 83,016 bytes; flash_fwd64_kernel<256, 256> 239
+//   registers, 0 spills, 197,704 bytes (two stages). A three-stage ring
+//   fits too at 128/128, and ran slower than two at L65536 and L8192.
+//   chip_smoke.py's build phase prints every instantiation.
 
 #include "sm90.cuh"
 #include "tile_table.cuh"
@@ -461,10 +463,353 @@ int launch(const void* q, const void* k, const void* v, const void* seg, void* t
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// (256, 256): 64-key tiles. O of 64 rows x 256 is 128 f32 registers a
+// thread, so S must shrink: a 64 x 64 S tile (32 registers) and its P (16)
+// leave room under 255. Q (128 rows x 256, 64 KB) stays resident; a stage
+// of K and V (64 keys x 256 each, 64 KB) fits twice beside it. The layout
+// is block_sparse.cu's forward at 256/256 (ss_nt, acc_rs, stage_rows); the
+// walk, the masks, the window and both variants are fwd_body's, on 64-key
+// tiles: tile j is walked if j <= 2 i + 1 (the q tile's last row) and its
+// segment range meets the q tile's; warpgroup 0 (rows q0..q0 + 63) runs no
+// product on tile 2 i + 1, wholly above its rows, but still waits on its
+// loads and releases its stage. A tile is full (no per-element mask) if it
+// lies below both halves (j < 2 i) and holds the q tile's one document.
+constexpr int BN64 = 64;  // key rows per k tile at (256, 256)
+constexpr uint32_t TILE_CAP = 225 * 1024;  // tiles of a CTA; the rest: barriers, slack
+
+template <int D, int DV>
+struct Smem64 {
+  static constexpr uint32_t QT = (D / 64) * HALF;  // 128 rows
+  static constexpr uint32_t KT = (D / 64) * BOX64, VT = (DV / 64) * BOX64;  // 64 rows
+  static constexpr int FIT = (int)((TILE_CAP - QT) / (KT + VT));
+  static constexpr int STAGES = FIT > 4 ? 4 : FIT;
+  static constexpr uint32_t OFF_Q = 0;
+  static constexpr uint32_t OFF_K = OFF_Q + QT;
+  static constexpr uint32_t OFF_V = OFF_K + STAGES * KT;
+  static constexpr uint32_t OFF_BAR = OFF_V + STAGES * VT;  // K full, V full, empty [STAGES]; Q
+  static constexpr uint32_t OFF_FIRST = OFF_BAR + 8 * (3 * STAGES + 1);
+  static constexpr uint32_t BYTES = OFF_FIRST + 16 + 1024;  // + alignment slack
+  static_assert(STAGES >= 2 && BYTES <= 232448, "fits one SM");
+};
+
+// whether 64-row k tile j's segment range meets [qmin, qmax]
+__device__ __forceinline__ bool meets64(const int4* tiles, int j, int qmin, int qmax) {
+  const int4 a = tiles[j];
+  return a.y >= qmin && a.x <= qmax;
+}
+
+__device__ __forceinline__ int next_tile64(const int4* tiles, int j, int last, int qmin,
+                                           int qmax) {
+  while (j <= last && !meets64(tiles, j, qmin, qmax)) ++j;
+  return j;
+}
+
+template <int D, int DV>
+__device__ __forceinline__ void load_kv64(const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                          uint32_t sbase, uint32_t bar_k, uint32_t bar_v,
+                                          int stage, int j, int g, int b) {
+  using C = Smem64<D, DV>;
+  const uint32_t fk = bar_k + 8 * stage, fv = bar_v + 8 * stage;
+  mbar_expect_tx(fk, C::KT);
+  for (int c = 0; c < D / 64; ++c)
+    tma_load(sbase + C::OFF_K + stage * C::KT + c * BOX64, tm_k, fk, 64 * c, g, j * BN64, b);
+  mbar_expect_tx(fv, C::VT);
+  for (int c = 0; c < DV / 64; ++c)
+    tma_load(sbase + C::OFF_V + stage * C::VT + c * BOX64, tm_v, fv, 64 * c, g, j * BN64, b);
+}
+
+// softmax_tile on a (64 q rows, 64 keys) tile: s[4 j + 2 r + cc] at rows
+// row0 + 8 r, keys k0 + 8 j + 2 tq + cc; O as NO blocks of 64 columns
+template <bool MAX_FREE, bool MASK, int NO>
+__device__ __forceinline__ void softmax_tile64(float (&s)[32], uint32_t (&pa)[16],
+                                               float (&o)[NO][32], float (&m)[2], float (&l)[2],
+                                               float c, const int* kseg, int k0, int L,
+                                               const int (&qs)[2], const int (&qpos)[2],
+                                               const int (&klo)[2], int tq) {
+  int ks[16];
+  if (MASK) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int pos = k0 + 8 * (e / 2) + 2 * tq + e % 2;
+      ks[e] = pos < L ? kseg[pos] : 0;  // past L: padding
+    }
+  }
+  auto visible = [&](int i) {
+    const int j = i / 4, r = (i / 2) % 2, cc = i % 2;
+    const int kpos = k0 + 8 * j + 2 * tq + cc;
+    return qs[r] != 0 && ks[2 * j + cc] == qs[r] && kpos <= qpos[r] && kpos > klo[r];
+  };
+  if (MAX_FREE) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float p = exp2f(s[i] * c);
+      if (MASK) p = visible(i) ? p : 0.f;
+      l[(i / 2) % 2] += p;
+      s[i] = p;
+    }
+  } else {
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float v = s[i] * c;
+      if (MASK) v = visible(i) ? v : __int_as_float(0xff800000);  // -inf
+      s[i] = v;
+      mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], v);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f(m[r] - mx[r]);  // m starts at -1e30: a row's first visible key gives 0
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float p = exp2f(s[i] - mx[(i / 2) % 2]);  // masked: exp2(-inf) = 0
+      l[(i / 2) % 2] += p;
+      s[i] = p;
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[n][i] *= alpha[(i / 2) % 2];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    pa[2 * j] = pack_bf16(s[4 * j], s[4 * j + 1]);
+    pa[2 * j + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+  }
+}
+
+template <bool MAX_FREE, int D, int DV>
+__device__ __forceinline__ void fwd64_body(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
+                                           const CUtensorMap* tm_v, const CUtensorMap* tm_o,
+                                           const Args& a, unsigned char* smem) {
+  using C = Smem64<D, DV>;
+  constexpr int ST = C::STAGES;
+  const uint32_t sbase = smem_u32(smem);
+  const uint32_t bar_k = sbase + C::OFF_BAR;  // [ST]: 1 arrival + the bytes
+  const uint32_t bar_v = bar_k + 8 * ST;      // [ST]: 1 arrival + the bytes
+  const uint32_t bar_e = bar_v + 8 * ST;      // [ST]: one arrival per warp
+  const uint32_t bar_q = bar_e + 8 * ST;
+  int* first_s = reinterpret_cast<int*>(smem + C::OFF_FIRST);
+
+  // grid order as fwd_body's
+  const int ratio = a.Hq / a.Hkv;
+  int x = (int)blockIdx.x;
+  const int hr = x % ratio;
+  x /= ratio;
+  const int g = x % a.Hkv;
+  x /= a.Hkv;
+  const int b = x % a.B;
+  const int i = a.Lp / BM - 1 - x / a.B;  // the q tile (128 rows)
+  const int last = 2 * i + 1;              // the last 64-key tile it may see
+  const int h = g * ratio + hr;
+  const int q0 = i * BM;
+  const int wg = threadIdx.x / 128;  // q rows [64 wg, 64 wg + 64) of the tile
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int tq = lane % 4;
+  const int row0 = 16 * warp + lane / 4;
+
+  const int4* tiles = a.tiles + (int64_t)b * (a.Lp / 64);
+  const int* seg = a.seg + (int64_t)b * a.L;
+  const int4 t0 = tiles[2 * i], t1 = tiles[2 * i + 1];
+  const int qmin = min(t0.x, t1.x), qmax = max(t0.y, t1.y);
+  const int quni = t0.z == t1.z ? t0.z : 0;
+  const int j_lo = a.window > 0 ? max(0, q0 - a.window + 1) / BN64 : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+      mbar_init(bar_e + 8 * s, NTHREADS / 32);
+    }
+    mbar_init(bar_q, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_expect_tx(bar_q, C::QT);
+    for (int c = 0; c < D / 64; ++c)
+      tma_load(sbase + C::OFF_Q + c * HALF, tm_q, bar_q, 64 * c, h, q0, b);
+  }
+  if (threadIdx.x < 32) {  // the first k tile to walk, 32 tiles at a time from j_lo
+    int first = last + 1;
+    for (int base = j_lo; base <= last; base += 32) {
+      const int j = base + lane;
+      const unsigned hit =
+          __ballot_sync(0xffffffffu, j <= last && meets64(tiles, j, qmin, qmax));
+      if (hit) {
+        first = base + __ffs(hit) - 1;
+        break;
+      }
+    }
+    if (lane == 0) *first_s = first;
+  }
+  __syncthreads();
+  const int j_first = *first_s;
+  int jn = j_first;  // thread 0: the next k tile to load
+  if (threadIdx.x == 0)
+    for (int s = 0; s < ST && jn <= last; ++s) {
+      load_kv64<D, DV>(tm_k, tm_v, sbase, bar_k, bar_v, s, jn, g, b);
+      jn = next_tile64(tiles, jn + 1, last, qmin, qmax);
+    }
+
+  int qpos[2], qs[2], klo[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qpos[r] = q0 + 64 * wg + row0 + 8 * r;
+    qs[r] = qpos[r] < a.L ? seg[qpos[r]] : 0;
+    klo[r] = a.window > 0 ? qpos[r] - a.window : -1;
+  }
+  const float c = a.scale_log2e;
+  constexpr int NO = DV / 64;
+  float o[NO][32], s[32], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  uint32_t pa[16];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] = 0.f;
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[n][e] = 0.f;
+  const uint32_t sQ = sbase + C::OFF_Q + wg * BOX64;  // this warpgroup's 64 rows
+  mbar_wait(bar_q, 0);
+
+  int t = 0, n_full = 0;
+  for (int j = j_first; j <= last; ++t) {
+    const int j_next = next_tile64(tiles, j + 1, last, qmin, qmax);
+    const int4 kt = tiles[j];
+    const bool full = j < 2 * i && quni != 0 && kt.z == quni &&
+                      (a.window == 0 || q0 + BM - 1 - j * BN64 < a.window);
+    const bool run = j <= 2 * i + wg;  // tile 2 i + 1 lies above warpgroup 0's rows
+    const int stage = t % ST;
+    const uint32_t phase = (t / ST) & 1;
+    const uint32_t sK = sbase + C::OFF_K + stage * C::KT;
+    const uint32_t sV = sbase + C::OFF_V + stage * C::VT;
+
+    mbar_wait(bar_k + 8 * stage, phase);
+    if (run) {  // S = Q K^T (64 q rows x 64 keys, over D)
+      wg_fence();
+      ss_nt<D>(s, sQ, HALF, sK);
+      wg_commit();
+    }
+    if (t > 0) {
+      // the last tile's PV is done: release its stage, and refill it
+      if (run) wg_wait<1>();
+      else wg_wait0();
+      reg_fence(o);
+      reg_fence(pa);
+      const int prev = (t - 1) % ST;
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_e + 8 * prev);
+      if (threadIdx.x == 0 && jn <= last) {
+        mbar_wait(bar_e + 8 * prev, ((t - 1) / ST) & 1);
+        load_kv64<D, DV>(tm_k, tm_v, sbase, bar_k, bar_v, prev, jn, g, b);
+        jn = next_tile64(tiles, jn + 1, last, qmin, qmax);
+      }
+      __syncwarp();
+    }
+    n_full += full;
+    if (!run) {  // no phase of V skipped: a parity wait must see every phase
+      mbar_wait(bar_v + 8 * stage, phase);
+      j = j_next;
+      continue;
+    }
+    wg_wait0();
+    reg_fence(s);
+    if (full)
+      softmax_tile64<MAX_FREE, false>(s, pa, o, m, l, c, seg, j * BN64, a.L, qs, qpos, klo, tq);
+    else
+      softmax_tile64<MAX_FREE, true>(s, pa, o, m, l, c, seg, j * BN64, a.L, qs, qpos, klo, tq);
+    // O += P V (64 q rows x DV, over the 64 keys)
+    mbar_wait(bar_v + 8 * stage, phase);
+    wg_fence();
+    acc_rs<NO>(o, pa, sV);
+    wg_commit();
+    j = j_next;
+  }
+  wg_wait0();
+  reg_fence(o);
+
+  // epilogue as fwd_body's: out = O / l in this warpgroup's rows of the Q
+  // buffer, one TMA store a 64-column box; lse by the quad's first thread
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+  }
+  stage_rows<NO>(smem + C::OFF_Q, o, inv, wg, row0, tq);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  named_sync(1 + wg, 128);
+  const bool store = threadIdx.x % 128 == 0 && q0 + 64 * wg < a.L;
+  if (store) {
+    for (int n = 0; n < NO; ++n)
+      tma_store(tm_o, sbase + C::OFF_Q + n * HALF + wg * BOX64, 64 * n, h, q0 + 64 * wg, b);
+    tma_store_commit();
+  }
+  if (tq == 0)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (qpos[r] < a.L) {
+        const float lse2 = MAX_FREE ? log2f(l[r]) : m[r] + log2f(l[r]);
+        a.lse[((int64_t)b * a.Hq + h) * a.L + qpos[r]] = l[r] > 0.f ? lse2 * LN2 : BIG_LSE;
+      }
+  if (threadIdx.x == 0 && a.tile_count != nullptr) {
+    atomicAdd(a.tile_count, (unsigned long long)t);
+    atomicAdd(a.tile_count + 1, (unsigned long long)n_full);
+  }
+  if (store) tma_store_wait();
+}
+
+template <int D, int DV>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd64_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_o, const Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const bool max_free = a.bound != nullptr && *a.bound <= MAX_FREE_BOUND;
+  if (max_free) {
+    if (a.max_free_count != nullptr && threadIdx.x == 0 && blockIdx.x == 0)
+      atomicAdd(a.max_free_count, 1);
+    fwd64_body<true, D, DV>(&tm_q, &tm_k, &tm_v, &tm_o, a, smem);
+  } else {
+    fwd64_body<false, D, DV>(&tm_q, &tm_k, &tm_v, &tm_o, a, smem);
+  }
+}
+
+template <int D, int DV>
+int launch64(const void* q, const void* k, const void* v, const void* seg, void* tiles,
+             void* out, const Args& a, cudaStream_t stream) {
+  using C = Smem64<D, DV>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  if (!make_map(&tm_q, encode, q, a.B, a.L, a.Hq, BM, D) ||
+      !make_map(&tm_k, encode, k, a.B, a.L, a.Hkv, BN64, D) ||
+      !make_map(&tm_v, encode, v, a.B, a.L, a.Hkv, BN64, DV) ||
+      !make_map(&tm_o, encode, out, a.B, a.L, a.Hq, 64, DV))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd64_kernel<D, DV>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)C::BYTES);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_tile_table(static_cast<const int*>(seg), static_cast<int4*>(tiles), a.B, a.L, a.Lp,
+                        stream);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned grid = (unsigned)(a.Lp / BM) * a.Hq * a.B;
+  flash_fwd64_kernel<D, DV><<<grid, NTHREADS, C::BYTES, stream>>>(tm_q, tm_k, tm_v, tm_o, a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q (B, L, Hq, d), k (B, L, Hkv, d), v (B, L, Hkv, dv), out (B, L, Hq, dv)
-// bf16, (d, dv) = (128, 128), (192, 128) or (64, 64); seg (B, L) int32;
+// bf16, (d, dv) = (128, 128), (192, 128), (64, 64) or (256, 256); seg (B, L) int32;
 // tiles: scratch of (B, Lp / 64, 4) int32, Lp = L rounded up to 128; lse
 // (B, Hq, L) f32. window: > 0 a sliding window, 0 full attention. bound:
 // device f32 or null (always the running-max variant);
@@ -486,6 +831,7 @@ extern "C" int xt_flash_fwd_bf16(const void* q, const void* k, const void* v, co
   if (d == 128 && dv == 128) return launch<128, 128>(q, k, v, seg, tiles, out, a, st);
   if (d == 192 && dv == 128) return launch<192, 128>(q, k, v, seg, tiles, out, a, st);
   if (d == 64 && dv == 64) return launch<64, 64>(q, k, v, seg, tiles, out, a, st);
+  if (d == 256 && dv == 256) return launch64<256, 256>(q, k, v, seg, tiles, out, a, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -495,5 +841,6 @@ extern "C" int xt_flash_fwd_smem_bytes(int d, int dv) {
   if (d == 128 && dv == 128) return (int)Smem<128, 128>::BYTES;
   if (d == 192 && dv == 128) return (int)Smem<192, 128>::BYTES;
   if (d == 64 && dv == 64) return (int)Smem<64, 64>::BYTES;
+  if (d == 256 && dv == 256) return (int)Smem64<256, 256>::BYTES;
   return 0;
 }

@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernel xtuner_tpu/ops/attention/paged_decode.py::_kernel
 // (pallas_call in paged_decode_attn). Same function: q (B, C, Hq, D) bf16,
-// D = 128 or gpt-oss's 64 (a template); pool_k/pool_v (L, NB, BS, Hkv, D)
+// D = 128, gpt-oss's 64 or Qwen3.5's 256 (a template); pool_k/pool_v (L, NB, BS, Hkv, D)
 // bf16; block_table (B, MB) int32; seq_lens (B,) int32 = tokens cached
 // before this chunk. Chunk token i of slot b sits at seq_lens[b] + i
 // (already written to the pool) and attends the pool slots s <= seq_lens[b]
@@ -77,7 +77,11 @@
 //   (or by 1 with l = 0 when every split is empty: out 0).
 // - ptxas (nvcc -Xptxas -v, sm_90a, CUDA 12.9): D 128 166 registers, 0
 //   spills, 99,392 bytes of dynamic shared memory at blocks of 128 (two
-//   CTAs an SM); D 64 124 registers, 0 spills, 50,240 bytes.
+//   CTAs an SM); D 64 124 registers, 0 spills, 50,240 bytes; D 256 254
+//   registers (O and Q's fragments: one CTA an SM), 0 spills, 197,696
+//   bytes (the 3-stage ring of 64-row chunks, 64 KB a stage). The combine
+//   gives each thread the (row, column) pairs tid, tid + 128, ..., so D
+//   256 takes two columns a row.
 // - Inactive slots (all-zero table, seq_len 0) read the trash block 0 and
 //   stay finite; their output is discarded by the caller. Table entries
 //   < 0 or >= NB are skipped (no load, no products).
@@ -179,8 +183,10 @@ __device__ __forceinline__ float finish_row(float M, float L, float O, const Arg
   return L > 0.f ? O / L : 0.f;
 }
 
+// two CTAs an SM up to D 128; at D 256 O (16 rows x 256 a warp: 128 f32
+// registers a thread) and Q's fragments (64) need the whole register file
 template <int D>
-__global__ void __launch_bounds__(NTHREADS, 2)
+__global__ void __launch_bounds__(NTHREADS, D > 128 ? 1 : 2)
 paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, const Args a) {
   constexpr int LDO = ldo(D);
@@ -400,18 +406,18 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
   }
   named_sync(1, NCONS);
 
-  // this thread's output column, and its first row: D = 64 takes two rows
-  // at a time
-  const int d = tid % D, r0 = tid / D;
-  constexpr int RSTEP = NCONS / D;
+  // this thread's outputs: the (row, column) pairs tid, tid + NCONS, ..
+  // of the rows x D output (D 64: two rows at a time; D 256: two columns
+  // of each row)
   const int bg = b * a.Hkv + g;
-  auto out_at = [&](int r) -> float* {
+  auto out_at = [&](int r, int d) -> float* {
     return a.out + (((int64_t)b * C + r / rep) * a.Hq + g * rep + r % rep) * D + d;
   };
   float* ws_o = a.ws + (int64_t)bg * a.splits * rows * D;
   float* ws_ml = a.ws + (int64_t)gridDim.z * a.Hkv * a.splits * rows * D +
                  (int64_t)bg * a.splits * rows * 2;
-  for (int r = r0; r < rows; r += RSTEP) {
+  for (int x = tid; x < rows * D; x += NCONS) {
+    const int r = x / D, d = x % D;
     float M = NEG_INF;
 #pragma unroll
     for (int w = 0; w < NCONS / 32; ++w) M = fmaxf(M, cM[w * MAXR + r]);
@@ -423,7 +429,7 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
       O += cO[(w * MAXR + r) * LDO + d] * f;
     }
     if (nsb == 1) {
-      *out_at(r) = finish_row(M, L, O, a, g * rep + r % rep);
+      *out_at(r, d) = finish_row(M, L, O, a, g * rep + r % rep);
     } else {
       ws_o[((int64_t)sp * rows + r) * D + d] = O;
       if (d == 0) {
@@ -449,7 +455,8 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
   float* sml = cO;
   for (int j = tid; j < 2 * nsb * rows; j += NCONS) sml[j] = __ldcg(ws_ml + j);
   named_sync(1, NCONS);
-  for (int r = r0; r < rows; r += RSTEP) {
+  for (int x = tid; x < rows * D; x += NCONS) {
+    const int r = x / D, d = x % D;
     float M = NEG_INF;
     for (int i = 0; i < nsb; ++i) M = fmaxf(M, sml[(i * rows + r) * 2]);
     float L = 0.f, O = 0.f;
@@ -459,7 +466,7 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
       L += sml[(i * rows + r) * 2 + 1] * f;
       O += __ldcg(ws_o + ((int64_t)i * rows + r) * D + d) * f;
     }
-    *out_at(r) = finish_row(M, L, O, a, g * rep + r % rep);
+    *out_at(r, d) = finish_row(M, L, O, a, g * rep + r % rep);
   }
   if (tid == 0) a.tickets[bg] = 0;
 }
@@ -500,7 +507,7 @@ int launch(const void* pool_k, const void* pool_v, const Args& a, int B, int L,
 
 }  // namespace
 
-// q (B, C, Hq, D), pool_k / pool_v (L, NB, BS, Hkv, D) bf16 (D 64 or 128),
+// q (B, C, Hq, D), pool_k / pool_v (L, NB, BS, Hkv, D) bf16 (D 64, 128 or 256),
 // block_table (B, MB) int32, seq_lens (B,) int32, sinks (Hq,) f32 or null
 // -> out (B, C, Hq, D) f32. ws: f32 scratch of B Hkv splits (C Hq / Hkv)
 // (D + 2); tickets: B Hkv int32, zero (and left zero). splits: per (slot,
@@ -511,7 +518,7 @@ extern "C" int xt_paged_decode_bf16(const void* q, const void* pool_k, const voi
                                     void* out, void* ws, void* tickets, int B, int C, int Hq,
                                     int Hkv, int d, int L, int NB, int BS, int MB, int layer,
                                     int splits, int window, float scale, void* stream) {
-  if ((d != 64 && d != 128) || B <= 0 || B > 65535 || C <= 0 || Hkv <= 0 || Hkv > 65535 ||
+  if ((d != 64 && d != 128 && d != 256) || B <= 0 || B > 65535 || C <= 0 || Hkv <= 0 || Hkv > 65535 ||
       Hq % Hkv != 0 || C * (Hq / Hkv) > MAXR || BS <= 0 || BS % 16 != 0 || BS > 256 ||
       MB <= 0 || NB <= 0 || L <= 0 || layer < 0 || layer >= L || splits <= 0 ||
       splits > MAX_SPLITS || window < 0)
@@ -522,13 +529,15 @@ extern "C" int xt_paged_decode_bf16(const void* q, const void* pool_k, const voi
                C, Hq, Hkv, NB, BS, MB, layer, splits, chunk_rows(BS), window,
                scale * LOG2E};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return d == 64 ? launch<64>(pool_k, pool_v, a, B, L, st)
-                 : launch<128>(pool_k, pool_v, a, B, L, st);
+  if (d == 64) return launch<64>(pool_k, pool_v, a, B, L, st);
+  if (d == 128) return launch<128>(pool_k, pool_v, a, B, L, st);
+  return launch<256>(pool_k, pool_v, a, B, L, st);
 }
 
 // the dynamic shared memory of one CTA (bytes) at pool block size bs and
 // head dim d (0 for what the kernel does not take)
 extern "C" int xt_paged_decode_smem_bytes(int bs, int d) {
-  return bs > 0 && bs % 16 == 0 && (d == 64 || d == 128) ? (int)layout(chunk_rows(bs), d).bytes
-                                                          : 0;
+  return bs > 0 && bs % 16 == 0 && (d == 64 || d == 128 || d == 256)
+             ? (int)layout(chunk_rows(bs), d).bytes
+             : 0;
 }

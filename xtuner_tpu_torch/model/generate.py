@@ -79,9 +79,9 @@ def layer_slices(stack: dict, n: int) -> list[dict]:
     return [tree_map(lambda a, _i=i: a[_i], stack) for i in range(n)]
 
 
-def init_cache(model, batch_size: int, max_length: int, dtype=torch.bfloat16,
-               device="cpu"):
-    """[(cache_k, cache_v)] per layer stack, each (n, B, S, Hkv, D) zeros."""
+def init_cache(model, batch_size: int, max_length: int, dtype, device):
+    """[(cache_k, cache_v)] per layer stack, each (n, B, S, Hkv, D) zeros
+    in `dtype` on `device`."""
     attn = model.cfg.attention
     shape = (batch_size, max_length, attn.num_key_value_heads, attn.head_dim)
     caches = []
@@ -106,15 +106,21 @@ def layer_windows(cfg, stack_name: str, n_layers: int) -> list[int]:
 
 def mlp_or_moe(lp, cfg, h, compute_dtype):
     """The layer's MLP after the post-attention norm: the routed experts
-    (+ the shared expert) of an MoE layer, else the dense MLP. Returns
-    (out (B, C, H), the MoE layer's (B, C, K) expert ids or None)."""
+    (+ the shared expert, times sigmoid(h @ shared_expert_gate.w) where the
+    layer has that gate, Qwen3.5's) of an MoE layer, else the dense MLP.
+    Returns (out (B, C, H), the MoE layer's (B, C, K) expert ids or
+    None)."""
     if "experts" not in lp:
         return mlp_forward(lp["mlp"], h, cfg.hidden_act), None
     out, r, _ = moe_mlp_forward(
         lp["experts"], lp["router"], cfg.router, h, num_experts=cfg.n_routed_experts,
         top_k=cfg.num_experts_per_tok, act=cfg.hidden_act, compute_dtype=compute_dtype)
     if "shared_experts" in lp:
-        out = out + mlp_forward(lp["shared_experts"], h, cfg.hidden_act)
+        shared = mlp_forward(lp["shared_experts"], h, cfg.hidden_act)
+        if "shared_expert_gate" in lp:  # the sigmoid in f32, cast back (JAX)
+            gate = torch.sigmoid((h @ lp["shared_expert_gate"]["w"]).float())
+            shared = shared * gate.to(shared.dtype)
+        out = out + shared
     return out, r.topk_idx.reshape(h.shape[0], h.shape[1], -1)
 
 

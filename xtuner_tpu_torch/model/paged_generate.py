@@ -2,7 +2,9 @@
 `xtuner_tpu/model/paged_generate.py`).
 
 The same engine as the JAX one, for dense and MoE models with MHA
-attention (gpt-oss's sinks and per-layer sliding windows included):
+attention (gpt-oss's sinks and per-layer sliding windows, Qwen3.5's output
+gate included) and for the hybrid GatedDeltaNet models (`model/hybrid.py`,
+Qwen3.5):
 
 - one batched C=1 decode step over `max_batch` slots with per-slot
   sequence lengths and block tables; continuous admission as slots free up;
@@ -16,6 +18,22 @@ attention (gpt-oss's sinks and per-layer sliding windows included):
   KV into pool blocks;
 - GRPO group prompt sharing: siblings reference the leader's block-aligned
   prefix and copy only the ragged tail block;
+- hybrid models: the pool holds only the full-attention sub-layers
+  (`_full_base`: pattern slot i's period j is pool layer base_i + j); each
+  GatedDeltaNet sub-layer keeps a per-slot state instead, S (n_periods,
+  max_batch, Hv, dk, dv) f32 and the conv buffer (n_periods, max_batch,
+  K-1, conv channels) in the compute dtype. The prefill (`model.
+  forward_cached`, right-padded: pad tokens never reach a state, and the
+  conv buffer ends at the last real token) writes the post-prompt state
+  into the slot and keeps it as the group's snapshot, which a GRPO sibling
+  copies into its own slot (the state is not paged: sharing blocks alone
+  would leave it at zero). A decode step runs each linear sub-layer as one
+  `gdn_cached_forward` step on the slots' states; inactive slots update
+  theirs too, harmlessly: the next admit overwrites them. With
+  `record_routing` the hybrid's `routed_experts` has one row per generated
+  token, the first from the prompt's last position, as for every other
+  model (JAX's hybrid prefill returns no routing, so its rows sit one token
+  late: ROADMAP.md, known faults in the reference);
 - greedy, temperature, top-k and top-p sampling from a `torch.Generator`.
 
 PyTorch runs eagerly, so the JAX jitted programs become plain methods and
@@ -29,9 +47,8 @@ same values), so no step concatenates them.
 
 Not ported yet, each raising NotImplementedError with its ROADMAP.md item:
 chunked prefill, the prefix cache, int8 KV, MTP speculation, penalties /
-min_tokens / logit_bias, top_logprobs, gated attention, MLA's
-compressed-KV and DSA decode ([serve-rest]). The port has no hybrid GDN
-config yet ([hybrid]).
+min_tokens / logit_bias, top_logprobs, MLA's compressed-KV and DSA decode
+([serve-rest]).
 """
 
 from __future__ import annotations
@@ -43,28 +60,30 @@ import numpy as np
 import torch
 
 from .. import not_ported
-from ..module.attention import MHAConfig, project_qkv
+from ..module.attention import MHAConfig, apply_gate, project_qkv
+from ..module.gated_deltanet import gdn_cached_forward
 from ..module.kv_cache import PagedKVCache, paged_write
 from ..module.mlp import linear
 from ..module.moe_layer import fuse_gate_up
 from ..module.params import cast_tree
-from ..module.rope import _rope_dim, rope_cos_sin
+from ..module.rope import _rope_dim, rope_cos_sin, text_rope_scaling
 from ..ops.attention.paged_decode import paged_decode_attn
 from ..ops.rms_norm import rms_norm
 from .generate import (GenerateConfig, _forward_cached, _stacks, categorical,
                        init_cache, layer_slices, layer_windows, lm_logits, mlp_or_moe,
                        penalties_active)
+from .hybrid import n_periods
 
 
 def paged_eligible(model_cfg) -> bool:
-    """MHA models (the JAX engine also pages MLA/DSA and hybrid GDN)."""
+    """MHA models, and hybrid GDN models whose full layers are MHA (the
+    JAX engine also pages MLA/DSA)."""
     return isinstance(model_cfg.attention, MHAConfig)
 
 
 def _check_ported(cfg, gen_cfg: GenerateConfig) -> None:
     if not paged_eligible(cfg):
         raise not_ported("MLA/DSA attention", "serve-rest")
-    cfg.attention.check_ported()
     for flag, what in (
             (gen_cfg.prefill_chunk, "chunked prefill (prefill_chunk > 0)"),
             (gen_cfg.prefix_cache, "the prefix cache (prefix_cache=True)"),
@@ -138,15 +157,15 @@ def _paged_layer_decode(lp, cfg, x, cos, sin, pool_k, pool_v, layer: int,
     b, c, _ = x.shape
     zc = cfg.rms_norm_type == "zero_centered"
     h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps, zc)
-    q, k, v = project_qkv(lp["attn"], attn, h, cos, sin)
+    q, k, v, gate = project_qkv(lp["attn"], attn, h, cos, sin)
     for i in range(c):
         paged_write(pool_k, layer, block_table, seq_lens + i, k[:, i])
         paged_write(pool_v, layer, block_table, seq_lens + i, v[:, i])
     o = paged_decode_attn(q.to(pool_k.dtype), pool_k, pool_v, layer, block_table,
                           seq_lens, scale=attn.head_dim ** -0.5, window=window,
                           sinks=lp["attn"].get("sinks"))
-    o = linear(o.reshape(b, c, -1).to(compute_dtype), lp["attn"]["o_proj"])
-    x = x + o
+    o = apply_gate(o.reshape(b, c, -1).to(compute_dtype), gate)
+    x = x + linear(o, lp["attn"]["o_proj"])
     h = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps, zc)
     return _paged_mlp(lp, cfg, x, h, compute_dtype, pool_k, pool_v)
 
@@ -157,6 +176,23 @@ def _paged_mlp(lp, cfg, x, h, compute_dtype, pool_k, pool_v):
     None)."""
     h, routing = mlp_or_moe(lp, cfg, h, compute_dtype)
     return x + h, pool_k, pool_v, routing
+
+
+def _paged_gdn_decode(lp, cfg, x, state, conv, compute_dtype):
+    """One hybrid GatedDeltaNet sub-layer at decode (JAX
+    `_paged_gdn_sublayer`): x (B, C, H); state (B, Hv, dk, dv) f32 and conv
+    (B, K-1, ch), the slots' views, updated IN PLACE. Returns (x, the MoE
+    layer's (B, C, K) expert ids or None)."""
+    lp = cast_tree(lp, compute_dtype)
+    zc = cfg.rms_norm_type == "zero_centered"
+    h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps, zc)
+    o, s_new, conv_new = gdn_cached_forward(lp["attn"], cfg.linear_attention, h, state, conv)
+    state.copy_(s_new)
+    conv.copy_(conv_new)
+    x = x + o
+    h = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps, zc)
+    h, routing = mlp_or_moe(lp, cfg, h, compute_dtype)
+    return x + h, routing
 
 
 def _scatter_blocks(pool: torch.Tensor, layer0: int, block_table: torch.Tensor,
@@ -222,19 +258,46 @@ class PagedGenerator:
         self.max_blocks = -(-gen_cfg.max_length // block_size)
         if num_blocks is None:
             num_blocks = self.max_blocks * max_batch + 1  # worst case, all unshared
-        # per-layer parameter views (the scan's xs), with their pool layer
-        # and window (0: full attention)
+        # per-layer parameter views (the scan's xs) in forward order, as
+        # (kind, pattern key, period, params, pool layer, window (0: full)):
+        # kind "full" pages its K/V at the pool layer, "linear" (a hybrid's
+        # GDN sub-layer) keeps the per-slot state gdn_state[key][:, period]
         self._layers = []
-        for name, stack in _stacks(model, params):
-            n = stack["input_norm"].shape[0]
-            if "experts" in stack:
-                fuse_gate_up(stack["experts"])
-            base = len(self._layers)
-            wins = layer_windows(cfg, name, n)
-            self._layers += [(base + i, lp, wins[i])
-                             for i, lp in enumerate(layer_slices(stack, n))]
+        self.gdn_state: dict = {}
+        self._full_base: dict[int, int] = {}
+        self.is_hybrid = bool(getattr(cfg, "layer_types_pattern", None))
+        if self.is_hybrid:
+            n, la = n_periods(cfg), cfg.linear_attention
+            win = int(cfg.sliding_window or 0) if cfg.use_sliding_window else 0
+            slices = []
+            for i, kind in enumerate(cfg.layer_types_pattern):
+                stack = params["pattern"][f"p{i}"]
+                if "experts" in stack:
+                    fuse_gate_up(stack["experts"])
+                slices.append(layer_slices(stack, n))
+                if kind == "linear":
+                    self.gdn_state[f"p{i}"] = (
+                        torch.zeros((n, max_batch, la.num_v_heads, la.head_k_dim,
+                                     la.head_v_dim), dtype=torch.float32, device=self.device),
+                        torch.zeros((n, max_batch, la.conv_kernel_size - 1,
+                                     la.conv_channels), dtype=compute_dtype, device=self.device))
+                else:
+                    self._full_base[i] = n * len(self._full_base)
+            self._layers = [(kind, f"p{i}", j, slices[i][j], self._full_base.get(i, 0) + j, win)
+                            for j in range(n) for i, kind in enumerate(cfg.layer_types_pattern)]
+            n_pool = n * len(self._full_base)
+        else:
+            for name, stack in _stacks(model, params):
+                n = stack["input_norm"].shape[0]
+                if "experts" in stack:
+                    fuse_gate_up(stack["experts"])
+                base = len(self._layers)
+                wins = layer_windows(cfg, name, n)
+                self._layers += [("full", None, i, lp, base + i, wins[i])
+                                 for i, lp in enumerate(layer_slices(stack, n))]
+            n_pool = len(self._layers)
         attn = cfg.attention
-        self.cache = PagedKVCache(len(self._layers), num_blocks, block_size,
+        self.cache = PagedKVCache(n_pool, num_blocks, block_size,
                                   attn.num_key_value_heads, attn.head_dim,
                                   dtype=compute_dtype, device=self.device)
         # block 0 is the TRASH block: inactive decode slots have all-zero
@@ -249,7 +312,8 @@ class PagedGenerator:
         self._next_seq = 0
         self._rng = rng if rng is not None else \
             torch.Generator(device=self.device).manual_seed(0)
-        self._group_leader: dict = {}  # group -> (seq_id, last logits)
+        # group -> (seq_id, last logits, routing, a hybrid's state snapshot)
+        self._group_leader: dict = {}
 
     # ---------------- device steps ----------------
     def _decode_step(self, tok, seq_lens, block_table, active, row):
@@ -259,14 +323,18 @@ class PagedGenerator:
         params = self.params
         x = params["embed"]["w"][tok][:, None].to(dtype)
         cos, sin = rope_cos_sin(seq_lens[:, None], _rope_dim(cfg.attention),
-                                cfg.rope_theta, cfg.rope_scaling_cfg,
+                                cfg.rope_theta, text_rope_scaling(cfg.rope_scaling_cfg),
                                 cfg.max_position_embeddings)
         pool_k, pool_v = self.cache.pool_k, self.cache.pool_v
         routings = []
-        for layer, lp, win in self._layers:
-            x, pool_k, pool_v, routing = _paged_layer_decode(
-                lp, cfg, x, cos, sin, pool_k, pool_v, layer, block_table,
-                seq_lens, dtype, win)
+        for kind, key, j, lp, layer, win in self._layers:
+            if kind == "linear":
+                state, conv = self.gdn_state[key]
+                x, routing = _paged_gdn_decode(lp, cfg, x, state[j], conv[j], dtype)
+            else:
+                x, pool_k, pool_v, routing = _paged_layer_decode(
+                    lp, cfg, x, cos, sin, pool_k, pool_v, layer, block_table,
+                    seq_lens, dtype, win)
             if self.record_routing and routing is not None:
                 routings.append(routing[:, -1])
         x = rms_norm(x, params["final_norm"].float(), cfg.rms_norm_eps,
@@ -278,31 +346,56 @@ class PagedGenerator:
         return new_tok, lp, torch.stack(routings, dim=1) if routings else None
 
     def _prefill(self, p_bucket: int, prompt, positions, kv_mask, table,
-                 last_idx: int, row):
+                 last_idx: int, row, slot_idx: int):
         """Dense prefill over a (1, P_bucket) right-padded prompt, then
         scatter the prompt KV into pool blocks (right-pad KV lands past
         seq_len: decode never attends it and the first decoded tokens
-        overwrite it). Returns (tok (1,), logprob (1,), last logits (1, V),
-        the last position's (nL_moe, K) expert ids with `record_routing`,
-        else None)."""
+        overwrite it); a hybrid's linear sub-layers write their post-prompt
+        state into slot `slot_idx`. Returns (tok (1,), logprob (1,), last
+        logits (1, V), the last position's (nL_moe, K) expert ids with
+        `record_routing`, else None, and the hybrid's state snapshot {key:
+        (S (n, Hv, dk, dv), conv (n, K-1, ch))}, else {})."""
         model, dtype, bs = self.model, self.compute_dtype, self.block_size
         n_blocks = -(-p_bucket // bs)
-        caches = init_cache(model, 1, p_bucket, dtype, self.device)
-        logits, caches, routing = _forward_cached(model, self.params, prompt, positions,
-                                                  caches, 0, dtype, kv_mask,
-                                                  self.record_routing)
-        li = 0
-        for ck, cv in caches:
+        snap: dict = {}
+        if self.is_hybrid:
+            caches = model.init_decode_cache(1, p_bucket, dtype, self.device)
+            logits, caches, routing = model.forward_cached(
+                self.params, prompt, positions, caches, 0, dtype, kv_mask,
+                self.record_routing,
+                n_valid=torch.full((1,), last_idx + 1, dtype=torch.int64, device=self.device))
+            full = []
+            for key, (c0, c1) in caches.items():
+                if key in self.gdn_state:
+                    snap[key] = (c0[:, 0], c1[:, 0])
+                    self._set_state(slot_idx, snap[key], key)
+                else:
+                    full.append((self._full_base[int(key[1:])], c0, c1))
+        else:
+            caches = init_cache(model, 1, p_bucket, dtype, self.device)
+            logits, caches, routing = _forward_cached(model, self.params, prompt, positions,
+                                                      caches, 0, dtype, kv_mask,
+                                                      self.record_routing)
+            full, li = [], 0
+            for ck, cv in caches:
+                full.append((li, ck, cv))
+                li += ck.shape[0]
+        for li, ck, cv in full:
             _scatter_blocks(self.cache.pool_k, li, table[:n_blocks],
                             _pack_blocks(ck, n_blocks, bs))
             _scatter_blocks(self.cache.pool_v, li, table[:n_blocks],
                             _pack_blocks(cv, n_blocks, bs))
-            li += ck.shape[0]
         last = logits[:, last_idx]
         tok = _sample_rows(last, self._rng, row, self.cls)
         lp = torch.log_softmax(last, dim=-1).gather(1, tok[:, None])[:, 0]
         rout = None if routing is None else routing[0, last_idx]
-        return tok, lp, last, rout
+        return tok, lp, last, rout, snap
+
+    def _set_state(self, slot_idx: int, snap, key: str) -> None:
+        """Write one linear slot's post-prompt (S, conv) into slot_idx."""
+        state, conv = self.gdn_state[key]
+        state[:, slot_idx] = snap[0]
+        conv[:, slot_idx] = snap[1].to(conv.dtype)
 
     # ---------------- host loop ----------------
     def _admit(self, slot_idx: int, req: dict) -> None:
@@ -325,7 +418,7 @@ class PagedGenerator:
         shared = (leader is not None and leader[0] in self.cache.tables
                   and self.cache.seq_lens[leader[0]] == p_len)
         if shared:
-            leader_seq, leader_logits, rout = leader
+            leader_seq, leader_logits, rout, snap = leader
             # share the block-aligned prefix, copy the ragged tail block
             self.cache.share_prefix(leader_seq, seq_id)
             aligned = self.cache.seq_lens[seq_id]
@@ -336,6 +429,9 @@ class PagedGenerator:
                 self.cache.pool_k[:, dst] = self.cache.pool_k[:, src]
                 self.cache.pool_v[:, dst] = self.cache.pool_v[:, src]
                 self.cache.seq_lens[seq_id] = p_len
+            # the GDN state is not paged: the leader's post-prompt snapshot
+            for key, s in snap.items():
+                self._set_state(slot_idx, s, key)
             # the sibling samples its OWN first token from the leader's
             # last-position logits (no re-prefill)
             tok_a = _sample_rows(leader_logits, self._rng, row1, self.cls)
@@ -354,13 +450,13 @@ class PagedGenerator:
             dev = self.device
             positions = torch.clamp(torch.arange(pb, device=dev), max=p_len - 1)[None]
             kv_mask = (torch.arange(pb, device=dev) < p_len)[None]
-            tok_a, lp_a, last, rout = self._prefill(
+            tok_a, lp_a, last, rout, snap = self._prefill(
                 pb, torch.from_numpy(padded[None]).to(dev), positions, kv_mask,
-                torch.from_numpy(table).to(dev), p_len - 1, row1)
+                torch.from_numpy(table).to(dev), p_len - 1, row1, slot_idx)
             if rout is not None:
                 rout = rout.cpu().numpy()
             if group is not None:
-                self._group_leader[group] = (seq_id, last, rout)
+                self._group_leader[group] = (seq_id, last, rout, snap)
         slot.req = req
         slot.seq_id = seq_id
         slot.remaining = budget - 1  # the sampled first token

@@ -2,13 +2,14 @@
 `xtuner_tpu/model/registry.py`).
 
 The Qwen3 dense and Qwen3-MoE names, "glm-4.5-air", "glm-5.2",
-"deepseek-v3", "gpt-oss-20b" and "gpt-oss-120b"
-(`recipes/sft_glm45_air_head.py` trains GLM-4.5-Air's dense layer and
-first MoE layer; `recipes/sft_glm52_dsa_head.py` and
+"deepseek-v3", "gpt-oss-20b", "gpt-oss-120b" and the hybrid
+"qwen3.5-moe-35b-a3b" (`recipes/sft_glm45_air_head.py` trains GLM-4.5-Air's
+dense layer and first MoE layer; `recipes/sft_glm52_dsa_head.py` and
 `recipes/sft_deepseek_v3_mla_head.py` the other two's dense heads;
-`PagedGenerator` serves gpt-oss-20b whole).
-Qwen2, the other MoE families, VLM and hybrid presets and loading an HF
-checkpoint directory are not ported yet (ROADMAP items [moe], [serve-rest]).
+`PagedGenerator` serves gpt-oss-20b and Qwen3.5-35B-A3B whole).
+Qwen2, the other MoE families, the VLM presets and loading an HF
+checkpoint directory are not ported yet (ROADMAP items [moe], [vlm],
+[serve-rest]).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from __future__ import annotations
 from typing import Callable
 
 from .. import not_ported
-from . import deepseek, glm, gpt_oss, moe, qwen
+from . import deepseek, glm, gpt_oss, hybrid, moe, qwen
 
 model_mapping: dict[str, Callable] = {
     "qwen3-0-6b": qwen.qwen3_0_6b,
@@ -29,6 +30,7 @@ model_mapping: dict[str, Callable] = {
     "deepseek-v3": deepseek.deepseek_v3,
     "gpt-oss-20b": gpt_oss.gpt_oss_20b,
     "gpt-oss-120b": gpt_oss.gpt_oss_120b,
+    "qwen3.5-moe-35b-a3b": hybrid.qwen3_5_moe_35b_a3b,
 }
 
 

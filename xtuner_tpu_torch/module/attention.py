@@ -18,13 +18,23 @@ GPT-OSS sinks (JAX `mha_cached_forward`'s mask and sink softmax) passed to
 it. Query rows at padding get zeros there where the JAX einsum gives
 unused values; real rows agree.
 
+Gated attention (`with_gate`, Qwen3.5 / Qwen3-Next): `q_proj` emits each
+head's q and its output gate side by side, (q_h | gate_h) per head, as JAX
+reshapes it to (B, L, Hq, 2D) and splits the last axis; the attention
+output is multiplied by sigmoid(gate) (taken in f32, cast to the output's
+dtype, as JAX does) before `o_proj`. `project_qkv` returns the gate,
+`mha_out` and `mha_cached_forward` apply it, and so does the paged
+engine's decode layer.
+
 The training projections run in fp8 when the model's `float8_cfg` is
 enabled (`module/mlp.py::linear` -> `ops/float8.py::fp8_matmul`), as JAX's
 `lora_linear` does; the serving prefill stays in the compute dtype, as in
 JAX.
 
 Not ported yet: a non-zero `cache_len` (chunked prefill and the dense
-decode engine) and output gating ([serve-rest]) and LoRA ([lora]).
+decode engine, [serve-rest]), LoRA ([lora]), and gated attention in the
+training forward (`mha_qkv` raises: the training layers carry no gate to
+`mha_out`; [hybrid]).
 """
 
 from __future__ import annotations
@@ -69,11 +79,6 @@ class MHAConfig:
     def kv_dim(self) -> int:
         return self.num_key_value_heads * self.head_dim
 
-    def check_ported(self) -> None:
-        """Raise for the variants the port does not run yet."""
-        if self.with_gate:
-            raise not_ported("gated attention (with_gate)", "serve-rest")
-
 
 def mha_param_specs(cfg: MHAConfig, hidden_size: int, init_scale: float = 0.02) -> dict:
     q_out = cfg.q_dim() * (2 if cfg.with_gate else 1)
@@ -109,10 +114,17 @@ def apply_partial_rotary(q, k, cos, sin, rope_dim: int):
 
 def project_qkv(p: dict, cfg: MHAConfig, x, cos, sin, fp8_cfg=None):
     """Projections, qk-norm and rope: x (B, C, H) -> q (B, C, Hq, D),
-    k, v (B, C, Hkv, D), in x's dtype."""
-    cfg.check_ported()
+    k, v (B, C, Hkv, D), in x's dtype, and the output gate (B, C, Hq, D)
+    with `with_gate` (else None)."""
     b, c, _ = x.shape
-    q = linear(x, p["q_proj"], fp8_cfg).reshape(b, c, cfg.num_attention_heads, cfg.head_dim)
+    gate = None
+    if cfg.with_gate:  # (q_h | gate_h) per head
+        qg = linear(x, p["q_proj"], fp8_cfg).reshape(b, c, cfg.num_attention_heads,
+                                                      2 * cfg.head_dim)
+        q, gate = qg[..., :cfg.head_dim], qg[..., cfg.head_dim:]
+    else:
+        q = linear(x, p["q_proj"], fp8_cfg).reshape(b, c, cfg.num_attention_heads,
+                                                    cfg.head_dim)
     k = linear(x, p["k_proj"], fp8_cfg).reshape(b, c, cfg.num_key_value_heads, cfg.head_dim)
     v = linear(x, p["v_proj"], fp8_cfg).reshape(b, c, cfg.num_key_value_heads, cfg.head_dim)
     if cfg.qk_norm:
@@ -120,7 +132,15 @@ def project_qkv(p: dict, cfg: MHAConfig, x, cos, sin, fp8_cfg=None):
         q = rms_norm(q, p["q_norm"], cfg.rms_norm_eps, zc)
         k = rms_norm(k, p["k_norm"], cfg.rms_norm_eps, zc)
     q, k = apply_partial_rotary(q, k, cos, sin, cfg.rope_dim)
-    return q, k, v
+    return q, k, v, gate
+
+
+def apply_gate(o, gate):
+    """o (B, C, Hq D) times sigmoid(gate (B, C, Hq, D)), the sigmoid in f32
+    cast to o's dtype (JAX `mha_forward`); o itself without a gate."""
+    if gate is None:
+        return o
+    return o * torch.sigmoid(gate.float()).to(o.dtype).reshape(o.shape)
 
 
 def mha_qkv(p: dict, cfg: MHAConfig, x, cos, sin, lora_scaling: float = 1.0, fp8_cfg=None):
@@ -131,7 +151,9 @@ def mha_qkv(p: dict, cfg: MHAConfig, x, cos, sin, lora_scaling: float = 1.0, fp8
     differentiates, as JAX `mha_forward` passes them."""
     if lora_scaling != 1.0 or any(k.startswith("lora") for k in p["q_proj"]):
         raise not_ported("LoRA projections", "lora")
-    q, k, v = project_qkv(p, cfg, x, cos, sin, fp8_cfg)
+    if cfg.with_gate:
+        raise not_ported("gated attention in the training forward", "hybrid")
+    q, k, v, _ = project_qkv(p, cfg, x, cos, sin, fp8_cfg)
     max_logit = None
     if cfg.qk_norm:
         # provable |scaled logit| bound: normed rows have ||x|| = sqrt(d), so
@@ -145,10 +167,11 @@ def mha_qkv(p: dict, cfg: MHAConfig, x, cos, sin, lora_scaling: float = 1.0, fp8
     return q.contiguous(), k.contiguous(), v.contiguous(), max_logit, sinks
 
 
-def mha_out(p: dict, cfg: MHAConfig, o, fp8_cfg=None):
-    """o (B, L, Hq, D) -> the output projection (B, L, hidden)."""
+def mha_out(p: dict, cfg: MHAConfig, o, fp8_cfg=None, gate=None):
+    """o (B, L, Hq, D) -> the output projection (B, L, hidden), after the
+    output gate (`project_qkv`'s, with `with_gate`)."""
     b, l = o.shape[:2]
-    return linear(o.reshape(b, l, cfg.q_dim()), p["o_proj"], fp8_cfg)
+    return linear(apply_gate(o.reshape(b, l, cfg.q_dim()), gate), p["o_proj"], fp8_cfg)
 
 
 def mha_cached_forward(p: dict, cfg: MHAConfig, x, cos, sin, cache_k, cache_v,
@@ -164,7 +187,7 @@ def mha_cached_forward(p: dict, cfg: MHAConfig, x, cos, sin, cache_k, cache_v,
         raise not_ported("attention over a non-empty dense cache (cache_len > 0)",
                          "serve-rest")
     b, c, _ = x.shape
-    q, k, v = project_qkv(p, cfg, x, cos, sin)
+    q, k, v, gate = project_qkv(p, cfg, x, cos, sin)
     cache_k[:, :c] = k
     cache_v[:, :c] = v
     if kv_mask is None:
@@ -177,5 +200,4 @@ def mha_cached_forward(p: dict, cfg: MHAConfig, x, cos, sin, cache_k, cache_v,
                            v.to(cache_v.dtype), seg, scale=cfg.head_dim ** -0.5,
                            window=window if window and window > 0 else None,
                            sinks=p.get("sinks"))
-    o = o.to(x.dtype).reshape(b, c, cfg.q_dim())
-    return linear(o, p["o_proj"]), cache_k, cache_v
+    return mha_out(p, cfg, o.to(x.dtype), gate=gate), cache_k, cache_v

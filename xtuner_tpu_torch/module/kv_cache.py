@@ -57,8 +57,7 @@ class PagedKVCache:
     """
 
     def __init__(self, n_layers: int, num_blocks: int, block_size: int,
-                 num_kv_heads: int, head_dim: int, dtype=torch.bfloat16,
-                 device="cpu"):
+                 num_kv_heads: int, head_dim: int, dtype, device):
         self.block_size = block_size
         self.allocator = PagedAllocator(num_blocks, block_size)
         shape = (n_layers, num_blocks, block_size, num_kv_heads, head_dim)

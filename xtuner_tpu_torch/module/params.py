@@ -90,7 +90,9 @@ def params_from_numpy(np_tree, cfg, device, dtype=torch.float32):
     of a dense model; `dense_layers` and `moe_layers` of an MoE model, with
     `router.w` (H, E) and `experts.{gate,up,down}_proj` (E, in, out); an
     attention's optional q/k/v/o biases `b` and per-head `sinks`, as
-    gpt-oss has them); linear weights are (in, out). Raises ValueError naming the first path
+    gpt-oss has them; a hybrid's `pattern.p{i}` stacks, one per pattern
+    slot with a leading dim of periods, GatedDeltaNet or attention and its
+    MLP or MoE block); linear weights are (in, out). Raises ValueError naming the first path
     that differs."""
     specs = dict(tree_paths(cfg.build().param_specs()))
     got = dict(tree_paths(np_tree))

@@ -7,7 +7,8 @@ and sin by the type's attention scaling, as JAX does.
 
 Not ported yet: Qwen3-VL's interleaved MRoPE (`qwen3_vl`, built from 3-D
 positions) and FoPE's learned Fourier mixing (`use_fope`): both raise
-([vlm]).
+([vlm]). The serving engines read a qwen3_vl config as plain rope over
+text positions, as JAX's do (`text_rope_scaling`).
 """
 
 from __future__ import annotations
@@ -52,6 +53,17 @@ class RopeScalingConfig:
     def __post_init__(self):
         if self.rope_type not in ROPE_TYPES:
             raise ValueError(f"rope_type {self.rope_type!r} not in {ROPE_TYPES}")
+
+
+def text_rope_scaling(scaling: Optional[RopeScalingConfig]) -> Optional[RopeScalingConfig]:
+    """The scaling the serving engines' rope takes: JAX's `rope_cos_sin`
+    gives the qwen3_vl type the default frequencies (its interleaved MRoPE
+    lives only in the training forward's `model_rope_cos_sin`, and with
+    text positions on all three axes it is the plain rope), so it maps to
+    None; every other scaling is kept."""
+    if scaling is not None and scaling.rope_type == "qwen3_vl" and not scaling.use_fope:
+        return None
+    return scaling
 
 
 def _rope_dim(attn_cfg) -> int:

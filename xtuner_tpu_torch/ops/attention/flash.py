@@ -17,7 +17,10 @@ pass that gives dq, dk and dv together, at MLA's q/k dim 192 and v dim 128
 a dq kernel and a dk/dv kernel) or raises, and runs the plain PyTorch
 version beside it on a CPU tensor. v, out and do have the v head dim Dv,
 which may differ from q and k's D: the forward kernel takes (D, Dv) in
-`KERNEL_DIMS`, the backward kernels in `BWD_KERNEL_DIMS`.
+`KERNEL_DIMS`, the backward kernels in `BWD_KERNEL_DIMS`. At (256, 256),
+Qwen3.5's gated attention, the forward walks 64-key tiles (`fwd_key_tile`;
+O of 64 rows x 256 fills half a thread's registers) and there is no
+backward kernel yet ([hybrid]).
 
 A sliding window (`window`: key m visible to query l only if l - m <
 window) and per-head sinks (`sinks`, (Hq,): a logit that joins each row's
@@ -63,7 +66,7 @@ from .reference import make_attention_mask
 
 NEG_INF = -1e30
 BIG_LSE = 1e30  # lse sentinel for rows that see no key (padding)
-KERNEL_DIMS = ((128, 128), (192, 128), (64, 64))  # the (D, Dv) pairs the forward takes
+KERNEL_DIMS = ((128, 128), (192, 128), (64, 64), (256, 256))  # the (D, Dv) pairs the forward takes
 BWD_KERNEL_DIMS = ((128, 128), (192, 128), (64, 64))  # and the backward
 ONE_PASS_DIMS = (128, 128)  # the backward pair that runs the one pass (no window)
 # |scaled logit| bound at or below which the max-free forward is exact in
@@ -251,6 +254,13 @@ def reset_launches() -> None:
 
 KEY_TILE = 128  # key rows of a backward CTA and q/k rows of a forward tile; Lp pads L to it
 TILE_ROWS = 64  # rows of one entry of the tile table (the backward's q tile)
+WIDE_DIMS = (256, 256)  # the forward pair that walks 64-key tiles (O of 64 x 256 in registers)
+
+
+def fwd_key_tile(d: int, dv: int) -> int:
+    """Key rows of one k tile of the forward kernel at (D, Dv): 128, or 64
+    at (256, 256), where a 128-key S tile would not fit beside O."""
+    return TILE_ROWS if (d, dv) == WIDE_DIMS else KEY_TILE
 
 
 def _tile_table(seg_p: torch.Tensor) -> torch.Tensor:
@@ -264,32 +274,39 @@ def _tile_table(seg_p: torch.Tensor) -> torch.Tensor:
     return torch.stack([lo, hi, uni, torch.zeros_like(hi)], dim=-1).contiguous()
 
 
-def fwd_tile_plan(segment_ids: torch.Tensor,
-                  window: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
+def fwd_tile_plan(segment_ids: torch.Tensor, window: Optional[int] = None,
+                  key_tile: int = KEY_TILE) -> tuple[torch.Tensor, torch.Tensor]:
     """Which k tiles the forward kernel walks for each q tile, from the
     padded segment ids and their tile table, which the kernel builds the
     same way (for counts and tests only; nothing computes attention from
-    it). Tiles are KEY_TILE rows. Returns (walk, full), (B, nt, nt) bool
-    over (q tile i, k tile j): walked iff j <= i, the k tile's segment
-    range meets the q tile's and, with a `window`, its last key is inside
-    the window of the q tile's first row; full (no per-element mask, JAX
-    `_tile_full`) iff walked, j < i, both tiles hold one and the same
-    document and no padding, and, with a window, every pair is inside it."""
+    it). q tiles are KEY_TILE rows, k tiles `key_tile` rows (KEY_TILE, or
+    64 at (256, 256): `fwd_key_tile`). Returns (walk, full), (B, nq, nk)
+    bool over (q tile i, k tile j): walked iff the k tile starts at or
+    before the q tile's last row, its segment range meets the q tile's
+    and, with a `window`, its last key is inside the window of the q
+    tile's first row; full (no per-element mask, JAX `_tile_full`) iff
+    walked, the k tile ends before the q tile starts, both tiles hold one
+    and the same document and no padding, and, with a window, every pair
+    is inside it."""
     pad = -segment_ids.shape[1] % KEY_TILE
     t = _tile_table(torch.nn.functional.pad(segment_ids, (0, pad)))
     b = t.shape[0]
-    t = t.view(b, -1, 2, 4)
-    lo, hi = t[..., 0].amin(-1), t[..., 1].amax(-1)
-    uni = torch.where(t[:, :, 0, 2] == t[:, :, 1, 2], t[:, :, 0, 2], torch.zeros_like(lo))
-    n = lo.shape[1]
-    idx = torch.arange(n, device=lo.device)
-    causal = idx[None, :, None] >= idx[None, None, :]  # (1, i, j)
-    walk = causal & (hi[:, None, :] >= lo[:, :, None]) & (lo[:, None, :] <= hi[:, :, None])
-    full = walk & (idx[None, :, None] > idx[None, None, :]) & (uni[:, None, :] != 0) \
-        & (uni[:, None, :] == uni[:, :, None])
+    qt = t.view(b, -1, 2, 4)
+    lo, hi = qt[..., 0].amin(-1), qt[..., 1].amax(-1)
+    uni = torch.where(qt[:, :, 0, 2] == qt[:, :, 1, 2], qt[:, :, 0, 2], torch.zeros_like(lo))
+    kt = t.view(b, -1, key_tile // TILE_ROWS, 4)
+    klo, khi = kt[..., 0].amin(-1), kt[..., 1].amax(-1)
+    kuni = torch.where(kt[..., 2].amin(-1) == kt[..., 2].amax(-1), kt[:, :, 0, 2],
+                       torch.zeros_like(klo))
+    dev = lo.device
+    q0 = KEY_TILE * torch.arange(lo.shape[1], device=dev)[None, :, None]
+    k0 = key_tile * torch.arange(klo.shape[1], device=dev)[None, None, :]
+    causal = k0 <= q0 + KEY_TILE - 1  # (1, i, j)
+    walk = causal & (khi[:, None, :] >= lo[:, :, None]) & (klo[:, None, :] <= hi[:, :, None])
+    full = walk & (k0 + key_tile <= q0) & (kuni[:, None, :] != 0) \
+        & (kuni[:, None, :] == uni[:, :, None])
     if window:
-        q0, k0 = KEY_TILE * idx[None, :, None], KEY_TILE * idx[None, None, :]
-        walk = walk & (k0 + KEY_TILE - 1 > q0 - window)  # the last key vs the first row
+        walk = walk & (k0 + key_tile - 1 > q0 - window)  # the last key vs the first row
         full = full & (q0 + KEY_TILE - 1 - k0 < window)  # the last row vs the first key
     return walk, full
 

@@ -3,7 +3,7 @@
 
 `paged_decode_attn` has the signature of the JAX `paged_decode_attn` and
 returns f32. On a CUDA tensor it launches the hand-written Hopper kernel
-`csrc/paged_decode.cu` (head dim 64 or 128) or raises; on a CPU tensor it
+`csrc/paged_decode.cu` (head dim 64, 128 or 256) or raises; on a CPU tensor it
 runs `paged_decode_attn_plain`, the gather-based plain version beside it
 (the same math as the JAX engine's gather path, `paged_generate.py:345-402`).
 
@@ -35,7 +35,7 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)  # the head dims the kernel takes
+HEAD_DIMS = (64, 128, 256)  # the head dims the kernel takes
 MAX_ROWS = 16  # C * (Hq / Hkv) query rows per CTA: one m16 tile
 MAX_BLOCK = 256  # pool block size bound (a TMA box has at most 256 rows)
 SPLIT_CTAS_PER_SM = 2  # the split plan's aim, were every table full
