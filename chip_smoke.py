@@ -5,8 +5,8 @@ its MoE SFT train step, its SFT entry point (in bf16, in tile-wise fp8 and
 with both kernel switches), bench.py's longctx_64k row, GLM-5.2's DSA head,
 DeepSeek-V3's MLA head, GLM-4.5-Air's noaux-routed MoE head, moe_heavy
 with MTP, gpt-oss-20b's two-layer head in training (with rollout-routing
-replay) and Qwen3.5-35B-A3B's first period in training, once on one
-NVIDIA card.
+replay), Qwen3.5-35B-A3B's first period in training and Qwen3-VL-4B whole
+in training, once on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--breakdown]
 
@@ -225,7 +225,27 @@ exits non-zero with no result line:
    bound on the visible pairs; the grouped GEMMs (#6 nn and nt, #7) at
    E256 H2048 F512 on M = 8192 x top-8 rows from the softmax router's own
    route, beside `torch._grouped_mm`;
-23. gpt_oss_profile: gpt-oss-20b's engine made again, then torch.profiler
+23. vlm_train: `recipes/sft_qwen3_vl_4b.py` (Qwen3-VL-4B whole, 4.438 B
+   params: a 24-block tower of 16 heads of 64 with deepstack, the merger
+   and 3 deepstack mergers, 36 text layers under interleaved MRoPE, a tied
+   vocab) through `Trainer.fit`, 4 steps on the recipe's own rows (8192
+   tokens, 32,768 patch rows: ~8 images of 512 x 512 to 1024 x 1024), no
+   final save: CE, grad norm, step ms, supervised tokens/s, each step's
+   peak memory and its row's documents, images, patches and image tokens,
+   beside the card's name and power limit; a falling CE; the exact
+   launches (per step #1 causal at 128/128 72, non-causal at 64/64 48;
+   #2 + #3 causal 36, non-causal 24); the tower's forward and backward
+   alone (ms, launches, busy share); one profiled step (the vision blocks,
+   the text layers' pieces, the flash kernels and AdamW apart); 1 step
+   under `XTUNER_ATTN_BWD=two_pass` (#2 + #4 in both), its CE within 2e-2
+   of the first run's;
+24. vlm_kernels: #1-#4 non-causal at (64, 64), 16 q over 16 kv heads, on
+   the recipe's vision row (P32768, the plain versions in 1024-row chunks)
+   and on segments of 1, 100 and 4097 patches (P4198): errors, two
+   backward launches the same bits, padding rows zero, the forward's walk
+   against `fwd_tile_plan(causal=False)`, times, the bound on the visible
+   pairs, and SDPA with the block-diagonal mask as a dense mask;
+25. gpt_oss_profile: gpt-oss-20b's engine made again, then torch.profiler
    windows of 4 prefills of 1000 tokens and of 16 decode steps (device
    time by kind: #5, the port's other kernels, cuBLAS, the rest). Last,
    since a profiler window slows every later host launch.
@@ -451,6 +471,20 @@ QWEN_TRAIN_STEPS = 4
 QWEN_TRAIN_PARAMS = 4_381_469_760
 QWEN_TRAIN_LOSS1 = (13.3, 14.8)
 QWEN_REPLAY_ATOL = 2e-2
+# vlm_train phase (recipes/sft_qwen3_vl_4b.py through Trainer.fit):
+# Qwen3-VL-4B whole. Step-1 CE of a random model is ln(V) + sigma^2 / 2 for
+# logits of std 0.02 x sqrt(2560) (the tied embedding against an rms-1
+# final norm): 11.93 + 0.51 = 12.44. Per step the 36 text layers run #1
+# (causal, 128/128, max-free under qk-norm) twice (remat "full") and the
+# backward once; the 24 vision blocks #1 non-causal at 64/64 (the running
+# max: no bound) twice and its backward once
+VLM_RECIPE = "xtuner_tpu_torch/recipes/sft_qwen3_vl_4b.py"
+VLM_STEPS = 4
+VLM_PARAMS = 4_437_815_808
+VLM_LOSS1 = (11.6, 13.4)
+VLM_TEXT_LAYERS, VLM_BLOCKS = 36, 24
+VLM_HQ, VLM_D = 16, 64  # the tower's heads (no GQA) and head dim
+VLM_ODD = [1, 100, 4097]  # vlm_kernels' odd row: P = 4198, not a multiple of 128
 # the times of the WMMA, mma.sync and CUDA-core kernels that #8's, #16's,
 # #12's, #13's, #5's and #11's redesigns replaced, as PERF.md §6 records them
 # (chip_smoke.py runs, NVIDIA H100 80GB HBM3, 700.00 W), printed beside the
@@ -536,28 +570,32 @@ def phase_build() -> None:
     # 128/128, and the split dq <D, Dv, window> and dk/dv <D, Dv, two_pass,
     # window> at 192/128 and 64/64
     lib = cuda_lib.load()
-    flash = {r"flash_fwd(?:64)?_kernelILi(\d+)ELi(\d+)E": "fwd",
+    flash = {r"flash_fwd(?:64)?_kernelILi(\d+)ELi(\d+)E(?:Lb(\d)E)?": "fwd",
              r"flash_bwd_kernelILb(\d)E": "bwd",
-             r"flash_dq_kernelILi(\d+)ELi(\d+)ELb(\d)E": "dq",
-             r"flash_dkv_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E": "dkv"}
+             r"flash_dq_kernelILi(\d+)ELi(\d+)ELb(\d)E(?:Lb(\d)E)?": "dq",
+             r"flash_dkv_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E(?:Lb(\d)E)?": "dkv"}
     for i, ln in enumerate(ptxas):
         for pattern, kind in flash.items():
             m = re.search(pattern, ln) if ln.startswith("kernel") else None
             if m is None:
                 continue
-            g = [int(x) for x in m.groups()]
+            g = [None if x is None else int(x) for x in m.groups()]
+            # the split kernels' and the forward's last template flag, CAUSAL
+            # (absent at 256/256's forward): 0 for the non-causal instantiations
+            causal = g.pop() if kind != "bwd" else None
+            nc = ", non-causal" if causal == 0 else ""
             if kind == "fwd":  # flash_fwd64_kernel at (256, 256): 64-key tiles
                 kern = "flash_fwd64_kernel" if "fwd64" in ln else "flash_fwd_kernel"
-                name, smem = f"{kern}<{g[0]}, {g[1]}>", lib.xt_flash_fwd_smem_bytes(*g)
+                name, smem = f"{kern}<{g[0]}, {g[1]}{nc}>", lib.xt_flash_fwd_smem_bytes(*g)
             elif kind == "bwd":
                 name = f"flash_bwd_kernel<{'two_pass' if g[0] else 'grouped'}>"
                 smem = lib.xt_flash_bwd_smem_bytes(0, 128, 128)
             elif kind == "dq":
-                name = f"flash_dq_kernel<{g[0]}, {g[1]}{', window' if g[2] else ''}>"
+                name = f"flash_dq_kernel<{g[0]}, {g[1]}{', window' if g[2] else ''}{nc}>"
                 smem = lib.xt_flash_bwd_smem_bytes(1, g[0], g[1])
             else:
                 name = (f"flash_dkv_kernel<{g[0]}, {g[1]}, {'two_pass' if g[2] else 'grouped'}"
-                        f"{', window' if g[3] else ''}>")
+                        f"{', window' if g[3] else ''}{nc}>")
                 smem = lib.xt_flash_bwd_smem_bytes(2, g[0], g[1])
             after = ptxas[i + 1:i + 3]
             say("build", kernel=name, smem_bytes=smem,
@@ -3002,12 +3040,13 @@ def _rel_rows(got, want, chunk: int = PLAIN_CHUNK) -> float:
 
 
 def flash_plain_chunked(torch, q, k, v, seg, lse, delta, do, scale: float, want: str,
-                        chunk: int = PLAIN_CHUNK):
-    """The plain flash forward or backward of one packed row (B = 1, every
-    row sees a key) at a length whose (L, L) scores do not fit the card:
-    the same f32 math as the plain versions in `ops/attention/flash.py`,
-    over q rows in chunks of `chunk`, each against the keys up to its last
-    row (a (Hq, chunk, L) f32 slab at most: 4.3 GB at Hq16 L65536).
+                        chunk: int = PLAIN_CHUNK, causal: bool = True):
+    """The plain flash forward or backward of one packed row (B = 1) at a
+    length whose (L, L) scores do not fit the card: the same f32 math as
+    the plain versions in `ops/attention/flash.py`, over q rows in chunks
+    of `chunk`, each against the keys up to its last row (all keys when
+    not `causal`; a (Hq, chunk, L) f32 slab at most: 4.3 GB at Hq16
+    L65536). A row that sees no key (padding) gets out 0 and lse 1e30.
 
     want "fwd": (out, lse) (Hq, L, Dv) and (Hq, L); "dq": dq (Hq, L, D) from
     the given lse and delta (B, Hq, L), the dq kernel's inputs; "dkv":
@@ -3025,22 +3064,26 @@ def flash_plain_chunked(torch, q, k, v, seg, lse, delta, do, scale: float, want:
     lse_out = torch.empty((hq, l), device=q.device)
     for r0 in range(0, l, chunk):
         r1 = min(r0 + chunk, l)
-        rows = slice(r0, r1)
-        s = torch.matmul(qs[:, rows], ks[:, :r1].transpose(1, 2)).mul_(scale)  # (Hq, r, m)
-        mask = (pos[None, :r1] <= pos[rows, None]) & (sg[None, :r1] == sg[rows, None])
+        rows, m1 = slice(r0, r1), r1 if causal else l
+        s = torch.matmul(qs[:, rows], ks[:, :m1].transpose(1, 2)).mul_(scale)  # (Hq, r, m)
+        mask = (sg[None, :m1] == sg[rows, None]) & (sg[rows, None] != 0)
+        if causal:
+            mask &= pos[None, :m1] <= pos[rows, None]
         if want == "fwd":
             s.masked_fill_(~mask, float("-inf"))
-            lse_out[:, rows] = torch.logsumexp(s, dim=-1)
-            res[0][:, rows] = torch.matmul(s.sub_(lse_out[:, rows, None]).exp_(), vs[:, :r1])
+            lse_r = torch.logsumexp(s, dim=-1)
+            lse_r = torch.where(torch.isfinite(lse_r), lse_r, torch.full_like(lse_r, 1e30))
+            lse_out[:, rows] = lse_r
+            res[0][:, rows] = torch.matmul(s.sub_(lse_r[..., None]).exp_(), vs[:, :m1])
             continue
         p = s.sub_(lse[0][:, rows, None]).exp_().masked_fill_(~mask, 0.0)
-        ds = torch.matmul(dos[:, rows], vs[:, :r1].transpose(1, 2))
+        ds = torch.matmul(dos[:, rows], vs[:, :m1].transpose(1, 2))
         ds.sub_(delta[0][:, rows, None]).mul_(p)
         if want == "dq":
-            res[0][:, rows] = torch.matmul(ds, ks[:, :r1]).mul_(scale)
+            res[0][:, rows] = torch.matmul(ds, ks[:, :m1]).mul_(scale)
         else:
-            res[0][:, :r1] += torch.matmul(ds.transpose(1, 2), qs[:, rows]).mul_(scale)
-            res[1][:, :r1] += torch.matmul(p.transpose(1, 2), dos[:, rows])
+            res[0][:, :m1] += torch.matmul(ds.transpose(1, 2), qs[:, rows]).mul_(scale)
+            res[1][:, :m1] += torch.matmul(p.transpose(1, 2), dos[:, rows])
         del s, p, ds
     if want == "fwd":
         return res[0], lse_out
@@ -4851,6 +4894,329 @@ def phase_qwen35_train_kernels(torch, seed: int, smi: str, recipe_seg) -> list[d
     return rows
 
 
+def noncausal_pairs(torch, seg) -> int:
+    """(query, key) pairs inside the segments, both ways (segment 0,
+    padding, excluded): what non-causal attention computes."""
+    total = 0
+    for row in seg.cpu():
+        ids, counts = torch.unique_consecutive(row, return_counts=True)
+        total += sum(n * n for i, n in zip(ids.tolist(), counts.tolist()) if i)
+    return total
+
+
+def phase_vlm_train(torch, seed: int, smi: str) -> tuple[dict, dict, object]:
+    """Qwen3-VL-4B whole (`recipes/sft_qwen3_vl_4b.py`, 4.438 B params: a
+    24-block tower of 16 heads of 64 with deepstack after blocks 5, 11 and
+    17, the merger and 3 deepstack mergers, 36 text layers of 32/8 heads of
+    128 under interleaved MRoPE, a tied vocab of 151,936) through
+    `Trainer.fit`: 4 steps on the recipe's own rows (8192 tokens, 32,768
+    patch rows), no final save (`fit_recipe`). Per step CE, grad norm, step
+    ms, supervised tokens/s, peak memory beside the card's name and power
+    limit, and the row's documents, images, patches and tokens; CE finite
+    and falling; the exact launches (per step the text layers' #1 72 times
+    and #2 + #3 36, the tower's non-causal #1 48 and #2 + #3 24). Then the
+    vision tower's forward and backward alone at the recipe's first row
+    (ms), one profiled step (the vision blocks, the text layers' pieces,
+    the flash kernels and AdamW apart), and the recipe for 1 step under
+    `XTUNER_ATTN_BWD=two_pass` (#2 + #4 in both), its step-1 CE within
+    SWITCHED_LOSS_ATOL of the first run's. Returns both runs' launches and
+    the vision segment ids (1, P) of the first row."""
+    from unittest import mock
+
+    from xtuner_tpu_torch.data_proto import SequenceContext
+    from xtuner_tpu_torch.engine.train_engine import VLM_BATCH_KEYS, TrainEngine
+    from xtuner_tpu_torch.model import qwen3_vl
+    from xtuner_tpu_torch.module.params import count_params
+    from xtuner_tpu_torch.ops.attention import flash as fl
+
+    rows, batches = [], []
+    step = TrainEngine.train_step
+
+    def spy(self, batch, i):  # the row each step trains on, and the step's own peak
+        vseg = batch["vision_segment_ids"][0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = step(self, batch, i)
+        rows.append({"docs": int(batch["segment_ids"].max()), "images": int(vseg.max()),
+                     "patches": int((vseg != 0).sum()),
+                     "image_tokens": int(batch["image_token_mask"].sum()),
+                     "tokens": int((batch["segment_ids"] != 0).sum()),
+                     "step_peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        if not batches:
+            batches.append(batch)
+        return out
+
+    with mock.patch.object(TrainEngine, "train_step", spy):
+        trainer, recs, launches, peak, wall = fit_recipe(torch, VLM_RECIPE)
+    cfg = trainer.cfg.model_cfg
+    v, t, dl = cfg.vision_cfg, cfg.text_cfg, trainer.cfg.dataloader_cfg
+    eng = trainer.engine
+    n = eng.num_params
+    batch = batches[0]
+    trainer.dataloader.close()
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+    say("vlm_train", recipe=VLM_RECIPE, params=n, cut="none",
+        state_gb=f"{16 * n / 1e9:.1f}",
+        vision=f"{v.depth}x{v.hidden_size} {v.num_attention_heads}x{v.head_dim} "
+               f"mlp {v.intermediate_size} {v.hidden_act}",
+        deepstack=v.deepstack_visual_indexes,
+        text=f"{t.num_hidden_layers}x{t.hidden_size} {t.attention.num_attention_heads}/"
+             f"{t.attention.num_key_value_heads}x{t.attention.head_dim} mlp "
+             f"{t.intermediate_size}", vocab=t.vocab_size, tied=t.tie_word_embeddings,
+        rope=t.rope_scaling_cfg.rope_type, mrope_section=t.rope_scaling_cfg.mrope_section,
+        pack=dl.pack_max_length, max_patches=dl.max_patches, ce=t.lm_loss_cfg.mode,
+        remat=eng.remat, wall_s=f"{wall:.3f}", save="skipped")
+    for r, row in zip(recs, rows):
+        say("vlm_train", step=r["step"], loss=f"{r['reduced_llm_loss']:.5f}",
+            grad_norm=f"{r['grad_norm']:.5f}", lr=f"{r['lr']:.3e}",
+            tokens=int(r["consumed_tokens"]), step_ms=f"{1e3 * r['step_time']:.1f}",
+            tgs=f"{r['tgs']:.1f}", skipped=int(r["skipped"]),
+            step_peak_gib=f"{row['step_peak_gib']:.3f}", docs=row["docs"],
+            images=row["images"], patches=row["patches"], image_tokens=row["image_tokens"],
+            row_tokens=row["tokens"], card=repr(smi))
+    steady = recs[1:]
+    step_s = sum(r["step_time"] for r in steady) / len(steady)
+    tokens = sum(r["consumed_tokens"] for r in steady) / len(steady)
+    step_want = dict(flash_bwd=VLM_TEXT_LAYERS, flash_fwd_noncausal=2 * VLM_BLOCKS,
+                     flash_bwd_noncausal=VLM_BLOCKS)
+    want = {name: 0 for name in launches}
+    want.update({k_: VLM_STEPS * v_ for k_, v_ in step_want.items()})
+    fwd = launches["flash_fwd"] + launches["flash_fwd_max_free"]  # the text layers' #1
+    got = {k_: v_ for k_, v_ in launches.items() if k_ not in ("flash_fwd", "flash_fwd_max_free")}
+    want_rest = {k_: v_ for k_, v_ in want.items() if k_ in got}
+    say("vlm_train", launches={k_: v_ for k_, v_ in launches.items() if v_ or want[k_]},
+        expected={**{k_: v_ for k_, v_ in want_rest.items() if v_},
+                  "flash_fwd causal (either variant)": 2 * VLM_TEXT_LAYERS * VLM_STEPS},
+        steady_step_ms=f"{1e3 * step_s:.1f}", steady_tgs=f"{tokens / step_s:.1f}",
+        pack_positions_s=f"{dl.pack_max_length / step_s:.1f}", peak_gib=f"{peak:.3f}",
+        card_gib=f"{card_gib:.3f}", card=repr(smi))
+    losses = check_fit("vlm_train", recs, VLM_STEPS, VLM_LOSS1)
+    if n != VLM_PARAMS or n != count_params(cfg.build().param_specs()):
+        raise AssertionError(f"{n} params, not the recipe's {VLM_PARAMS}")
+    if got != want_rest or fwd != 2 * VLM_TEXT_LAYERS * VLM_STEPS:
+        raise AssertionError(f"kernel launches {launches} != what {VLM_STEPS} steps imply "
+                             f"{want} (causal flash forward {2 * VLM_TEXT_LAYERS * VLM_STEPS})")
+    if not peak < card_gib:
+        raise AssertionError(f"peak {peak:.3f} GiB >= the card's {card_gib:.3f}")
+    if any(r["image_tokens"] * 4 != r["patches"] or r["patches"] > dl.max_patches
+           for r in rows):
+        raise AssertionError(f"a row's image tokens and patches disagree: {rows}")
+
+    # ---- the tower alone, forward and backward, at the first row
+    dev = torch.device("cuda")
+    dbatch = {k_: torch.as_tensor(batch[k_][0]).to(dev) for k_ in
+              ("input_ids", "segment_ids", "position_ids", *VLM_BATCH_KEYS)}
+    seq = SequenceContext(dbatch["input_ids"], dbatch["segment_ids"], dbatch["position_ids"],
+                          **{k_: dbatch[k_] for k_ in VLM_BATCH_KEYS})
+    vparams = eng._train_tree["vision"]
+
+    def tower():
+        final, ds = qwen3_vl.qwen3vl_vision_forward(vparams, v, seq, eng.compute_dtype)
+        loss = final.float().square().mean() + sum(d.float().square().mean() for d in ds)
+        loss.backward()
+        for p_ in eng._leaves:
+            p_.grad = None
+
+    fl.reset_launches()
+    tower()
+    tower_launches = (fl.flash_attention.noncausal_launches,
+                      fl.flash_bwd.noncausal_launches["grouped"])
+    tower_ms = cuda_ms(tower, iters=3, warmup=1)
+    vseg = dbatch["vision_segment_ids"]
+    say("vlm_train", run="tower_fwd_bwd", patches=int((vseg != 0).sum()),
+        rows=int(vseg.numel()), images=int(vseg.max()), ms=f"{tower_ms:.3f}",
+        launches=f"fwd {tower_launches[0]}, bwd {tower_launches[1]}", card=repr(smi))
+    if tower_launches != (2 * VLM_BLOCKS, VLM_BLOCKS):
+        raise AssertionError(f"the tower alone launched {tower_launches}, not "
+                             f"{(2 * VLM_BLOCKS, VLM_BLOCKS)}")
+    profile_window(torch, "vlm_tower_fwd_bwd", tower, top=8)
+    del dbatch, seq
+
+    # ---- one more step under the profiler: the vision blocks (forward and
+    # recompute), the text layers' attention inputs and outputs (the same),
+    # the flash kernels and AdamW apart; the backward GEMMs stay cuBLAS
+    targets = {**MLA_TARGETS, "vision_block": [("xtuner_tpu_torch.model.qwen3_vl",
+                                                "_vision_block")],
+               "text_attn_in": [("xtuner_tpu_torch.model.dense", "Dense._attn_in")],
+               "text_post": [("xtuner_tpu_torch.model.dense", "Dense._dense_post")]}
+    with annotated(torch, targets):
+        profile_window(torch, "vlm_train_step",
+                       lambda: eng.train_step(batch, VLM_STEPS + 1), top=12,
+                       annotations=tuple(targets))
+    vision_seg = torch.as_tensor(batch["vision_segment_ids"][0][None]).to(torch.int32)
+    del trainer, eng, batch, batches, vparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same recipe, seed and data, one step under the two-pass dk/dv
+    trainer, trecs, tlaunches, tpeak, _ = fit_recipe(torch, VLM_RECIPE, steps=1,
+                                                     env={"XTUNER_ATTN_BWD": "two_pass"})
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    twant = {name: 0 for name in tlaunches}
+    twant.update(step_want, flash_bwd=0, flash_bwd_noncausal=0,
+                 flash_bwd_two_pass=VLM_TEXT_LAYERS, flash_bwd_two_pass_noncausal=VLM_BLOCKS)
+    tfwd = tlaunches["flash_fwd"] + tlaunches["flash_fwd_max_free"]
+    for key in ("flash_fwd", "flash_fwd_max_free"):
+        twant[key] = tlaunches[key]
+    tdiff = abs(trecs[0]["reduced_llm_loss"] - losses[0])
+    say("vlm_train", run="two_pass", switches=repr({"attn_bwd": "two_pass"}),
+        loss1=f"{trecs[0]['reduced_llm_loss']:.5f}", grouped_loss1=f"{losses[0]:.5f}",
+        abs_diff=f"{tdiff:.3e}", tol=SWITCHED_LOSS_ATOL,
+        grad_norm=f"{trecs[0]['grad_norm']:.5f}", grouped_grad_norm=f"{recs[0]['grad_norm']:.5f}",
+        step_ms=f"{1e3 * trecs[0]['step_time']:.1f}", peak_gib=f"{tpeak:.3f}",
+        launches={k_: v_ for k_, v_ in tlaunches.items() if v_ or twant[k_]},
+        expected={k_: v_ for k_, v_ in twant.items() if v_})
+    if not tdiff <= SWITCHED_LOSS_ATOL:
+        raise AssertionError(f"the two-pass run's step-1 CE differs from the grouped run's by "
+                             f"{tdiff} (> {SWITCHED_LOSS_ATOL})")
+    if tlaunches != twant or tfwd != 2 * VLM_TEXT_LAYERS:
+        raise AssertionError(f"the two-pass run's launches {tlaunches} != {twant}")
+    return launches, tlaunches, vision_seg
+
+
+def phase_vlm_kernels(torch, seed: int, smi: str, recipe_vseg) -> list[dict]:
+    """#1-#4 non-causal at (64, 64) against their plain versions at the
+    tower's shapes, 16 q heads over 16 kv heads: on the recipe's own vision
+    row (`recipe_vseg`, 32,768 patch rows: its images and a padded tail;
+    the plain versions in `PLAIN_CHUNK`-row chunks, `flash_plain_chunked`)
+    and on an odd row (segments of 1, 100 and 4097 patches, P = 4198, not a
+    multiple of 128; the plain versions whole). Per row: the forward's out
+    and lse, its k tiles walked and walked unmasked against
+    `fwd_tile_plan(causal=False)` (a mismatch fails), both backward
+    instantiations (grouped #2 + #3, two-pass #2 + #4) with two launches
+    the same bits and padding rows zero; times, the plain versions' times,
+    the bound on the visible pairs, and SDPA's forward and backward with
+    the block-diagonal mask as a dense mask as the library time."""
+    from xtuner_tpu_torch.ops.attention import flash as fl
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 37)
+    src = "xtuner_tpu_torch/csrc/"
+    hq, d = VLM_HQ, VLM_D
+    scale = d ** -0.5
+    heads_first = lambda t: t[0].transpose(0, 1)  # (B, L, H, X) -> (H, L, X)
+    rows = []
+    for label, seg in (("recipe", recipe_vseg.to(dev)),
+                       ("odd", _segments(torch, VLM_ODD, sum(VLM_ODD), dev))):
+        l = seg.shape[1]
+        chunked = l > 8192
+        q, k, v, do = (torch.randn((1, l, hq, d), generator=g, device=dev).bfloat16()
+                       for _ in range(4))
+        valid = seg[0] != 0
+        pairs = noncausal_pairs(torch, seg)
+        shape = f"B1xP{l}xHq{hq}xHkv{hq}xD{d}, {int(seg.max())} segments, {int(valid.sum())} rows"
+        if chunked:
+            (ro, rl), fwd_plain = timed_once(torch, lambda: flash_plain_chunked(
+                torch, q, k, v, seg, None, None, None, scale, "fwd", causal=False))
+            ref_out, ref_lse = ro.transpose(0, 1)[None], rl[None]
+        else:
+            (ref_out, ref_lse), fwd_plain = timed_once(torch, lambda: fl.flash_attention_plain(
+                q, k, v, seg, scale, causal=False))
+        fl.reset_launches()
+        out, lse = fl.flash_attention(q, k, v, seg, causal=False)
+        torch.cuda.synchronize()
+        walked, full = fl.fwd_tiles_walked()
+        walk, plan_full = fl.fwd_tile_plan(seg, causal=False)
+        plan = (int(walk.sum()) * hq, int(plan_full.sum()) * hq)
+        counted = fl.flash_attention.noncausal_launches == 1
+        fwd_err = max(_abs(out[:, valid], ref_out[:, valid]),
+                      _abs(lse[..., valid], ref_lse[..., valid]))
+        fwd_ok = _abs(out[:, valid], ref_out[:, valid]) <= FLASH_OUT_ATOL and \
+            _abs(lse[..., valid], ref_lse[..., valid]) <= FLASH_LSE_ATOL and \
+            bool((out[:, ~valid] == 0).all()) and bool((lse[..., ~valid] == 1e30).all())
+        del ref_out, ref_lse
+        fwd_ms = cuda_ms(lambda: fl.flash_attention(q, k, v, seg, causal=False), iters=10)
+        mask = (seg[:, :, None] == seg[:, None, :])[:, None]  # padding sees padding: no empty row
+        lib_fwd, backend_fwd, how_fwd = sdpa_or_none(torch, q, k, v, mask)
+        fwd_b = least_ms(2 * pairs * hq * (d + d), flash_bytes(q, k, dv=d), PEAK_BF16)
+        say("kernel", name="flash_fwd_noncausal", path="vlm_train", shape=shape, seq=label,
+            pairs=pairs, err=f"{fwd_err:.3e}", ok=fwd_ok, ms=f"{fwd_ms:.4f}",
+            plain_ms=f"{fwd_plain:.1f}", bound_ms=f"{fwd_b['bound_ms']:.4f}",
+            bound_by=fwd_b["bound_by"], share_of_bound=f"{fwd_b['bound_ms'] / fwd_ms:.3f}",
+            tflops=f"{2 * pairs * hq * 2 * d / fwd_ms / 1e9:.1f}", tiles_walked=walked,
+            tiles_full=full, plan_walked_full=f"{plan[0]},{plan[1]}", sdpa_ms=lib_fwd,
+            sdpa_backend=backend_fwd, sdpa_how=repr(how_fwd), card=repr(smi))
+        if not (fwd_ok and counted and (walked, full) == plan):
+            raise AssertionError(f"#1 non-causal at 64/64 ({label}): error {fwd_err} (ok "
+                                 f"{fwd_ok}), counted {counted}, walked {(walked, full)} "
+                                 f"against the plan {plan}")
+        rows.append({"name": "flash_fwd_noncausal", "route": "cuda",
+                     "source": src + "flash_fwd.cu",
+                     "function": f"flash_fwd_kernel<{d}, {d}, non-causal>",
+                     "replaces": "xtuner_tpu/ops/attention/flash.py:82", "path": "vlm_train",
+                     "shape": f"{shape}, running max", "seq": label, "max_abs_err": fwd_err,
+                     "ms": fwd_ms, "plain_ms": fwd_plain, **fwd_b, "library_ms": lib_fwd,
+                     "library_is": f"SDPA {backend_fwd}, block-diagonal dense mask, {how_fwd}"})
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, seg, lse, delta, do, scale)
+        res = {}
+        for two_pass in (False, True):
+            if chunked:
+                (dq_w, (dk_w, dv_w)), plain_ms = timed_once(torch, lambda: (
+                    flash_plain_chunked(torch, q, k, v, seg, lse, delta, do, scale, "dq",
+                                        causal=False),
+                    flash_plain_chunked(torch, q, k, v, seg, lse, delta, do, scale, "dkv",
+                                        causal=False)))
+                wf = [dq_w, dk_w, dv_w]  # (H, L, X); group 1: grouped = per q head
+            else:
+                want, plain_ms = timed_once(torch, lambda: fl.flash_bwd_plain(
+                    *args, two_pass, causal=False))
+                wf = [heads_first(t) for t in want]
+                del want
+            fl.reset_launches()
+            got = fl.flash_bwd(*args, two_pass, causal=False)
+            again = fl.flash_bwd(*args, two_pass, causal=False)
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            counted = fl.flash_bwd.noncausal_launches["two_pass" if two_pass else "grouped"] == 2
+            del again
+            hf = [heads_first(t) for t in got]
+            rels = [_rel_rows(t[:, valid], w[:, valid]) for t, w in zip(hf, wf)]
+            err = max(_abs(t[:, valid], w[:, valid]) for t, w in zip(hf, wf))
+            zero = all(bool((t[0][~valid] == 0).all()) for t in got)
+            del got, hf, wf
+            ms = cuda_ms(lambda: fl.flash_bwd(*args, two_pass, causal=False), iters=10)
+            res[two_pass] = (rels, err, same and counted, zero, ms, plain_ms)
+        lib_bwd, backend_bwd, how_bwd = sdpa_or_none(torch, q, k, v, mask, do)
+        del mask
+        for two_pass in (False, True):
+            rels, err, same, zero, ms, plain_ms = res[two_pass]
+            bnd = bwd_bound(q, k, pairs, two_pass)
+            name = "flash_bwd_two_pass_noncausal" if two_pass else "flash_bwd_noncausal"
+            say("kernel", name=name, path="vlm_train", shape=shape, seq=label, pairs=pairs,
+                dq_dk_dv_rel=",".join(f"{x:.3e}" for x in rels), err=f"{err:.3e}",
+                same_bits=same, pad_rows_ok=zero, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.1f}",
+                bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"],
+                share_of_bound=f"{bnd['bound_ms'] / ms:.3f}",
+                tflops=f"{2 * 10 * d * pairs * hq / ms / 1e9:.1f}", sdpa_bwd_ms=lib_bwd,
+                sdpa_backend=backend_bwd, sdpa_how=repr(how_bwd), card=repr(smi))
+            for line in (199, 249 if two_pass else 303):
+                rows.append({
+                    "name": name, "route": "cuda", "source": src + "flash_bwd.cu",
+                    "function": f"flash_dq_kernel<{d}, {d}, non-causal> + flash_dkv_kernel<"
+                                f"{d}, {d}, {'two_pass' if two_pass else 'grouped'}, "
+                                f"non-causal>",
+                    "replaces": f"xtuner_tpu/ops/attention/flash.py:{line}",
+                    "path": "vlm_train_two_pass" if two_pass else "vlm_train",
+                    "shape": shape, "seq": label, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, **bnd, "library_ms": lib_bwd,
+                    "library_is": f"SDPA backward {backend_bwd}, block-diagonal dense mask, "
+                                  f"{how_bwd}",
+                    "plain_is": "flash_plain_chunked" if chunked else "flash_bwd_plain"})
+        worst = max(max(res[False][0]), max(res[True][0]))
+        if not (worst <= FLASH_GRAD_RTOL and all(r[2] and r[3] for r in res.values())):
+            raise AssertionError(f"the non-causal backward kernels at 64/64 ({label}) disagree "
+                                 f"with their plain versions: {res} (<= {FLASH_GRAD_RTOL}; two "
+                                 f"launches the same bits and counted; padding rows zero)")
+        del q, k, v, do, out, lse, delta, args
+        gc.collect()
+        torch.cuda.empty_cache()
+    fl.reset_launches()
+    return rows
+
+
 def phase_gpt_oss_profile(torch, seed: int) -> None:
     """Where gpt-oss-20b's serving time goes (torch.profiler): the model
     and engine of `phase_serve_gpt_oss` made again, then one window of 4
@@ -5060,10 +5426,16 @@ def train_launches(torch) -> dict:
     from xtuner_tpu_torch.ops.fp8_grouped import fp8_grouped_gemm, fp8_grouped_gemm_dw
     from xtuner_tpu_torch.ops.fused_moe_mlp import fused_moe_mlp_fwd
 
-    return {"flash_fwd": fl.flash_attention.launches - fl.max_free_launches(),
+    nc, nc_bwd = fl.flash_attention.noncausal_launches, fl.flash_bwd.noncausal_launches
+    # the non-causal forward (Qwen3-VL's tower) takes no max-logit bound:
+    # the running-max variant
+    return {"flash_fwd": fl.flash_attention.launches - fl.max_free_launches() - nc,
             "flash_fwd_max_free": fl.max_free_launches(),
-            "flash_bwd": fl.flash_bwd.launches["grouped"],
-            "flash_bwd_two_pass": fl.flash_bwd.launches["two_pass"],
+            "flash_fwd_noncausal": nc,
+            "flash_bwd": fl.flash_bwd.launches["grouped"] - nc_bwd["grouped"],
+            "flash_bwd_two_pass": fl.flash_bwd.launches["two_pass"] - nc_bwd["two_pass"],
+            "flash_bwd_noncausal": nc_bwd["grouped"],
+            "flash_bwd_two_pass_noncausal": nc_bwd["two_pass"],
             "fused_moe_mlp": fused_moe_mlp_fwd.launches,
             "grouped_gemm_nn": grouped_gemm_bf16.launches["nn"],
             "grouped_gemm_nt": grouped_gemm_bf16.launches["nt"],
@@ -5135,8 +5507,9 @@ def phase_train(torch, seed: int, smi: str) -> dict:
             peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}")
     launches = train_launches(torch)
     per = TRAIN_LAYERS * TRAIN_STEPS
-    want = {"flash_fwd": 0, "flash_fwd_max_free": 2 * per, "flash_bwd": per,
-            "flash_bwd_two_pass": 0, "fused_moe_mlp": 0,
+    want = {"flash_fwd": 0, "flash_fwd_max_free": 2 * per, "flash_fwd_noncausal": 0,
+            "flash_bwd": per, "flash_bwd_two_pass": 0, "flash_bwd_noncausal": 0,
+            "flash_bwd_two_pass_noncausal": 0, "fused_moe_mlp": 0,
             "grouped_gemm_nn": 4 * per, "grouped_gemm_nt": 2 * per,
             "grouped_gemm_dw": 2 * per, "ce_fwd": 0, "ce_coeff": 0, "ce_dh": 0, "ce_dw": 0,
             "fp8_gemm": 0, "fp8_grouped_gemm": 0, "fp8_grouped_dw": 0,
@@ -5255,9 +5628,10 @@ def _sft_run(torch, smi: str, breakdown: bool, fp8_ref_loss1, switched_ref):
         # forward, recompute and dgrad (9 of #12), their wgrads (3 of #13);
         # switched: the two-pass backward in place of the grouped one, the
         # fused MLP (forward and recompute) in place of the nn GEMMs
-        want = {"flash_fwd": 0, "flash_fwd_max_free": per,
+        want = {"flash_fwd": 0, "flash_fwd_max_free": per, "flash_fwd_noncausal": 0,
                 "flash_bwd": 0 if switched else per,
-                "flash_bwd_two_pass": per if switched else 0,
+                "flash_bwd_two_pass": per if switched else 0, "flash_bwd_noncausal": 0,
+                "flash_bwd_two_pass_noncausal": 0,
                 "fused_moe_mlp": 2 * per if switched else 0,
                 "grouped_gemm_nn": 0 if fp8 or switched else 4 * per,
                 "grouped_gemm_nt": 0 if fp8 else 2 * per,
@@ -5574,6 +5948,11 @@ def main() -> int:
     release(torch, "qwen35_train")
     kernels += phase_qwen35_train_kernels(torch, args.seed, smi, qwen_seg)
     release(torch, "qwen35_train_kernels")
+    launches["vlm_train"], launches["vlm_train_two_pass"], vlm_seg = \
+        phase_vlm_train(torch, args.seed, smi)
+    release(torch, "vlm_train")
+    kernels += phase_vlm_kernels(torch, args.seed, smi, vlm_seg)
+    release(torch, "vlm_kernels")
     phase_gpt_oss_profile(torch, args.seed)
     for kern in kernels:
         kern["launches"] = launches[kern["path"]][kern["name"]]

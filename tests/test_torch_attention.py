@@ -92,14 +92,20 @@ def test_flash_bf16_matches_fp32_oracle():
 
 @pytest.mark.parametrize("kw", [{"window": 8}, {"sinks": torch.zeros(4)}, {"causal": False}])
 def test_flash_unported_options_raise(kw):
-    """Non-causal attention raises. The window and the sinks now train
-    (tests/test_torch_gpt_oss_train.py holds them to JAX): their backward
-    runs here, and what still raises is a window at the one-pass kernel's
-    (128, 128) and sinks that are not one per q head."""
+    """The window, the sinks and non-causal attention now train
+    (tests/test_torch_gpt_oss_train.py and tests/test_torch_qwen3_vl.py hold
+    them to JAX): their backward runs here, and what still raises is a
+    window at the one-pass kernel's (128, 128), sinks that are not one per
+    q head, and non-causal attention at any pair but (64, 64) (on a CUDA
+    tensor; the check reads only the shapes)."""
     q, k, v, seg = _packed(b=1, l=64, d=16)
     if "causal" in kw:
+        tq = _t(q).requires_grad_(True)
+        out, _ = flash_attention(tq, _t(k), _t(v), _t(seg), **kw)
+        out.sum().backward()
+        assert torch.isfinite(tq.grad).all() and tq.grad.abs().sum() > 0
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            flash_attention(_t(q), _t(k), _t(v), _t(seg), **kw)
+            tflash._check_causal(_t(q), _t(v), None, False, "flash_attention")
         return
     tq = _t(q).requires_grad_(True)
     out, _ = flash_attention(tq, _t(k), _t(v), _t(seg), **kw)

@@ -271,8 +271,13 @@ def test_kernel_checks_take_the_kernels_head_dims():
 
 def test_unported_options_raise():
     q, k, v, seg = _packed(1, 64, 2, 2, 1, seed=6)
+    # non-causal attention runs in the kernels at (64, 64) only: a CUDA call
+    # at (128, 128), or with a window, raises (tests/test_torch_kernels.py);
+    # the check itself reads only the shapes
     with pytest.raises(NotImplementedError, match="train-slice"):
-        tflash.flash_attention(_t(q), _t(k), _t(v), _t(seg), causal=False)
+        tflash._check_causal(_t(q), _t(v), None, False, "flash_attention")
+    with pytest.raises(NotImplementedError, match="window"):
+        tflash._check_causal(_t(q)[..., :64], _t(v)[..., :64], 16, False, "flash_attention")
     # the backward takes a window (tests/test_torch_gpt_oss_train.py holds
     # it to JAX); a window that is not positive raises
     tq = _t(q).requires_grad_(True)

@@ -435,14 +435,14 @@ def test_flash_max_free_variant_matches_plain(cuda, bound, max_free):
 
 
 def _bwd_inputs(dev, b, l, hq, hkv, docs, pad, seed=0, lens=None, d=128, dv=128,
-                window=None, sinks=None):
+                window=None, sinks=None, causal=True):
     q, k, v, seg = _packed(dev, b, l, hq, hkv, docs, pad, seed, d, dv)
     if lens is not None:
         seg = _with_lens(seg, lens)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     do = torch.randn((b, l, hq, dv), generator=g, device=dev).bfloat16()
     scale = d ** -0.5
-    out, lse = flash_attention_plain(q, k, v, seg, scale, window=window)
+    out, lse = flash_attention_plain(q, k, v, seg, scale, window=window, causal=causal)
     if sinks is not None:  # the backward's lse and out carry the sinks
         out, lse = fold_sinks(out, lse, sinks)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
@@ -721,6 +721,99 @@ def test_flash_backward_256_refuses_a_window(cuda):
                                                       dv=256)
     with pytest.raises(ValueError, match="no sliding window"):
         flash_bwd(q, k, v, seg, lse, delta, do, scale, False, 128)
+
+
+# Qwen3-VL's vision tower: bidirectional attention within each image (a
+# segment per frame), head dim 64, 16 q heads over 16 kv heads (group 1).
+# #1-#4 at (64, 64) with causal=False; the tolerances are the causal ones
+# (FLASH_OUT_ATOL, FLASH_LSE_ATOL, FLASH_GRAD_RTOL): the same bf16 roundings
+NONCAUSAL_SHAPES = [
+    # b, l, hq, hkv, docs, pad, lens
+    (1, 8192, 16, 16, 0, 0, [4096, 3072, 1024]),  # the recipe's images: 1024x1024, 1024x768, 512
+    (1, 4198, 16, 16, 0, 0, [1, 100, 4097]),     # segments of 1, 100 and 4097; L % 128 != 0
+    (1, 2000, 16, 16, 0, 0, [1024, 256, 300]),   # a padded tail (420 patches of segment 0)
+    (1, 700, 8, 2, 0, 0, [5, 100, 17, 60, 1, 127, 300]),  # short segments, GQA 4
+    (2, 640, 8, 4, 0, 0, [256, 128, 128]),       # boundaries on tile edges, a padding tile
+    (1, 65, 4, 1, 0, 0, [40, 25]),               # L < 128: tiles past L
+]
+
+
+@pytest.mark.parametrize("b,l,hq,hkv,docs,pad,lens", NONCAUSAL_SHAPES)
+def test_flash_kernel_64_noncausal_matches_plain(cuda, b, l, hq, hkv, docs, pad, lens):
+    """#1 non-causal at (64, 64) against the plain version; the kernel walks
+    the tiles `fwd_tile_plan(causal=False)` says, once per q head."""
+    q, k, v, seg = _packed(cuda, b, l, hq, hkv, 1, 0, d=64, dv=64)
+    seg = _with_lens(seg, lens)
+    reset_launches()
+    out, lse = flash_attention(q, k, v, seg, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == 1
+    ref_out, ref_lse = flash_attention_plain(q, k, v, seg, 64 ** -0.5, causal=False)
+    _check_flash(out, lse, ref_out, ref_lse, seg)
+    walk, full = fwd_tile_plan(seg, causal=False)
+    assert fwd_tiles_walked() == (int(walk.sum()) * hq, int(full.sum()) * hq)
+
+
+@pytest.mark.parametrize("two_pass", [False, True])
+@pytest.mark.parametrize("b,l,hq,hkv,docs,pad,lens", NONCAUSAL_SHAPES)
+def test_flash_backward_64_noncausal_matches_plain(cuda, b, l, hq, hkv, docs, pad, lens,
+                                                   two_pass):
+    """#2 with #3 (grouped) or #4 (two-pass) non-causal at (64, 64) against
+    the plain version; padding rows exactly zero; two launches give the
+    same bits (every output written once)."""
+    q, k, v, seg, lse, delta, do, scale = _bwd_inputs(cuda, b, l, hq, hkv, 1, 0, lens=lens,
+                                                      d=64, dv=64, causal=False)
+    reset_launches()
+    got = flash_bwd(q, k, v, seg, lse, delta, do, scale, two_pass, causal=False)
+    again = flash_bwd(q, k, v, seg, lse, delta, do, scale, two_pass, causal=False)
+    torch.cuda.synchronize()
+    assert flash_bwd.launches == {"grouped": 2 * int(not two_pass), "two_pass": 2 * two_pass}
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    want = flash_bwd_plain(q, k, v, seg, lse, delta, do, scale, two_pass, causal=False)
+    heads = hq if two_pass else hkv
+    for t, w, shape in zip(got, want, (q.shape, (b, l, heads, 64), (b, l, heads, 64))):
+        assert t.shape == shape and t.dtype == torch.bfloat16
+        assert torch.isfinite(t.float()).all()
+        assert _rel_err(t, w) <= FLASH_GRAD_RTOL
+        assert (t[seg == 0] == 0).all()
+
+
+def test_flash_64_noncausal_autograd_matches_plain_autograd(cuda):
+    """Autograd through `flash_attention(causal=False)` at (64, 64), both
+    switches, against the plain forward's autograd."""
+    import os
+
+    q, k, v, seg = _packed(cuda, 1, 1500, 16, 16, 1, 0, seed=5, d=64, dv=64)
+    seg = _with_lens(seg, [1024, 300, 76])
+    co = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(6),
+                     device=cuda)
+    for bwd in ("grouped", "two_pass"):
+        os.environ["XTUNER_ATTN_BWD"] = bwd
+        try:
+            grads = []
+            for fn in (lambda *a: flash_attention(*a, causal=False)[0],
+                       lambda *a: flash_attention_plain(*a, 64 ** -0.5, causal=False)[0]):
+                leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                (fn(*leaves, seg).float() * co).sum().backward()
+                grads.append([t.grad for t in leaves])
+        finally:
+            del os.environ["XTUNER_ATTN_BWD"]
+        for got, want in zip(*grads):
+            assert _rel_err(got, want) <= FLASH_GRAD_RTOL
+
+
+def test_flash_noncausal_refused_where_no_kernel_takes_it(cuda):
+    """A non-causal call on a CUDA tensor at any pair but (64, 64), or with
+    a window, raises: no fallback to the plain version."""
+    q, k, v, seg = _packed(cuda, 1, 256, 4, 2, 2, 10)
+    with pytest.raises(NotImplementedError, match="non-causal"):
+        flash_attention(q, k, v, seg, causal=False)
+    _, _, _, seg, lse, delta, do, scale = _bwd_inputs(cuda, 1, 256, 4, 2, 2, 10)
+    with pytest.raises(NotImplementedError, match="non-causal"):
+        flash_bwd(q, k, v, seg, lse, delta, do, scale, False, causal=False)
+    q, k, v, seg = _packed(cuda, 1, 256, 4, 2, 2, 10, d=64, dv=64)
+    with pytest.raises(NotImplementedError, match="window"):
+        flash_attention(q, k, v, seg, causal=False, window=128)
 
 
 def test_flash_autograd_matches_plain_autograd(cuda):

@@ -255,7 +255,8 @@ def test_moe_mlp_unported_options_raise():
             trouter.GreedyRouterConfig(), torch.zeros(1, 4, 16))
     with pytest.raises(NotImplementedError, match="parallelism"):
         tmoe_layer.moe_mlp_forward(*args, num_experts=4, top_k=1, dispatcher="a2a")
-    # clipped experts are ported (tests/test_torch_gpt_oss.py holds them to
-    # JAX); another activation still raises
+    # clipped experts and the gelus are ported (tests/test_torch_gpt_oss.py
+    # and tests/test_torch_qwen3_vl.py hold them to JAX); another activation
+    # still raises
     with pytest.raises(NotImplementedError, match="leaf-ops"):
-        tmoe_layer.moe_mlp_forward(*args, num_experts=4, top_k=1, act="gelu")
+        tmoe_layer.moe_mlp_forward(*args, num_experts=4, top_k=1, act="relu")

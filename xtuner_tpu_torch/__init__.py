@@ -28,7 +28,11 @@ in the MoE layers (`recipes/sft_glm45_air_head.py`,
 `ops/gated_deltanet.py`, gated attention, the hybrid paged engine) and its
 training path (`model/hybrid.py`'s `forward` and `loss` with interleaved
 MRoPE, the Gated DeltaNet backward by autograd and #2-#4 at head dim 256;
-`recipes/sft_qwen35_35b_a3b_period.py`). Every
+`recipes/sft_qwen35_35b_a3b_period.py`); Qwen3-VL's training path
+(`model/qwen3_vl.py`: the ViT with #1-#4 non-causal at head dim 64, the
+deepstack mergers, `inputs_embeds` and deepstack injection in the text
+model; the data plane in `datasets/qwen_vl.py`; Qwen3-VL-4B whole through
+`recipes/sft_qwen3_vl_4b.py`). Every
 TPU kernel of the JAX package has its Hopper kernel. What is not ported raises
 `NotImplementedError` naming its ROADMAP.md item.
 """

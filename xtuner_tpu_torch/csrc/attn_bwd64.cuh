@@ -10,6 +10,9 @@
 // the kernels' walks skip the tiles wholly outside it and mark as full
 // only tiles wholly inside. The block-sparse kernels take no window, and
 // their instantiations (WINDOW = false) compile to what they were without.
+// Non-causal attention (the flash kernels' CAUSAL = false at 64/64: key m
+// counts for every query of its document) drops the position term of the
+// masks; CAUSAL defaults to true, so #15 compiles as before.
 //
 // A dk/dv CTA's layout C: K (D columns) at 0, V (DV) at C::OFF_V; ring stage
 // s holds Q (C::KB bytes) then dO at C::OFF_RING + s C::SB, and the q rows'
@@ -28,8 +31,9 @@ constexpr int BAR_P_FULL = 1, BAR_P_EMPTY = 2;  // named barriers of the dk/dv r
 constexpr float BWD_LOG2E = 1.4426950408889634f;
 
 // dS of one (64 q rows, 64 keys) tile from S and dP in the accumulator
-// layout, packed to bf16 A fragments (with WINDOW, masked by the window too)
-template <bool MASK, bool WINDOW = false>
+// layout, packed to bf16 A fragments (with WINDOW, masked by the window too;
+// without CAUSAL, not by position)
+template <bool MASK, bool WINDOW = false, bool CAUSAL = true>
 __device__ __forceinline__ void dq_grad(const float (&s)[32], const float (&dp)[32],
                                         uint32_t (&da)[16], float c, const float (&lse2)[2],
                                         const float (&dl)[2], const int* seg, int k0,
@@ -45,7 +49,7 @@ __device__ __forceinline__ void dq_grad(const float (&s)[32], const float (&dp)[
       ds[e] = p * (dp[i] - dl[r]);
       if (MASK) {
         const int key = k0 + 8 * j + 2 * tq + cc;
-        const bool ok = qs[r] != 0 && seg[key] == qs[r] && key <= qpos[r] &&
+        const bool ok = qs[r] != 0 && seg[key] == qs[r] && (!CAUSAL || key <= qpos[r]) &&
                         (!WINDOW || qpos[r] - key < window);
         ds[e] = ok ? ds[e] : 0.f;
       }
@@ -68,8 +72,9 @@ __device__ __forceinline__ void dq_grad(const float (&s)[32], const float (&dp)[
 // C::SK K stages at C::OFF_K, C::SV V stages at C::OFF_V. seg, qs, qpos,
 // lse2 (base 2) and dl: the rows' segment ids (by key position), ids,
 // positions, lse and delta; with WINDOW, `window` masks the items' tiles
-// that are not full.
-template <int D, int DV, typename C, bool WINDOW = false, typename RefillK, typename RefillV>
+// that are not full; without CAUSAL, no position does.
+template <int D, int DV, typename C, bool WINDOW = false, bool CAUSAL = true, typename RefillK,
+          typename RefillV>
 __device__ __forceinline__ void dq_body(unsigned char* smem, uint32_t sbase, uint32_t kf,
                                         uint32_t ke, uint32_t vf, uint32_t ve, uint32_t bar_q,
                                         const int4* meta, RefillK&& refill_k,
@@ -137,9 +142,11 @@ __device__ __forceinline__ void dq_body(unsigned char* smem, uint32_t sbase, uin
     __syncwarp();
     if (!run) continue;
     if (full)
-      dq_grad<false, WINDOW>(s, dp, da, c, lse2, dl, seg, it.x * 64, qs, qpos, tq, window);
+      dq_grad<false, WINDOW, CAUSAL>(s, dp, da, c, lse2, dl, seg, it.x * 64, qs, qpos, tq,
+                                     window);
     else
-      dq_grad<true, WINDOW>(s, dp, da, c, lse2, dl, seg, it.x * 64, qs, qpos, tq, window);
+      dq_grad<true, WINDOW, CAUSAL>(s, dp, da, c, lse2, dl, seg, it.x * 64, qs, qpos, tq,
+                                    window);
     // dQ += dS K (64 q rows x D, over the 64 keys)
     wg_fence();
     acc_rs<D / 64>(dq, da, sK);
@@ -165,9 +172,9 @@ __device__ __forceinline__ void dq_body(unsigned char* smem, uint32_t sbase, uin
 // thread 0 refills the stage the last step freed with refill(stage, parity
 // of its empty barrier). dV goes to rows k0.. of head h of a (B, L, H, DV)
 // tensor (with BOUNDED, none at or past L). With WINDOW, P^T of the items
-// that are not full is masked by `window` too
-template <int D, int DV, typename C, bool BOUNDED, bool WINDOW = false, typename Args,
-          typename Refill>
+// that are not full is masked by `window` too; without CAUSAL, not by position
+template <int D, int DV, typename C, bool BOUNDED, bool WINDOW = false, bool CAUSAL = true,
+          typename Args, typename Refill>
 __device__ __forceinline__ void dkv_p_role(unsigned char* smem, uint32_t sbase,
                                            uint32_t bar_full, uint32_t bar_empty,
                                            const int4* meta, Refill&& refill, const Args& a,
@@ -219,7 +226,8 @@ __device__ __forceinline__ void dkv_p_role(unsigned char* smem, uint32_t sbase,
       for (int e = 0; e < 4; ++e) {
         const int i = 4 * j + e, r = e / 2, cc = e % 2;
         const float p = exp2f(fmaf(s[i], c, -lb[cc]));
-        const bool ok = it.z || (kseg[r] != 0 && qsg[cc] == kseg[r] && kpos[r] <= q0 + col + cc &&
+        const bool ok = it.z || (kseg[r] != 0 && qsg[cc] == kseg[r] &&
+                                 (!CAUSAL || kpos[r] <= q0 + col + cc) &&
                                  (!WINDOW || q0 + col + cc - kpos[r] < window));
         s[i] = ok ? p : 0.f;
       }

@@ -1,10 +1,10 @@
-// Causal GQA flash-attention backward over packed rows, for Hopper (sm_90a):
+// GQA flash-attention backward over packed rows, for Hopper (sm_90a):
 // at head dim 128, one pass that computes p and ds once per (k tile, q
 // tile) pair and feeds dq, dk and dv from them, on wgmma with a TMA ring;
 // at MLA's q/k dim 192 and v dim 128, at gpt-oss's 64 and 64 and at
 // Qwen3.5's gated attention, 256 and 256, a dq kernel and a dk/dv kernel
 // (the end of this file), which at 192/128 and 64/64 also take a sliding
-// window.
+// window, and at 64/64 non-causal attention (Qwen3-VL's vision tower).
 //
 // Replaces three TPU kernels of xtuner_tpu/ops/attention/flash.py:
 // - _dq_kernel (the dq pallas_call in _flash_bwd_rule);
@@ -19,7 +19,8 @@
 // padding) to Lp, a multiple of 128, and passes a table of (B, Lp / 64)
 // 64-row tiles {lowest non-zero segment id, highest, the id if the tile
 // holds one document and no padding else 0}.
-// Key m is visible to query l iff seg[l] == seg[m] != 0 and m <= l. For
+// Key m is visible to query l iff seg[l] == seg[m] != 0 and m <= l (the
+// last term dropped by a non-causal call at 64/64). For
 // every visible pair:
 //   p  = exp2(s * scale * log2e - lse * log2e)     (s = q.k)
 //   dp = do . v;  ds = p * (dp - delta)
@@ -514,6 +515,13 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 // block_sparse.cu's bs_dq_kernel at the same dims (253 registers). The
 // dk/dv CTA keeps K and V (64 KB) and a 2-stage ring (215,640 bytes), the
 // warpgroups split by output as above (dV and dK 64 x 256 f32 each).
+// Non-causal at 64/64 (CAUSAL = false, no window): the dq walk ends at the
+// last key tile that meets either half's segment range, found by warp 0's
+// ballots from the end of the row; the dk/dv walk runs from the first q
+// tile that meets the key tile's range (ballots from the start) to the
+// last, for each head of the group, so both walks cross the diagonal; a
+// tile whose rows and keys are one document skips the mask, the diagonal
+// tile too. The causal instantiations compile as before.
 // chip_smoke.py's build phase prints every instantiation's registers,
 // spills and shared memory.
 
@@ -542,25 +550,27 @@ struct DqSmem {
   static_assert(OFF_META <= TILE_CAP && BYTES <= 232448, "fits one SM");
 };
 
-// the dq walk's next item from key tile kt up to the CTA's last (2 i + 1),
-// as dq_body reads it: {key tile, 0 or -1 for each half (runs it or not),
-// full bits (bit x: half x skips the mask)}; x = -1 at the end. Half x (q
-// tile 2 i + x, table entry qt[x]) runs a tile at or below its diagonal
-// whose segment range meets its own and, with WINDOW, whose last key is
-// inside the window of the half's first row
-template <bool WINDOW>
-__device__ __forceinline__ int4 dq_next(const int4* tiles, int kt, int i, const int4 (&qt)[2],
-                                        int win) {
-  for (; kt <= 2 * i + 1; ++kt) {
+// the dq walk's next item from key tile kt up to the CTA's last (2 i + 1,
+// or the last that meets either half when not CAUSAL), as dq_body reads it:
+// {key tile, 0 or -1 for each half (runs it or not), full bits (bit x:
+// half x skips the mask)}; x = -1 at the end. Half x (q tile 2 i + x, table
+// entry qt[x]) runs a tile at or below its diagonal (any tile when not
+// CAUSAL) whose segment range meets its own and, with WINDOW, whose last
+// key is inside the window of the half's first row
+template <bool WINDOW, bool CAUSAL>
+__device__ __forceinline__ int4 dq_next(const int4* tiles, int kt, int last, int i,
+                                        const int4 (&qt)[2], int win) {
+  for (; kt <= last; ++kt) {
     const int4 k = tiles[kt];
     int run[2], full = 0;
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
       const int r0 = T64 * (2 * i + x);  // the half's first row
-      run[x] = kt <= 2 * i + x && meets4(k, qt[x]) && (!WINDOW || T64 * kt + T64 - 1 > r0 - win)
+      run[x] = (!CAUSAL || kt <= 2 * i + x) && meets4(k, qt[x]) &&
+                       (!WINDOW || T64 * kt + T64 - 1 > r0 - win)
                    ? 0
                    : -1;
-      if (run[x] == 0 && kt < 2 * i + x && qt[x].z != 0 && k.z == qt[x].z &&
+      if (run[x] == 0 && (!CAUSAL || kt < 2 * i + x) && qt[x].z != 0 && k.z == qt[x].z &&
           (!WINDOW || r0 + T64 - 1 - T64 * kt < win))
         full |= 1 << x;  // JAX _tile_full
     }
@@ -598,7 +608,7 @@ __device__ __forceinline__ void dq_load_v(const int4* meta, int n, uint32_t sbas
     tma_load(sbase + C::OFF_V + stage * C::VB + c * BOX64, tm_v, bar, 64 * c, g, k0, b);
 }
 
-template <int D, int DV, bool WINDOW>
+template <int D, int DV, bool WINDOW, bool CAUSAL>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
                 const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
@@ -650,14 +660,29 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
       tma_load(sbase + C::OFF_DO + c * 2 * BOX64, &tm_do, bar_q, 64 * c, h, q0, b);
   }
   if (threadIdx.x < 32) {
+    // the last key tile to walk: the diagonal's, or (not causal) the last
+    // that meets either half, 32 at a time from the end of the row
+    int last = 2 * i + 1;
+    if constexpr (!CAUSAL) {
+      last = -1;
+      for (int base = a.Lp / T64 - 32;; base -= 32) {
+        const int j = base + lane;
+        const uint32_t m = __ballot_sync(
+            0xffffffffu, j >= 0 && (meets4(tiles[j], qt[0]) || meets4(tiles[j], qt[1])));
+        if (m) {
+          last = base + 31 - __clz(m);
+          break;
+        }
+        if (base <= 0) break;
+      }
+    }
     // the first key tile that meets either half, 32 at a time from the one
     // that holds the first key the CTA's first row sees in the window
-    int first = 2 * i + 2;
-    for (int base = WINDOW ? max(0, (q0 - a.window + 1) / T64) : 0; base <= 2 * i + 1;
-         base += 32) {
+    int first = last + 1;
+    for (int base = WINDOW ? max(0, (q0 - a.window + 1) / T64) : 0; base <= last; base += 32) {
       const int j = base + lane;
       bool ok = false;
-      if (j <= 2 * i + 1) {
+      if (j <= last) {
         const int4 k = tiles[j];
         ok = meets4(k, qt[0]) || meets4(k, qt[1]);
       }
@@ -667,14 +692,18 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
         break;
       }
     }
-    if (lane == 0) *first_s = first;
+    if (lane == 0) {
+      first_s[0] = first;
+      if constexpr (!CAUSAL) first_s[1] = last;
+    }
   }
   __syncthreads();  // barriers initialised, the first tile found
   // thread 0's walk: the next key tile to consider, items in the K stream
-  int kn = *first_s, produced = 0;
+  const int last = CAUSAL ? 2 * i + 1 : first_s[1];
+  int kn = first_s[0], produced = 0;
   bool done = false;
   auto load_next_k = [&](int stage) {
-    const int4 it = dq_next<WINDOW>(tiles, kn, i, qt, a.window);
+    const int4 it = dq_next<WINDOW, CAUSAL>(tiles, kn, last, i, qt, a.window);
     dq_load_k<D, DV>(it, meta, stage, sbase, kf, &tm_k, g, b);
     done = it.x < 0;
     if (!done) kn = it.x + 1, ++produced;
@@ -706,9 +735,9 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     lse2[r] = a.lse[o] * LOG2E;
     dl[r] = a.delta[o];
   }
-  dq_body<D, DV, C, WINDOW>(smem, sbase, kf, ke, vf, ve, bar_q, meta, refill_k, refill_v, seg,
-                            qs, qpos, lse2, dl, a.scale_log2e, a.scale, &tm_dq, h, q0, b, a.L,
-                            a.window);
+  dq_body<D, DV, C, WINDOW, CAUSAL>(smem, sbase, kf, ke, vf, ve, bar_q, meta, refill_k, refill_v,
+                                    seg, qs, qpos, lse2, dl, a.scale_log2e, a.scale, &tm_dq, h,
+                                    q0, b, a.L, a.window);
 }
 
 template <int D, int DV>
@@ -732,29 +761,30 @@ struct DkvSmem {
 };
 
 // thread 0's walk of one dk/dv CTA: for each of n_heads q heads from
-// h_first, the q tiles from the key tile kt to `last` (inside the window)
-// whose segment range meets the key tile's (kt4)
+// h_first, the q tiles from `first` (the key tile kt, or when not causal
+// the first q tile that meets it) to `last` (inside the window) whose
+// segment range meets the key tile's (kt4)
 struct KvWalk {
   const int4* tiles;
   int4 kt4;
-  int kt, last, h_first, n_heads, win;
+  int kt, first, last, h_first, n_heads, win;
   int q, r;  // the next q tile, the head index
   bool done;
 };
 
 // the next item: {q tile, q head, full, 0}; x = -1 at the end
-template <bool WINDOW>
+template <bool WINDOW, bool CAUSAL>
 __device__ __forceinline__ int4 kv_next(KvWalk& w) {
   while (w.r < w.n_heads) {
     if (w.q > w.last) {
-      w.q = w.kt;
+      w.q = w.first;
       ++w.r;
       continue;
     }
     const int j = w.q++;
     const int4 t = w.tiles[j];
     if (!meets4(t, w.kt4)) continue;
-    const int full = j > w.kt && w.kt4.z != 0 && t.z == w.kt4.z &&
+    const int full = (!CAUSAL || j > w.kt) && w.kt4.z != 0 && t.z == w.kt4.z &&
                      (!WINDOW || T64 * (j - w.kt) + T64 - 1 < w.win);  // JAX _tile_full
     return make_int4(j, w.h_first + w.r, full, 0);
   }
@@ -763,12 +793,12 @@ __device__ __forceinline__ int4 kv_next(KvWalk& w) {
 
 // the walk's next item into ring stage `stage`: Q and dO by TMA, lse,
 // delta and the segment ids by bulk copy (the end marker: a bare arrival)
-template <int D, int DV, bool WINDOW>
+template <int D, int DV, bool WINDOW, bool CAUSAL>
 __device__ __forceinline__ void kv_produce(KvWalk& w, int4* meta, int stage, uint32_t sbase,
                                            uint32_t bar_full, const CUtensorMap* tm_q,
                                            const CUtensorMap* tm_do, const Args& a, int b) {
   using C = DkvSmem<D, DV>;
-  const int4 it = kv_next<WINDOW>(w);
+  const int4 it = kv_next<WINDOW, CAUSAL>(w);
   const uint32_t bar = bar_full + 8 * stage;
   meta[stage] = it;
   if (it.x < 0) {
@@ -789,7 +819,7 @@ __device__ __forceinline__ void kv_produce(KvWalk& w, int4* meta, int stage, uin
   bulk_load(rows + 2 * T64 * 4, a.seg + (int64_t)b * a.Lp + q0, T64 * 4, bar);
 }
 
-template <int D, int DV, bool TWO_PASS, bool WINDOW>
+template <int D, int DV, bool TWO_PASS, bool WINDOW, bool CAUSAL>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
                  const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
@@ -837,21 +867,36 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     // the last q tile whose segment range meets the key tile's (the end of
     // its last document) and whose first row still sees the tile's last key
     // in the window (q tile jw), 32 tiles at a time from there down
-    int last = -1;
+    const int lo = CAUSAL ? kt : 0;  // the first q tile that may see the key tile
+    int last = -1, first = kt;
     const int jw = WINDOW ? (k0 + T64 - 2 + a.window) / T64 : nkt;
     if (kt4.y != 0) {
       for (int base = min(nkt, jw + 1) - 32;; base -= 32) {
         const int j = base + lane;
-        const bool ok = j >= kt && (!WINDOW || j <= jw) && meets4(tiles[j], kt4);
+        const bool ok = j >= lo && (!WINDOW || j <= jw) && meets4(tiles[j], kt4);
         const uint32_t m = __ballot_sync(0xffffffffu, ok);
         if (m) {
           last = base + 31 - __clz(m);
           break;
         }
-        if (base <= kt) break;
+        if (base <= lo) break;
       }
     }
-    if (lane == 0) *last_s = last;
+    if constexpr (!CAUSAL) {  // the first q tile that meets it, 32 at a time from 0
+      first = last + 1;
+      for (int base = 0; base <= last; base += 32) {
+        const int j = base + lane;
+        const uint32_t m = __ballot_sync(0xffffffffu, j <= last && meets4(tiles[j], kt4));
+        if (m) {
+          first = base + __ffs(m) - 1;
+          break;
+        }
+      }
+    }
+    if (lane == 0) {
+      last_s[0] = last;
+      if constexpr (!CAUSAL) last_s[1] = first;
+    }
   }
   const int* seg = a.seg + (int64_t)b * a.Lp;
   int kseg[2], kpos[2];
@@ -861,27 +906,30 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     kseg[r] = seg[kpos[r]];
   }
   __syncthreads();  // barriers initialised, the walk's range found
-  KvWalk walk{tiles, kt4, kt, *last_s, TWO_PASS ? ho : g * ratio, TWO_PASS ? 1 : ratio,
-              a.window, kt, 0, false};
+  const int q_first = CAUSAL ? kt : last_s[1];
+  KvWalk walk{tiles, kt4, kt, q_first, last_s[0], TWO_PASS ? ho : g * ratio,
+              TWO_PASS ? 1 : ratio, a.window, q_first, 0, false};
   if (threadIdx.x == 0)
     for (int s = 0; s < ST && !walk.done; ++s)
-      kv_produce<D, DV, WINDOW>(walk, meta, s, sbase, bar_full, &tm_q, &tm_do, a, b);
+      kv_produce<D, DV, WINDOW, CAUSAL>(walk, meta, s, sbase, bar_full, &tm_q, &tm_do, a, b);
   mbar_wait(bar_kv, 0);
   if (wg == 0) {
     auto refill = [&](int stage, uint32_t parity) {
       if (walk.done) return;
       mbar_wait(bar_empty + 8 * stage, parity);
-      kv_produce<D, DV, WINDOW>(walk, meta, stage, sbase, bar_full, &tm_q, &tm_do, a, b);
+      kv_produce<D, DV, WINDOW, CAUSAL>(walk, meta, stage, sbase, bar_full, &tm_q, &tm_do, a,
+                                        b);
     };
-    dkv_p_role<D, DV, C, true, WINDOW>(smem, sbase, bar_full, bar_empty, meta, refill, a, b, ho,
-                                       heads, k0, kseg, kpos, row0, tq, lane, a.window);
+    dkv_p_role<D, DV, C, true, WINDOW, CAUSAL>(smem, sbase, bar_full, bar_empty, meta, refill, a,
+                                               b, ho, heads, k0, kseg, kpos, row0, tq, lane,
+                                               a.window);
   } else {
     dkv_ds_role<D, DV, C, true>(smem, sbase, bar_full, bar_empty, meta, a, b, ho, heads, k0,
                                 row0, tq, lane);
   }
 }
 
-template <int D, int DV, bool TWO_PASS, bool WINDOW>
+template <int D, int DV, bool TWO_PASS, bool WINDOW, bool CAUSAL = true>
 int launch_split_w(const void* q, const void* k, const void* v, const void* dout, void* dq,
                    const Args& a, cudaStream_t stream) {
   EncodeTiled encode = encode_tiled();
@@ -895,19 +943,20 @@ int launch_split_w(const void* q, const void* k, const void* v, const void* dout
       !make_map(&tq64, encode, q, a.B, a.L, a.Hq, T64, D) ||
       !make_map(&tdo64, encode, dout, a.B, a.L, a.Hq, T64, DV))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(flash_dq_kernel<D, DV, WINDOW>,
+  cudaError_t e = cudaFuncSetAttribute(flash_dq_kernel<D, DV, WINDOW, CAUSAL>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)DqSmem<D, DV>::BYTES);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(flash_dkv_kernel<D, DV, TWO_PASS, WINDOW>,
+  e = cudaFuncSetAttribute(flash_dkv_kernel<D, DV, TWO_PASS, WINDOW, CAUSAL>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DkvSmem<D, DV>::BYTES);
   if (e != cudaSuccess) return (int)e;
-  flash_dq_kernel<D, DV, WINDOW><<<(unsigned)(a.Lp / (2 * T64)) * a.Hq * a.B, NTHREADS,
-                                   DqSmem<D, DV>::BYTES, stream>>>(tq128, tdo128, tk, tv, tdq, a);
+  flash_dq_kernel<D, DV, WINDOW, CAUSAL><<<(unsigned)(a.Lp / (2 * T64)) * a.Hq * a.B, NTHREADS,
+                                           DqSmem<D, DV>::BYTES, stream>>>(tq128, tdo128, tk,
+                                                                           tv, tdq, a);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)(a.Lp / T64) * (TWO_PASS ? a.Hq : a.Hkv) * a.B;
-  flash_dkv_kernel<D, DV, TWO_PASS, WINDOW><<<grid, NTHREADS, DkvSmem<D, DV>::BYTES, stream>>>(
-      tq64, tdo64, tk, tv, a);
+  flash_dkv_kernel<D, DV, TWO_PASS, WINDOW, CAUSAL>
+      <<<grid, NTHREADS, DkvSmem<D, DV>::BYTES, stream>>>(tq64, tdo64, tk, tv, a);
   return (int)cudaGetLastError();
 }
 
@@ -929,16 +978,18 @@ int launch_split(const void* q, const void* k, const void* v, const void* dout, 
 // once. dk, dv: (B, L, Hkv, d / dv) summed over each q-head group (two_pass
 // = 0), or (B, L, Hq, d / dv) per q head (two_pass = 1). window: key m
 // counts for query l only if l - m < window (0: full; 128/128 and 256/256
-// take none).
+// take none). causal: 0 for bidirectional attention within each document
+// (64/64, no window only).
 extern "C" int xt_flash_bwd_bf16(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse, const void* delta,
                                  const void* seg, const void* tiles, void* dq, void* dk,
                                  void* dv, int B, int L, int Lp, int Hq, int Hkv, int d,
                                  int dv_dim, float scale, int two_pass, int window,
-                                 void* stream) {
+                                 int causal, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || L <= 0 || B <= 0 || Lp % BK != 0 || Lp < L ||
       Lp - L >= BK || window < 0)
     return (int)cudaErrorInvalidValue;
+  if (!causal && (d != 64 || dv_dim != 64 || window > 0)) return (int)cudaErrorInvalidValue;
   const Args a{static_cast<const float*>(lse), static_cast<const float*>(delta),
                static_cast<const int*>(seg), static_cast<const int4*>(tiles),
                static_cast<float*>(dq), static_cast<__nv_bfloat16*>(dk),
@@ -952,9 +1003,13 @@ extern "C" int xt_flash_bwd_bf16(const void* q, const void* k, const void* v,
   if (d == 192 && dv_dim == 128)
     return two_pass ? launch_split<192, 128, true>(q, k, v, dout, dq, a, st)
                     : launch_split<192, 128, false>(q, k, v, dout, dq, a, st);
-  if (d == 64 && dv_dim == 64)
+  if (d == 64 && dv_dim == 64) {
+    if (!causal)
+      return two_pass ? launch_split_w<64, 64, true, false, false>(q, k, v, dout, dq, a, st)
+                      : launch_split_w<64, 64, false, false, false>(q, k, v, dout, dq, a, st);
     return two_pass ? launch_split<64, 64, true>(q, k, v, dout, dq, a, st)
                     : launch_split<64, 64, false>(q, k, v, dout, dq, a, st);
+  }
   if (d == 256 && dv_dim == 256) {  // no preset has a window at 256/256
     if (window > 0) return (int)cudaErrorInvalidValue;
     return two_pass ? launch_split_w<256, 256, true, false>(q, k, v, dout, dq, a, st)

@@ -1,4 +1,4 @@
-// Causal GQA flash-attention forward over packed rows, for Hopper (sm_90a):
+// GQA flash-attention forward over packed rows, for Hopper (sm_90a):
 // wgmma for both products, K and V through a TMA ring, the output and the
 // softmax state in registers.
 //
@@ -13,7 +13,8 @@
 // multiple of 128 (flash.py _tile_table: {lowest non-zero id, highest, the
 // id if the tile holds one document and no padding else 0}), into scratch
 // the wrapper gives, so the host does no work per call. Key m is visible
-// to query l iff seg[l] == seg[m] != 0 and m <= l, and with a sliding
+// to query l iff seg[l] == seg[m] != 0 and m <= l (without the last term
+// at 64/64 when the call is not causal: CAUSAL = false), and with a sliding
 // window w > 0 (a kernel argument; 0 = full attention, so one
 // instantiation serves gpt-oss's windowed and full layers) l - m < w
 // (JAX _tile_mask). Sinks are folded into out and lse outside the kernel,
@@ -63,6 +64,13 @@
 //   a window) wholly inside it skips the per-element mask (JAX
 //   _tile_full); only tiles on the diagonal, a document boundary, the
 //   window's edge or padding are masked.
+// - Non-causal (CAUSAL = false, 64/64 only, no window: Qwen3-VL's vision
+//   tower): the walk ends at the last k tile whose segment range meets the
+//   q tile's, which warp 0 finds by ballots from the end of the row, so a
+//   q tile walks the k tiles of its documents on both sides of the
+//   diagonal; a tile that holds the q tile's one document skips the mask,
+//   the diagonal tile too. The ring's stage and phase count walked tiles,
+//   not tile indices, so the walk may start below the q tile and end above.
 // - Epilogue: out = O / l (0 where nothing was visible) to bf16, staged in
 //   the warpgroup's own rows of the Q buffer in the swizzled layout and
 //   written by two TMA stores (rows past L are not written); lse by the
@@ -81,8 +89,8 @@
 // - (D, DV) in {(128, 128), (192, 128), (64, 64)}, templates (DV = 128: O
 //   and P take the registers of D = 128; only the S product and the Q and
 //   K tiles grow; at 64/64 Q, K and V are one 64-column box each, O is 64
-//   x 64 (32 registers a thread) and PV runs on wgmma m64n64k16), and
-//   causal only (anything else returns an error).
+//   x 64 (32 registers a thread) and PV runs on wgmma m64n64k16), causal,
+//   and non-causal at 64/64 (anything else returns an error).
 // - ptxas (nvcc -Xptxas -v, sm_90a, CUDA 12.9): one kernel holds both
 //   variants (the bound is read on the device): at 128/128 254 registers,
 //   0 bytes of spills, 164,936 bytes of dynamic shared memory (one CTA per
@@ -165,8 +173,9 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* tm_k, const CUtensorM
 // (rows row0 + 8 r, columns 8 j + 2 tq + cc for s[4 j + 2 r + cc]), packed
 // to bf16 A fragments; m, l and O (NO = DV / 2 registers, the same layout)
 // updated for the running-max variant. A key is visible to row r if it is
-// in its document, at or below qpos[r] and above klo[r] (the window)
-template <bool MAX_FREE, bool MASK, int NO>
+// in its document, at or below qpos[r] (with CAUSAL) and above klo[r] (the
+// window)
+template <bool MAX_FREE, bool MASK, bool CAUSAL, int NO>
 __device__ __forceinline__ void softmax_tile(float (&s)[64], uint32_t (&pa)[32], float (&o)[NO],
                                              float (&m)[2], float (&l)[2], float c,
                                              const int* kseg, int k0, int L,
@@ -183,7 +192,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], uint32_t (&pa)[32],
   auto visible = [&](int i) {
     const int j = i / 4, r = (i / 2) % 2, cc = i % 2;
     const int kpos = k0 + 8 * j + 2 * tq + cc;
-    return qs[r] != 0 && ks[2 * j + cc] == qs[r] && kpos <= qpos[r] && kpos > klo[r];
+    return qs[r] != 0 && ks[2 * j + cc] == qs[r] && (!CAUSAL || kpos <= qpos[r]) &&
+           kpos > klo[r];
   };
   if (MAX_FREE) {
 #pragma unroll
@@ -227,7 +237,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], uint32_t (&pa)[32],
   }
 }
 
-template <bool MAX_FREE, int D, int DV>
+template <bool MAX_FREE, int D, int DV, bool CAUSAL>
 __device__ __forceinline__ void fwd_body(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
                                          const CUtensorMap* tm_v, const CUtensorMap* tm_o,
                                          const Args& a, unsigned char* smem) {
@@ -276,25 +286,45 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap* tm_q, const CUtensor
     for (int c = 0; c < D / 64; ++c)
       tma_load(sbase + C::OFF_Q + c * HALF, tm_q, bar_q, 64 * c, h, q0, b);
   }
-  if (threadIdx.x < 32) {  // the first k tile to walk, 32 tiles at a time from j_lo
-    int first = i + 1;
-    for (int base = j_lo; base <= i; base += 32) {
+  if (threadIdx.x < 32) {
+    // the last k tile to walk: the diagonal, or (not causal) the last that
+    // meets the q tile, 32 tiles at a time from the end of the row
+    int last = i;
+    if constexpr (!CAUSAL) {
+      last = -1;
+      for (int base = a.Lp / BN - 32;; base -= 32) {
+        const int j = base + lane;
+        const unsigned hit = __ballot_sync(0xffffffffu, j >= 0 && meets(tiles, j, qmin, qmax));
+        if (hit) {
+          last = base + 31 - __clz(hit);
+          break;
+        }
+        if (base <= 0) break;
+      }
+    }
+    // the first k tile to walk, 32 tiles at a time from j_lo
+    int first = last + 1;
+    for (int base = j_lo; base <= last; base += 32) {
       const int j = base + lane;
-      const unsigned hit = __ballot_sync(0xffffffffu, j <= i && meets(tiles, j, qmin, qmax));
+      const unsigned hit = __ballot_sync(0xffffffffu, j <= last && meets(tiles, j, qmin, qmax));
       if (hit) {
         first = base + __ffs(hit) - 1;
         break;
       }
     }
-    if (lane == 0) *first_s = first;
+    if (lane == 0) {
+      first_s[0] = first;
+      if constexpr (!CAUSAL) first_s[1] = last;
+    }
   }
   __syncthreads();
-  const int j_first = *first_s;
+  const int j_first = first_s[0];
+  const int last = CAUSAL ? i : first_s[1];
   int jn = j_first;  // thread 0: the next k tile to load
   if (threadIdx.x == 0)
-    for (int s = 0; s < STAGES && jn <= i; ++s) {
+    for (int s = 0; s < STAGES && jn <= last; ++s) {
       load_kv<D, DV>(tm_k, tm_v, sbase, bar_k, bar_v, s, jn, g, b);
-      jn = next_tile(tiles, jn + 1, i, qmin, qmax);
+      jn = next_tile(tiles, jn + 1, last, qmin, qmax);
     }
 
   int qpos[2], qs[2], klo[2];
@@ -316,10 +346,10 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap* tm_q, const CUtensor
   mbar_wait(bar_q, 0);
 
   int t = 0, n_full = 0;
-  for (int j = j_first; j <= i; ++t) {
-    const int j_next = next_tile(tiles, j + 1, i, qmin, qmax);
+  for (int j = j_first; j <= last; ++t) {
+    const int j_next = next_tile(tiles, j + 1, last, qmin, qmax);
     const int4 ka = tiles[2 * j], kb = tiles[2 * j + 1];
-    const bool full = j < i && quni != 0 && ka.z == quni && kb.z == quni &&
+    const bool full = (!CAUSAL || j < i) && quni != 0 && ka.z == quni && kb.z == quni &&
                       (a.window == 0 || q0 + BM - 1 - j * BN < a.window);  // JAX _tile_full
     const int stage = t % STAGES;
     const uint32_t phase = (t / STAGES) & 1;
@@ -343,10 +373,10 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap* tm_q, const CUtensor
       const int prev = (t - 1) % STAGES;
       __syncwarp();
       if (lane == 0) mbar_arrive(bar_e + 8 * prev);
-      if (threadIdx.x == 0 && jn <= i) {
+      if (threadIdx.x == 0 && jn <= last) {
         mbar_wait(bar_e + 8 * prev, ((t - 1) / STAGES) & 1);
         load_kv<D, DV>(tm_k, tm_v, sbase, bar_k, bar_v, prev, jn, g, b);
-        jn = next_tile(tiles, jn + 1, i, qmin, qmax);
+        jn = next_tile(tiles, jn + 1, last, qmin, qmax);
       }
       __syncwarp();
     }
@@ -355,9 +385,11 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap* tm_q, const CUtensor
 
     n_full += full;
     if (full)
-      softmax_tile<MAX_FREE, false>(s, pa, o, m, l, c, seg, j * BN, a.L, qs, qpos, klo, tq);
+      softmax_tile<MAX_FREE, false, CAUSAL>(s, pa, o, m, l, c, seg, j * BN, a.L, qs, qpos, klo,
+                                            tq);
     else
-      softmax_tile<MAX_FREE, true>(s, pa, o, m, l, c, seg, j * BN, a.L, qs, qpos, klo, tq);
+      softmax_tile<MAX_FREE, true, CAUSAL>(s, pa, o, m, l, c, seg, j * BN, a.L, qs, qpos, klo,
+                                           tq);
 
     // O += P V (64 q rows x DV, over the 128 keys)
     mbar_wait(bar_v + 8 * stage, phase);
@@ -420,7 +452,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap* tm_q, const CUtensor
   if (store) tma_store_wait();  // the stores have read the staging rows
 }
 
-template <int D, int DV>
+template <int D, int DV, bool CAUSAL>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
@@ -433,13 +465,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (max_free) {
     if (a.max_free_count != nullptr && threadIdx.x == 0 && blockIdx.x == 0)
       atomicAdd(a.max_free_count, 1);
-    fwd_body<true, D, DV>(&tm_q, &tm_k, &tm_v, &tm_o, a, smem);
+    fwd_body<true, D, DV, CAUSAL>(&tm_q, &tm_k, &tm_v, &tm_o, a, smem);
   } else {
-    fwd_body<false, D, DV>(&tm_q, &tm_k, &tm_v, &tm_o, a, smem);
+    fwd_body<false, D, DV, CAUSAL>(&tm_q, &tm_k, &tm_v, &tm_o, a, smem);
   }
 }
 
-template <int D, int DV>
+template <int D, int DV, bool CAUSAL = true>
 int launch(const void* q, const void* k, const void* v, const void* seg, void* tiles, void* out,
            const Args& a, cudaStream_t stream) {
   using C = Smem<D, DV>;
@@ -451,7 +483,7 @@ int launch(const void* q, const void* k, const void* v, const void* seg, void* t
       !make_map(&tm_v, encode, v, a.B, a.L, a.Hkv, BN, DV) ||
       !make_map(&tm_o, encode, out, a.B, a.L, a.Hq, 64, DV))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D, DV>,
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D, DV, CAUSAL>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)C::BYTES);
   if (e != cudaSuccess) return (int)e;
@@ -459,7 +491,8 @@ int launch(const void* q, const void* k, const void* v, const void* seg, void* t
                         stream);
   if (e != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)(a.Lp / BM) * a.Hq * a.B;
-  flash_fwd_kernel<D, DV><<<grid, NTHREADS, C::BYTES, stream>>>(tm_q, tm_k, tm_v, tm_o, a);
+  flash_fwd_kernel<D, DV, CAUSAL><<<grid, NTHREADS, C::BYTES, stream>>>(tm_q, tm_k, tm_v, tm_o,
+                                                                        a);
   return (int)cudaGetLastError();
 }
 
@@ -811,17 +844,20 @@ int launch64(const void* q, const void* k, const void* v, const void* seg, void*
 // q (B, L, Hq, d), k (B, L, Hkv, d), v (B, L, Hkv, dv), out (B, L, Hq, dv)
 // bf16, (d, dv) = (128, 128), (192, 128), (64, 64) or (256, 256); seg (B, L) int32;
 // tiles: scratch of (B, Lp / 64, 4) int32, Lp = L rounded up to 128; lse
-// (B, Hq, L) f32. window: > 0 a sliding window, 0 full attention. bound:
+// (B, Hq, L) f32. window: > 0 a sliding window, 0 full attention. causal:
+// 0 for bidirectional attention within each document (64/64, no window
+// only). bound:
 // device f32 or null (always the running-max variant);
 // max_free_count: device int32 or null; tile_count: device uint64 [walked,
 // full] or null.
 extern "C" int xt_flash_fwd_bf16(const void* q, const void* k, const void* v, const void* seg,
                                  void* tiles, void* out, void* lse, int B, int L, int Hq,
-                                 int Hkv, int d, int dv, float scale, int window,
+                                 int Hkv, int d, int dv, float scale, int window, int causal,
                                  const void* bound, void* max_free_count, void* tile_count,
                                  void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || L <= 0 || B <= 0 || window < 0)
     return (int)cudaErrorInvalidValue;
+  if (!causal && (d != 64 || dv != 64 || window > 0)) return (int)cudaErrorInvalidValue;
   const Args a{static_cast<const int*>(seg), static_cast<const int4*>(tiles),
                static_cast<float*>(lse), static_cast<const float*>(bound),
                static_cast<int*>(max_free_count),
@@ -830,7 +866,9 @@ extern "C" int xt_flash_fwd_bf16(const void* q, const void* k, const void* v, co
   cudaStream_t st = (cudaStream_t)stream;
   if (d == 128 && dv == 128) return launch<128, 128>(q, k, v, seg, tiles, out, a, st);
   if (d == 192 && dv == 128) return launch<192, 128>(q, k, v, seg, tiles, out, a, st);
-  if (d == 64 && dv == 64) return launch<64, 64>(q, k, v, seg, tiles, out, a, st);
+  if (d == 64 && dv == 64)
+    return causal ? launch<64, 64>(q, k, v, seg, tiles, out, a, st)
+                  : launch<64, 64, false>(q, k, v, seg, tiles, out, a, st);
   if (d == 256 && dv == 256) return launch64<256, 256>(q, k, v, seg, tiles, out, a, st);
   return (int)cudaErrorInvalidValue;
 }

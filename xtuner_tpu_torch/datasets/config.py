@@ -3,8 +3,9 @@
 dataclasses, and `DataloaderConfig.build`, which assembles jsonl datasets
 -> packer -> sampler -> `Dataloader` as the JAX one does.
 
-The text classes ("openai_sft", "pretrain") are ported; "internvl" and
-"qwen3_vl" raise ([trainer-rest]).
+The text classes ("openai_sft", "pretrain") and "qwen3_vl"
+(`datasets/qwen_vl.py`, with the `image_*` / `vision_*` fields and
+`max_patches`) are ported; "internvl" raises ([trainer-rest]).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from .. import not_ported
 from .dataloader import Dataloader
 from .jsonl import JsonlDataset
 from .packing import HardPackDataset, SoftPackDataset
+from .qwen_vl import Qwen3VLTokenizeFn
 from .sampler import LengthGroupedSampler, ParallelSampler
 from .tokenize_fns import OpenaiSFTTokenizeFn, PretrainTokenizeFn
 
@@ -47,7 +49,8 @@ class DataloaderConfig:
     seed: int = 0
     shuffle: bool = True
     length_grouped: bool = False
-    # VLM fields (kept so configs translate; a value > 0 raises)
+    # VLM fields: max_patches > 0 takes the Qwen3-VL collator; max_tiles
+    # (InternVL) > 0 raises
     max_tiles: int = 0
     tokens_per_tile: int = 256
     image_size: int = 448
@@ -69,6 +72,11 @@ class DataloaderConfig:
                     fn = OpenaiSFTTokenizeFn(tokenizer, ds_cfg.chat_template, ds_cfg.max_length)
                 elif ds_cfg.class_name == "pretrain":
                     fn = PretrainTokenizeFn(tokenizer, max_length=ds_cfg.max_length)
+                elif ds_cfg.class_name == "qwen3_vl":
+                    fn = Qwen3VLTokenizeFn(
+                        tokenizer, ds_cfg.chat_template, patch_size=self.vision_patch_size,
+                        merge_size=self.vision_merge_size, min_pixels=self.image_min_pixels,
+                        max_pixels=self.image_max_pixels, max_length=ds_cfg.max_length)
                 else:
                     raise not_ported(f"the {ds_cfg.class_name!r} dataset class", "trainer-rest")
                 datasets.append(
@@ -101,5 +109,6 @@ class DataloaderConfig:
             global_batch_rows=global_batch_rows, micro_batch_rows=micro_batch_rows,
             loss_reduction=self.loss_reduction, num_workers=self.num_workers,
             max_tiles=self.max_tiles, max_patches=self.max_patches,
-            pad_token_id=self.pad_token_id or 0,
+            num_grid_per_side=self.vision_num_grid_per_side,
+            merge_size=self.vision_merge_size, pad_token_id=self.pad_token_id or 0,
         )

@@ -1,16 +1,20 @@
 """Dataloader: yields (A, B, L) numpy step-batches with resume state
-(counterpart: `xtuner_tpu/datasets/dataloader.py`, its text path).
+(counterpart: `xtuner_tpu/datasets/dataloader.py`, its text and Qwen3-VL
+paths).
 
 One step batch feeds one optimizer step: A = grad-accum micro-batches x
-B = packed rows each, collated by `sft_llm_collator`. With `num_workers`
+B = packed rows each, collated by `sft_llm_collator`, or with
+`max_patches` > 0 per micro-batch by `datasets/qwen_vl.py::qwen3vl_collator`
+(patch rows padded to `max_patches`, so every VLM key stacks to a leading
+A). With `num_workers`
 > 0 a background thread keeps `prefetch` batches ready, so host
 tokenization overlaps device compute. The sampler's state is the resume
 state; `get_state_dict` reports the position after the batches handed out
 (batches prefetched but not yet taken are not counted as consumed).
 
-Not ported: the VLM collators (`max_tiles`, `max_patches` raise
-[trainer-rest]) and the per-process row split of a multihost run
-(`local_b_rows`, [parallelism]).
+Not ported: InternVL's tile collator (`max_tiles` raises [trainer-rest])
+and the per-process row split of a multihost run (`local_b_rows`,
+[parallelism]).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import numpy as np
 
 from .. import not_ported
 from .collator import sft_llm_collator
+from .qwen_vl import qwen3vl_collator
 
 
 class Dataloader:
@@ -31,11 +36,12 @@ class Dataloader:
                  global_batch_rows: int, micro_batch_rows: int,
                  loss_reduction: str = "token", num_workers: int = 0, prefetch: int = 2,
                  max_tiles: int = 0, max_patches: int = 0,
+                 num_grid_per_side: int = 48, merge_size: int = 2,
                  pad_token_id: int = 0, local_b_rows: "Optional[list[int]]" = None):
         if global_batch_rows % micro_batch_rows != 0:
             raise ValueError("global_batch_rows must be divisible by micro_batch_rows")
-        if max_tiles > 0 or max_patches > 0:
-            raise not_ported("the VLM collators (max_tiles / max_patches)", "trainer-rest")
+        if max_tiles > 0:
+            raise not_ported("InternVL's tile collator (max_tiles)", "trainer-rest")
         if local_b_rows is not None:
             raise not_ported("the multihost per-process row split (local_b_rows)",
                              "parallelism")
@@ -49,6 +55,9 @@ class Dataloader:
         self.num_workers = num_workers
         self.prefetch = prefetch
         self.pad_token_id = pad_token_id
+        self.max_patches = max_patches
+        self.num_grid_per_side = num_grid_per_side
+        self.merge_size = merge_size
         self._sampler_iter = iter(self.sampler)
         self._queue: Optional[queue.Queue] = None
         self._thread: Optional[threading.Thread] = None
@@ -62,9 +71,17 @@ class Dataloader:
         """The next step batch and the sampler state just after it."""
         a, b = self.grad_accum, self.micro_batch_rows
         rows = [self.dataset[next(self._sampler_iter)] for _ in range(self.global_batch_rows)]
+        state = copy.deepcopy(self.sampler.get_state_dict())
+        if self.max_patches > 0:
+            micro = [qwen3vl_collator(rows[i * b:(i + 1) * b], self.pack_max_length,
+                                      self.loss_reduction, max_patches=self.max_patches,
+                                      num_grid_per_side=self.num_grid_per_side,
+                                      merge_size=self.merge_size,
+                                      pad_token_id=self.pad_token_id)
+                     for i in range(a)]
+            return {k: np.stack([m[k] for m in micro]) for k in micro[0]}, state
         batch = sft_llm_collator(rows, self.pack_max_length, self.loss_reduction,
                                  pad_token_id=self.pad_token_id)
-        state = copy.deepcopy(self.sampler.get_state_dict())
         return {k: v.reshape(a, b, -1) for k, v in batch.items()}, state
 
     def _worker(self):

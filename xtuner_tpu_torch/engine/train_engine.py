@@ -6,7 +6,9 @@ The constructor takes what `Trainer` passes, as the JAX one does.
 `init_random(seed)` draws f32 masters from a `torch.Generator`;
 `train_step(batch, step)` takes an (A, B, L) packed batch (with an
 optional (A, B, L, nL_moe, K) `rollout_routed_experts`, the recorded
-routing an MoE model replays, as JAX's RL loss passes it): A micro-batches,
+routing an MoE model replays, as JAX's RL loss passes it, and the VLM
+keys of JAX's `VLM_BATCH_KEYS`, each with a leading A: Qwen3-VL's patch
+rows, image-token mask, (3, L) MRoPE positions and ViT geometry): A micro-batches,
 each one forward/backward with the loss denominator summed over the whole
 batch, gradients accumulated in f32; then the global-norm clip, AdamW
 (`config/optim.py`), and the JAX package's metrics, plus `dsa_index_loss`
@@ -28,8 +30,17 @@ stack.
 Memory: masters are stored stacked like the JAX tree; the model trains on
 per-layer views of them that are autograd leaves, so each layer's gradient
 is a tensor of its own and the stacked master is never copied. AdamW
-updates the masters in place through those views. A hybrid's `pattern`
+updates the masters in place through those views, one layer at a time. A
+stack is any key ending in `layers`, or Qwen3-VL's `blocks` and
+`deepstack_mergers`, at any depth of the tree (a VLM's `vision.blocks`,
+`projector.deepstack_mergers`, `language.layers`); a hybrid's `pattern`
 tree gets the same per-period views for each of its slots.
+
+Freezing: leaves a model's `param_labels` marks "freeze" (Qwen3-VL's
+`freeze_vision` / `freeze_projector` / `freeze_language`) are views that
+need no gradient and are no optimizer params: no gradient, no moments,
+no update, no decay, and out of the grad norm (JAX's
+`freeze_stop_gradient` and `optax.set_to_zero`).
 
 Not ported yet: LoRA freezing ([lora]), custom loss functions, meshes and
 sharded batches (Queue 1, parallelism), HF load and save ([serve-rest]).
@@ -61,34 +72,52 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _leaf_views(master: dict):
-    """A tree for the model whose layer stacks (and each slot of a hybrid's
-    `pattern`) are lists of per-layer dicts of leaf views, plus [(view,
-    decay)] pairs for the optimizer. Buffers (`is_buffer`) are plain views,
-    outside the pairs."""
+# the keys of Qwen3-VL's stacks beside those ending in "layers"
+VLM_STACKS = ("blocks", "deepstack_mergers")
+# optional batch keys handed into SequenceContext (JAX's VLM_BATCH_KEYS)
+VLM_BATCH_KEYS = ("pixel_values", "image_token_mask", "mrope_positions", "vision_segment_ids",
+                  "vision_rot_pos", "vision_pos_interp_idx", "vision_pos_interp_w")
+
+
+def _is_stack(key: str) -> bool:
+    return key.endswith("layers") or key in VLM_STACKS
+
+
+def _leaf_views(master: dict, labels=None):
+    """A tree for the model whose layer stacks (at any depth, and each slot
+    of a hybrid's `pattern`) are lists of per-layer dicts of leaf views,
+    plus [(view, decay)] pairs for the optimizer. Buffers (`is_buffer`) and
+    leaves `labels` marks "freeze" (a tree like `master`'s, or one label
+    for a whole subtree) are views without grad, outside the pairs."""
     pairs = []
 
-    def views(name, sub, pick):
+    def child(lab, key):  # a subtree's labels: a tree, or one label for all of it
+        return lab[key] if isinstance(lab, dict) else lab
+
+    def views(name, sub, pick, lab):
         if isinstance(sub, dict):
-            return {k: views(k, v, pick) for k, v in sub.items()}
-        if is_buffer(name):
+            return {k: views(k, v, pick, child(lab, k)) for k, v in sub.items()}
+        if is_buffer(name) or lab == "freeze":
             return pick(sub).detach()
         v = pick(sub).detach().requires_grad_(True)  # shares storage with the master
         pairs.append((v, _decay_mask(sub)))
         return v
 
-    def per_layer(key, sub):
-        return [views(key, sub, lambda t, i=i: t[i]) for i in range(num_layers(sub))]
+    def per_layer(key, sub, lab):
+        return [views(key, sub, lambda t, i=i: t[i], lab) for i in range(num_layers(sub))]
 
-    tree = {}
-    for key, sub in master.items():
-        if key.endswith("layers"):
-            tree[key] = per_layer(key, sub)
-        elif key == "pattern":
-            tree[key] = {slot: per_layer(slot, stack) for slot, stack in sub.items()}
-        else:
-            tree[key] = views(key, sub, lambda t: t)
-    return tree, pairs
+    def walk(sub, lab, stacks=False):  # stacks: every key is one (a hybrid's pattern slots)
+        tree = {}
+        for key, val in sub.items():
+            if stacks or _is_stack(key):
+                tree[key] = per_layer(key, val, child(lab, key))
+            elif isinstance(val, dict):
+                tree[key] = walk(val, child(lab, key), key == "pattern")
+            else:
+                tree[key] = views(key, val, lambda t: t, child(lab, key))
+        return tree
+
+    return walk(master, labels), pairs
 
 
 class TrainEngine:
@@ -132,7 +161,9 @@ class TrainEngine:
         """Take f32 masters (e.g. from `module/params.py::params_from_numpy`)
         and start a fresh optimizer state."""
         self.params = params
-        self._train_tree, pairs = _leaf_views(params)
+        labels = (self.model.param_labels(self.specs)
+                  if hasattr(self.model, "param_labels") else None)
+        self._train_tree, pairs = _leaf_views(params, labels)
         self._leaves = [v for v, _ in pairs]
         self.optimizer = AdamW(self._leaves, [d for _, d in pairs], self.optim_cfg,
                                self.lr_schedule)
@@ -158,8 +189,10 @@ class TrainEngine:
         sums: dict = {}
         for a in range(dev["input_ids"].shape[0]):
             mb = {k: v[a] for k, v in dev.items()}
-            seq_ctx = SequenceContext(mb["input_ids"], mb["segment_ids"], mb["position_ids"],
-                                      mb.get("rollout_routed_experts"))
+            seq_ctx = SequenceContext(
+                mb["input_ids"], mb["segment_ids"], mb["position_ids"],
+                mb.get("rollout_routed_experts"),
+                **{k: mb[k] for k in VLM_BATCH_KEYS if k in mb})
             out = self.model.loss(self._train_tree, seq_ctx, mb["shifted_labels"],
                                   mb["loss_weights"], denom, compute_dtype=self.compute_dtype,
                                   remat=self.remat)

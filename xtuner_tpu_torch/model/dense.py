@@ -23,6 +23,12 @@ returns its indexer loss beside x, and `loss` sets `dsa_index_loss` to
 their sum times `dsa_index_loss_coef`. Under remat "full" the whole DSA
 layer, indexer included, is one checkpoint; "none" runs it plainly, and
 the other policies raise for DSA ([train-slice]).
+
+A VLM hands the text model its input embeddings (`seq_ctx.inputs_embeds`,
+which replace the embedding lookup) and Qwen3-VL's deepstack features
+(`seq_ctx.deepstack_embeds`, (n_ds, B, L, H), zero away from the image
+tokens), added to x after each of the first n_ds layers, outside the
+layer's remat region (JAX `model/dense.py:200-215`).
 """
 
 from __future__ import annotations
@@ -119,6 +125,14 @@ def num_layers(stack) -> int:
     while isinstance(stack, dict):
         stack = next(iter(stack.values()))
     return stack.shape[0]
+
+
+def add_deepstack(x: torch.Tensor, ds, i: int) -> torch.Tensor:
+    """x plus deepstack row i after text layer i, for i < n_ds (ds: (n_ds,
+    B, L, H) or None)."""
+    if ds is None or i >= ds.shape[0]:
+        return x
+    return x + ds[i].to(x.dtype)
 
 
 def embed_tokens(params, input_ids: torch.Tensor, dtype) -> torch.Tensor:
@@ -291,7 +305,10 @@ class Dense:
     def _embed_and_rope(self, params, seq_ctx, compute_dtype):
         self.check_ported()
         cfg = self.cfg
-        x = embed_tokens(params, seq_ctx.input_ids, compute_dtype)
+        if seq_ctx.inputs_embeds is not None:
+            x = seq_ctx.inputs_embeds.to(compute_dtype)
+        else:
+            x = embed_tokens(params, seq_ctx.input_ids, compute_dtype)
         cos, sin = model_rope_cos_sin(seq_ctx, _rope_dim(cfg.attention), cfg.rope_theta,
                                       cfg.rope_scaling_cfg, cfg.max_position_embeddings)
         return x, cos, sin, seq_ctx.segment_ids.to(torch.int32).contiguous()
@@ -312,6 +329,7 @@ class Dense:
         idx_losses = []
         for i in range(num_layers(stack)):
             x, idx_loss = layer_fn(x, layer_params(stack, i))
+            x = add_deepstack(x, seq_ctx.deepstack_embeds, i)
             idx_losses.append(idx_loss)
         idx = torch.stack(idx_losses).sum() if _is_dsa(self.cfg.attention) else None
         return self._final_norm(params, x, compute_dtype), idx

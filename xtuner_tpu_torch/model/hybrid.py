@@ -26,6 +26,10 @@ sub-layer i's experts to its slice i (entries below 0 route afresh).
 JAX's `HybridMoE.forward` never reads that field and so drops the replay
 (ROADMAP.md, known faults in the reference); the port applies it.
 
+A VLM's `seq_ctx.inputs_embeds` replace the embedding lookup (Qwen3.5-VL);
+`deepstack_embeds` raise: its tower has no deepstack layers, and JAX's
+hybrid never reads them.
+
 Remat "none" and "full" are taken ("full" checkpoints each sub-layer,
 where JAX checkpoints a whole period inside its scan: the same numbers,
 while only one sub-layer's compute-dtype weight copies are alive at a
@@ -188,6 +192,9 @@ class _HybridMixin:
         order, (cos, sin, segment ids, valid)). `make_fn(kind, layer
         index, cos, sin, segment ids, valid)` gives the sub-layer `(x, lp)
         -> (x, *aux)`."""
+        if seq_ctx.deepstack_embeds is not None:
+            raise ValueError("the hybrid text model takes no deepstack_embeds (Qwen3.5-VL's "
+                             "tower has no deepstack layers)")
         x, cos, sin, seg = self._embed_and_rope(params, seq_ctx, compute_dtype)
         valid = (seg != 0).reshape(-1)
         auxes = []

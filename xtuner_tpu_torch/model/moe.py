@@ -37,8 +37,13 @@ first (`model/moe.py:219`) and so drops the replay for gpt-oss, the one
 model whose routing its serving engine records (ROADMAP.md, known faults
 in the reference).
 
-Not ported yet: deepstack injection ([moe], Queue 1 VLM), HF interop
-([serve-rest]).
+Deepstack injection (Qwen3-VL-30B-A3's text model): as `Dense`'s, after
+each of the first n_ds MoE layers; like JAX, a model with dense layers
+first or a window pattern refuses it. JAX's replay branch drops the
+deepstack features (`model/moe.py:241-260` never reads them); the port
+adds them with or without replay.
+
+Not ported yet: HF interop ([serve-rest]).
 """
 
 from __future__ import annotations
@@ -57,8 +62,8 @@ from ..module.mtp import mtp_extra_param_specs, mtp_fuse, shift_for_mtp
 from ..module.params import ParamSpec, cast_tree, stack_specs
 from ..module.router import GreedyRouterConfig, RouterConfig, router_param_specs
 from .base import ModelOutputs
-from .dense import (Dense, DenseConfig, _attn_param_specs, _is_dsa, embed_tokens,
-                    layer_params, num_layers)
+from .dense import (Dense, DenseConfig, _attn_param_specs, _is_dsa, add_deepstack,
+                    embed_tokens, layer_params, num_layers)
 from .generate import layer_windows
 
 MTP_EXTRAS = ("proj", "hidden_norm", "embed_norm")
@@ -182,6 +187,12 @@ class MoE(Dense):
         bal (L_moe,), z (L_moe,), load (L_moe, E), the indexer losses'
         sum (None without DSA), (cos, sin, segment ids, valid))."""
         self.check_trainable()
+        cfg = self.cfg
+        ds = seq_ctx.deepstack_embeds
+        if ds is not None and (cfg.first_k_dense_replace > 0 or cfg.layer_window_pattern):
+            raise NotImplementedError(
+                "deepstack injection assumes the first n_ds layers are plain MoE layers "
+                "(Qwen3-VL MoE shape: first_k_dense_replace=0, no window pattern)")
         x, cos, sin, seg = self._embed_and_rope(params, seq_ctx, compute_dtype)
         valid = (seg != 0).reshape(-1)
         idx = []
@@ -202,6 +213,7 @@ class MoE(Dense):
             moe_fn = self._moe_layer_fn(cos, sin, seg, valid, compute_dtype, remat, window,
                                         forced)
             x, bal, zl, load, idx_loss = moe_fn(x, layer_params(stack, i))
+            x = add_deepstack(x, ds, i)
             bals.append(bal)
             zls.append(zl)
             loads.append(load)

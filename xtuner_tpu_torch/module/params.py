@@ -92,8 +92,10 @@ def params_from_numpy(np_tree, cfg, device, dtype=torch.float32):
     attention's optional q/k/v/o biases `b` and per-head `sinks`, as
     gpt-oss has them; a hybrid's `pattern.p{i}` stacks, one per pattern
     slot with a leading dim of periods, GatedDeltaNet or attention and its
-    MLP or MoE block); linear weights are (in, out). Raises ValueError naming the first path
-    that differs."""
+    MLP or MoE block; Qwen3-VL's `vision`, `projector` and `language`
+    trees, with the stacked `blocks` and `deepstack_mergers`); linear
+    weights are (in, out). Raises ValueError naming the first path that
+    differs."""
     specs = dict(tree_paths(cfg.build().param_specs()))
     got = dict(tree_paths(np_tree))
     if sorted(specs) != sorted(got):

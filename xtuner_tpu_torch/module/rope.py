@@ -11,7 +11,9 @@ training forward of a qwen3_vl config runs, through `model_rope_cos_sin`,
 JAX's model-facing dispatch: the (B, 3, L) `mrope_positions` of the
 batch, or its text positions on all three axes, which gives the plain
 rope. The serving engines read a qwen3_vl config as plain rope over text
-positions, as JAX's do (`text_rope_scaling`).
+positions, as JAX's do (`text_rope_scaling`). `build_mrope_positions`
+makes a sample's (3, L) positions on the host, as the Qwen3-VL tokenize
+function asks it to.
 
 Not ported yet: FoPE's learned Fourier mixing (`use_fope`) raises ([vlm]).
 """
@@ -22,6 +24,7 @@ import math
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import not_ported
@@ -190,3 +193,32 @@ def model_rope_cos_sin(seq_ctx, head_dim: int, theta: float,
         return mrope_cos_sin_interleaved(pos3, head_dim, theta, sec)
     return rope_cos_sin(seq_ctx.position_ids, head_dim, theta, scaling,
                         max_position_embeddings)
+
+
+def build_mrope_positions(input_ids, image_token_mask, image_grid_thw,
+                          spatial_merge: int = 2) -> np.ndarray:
+    """A packed sample's 3-D positions on the host (JAX
+    `build_mrope_positions`): text tokens advance t, h and w together;
+    each image's merged tokens take (cursor + t, cursor + row, cursor +
+    col) over its (t, h / merge, w / merge) grid, and the cursor then
+    moves by the grid's largest side. input_ids (L,); image_token_mask
+    (L,) bool; image_grid_thw (n_images, 3). Returns (3, L) int32."""
+    n = len(input_ids)
+    pos = np.zeros((3, n), np.int64)
+    cursor = img = i = 0
+    while i < n:
+        if image_token_mask[i]:
+            gt, gh, gw = (int(g) for g in image_grid_thw[img])
+            gh, gw = gh // spatial_merge, gw // spatial_merge
+            m = gt * gh * gw
+            pos[0, i:i + m] = cursor + np.repeat(np.arange(gt), gh * gw)
+            pos[1, i:i + m] = cursor + np.tile(np.repeat(np.arange(gh), gw), gt)
+            pos[2, i:i + m] = cursor + np.tile(np.arange(gw), gt * gh)
+            cursor += max(gt, gh, gw)
+            img += 1
+            i += m
+        else:
+            pos[:, i] = cursor
+            cursor += 1
+            i += 1
+    return pos.astype(np.int32)

@@ -1,8 +1,13 @@
 """Activation functions (counterpart: `xtuner_tpu/ops/act_fn.py`).
 
-`silu` is the activation of every dense and MoE preset ported so far, and
-`swiglu_clipped` gpt-oss's experts' gated activation. The other names of
-the JAX registry raise and name their ROADMAP item.
+`silu` is the activation of every dense and MoE preset ported so far,
+`swiglu_clipped` gpt-oss's experts' gated activation, and
+`gelu_pytorch_tanh` Qwen3-VL's vision MLP's. `gelu` is JAX's registry
+entry, `jax.nn.gelu` with its default `approximate=True`: the tanh form,
+not HF's exact erf one (ROADMAP.md, known faults in the reference).
+Qwen3-VL's mergers call the exact form themselves (`gelu_exact`), as
+JAX's `_merger_forward` does. "relu" and "quick_gelu" raise and name
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -12,7 +17,20 @@ import torch.nn.functional as F
 
 from .. import not_ported
 
-_ACT2FN = {"silu": F.silu}
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu(x, approximate=True), HF's gelu_pytorch_tanh."""
+    return F.gelu(x, approximate="tanh")
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu(x, approximate=False): x Phi(x) with erf."""
+    return F.gelu(x)
+
+
+# JAX's "gelu" is jax.nn.gelu's default, the tanh form
+_ACT2FN = {"silu": F.silu, "gelu": gelu_tanh, "gelu_pytorch_tanh": gelu_tanh}
 
 
 def get_act_fn(name: str):

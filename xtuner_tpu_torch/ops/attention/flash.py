@@ -1,4 +1,4 @@
-"""Causal GQA flash attention over packed rows, forward and backward
+"""GQA flash attention over packed rows, causal or not, forward and backward
 (counterpart: `xtuner_tpu/ops/attention/flash.py`, `_flash`'s custom VJP:
 `_flash_forward` with its running-max and max-free `_fwd_kernel`, and
 `_flash_bwd_rule` with `_dq_kernel` and either `_dkv_grouped_kernel` or,
@@ -51,8 +51,18 @@ variant. The forward's CTAs also count the k tiles they walk, and those
 they walk without the per-element mask (`fwd_tiles_walked()`);
 `fwd_tile_plan` says which tiles one launch should walk.
 
-Not ported yet: non-causal attention ([train-slice]), and a window in
-the backward at 128/128 and 256/256 (no preset trains with one).
+Non-causal attention (`causal=False`: key m visible to query l iff
+seg[l] == seg[m] != 0, JAX `_tile_mask`), the bidirectional attention of
+Qwen3-VL's vision tower, runs in the kernels at (64, 64)
+(`NONCAUSAL_DIMS`): the forward's and dq's walks go from the first k
+tile that meets a q tile's segment range to the last, the dk/dv walk
+over the same span from the k tile's side, and a tile whose rows and
+keys are one document skips the mask on the diagonal too. Every other
+pair raises on a CUDA tensor (ROADMAP.md Queue 2 A1), as does a window
+with `causal=False`; the plain versions take both everywhere.
+
+Not ported yet: a window in the backward at 128/128 and 256/256 (no
+preset trains with one).
 """
 
 from __future__ import annotations
@@ -71,6 +81,7 @@ KERNEL_DIMS = ((128, 128), (192, 128), (64, 64), (256, 256))  # the (D, Dv) pair
 BWD_KERNEL_DIMS = ((128, 128), (192, 128), (64, 64), (256, 256))  # and the backward
 ONE_PASS_DIMS = (128, 128)  # the backward pair that runs the one pass (no window)
 NO_WINDOW_BWD_DIMS = (ONE_PASS_DIMS, (256, 256))  # backward pairs built without a window
+NONCAUSAL_DIMS = ((64, 64),)  # the pairs whose kernels take causal=False
 # |scaled logit| bound at or below which the max-free forward is exact in
 # f32 (flash.py MAX_FREE_BOUND): exp(45) is far inside the f32 range
 MAX_FREE_BOUND = 45.0
@@ -82,10 +93,10 @@ def _grouped(q, k):
     return q.float().reshape(b, l, hkv, hq // hkv, d)
 
 
-def _probs(q, k, segment_ids, scale, lse=None, max_free=False, window=None):
+def _probs(q, k, segment_ids, scale, lse=None, max_free=False, window=None, causal=True):
     """(B, Hkv, rep, L, L) f32 probabilities and lse (B, Hkv, rep, L, 1)."""
     s = torch.einsum("blgrd,bmgd->bgrlm", _grouped(q, k), k.float()) * scale
-    mask = make_attention_mask(segment_ids, causal=True, window=window)[:, :, None]
+    mask = make_attention_mask(segment_ids, causal=causal, window=window)[:, :, None]
     if lse is not None:  # backward: p from the saved lse (padding rows: 1e30)
         return torch.where(mask, torch.exp(s - lse[..., None]), 0.0), lse[..., None]
     if max_free:
@@ -104,27 +115,31 @@ def _probs(q, k, segment_ids, scale, lse=None, max_free=False, window=None):
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           segment_ids: torch.Tensor, scale: float,
-                          max_free: bool = False, window: Optional[int] = None):
+                          max_free: bool = False, window: Optional[int] = None,
+                          causal: bool = True):
     """Plain version of the forward: fp32 masked softmax over the whole
     (L, L) score matrix, with the row max (running-max variant) or without
     it (`max_free`, exact when |scaled logit| <= MAX_FREE_BOUND); with a
-    `window`, key m is visible to query l only if l - m < window.
+    `window`, key m is visible to query l only if l - m < window; without
+    `causal`, every key of l's document is.
     q: (B, L, Hq, D); k: (B, L, Hkv, D); v: (B, L, Hkv, Dv); segment_ids:
     (B, L). Returns out (B, L, Hq, Dv) in q.dtype, lse (B, Hq, L) fp32."""
     b, l, hq, _ = q.shape
-    p, lse = _probs(q, k, segment_ids, scale, max_free=max_free, window=window)
+    p, lse = _probs(q, k, segment_ids, scale, max_free=max_free, window=window, causal=causal)
     out = torch.einsum("bgrlm,bmgd->blgrd", p, v.float())
     return out.reshape(b, l, hq, v.shape[-1]).to(q.dtype), lse.reshape(b, hq, l)
 
 
-def flash_dq_plain(q, k, v, segment_ids, lse, delta, do, scale, window=None):
+def flash_dq_plain(q, k, v, segment_ids, lse, delta, do, scale, window=None,
+                   causal=True):
     """Plain version of `_dq_kernel`: dq (B, L, Hq, D) in q.dtype from the
     saved lse and delta (B, Hq, L); do is (B, L, Hq, Dv); with a `window`,
-    key m counts for query l only if l - m < window."""
+    key m counts for query l only if l - m < window; without `causal`,
+    every key of l's document does."""
     b, l, hq, d = q.shape
     hkv = k.shape[2]
     p, _ = _probs(q, k, segment_ids, scale, lse.reshape(b, hkv, hq // hkv, l),
-                  window=window)
+                  window=window, causal=causal)
     dog = do.float().reshape(b, l, hkv, hq // hkv, v.shape[-1])
     dp = torch.einsum("blgrd,bmgd->bgrlm", dog, v.float())
     ds = p * (dp - delta.reshape(b, hkv, hq // hkv, l)[..., None])
@@ -132,14 +147,15 @@ def flash_dq_plain(q, k, v, segment_ids, lse, delta, do, scale, window=None):
     return dq.reshape(b, l, hq, d).to(q.dtype)
 
 
-def flash_dkv_plain(q, k, v, segment_ids, lse, delta, do, scale, window=None):
+def flash_dkv_plain(q, k, v, segment_ids, lse, delta, do, scale, window=None,
+                    causal=True):
     """Plain version of `_dkv_grouped_kernel`: dk (B, L, Hkv, D) and dv
     (B, L, Hkv, Dv) summed over each kv head's q-head group, in k.dtype /
     v.dtype."""
     b, l, hq, _ = q.shape
     hkv = k.shape[2]
     p, _ = _probs(q, k, segment_ids, scale, lse.reshape(b, hkv, hq // hkv, l),
-                  window=window)
+                  window=window, causal=causal)
     dog = do.float().reshape(b, l, hkv, hq // hkv, v.shape[-1])
     dv = torch.einsum("bgrlm,blgrd->bmgd", p, dog)
     dp = torch.einsum("blgrd,bmgd->bgrlm", dog, v.float())
@@ -148,14 +164,15 @@ def flash_dkv_plain(q, k, v, segment_ids, lse, delta, do, scale, window=None):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_dkv_two_pass_plain(q, k, v, segment_ids, lse, delta, do, scale, window=None):
+def flash_dkv_two_pass_plain(q, k, v, segment_ids, lse, delta, do, scale, window=None,
+                             causal=True):
     """Plain version of `_dkv_kernel`: dk_h (B, L, Hq, D) and dv_h (B, L,
     Hq, Dv) of each q head, not summed over the group, in q.dtype; dk_h
     scaled."""
     b, l, hq, d = q.shape
     hkv, dv_dim = k.shape[2], v.shape[-1]
     p, _ = _probs(q, k, segment_ids, scale, lse.reshape(b, hkv, hq // hkv, l),
-                  window=window)
+                  window=window, causal=causal)
     dog = do.float().reshape(b, l, hkv, hq // hkv, dv_dim)
     dv = torch.einsum("bgrlm,blgrd->bmgrd", p, dog)
     dp = torch.einsum("blgrd,bmgd->bgrlm", dog, v.float())
@@ -248,8 +265,9 @@ def fwd_tiles_walked() -> tuple[int, int]:
 
 def reset_launches() -> None:
     """Zero the launch counters of the flash kernels."""
-    flash_attention.launches = 0
+    flash_attention.launches = flash_attention.noncausal_launches = 0
     flash_bwd.launches = {"grouped": 0, "two_pass": 0}
+    flash_bwd.noncausal_launches = {"grouped": 0, "two_pass": 0}
     for c in (*_MAX_FREE_COUNT.values(), *_TILE_COUNT.values()):
         c.zero_()
 
@@ -277,19 +295,22 @@ def _tile_table(seg_p: torch.Tensor) -> torch.Tensor:
 
 
 def fwd_tile_plan(segment_ids: torch.Tensor, window: Optional[int] = None,
-                  key_tile: int = KEY_TILE) -> tuple[torch.Tensor, torch.Tensor]:
+                  key_tile: int = KEY_TILE,
+                  causal: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Which k tiles the forward kernel walks for each q tile, from the
     padded segment ids and their tile table, which the kernel builds the
     same way (for counts and tests only; nothing computes attention from
     it). q tiles are KEY_TILE rows, k tiles `key_tile` rows (KEY_TILE, or
     64 at (256, 256): `fwd_key_tile`). Returns (walk, full), (B, nq, nk)
     bool over (q tile i, k tile j): walked iff the k tile starts at or
-    before the q tile's last row, its segment range meets the q tile's
-    and, with a `window`, its last key is inside the window of the q
-    tile's first row; full (no per-element mask, JAX `_tile_full`) iff
-    walked, the k tile ends before the q tile starts, both tiles hold one
-    and the same document and no padding, and, with a window, every pair
-    is inside it."""
+    before the q tile's last row (with `causal`), its segment range meets
+    the q tile's and, with a `window`, its last key is inside the window
+    of the q tile's first row; full (no per-element mask, JAX
+    `_tile_full`) iff walked, the k tile ends before the q tile starts
+    (with `causal`), both tiles hold one and the same document and no
+    padding, and, with a window, every pair is inside it. Without
+    `causal` a q tile walks from the first k tile that holds one of its
+    documents to the last."""
     pad = -segment_ids.shape[1] % KEY_TILE
     t = _tile_table(torch.nn.functional.pad(segment_ids, (0, pad)))
     b = t.shape[0]
@@ -303,10 +324,11 @@ def fwd_tile_plan(segment_ids: torch.Tensor, window: Optional[int] = None,
     dev = lo.device
     q0 = KEY_TILE * torch.arange(lo.shape[1], device=dev)[None, :, None]
     k0 = key_tile * torch.arange(klo.shape[1], device=dev)[None, None, :]
-    causal = k0 <= q0 + KEY_TILE - 1  # (1, i, j)
-    walk = causal & (khi[:, None, :] >= lo[:, :, None]) & (klo[:, None, :] <= hi[:, :, None])
-    full = walk & (k0 + key_tile <= q0) & (kuni[:, None, :] != 0) \
-        & (kuni[:, None, :] == uni[:, :, None])
+    walk = (khi[:, None, :] >= lo[:, :, None]) & (klo[:, None, :] <= hi[:, :, None])
+    full = walk & (kuni[:, None, :] != 0) & (kuni[:, None, :] == uni[:, :, None])
+    if causal:
+        walk = walk & (k0 <= q0 + KEY_TILE - 1)  # (1, i, j)
+        full = full & walk & (k0 + key_tile <= q0)
     if window:
         walk = walk & (k0 + key_tile - 1 > q0 - window)  # the last key vs the first row
         full = full & (q0 + KEY_TILE - 1 - k0 < window)  # the last row vs the first key
@@ -325,20 +347,36 @@ def fwd_outputs(q: torch.Tensor, v: torch.Tensor):
     return out, lse, tiles
 
 
+def _check_causal(q, v, window, causal: bool, name: str) -> None:
+    """A CUDA call with `causal=False` needs a pair of `NONCAUSAL_DIMS` and
+    no window."""
+    if causal:
+        return
+    if (q.shape[3], v.shape[3]) not in NONCAUSAL_DIMS:
+        raise not_ported(f"non-causal {name} at (head_dim, v head_dim) "
+                         f"{(q.shape[3], v.shape[3])} (Queue 2 A1; the kernels take "
+                         f"{NONCAUSAL_DIMS})", "train-slice")
+    if window:
+        raise not_ported(f"non-causal {name} with a sliding window", "train-slice")
+
+
 def flash_forward(q, k, v, segment_ids, scale: float,
-                  max_logit: Optional[torch.Tensor] = None, window: Optional[int] = None):
+                  max_logit: Optional[torch.Tensor] = None, window: Optional[int] = None,
+                  causal: bool = True):
     """The forward kernel (#1, both variants): (out (B, L, Hq, Dv) in
     q.dtype, lse (B, Hq, L) fp32); rows that see no key get out 0 and lse
     1e30. With a `window` (> 0), key m is visible to query l only if l - m
-    < window. On the CPU the variant is read from `max_logit` directly."""
+    < window; without `causal`, every key of l's document is. On the CPU
+    the variant is read from `max_logit` directly."""
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window {window} must be positive (None: full)")
     if q.device.type == "cpu":
         max_free = max_logit is not None and float(max_logit) <= MAX_FREE_BOUND
-        return flash_attention_plain(q, k, v, segment_ids, scale, max_free, window)
+        return flash_attention_plain(q, k, v, segment_ids, scale, max_free, window, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     _check_kernel_args(q, k, v, segment_ids)
+    _check_causal(q, v, window, causal, "flash_attention")
     bound = None
     if max_logit is not None:
         if max_logit.device != q.device or max_logit.numel() != 1:
@@ -351,11 +389,13 @@ def flash_forward(q, k, v, segment_ids, scale: float,
     err = load().xt_flash_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(), tiles.data_ptr(),
         out.data_ptr(), lse.data_ptr(), b, l, hq, k.shape[2], d, v.shape[3],
-        float(scale), int(window or 0), None if bound is None else bound.data_ptr(),
+        float(scale), int(window or 0), int(causal),
+        None if bound is None else bound.data_ptr(),
         _max_free_counter(q.device).data_ptr(), _tile_counter(q.device).data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "xt_flash_fwd_bf16")
     flash_attention.launches += 1
+    flash_attention.noncausal_launches += not causal
     return out, lse
 
 
@@ -373,12 +413,12 @@ def fold_sinks(out: torch.Tensor, lse: torch.Tensor, sinks: torch.Tensor):
 
 
 def flash_bwd_plain(q, k, v, segment_ids, lse, delta, do, scale, two_pass=False,
-                    window=None):
+                    window=None, causal=True):
     """Plain version of `flash_bwd`: `flash_dq_plain` with
     `flash_dkv_plain` (grouped) or `flash_dkv_two_pass_plain`."""
-    dq = flash_dq_plain(q, k, v, segment_ids, lse, delta, do, scale, window)
+    dq = flash_dq_plain(q, k, v, segment_ids, lse, delta, do, scale, window, causal)
     dkv = flash_dkv_two_pass_plain if two_pass else flash_dkv_plain
-    return (dq, *dkv(q, k, v, segment_ids, lse, delta, do, scale, window))
+    return (dq, *dkv(q, k, v, segment_ids, lse, delta, do, scale, window, causal))
 
 
 def bwd_outputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, two_pass: bool):
@@ -392,13 +432,15 @@ def bwd_outputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, two_pass: boo
 
 
 def flash_bwd(q, k, v, segment_ids, lse, delta, do, scale: float, two_pass: bool = False,
-              window: Optional[int] = None):
+              window: Optional[int] = None, causal: bool = True):
     """The backward kernels (#2 with #3, or with #4 when `two_pass`): dq
     (B, L, Hq, D) in q.dtype and dk (B, L, Hkv, D), dv (B, L, Hkv, Dv)
     summed over each kv head's q-head group, or with `two_pass` dk_h, dv_h
     (B, L, Hq, D / Dv) of each q head in q.dtype, not summed (`group_sum`
     sums them). With a `window` (> 0), key m counts for query l only if l
-    - m < window. lse is the forward's, with any sinks folded in. At head
+    - m < window; without `causal`, every key of l's document counts
+    (at (64, 64) only on a CUDA tensor). lse is the forward's, with any
+    sinks folded in. At head
     dim 128 one pass adds dq into a zeroed f32 accumulator by bulk
     reduce-adds, so dq's summation order changes from run to run; dk and
     dv's does not; it takes no window. At (192, 128), (64, 64) and (256,
@@ -408,8 +450,10 @@ def flash_bwd(q, k, v, segment_ids, lse, delta, do, scale: float, two_pass: bool
     if window is not None and window <= 0:
         raise ValueError(f"flash_bwd: window {window} must be positive (None: full)")
     if q.device.type == "cpu":
-        return flash_bwd_plain(q, k, v, segment_ids, lse, delta, do, scale, two_pass, window)
+        return flash_bwd_plain(q, k, v, segment_ids, lse, delta, do, scale, two_pass, window,
+                               causal)
     _check_bwd_args(q, k, v, segment_ids, lse, delta, do, "flash_bwd", window)
+    _check_causal(q, v, window, causal, "flash_bwd")
     from ..cuda_lib import check, load
 
     b, l, hq, d = q.shape
@@ -429,10 +473,12 @@ def flash_bwd(q, k, v, segment_ids, lse, delta, do, scale: float, two_pass: bool
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), segment_ids.data_ptr(), tiles.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, l, l + pad, hq, k.shape[2], d, v.shape[3],
-        float(scale), int(two_pass), int(window or 0),
+        float(scale), int(two_pass), int(window or 0), int(causal),
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "xt_flash_bwd_bf16")
     flash_bwd.launches["two_pass" if two_pass else "grouped"] += 1
+    if not causal:
+        flash_bwd.noncausal_launches["two_pass" if two_pass else "grouped"] += 1
     if not one_pass:
         return dq, dk, dv
     # the accumulator's blocks hold (b, h, q tile, column half, warp, j,
@@ -445,6 +491,7 @@ def flash_bwd(q, k, v, segment_ids, lse, delta, do, scale: float, two_pass: bool
 
 
 flash_bwd.launches = {"grouped": 0, "two_pass": 0}  # launches since the last reset
+flash_bwd.noncausal_launches = {"grouped": 0, "two_pass": 0}  # of which causal=False
 
 
 def attn_bwd() -> str:
@@ -454,7 +501,8 @@ def attn_bwd() -> str:
 
 
 def flash_backward(q, k, v, segment_ids, out, lse, dout, scale: float, bwd: str,
-                   window: Optional[int] = None, sinks: Optional[torch.Tensor] = None):
+                   window: Optional[int] = None, sinks: Optional[torch.Tensor] = None,
+                   causal: bool = True):
     """dq, dk, dv and dsinks (None without sinks) from the forward's
     residuals (JAX `_flash_bwd_rule`): delta in plain PyTorch from the
     folded out, then the backward kernels on the folded lse, grouped
@@ -463,7 +511,8 @@ def flash_backward(q, k, v, segment_ids, out, lse, dout, scale: float, bwd: str,
     do = dout.to(q.dtype).contiguous()
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     two_pass = bwd != "grouped"
-    dq, dk, dv = flash_bwd(q, k, v, segment_ids, lse, delta, do, scale, two_pass, window)
+    dq, dk, dv = flash_bwd(q, k, v, segment_ids, lse, delta, do, scale, two_pass, window,
+                           causal)
     if two_pass:
         dk, dv = group_sum(dk, k.shape[2], k.dtype), group_sum(dv, k.shape[2], v.dtype)
     dsinks = None
@@ -481,19 +530,20 @@ class _FlashAttention(torch.autograd.Function):
     without grad and the flash forward with the `window`, then folds the
     sinks in; the backward re-runs `qkv_fn` with grad (a pass-through when
     `inputs` are q, k, v and the sinks), runs the backward kernels with the
-    window on the saved out and lse along the dk/dv path read when the
-    forward ran, and backpropagates dq, dk, dv and dsinks through `qkv_fn`.
-    The flash forward never re-runs."""
+    window and the causal flag on the saved out and lse along the dk/dv
+    path read when the forward ran, and backpropagates dq, dk, dv and
+    dsinks through `qkv_fn`. The flash forward never re-runs."""
 
     @staticmethod
-    def forward(ctx, qkv_fn, segment_ids, scale, window, *inputs):
+    def forward(ctx, qkv_fn, segment_ids, scale, window, causal, *inputs):
         with torch.no_grad():
             q, k, v, max_logit, sinks = qkv_fn(*inputs)
-            out, lse = flash_forward(q, k, v, segment_ids, scale, max_logit, window)
+            out, lse = flash_forward(q, k, v, segment_ids, scale, max_logit, window, causal)
             if sinks is not None:
                 out, lse = fold_sinks(out, lse, sinks)
         ctx.save_for_backward(segment_ids, out, lse, *inputs)
         ctx.qkv_fn, ctx.scale, ctx.bwd, ctx.window = qkv_fn, scale, attn_bwd(), window
+        ctx.causal = causal
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -505,13 +555,13 @@ class _FlashAttention(torch.autograd.Function):
             q, k, v, _, sinks = ctx.qkv_fn(*leaves)
         grads = flash_backward(q.detach(), k.detach(), v.detach(), segment_ids, out, lse,
                                dout, ctx.scale, ctx.bwd, ctx.window,
-                               None if sinks is None else sinks.detach())
+                               None if sinks is None else sinks.detach(), ctx.causal)
         made = [(t, g) for t, g in zip((q, k, v, sinks), grads)
                 if t is not None and t.requires_grad]
         want = [t for t in leaves if t.requires_grad]
         got = iter(torch.autograd.grad([t for t, _ in made], want, [g for _, g in made],
                                        allow_unused=True))
-        return (None, None, None, None,
+        return (None, None, None, None, None,
                 *(next(got) if t.requires_grad else None for t in leaves))
 
 
@@ -522,15 +572,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q, k: (B, L, Hq / Hkv, D); v: (B, L, Hkv, Dv); segment_ids (B, L)
     int32 (0 = padding); max_logit: optional proven |scaled logit| bound;
     window: a sliding window (None: full); sinks: optional (Hq,) per-head
-    sink logits. Returns (out (B, L, Hq, Dv) in q.dtype, lse (B, Hq, L)
-    fp32, both with the sinks folded in); rows that see no key get out 0
-    and lse 1e30. Differentiable in q, k, v and the sinks."""
-    if not causal:
-        raise not_ported("non-causal flash attention", "train-slice")
+    sink logits; causal: False for bidirectional attention within each
+    document (the kernels at `NONCAUSAL_DIMS`). Returns (out (B, L, Hq,
+    Dv) in q.dtype, lse (B, Hq, L) fp32, both with the sinks folded in);
+    rows that see no key get out 0 and lse 1e30. Differentiable in q, k,
+    v and the sinks."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     return _FlashAttention.apply(
         lambda q_, k_, v_, *s: (q_, k_, v_, max_logit, s[0] if s else None), segment_ids,
-        float(scale), window, *((q, k, v) if sinks is None else (q, k, v, sinks)))
+        float(scale), window, bool(causal), *((q, k, v) if sinks is None else (q, k, v, sinks)))
 
 
 def flash_attention_saving_out_lse(qkv_fn, inputs, segment_ids: torch.Tensor, *,
@@ -539,9 +589,10 @@ def flash_attention_saving_out_lse(qkv_fn, inputs, segment_ids: torch.Tensor, *,
     qkv_fn(*inputs)` (the layer of remat "save_out_lse"): returns (out,
     lse) as `flash_attention` does, keeps only `inputs`, out and lse for
     the backward, and re-runs `qkv_fn` there. Differentiable in `inputs`."""
-    return _FlashAttention.apply(qkv_fn, segment_ids, float(scale), window, *inputs)
+    return _FlashAttention.apply(qkv_fn, segment_ids, float(scale), window, True, *inputs)
 
 
-# forward kernel launches (either variant) since the last reset; counted by
-# flash_forward, read under the public entry's name
-flash_attention.launches = 0
+# forward kernel launches (either variant) since the last reset, and of
+# those the non-causal ones; counted by flash_forward, read under the public
+# entry's name
+flash_attention.launches = flash_attention.noncausal_launches = 0

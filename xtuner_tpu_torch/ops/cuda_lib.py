@@ -38,18 +38,18 @@ _L = ctypes.c_longlong
 # C entry points: name -> argtypes (every one returns cudaGetLastError())
 SIGNATURES = {
     # q, k, v, segment_ids, tile table scratch (B, Lp / 64, 4), out, lse, B,
-    # L, Hq, Hkv, D, Dv, scale, window (0: full), max_logit bound (device
-    # f32 or null), max-free launch count (device int32 or null), tiles
-    # walked and full (device int64[2] or null), stream
-    "xt_flash_fwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+    # L, Hq, Hkv, D, Dv, scale, window (0: full), causal (0: bidirectional),
+    # max_logit bound (device f32 or null), max-free launch count (device
+    # int32 or null), tiles walked and full (device int64[2] or null), stream
+    "xt_flash_fwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
                           _P, _P, _P, _P],
     # the dynamic shared memory of one forward CTA (bytes): D, Dv
     "xt_flash_fwd_smem_bytes": [_I, _I],
     # q, k, v, do, lse, delta, segment_ids, tile table, dq (the f32
     # accumulator at D 128, bf16 dq at 192 and 64), dk, dv, B, L, Lp, Hq,
-    # Hkv, D, Dv, scale, two_pass, window (0: full), stream
+    # Hkv, D, Dv, scale, two_pass, window (0: full), causal, stream
     "xt_flash_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+                          _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     # the dynamic shared memory of one backward CTA (bytes): kernel (0 the
     # one pass, 1 dq, 2 dk/dv), D, Dv
     "xt_flash_bwd_smem_bytes": [_I, _I, _I],

@@ -2,11 +2,15 @@
 `xtuner_tpu/train/trainer.py`).
 
 `TrainerConfig` keeps the JAX fields and defaults (a dataclass);
-`Trainer` owns the work dir and its meta, the tokenizer, the text data
-plane (`DataloaderConfig.build`), the `TrainEngine`, the jsonl tracker and
+`Trainer` owns the work dir and its meta, the tokenizer, the data plane
+(`DataloaderConfig.build`: text, and Qwen3-VL's), the `TrainEngine`, the jsonl tracker and
 checkpoint save / resume, and `fit` logs the same step line and writes the
 same tracker keys as the JAX `fit`; a DSA model's indexer loss
-(`dsa_index_loss`) joins both, beside `reduced_llm_loss`.
+(`dsa_index_loss`) joins both, beside `reduced_llm_loss`. Without a
+`tokenizer_path` the tokenizer is the UTF-8 byte toy, with the three
+vision specials when a dataset is "qwen3_vl" (JAX's has none there, and
+its Qwen3-VL tokenize function then fails on every sample: ROADMAP.md,
+known faults in the reference).
 
 Options off the ported path raise: `load_from` and `hf_interval`
 ([serve-rest]); `profile_step`, `debug_nan_hooks`, `act_stats_interval`
@@ -178,6 +182,13 @@ class Trainer:
         from .toy_tokenizer import UTF8ByteTokenizer
 
         logger.info("no tokenizer_path given; using UTF8ByteTokenizer toy tokenizer")
+        if any(d.class_name == "qwen3_vl" for d in self.cfg.dataloader_cfg.datasets):
+            # the vision specials as single tokens: JAX's Trainer builds the toy
+            # tokenizer without them, and Qwen3VLTokenizeFn then takes "<" for
+            # the image pad and raises on every sample
+            from ..datasets.qwen_vl import VL_SPECIALS
+
+            return UTF8ByteTokenizer(VL_SPECIALS)
         return UTF8ByteTokenizer()
 
     def _reconcile_config(self) -> None:
