@@ -5,8 +5,9 @@ its MoE SFT train step, its SFT entry point (in bf16, in tile-wise fp8 and
 with both kernel switches), bench.py's longctx_64k row, GLM-5.2's DSA head,
 DeepSeek-V3's MLA head, GLM-4.5-Air's noaux-routed MoE head, moe_heavy
 with MTP, gpt-oss-20b's two-layer head in training (with rollout-routing
-replay), Qwen3.5-35B-A3B's first period in training and Qwen3-VL-4B whole
-in training, once on one NVIDIA card.
+replay), Qwen3.5-35B-A3B's first period in training, Qwen3-VL-4B whole
+in training and Qwen3-4B whole in GRPO through the rl CLI (with R3 on
+Qwen3-30B-A3B's head), once on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--breakdown]
 
@@ -63,6 +64,28 @@ exits non-zero with no result line:
    mask as the library time); #5 at D 256 at the serving shape and a
    rollout (32 slots of 4096); #6 (nn) at E256 H2048 F512 on a decode
    step's 32 rows and a 1000-token prefill's 8000;
+3e. rl_grpo: `python -m xtuner_tpu_torch.train.cli.rl` (in-process,
+   `rl.main`) on `recipes/rl_qwen3_4b_grpo.py`: Qwen3-4B whole (4.02 B
+   params), 2 steps of 4 prompts x 8 rollouts of 384 tokens with the
+   rollout captured; per step the rollout's, the teacher-forced logprobs'
+   and the train step's seconds, rollout tokens/s, pg_loss, ratio_mean,
+   clip_frac, kl, grad_norm and the peaks of the rollout and of the rest
+   of the step; step 1's ratio_mean within RL_RATIO_TOL of 1 (the bf16
+   decode against the training forward); #1 once a layer in each
+   rollout's prefill, the backward kernel once a layer in each step;
+3f. rl_replay: the capture's advantages rewritten to seeded, zero-mean
+   +-1 per group (random weights score every rollout 0) and replayed
+   through the CLI: a nonzero gradient and pg_loss, parameters moved;
+3g. rl_moe_r3: the CLI on `recipes/rl_qwen3_moe_head_r3.py`
+   (Qwen3-30B-A3B's first 4 layers, R3): the training forward's router
+   uses the recorded ids wherever they are recorded; the share of
+   response tokens whose fresh routing differs; #6 in the rollout, #6/#7
+   in the step;
+3h. rl_kernels: #1 at the rollout prefill and the packed step, #2-#4 at
+   the packed step, `per_token_logprobs(mode="fused")` (#8-#10) against
+   the chunk mode at N16384 H2560 V151936 (values, both gradients) and
+   each CE kernel against its plain version there, #6/#7 at the R3
+   recipe's decode, prefill and step shapes;
 4. serving: `PagedGenerator.generate` on Qwen3-8B at full width and depth
    with random bf16 weights from the seed; 6 requests on 4 slots (one GRPO
    group of two); launch counters of its kernels; a teacher-forced re-check
@@ -247,8 +270,11 @@ exits non-zero with no result line:
    pairs, and SDPA with the block-diagonal mask as a dense mask;
 25. gpt_oss_profile: gpt-oss-20b's engine made again, then torch.profiler
    windows of 4 prefills of 1000 tokens and of 16 decode steps (device
-   time by kind: #5, the port's other kernels, cuBLAS, the rest). Last,
-   since a profiler window slows every later host launch.
+   time by kind: #5, the port's other kernels, cuBLAS, the rest);
+26. rl_profile: Qwen3-4B in bf16 made again, then one torch.profiler
+   window of the GRPO rollout's `generate` at the recipe's shape (32 rows,
+   4 prompts of 128) for 1 + 16 tokens: wall, device-busy share, kernels.
+   These two last, since a profiler window slows every later host launch.
 
 Between phases it frees what the last one held and checks that nothing
 large stays allocated, so each peak is the phase's own. Then a JSON line
@@ -263,9 +289,11 @@ import contextlib
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 # kernel vs plain tolerances (see tests/test_torch_kernels.py for why)
@@ -5251,6 +5279,36 @@ def phase_gpt_oss_profile(torch, seed: int) -> None:
                    lambda: [eng.tick(queue, results) for _ in range(16)])
 
 
+def phase_rl_profile(torch, seed: int) -> None:
+    """Where the GRPO rollout's time goes (torch.profiler): Qwen3-4B in bf16
+    from the seed, `generate` on the recipe's shape (4 prompts of 128
+    tokens x 8 rollouts) for 1 + 16 tokens: the prefill (#1) and 16 decode
+    steps over the dense cache, in one window. It runs last, beside the
+    gpt-oss profile: a profiler window slows every later host launch."""
+    import numpy as np
+
+    from xtuner_tpu_torch.model.generate import GenerateConfig, generate
+    from xtuner_tpu_torch.model.registry import get_model_config
+    from xtuner_tpu_torch.module.params import init_params
+
+    dev = torch.device("cuda")
+    model = get_model_config("qwen3-4b").build()
+    params = init_params(model.param_specs(), torch.Generator(device=dev).manual_seed(seed),
+                         dev, torch.bfloat16)
+    rng = np.random.default_rng(seed + 47)
+    prompts = np.full((32, 128), 0, np.int64)
+    for i in range(4):
+        n = int(rng.integers(60, 128))
+        prompts[8 * i:8 * (i + 1), -n:] = rng.integers(1, model.cfg.vocab_size, n)
+    gcfg = GenerateConfig(max_new_tokens=17, temperature=1.0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    generate(model, params, prompts, gcfg, generator=gen, prompt_group_size=8)  # warm-up
+    profile_window(torch, "rl_rollout_prefill_and_16_decode_steps",
+                   lambda: generate(model, params, prompts, gcfg, generator=gen,
+                                    return_logprobs=True, prompt_group_size=8), top=10)
+    del params
+
+
 class _Timed:
     """Wraps an engine step method: host clock around the call, ending in a
     device synchronize, so the time is device work plus launch overhead."""
@@ -5869,6 +5927,465 @@ def profile_window(torch, name: str, fn, top: int = 8, annotations=()) -> None:
         print(f"[profile]   {ms:9.3f} ms  x{n:<6d} {k[:100]}", flush=True)
 
 
+
+# ---- GRPO RL (`rl/trainer.py` behind the `rl` CLI) --------------------------
+RL_RECIPE = "xtuner_tpu_torch/recipes/rl_qwen3_4b_grpo.py"
+RL_R3_RECIPE = "xtuner_tpu_torch/recipes/rl_qwen3_moe_head_r3.py"
+RL_STEPS = 2
+RL_PARAMS = 4_022_468_096
+RL_LAYERS, RL_HQ, RL_HKV, RL_D, RL_H, RL_V = 36, 32, 8, 128, 2560, 151936
+RL_R3_E, RL_R3_TOPK, RL_R3_H, RL_R3_F = 128, 8, 2048, 768
+# step 1's ratio_mean: the rollout's logprobs (the bf16 decode over the
+# dense cache) against the training forward's (bf16, flash, remat) on the
+# same params: the train/inference mismatch of one policy
+RL_RATIO_TOL = 2e-2
+# per_token_logprobs fused (#8-#10) against the chunk mode: the CE
+# statistics' bound on values, the bf16 products' on gradients
+RL_LOGPROB_ATOL = 2 * CE_STAT_ATOL
+
+
+def run_rl_cli(torch, recipe: str, work: str, name: str, **overrides):
+    """`python -m xtuner_tpu_torch.train.cli.rl --config <cfg>` in-process
+    (`rl.main`), where <cfg> is a file in `work` that loads `recipe` and
+    replaces `overrides` (work_dir `work`, exp_name `name`). The rollout's
+    `generate` is wrapped to split the launch counters into the rollout's
+    and the rest of the step's. -> (trainer, tracker records, rollout
+    launches, step launches, wall s)."""
+    from pathlib import Path
+    from unittest import mock
+
+    from xtuner_tpu_torch.rl import trainer as rt
+    from xtuner_tpu_torch.train.cli import rl
+
+    recipe = str(Path(__file__).resolve().parent / recipe)
+    cfg_path = Path(work) / f"{name}_cfg.py"
+    kw = ", ".join(f"{k}={v!r}" for k, v in {"work_dir": work, "exp_name": name,
+                                              **overrides}.items())
+    cfg_path.write_text("import dataclasses\n"
+                        "from xtuner_tpu_torch.train.cli.rl import load_config\n"
+                        f"trainer = dataclasses.replace(load_config({recipe!r}), {kw})\n")
+    roll = {}
+    orig = rt.generate
+
+    def counted(*a, **k):
+        before = train_launches(torch)
+        out = orig(*a, **k)
+        for key, n in train_launches(torch).items():
+            roll[key] = roll.get(key, 0) + n - before[key]
+        return out
+
+    reset_train_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(rt, "generate", counted):
+        trainer = rl.main(["--config", str(cfg_path)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = train_launches(torch)
+    step = {k: n - roll.get(k, 0) for k, n in total.items()}
+    recs = [json.loads(x) for x in (trainer.work_dir / "tracker.jsonl").read_text().splitlines()]
+    return trainer, recs, roll, step, wall
+
+
+def say_rl_steps(phase: str, recs: list, smi: str) -> None:
+    for r in recs:
+        say(phase, step=r["step"], rollout_s=f"{r['rollout_time']:.3f}",
+            rollout_tokens=int(r["rollout_tokens"]),
+            rollout_tok_s=f"{r['rollout_tokens'] / max(r['rollout_time'], 1e-9):.1f}",
+            logprob_s=f"{r['logprob_time']:.3f}", train_s=f"{r['train_time']:.3f}",
+            step_s=f"{r['step_time']:.3f}", pg_loss=f"{r['pg_loss']:.6g}",
+            ratio_mean=f"{r['ratio_mean']:.6f}", clip_frac=f"{r['clip_frac']:.6f}",
+            kl=f"{r.get('kl', float('nan')):.6g}", grad_norm=f"{r['grad_norm']:.6g}",
+            mean_reward=f"{r['mean_reward']:.3f}",
+            rollout_peak_gib=f"{r['rollout_peak_gib']:.3f}",
+            step_peak_gib=f"{r['step_peak_gib']:.3f}", card=repr(smi))
+
+
+def check_rl_recs(phase: str, recs: list, keys=("pg_loss", "ratio_mean", "clip_frac",
+                                                    "grad_norm", "total_loss")) -> None:
+    import numpy as np
+
+    if [r["step"] for r in recs] != list(range(1, RL_STEPS + 1)):
+        raise AssertionError(f"{phase}: tracker.jsonl has steps {[r['step'] for r in recs]}")
+    vals = [r[k] for r in recs for k in keys if k in r]
+    if not np.all(np.isfinite(vals)) or any(r["skipped"] for r in recs):
+        raise AssertionError(f"{phase}: non-finite metrics or a skipped step: {recs}")
+
+
+def rl_segments(torch, trainer, rows_from: list) -> tuple:
+    """The segment ids of the recipe's own shapes from a captured step: the
+    rollout prefill's left-padded unique prompts (B / g, P) and the packed
+    step's rows (B, L), 1 on each row's tokens and 0 on its padding."""
+    cfg = trainer.cfg
+    p = cfg.max_prompt_length
+    prompts = [s["prompt_ids"] for s in rows_from[::cfg.group_size]]
+    roll = torch.zeros((len(prompts), p), dtype=torch.int32)
+    for i, ids in enumerate(prompts):
+        roll[i, p - len(ids):] = 1
+    from xtuner_tpu_torch.rl.replay_buffer import SampleGroup
+
+    packed = torch.as_tensor(trainer._pack([SampleGroup(0, rows_from)])["segment_ids"][0])
+    return roll, packed
+
+
+def phase_rl_grpo(torch, work: str, smi: str) -> tuple:
+    """The rl CLI on `RL_RECIPE`, Qwen3-4B whole, `RL_STEPS` steps with the
+    rollout captured: per step the split (rollout, teacher-forced logprobs,
+    train step), rollout tokens/s, the GRPO metrics and the peaks of the
+    rollout and of the rest of the step; step 1's ratio_mean within
+    `RL_RATIO_TOL` of 1; #1 launched once a layer in each rollout's
+    prefill (never in the decode), the backward kernel once a layer in
+    each train step, no fused-CE kernel (the chunk mode). -> (launches of
+    the rollout, of the step, the capture's directory, the segment ids of
+    the prefill and of the packed rows)."""
+    from xtuner_tpu_torch.module.params import count_params
+
+    trainer, recs, roll, step, wall = run_rl_cli(torch, RL_RECIPE, work, "rl_grpo",
+                                                 total_steps=RL_STEPS,
+                                                 debug_rollout_capture=True)
+    n = count_params(trainer.engine.specs)
+    cfg = trainer.cfg
+    say("rl_grpo", recipe=RL_RECIPE, params=n, layers=cfg.model_cfg.num_hidden_layers,
+        rows=cfg.prompts_per_step * cfg.group_size,
+        pack=cfg.max_prompt_length + cfg.gen_cfg.max_new_tokens, wall_s=f"{wall:.3f}",
+        card=repr(smi))
+    say_rl_steps("rl_grpo", recs, smi)
+    say("rl_grpo", rollout_launches={k: v for k, v in roll.items() if v},
+        step_launches={k: v for k, v in step.items() if v})
+    check_rl_recs("rl_grpo", recs, ("pg_loss", "ratio_mean", "clip_frac", "grad_norm",
+                                    "total_loss", "kl"))
+    ratio1 = recs[0]["ratio_mean"]
+    want_roll = RL_LAYERS * RL_STEPS
+    problems = []
+    if n != RL_PARAMS:
+        problems.append(f"{n} params, want {RL_PARAMS}")
+    if abs(ratio1 - 1.0) > RL_RATIO_TOL:
+        problems.append(f"step-1 ratio_mean {ratio1} off 1 by more than {RL_RATIO_TOL}")
+    if roll["flash_fwd"] + roll["flash_fwd_max_free"] != want_roll:
+        problems.append(f"#1 launched {roll} in the rollouts, want {want_roll} (prefill)")
+    if step["flash_bwd"] != RL_LAYERS * RL_STEPS:
+        problems.append(f"the backward kernel launched {step['flash_bwd']} times in the "
+                        f"steps, want {RL_LAYERS * RL_STEPS}")
+    if any(step[k] or roll[k] for k in ("ce_fwd", "ce_coeff", "ce_dh", "ce_dw")):
+        problems.append("a fused-CE kernel launched in the chunk-mode path")
+    if problems:
+        raise AssertionError("rl_grpo: " + "; ".join(problems))
+    from xtuner_tpu_torch.rl.trace import RolloutTraceStore
+
+    capture = trainer.work_dir
+    rows = RolloutTraceStore(capture).load_step(1)
+    segs = rl_segments(torch, trainer, rows)
+    del trainer
+    return roll, step, str(capture), segs
+
+
+def phase_rl_replay(torch, work: str, capture: str, smi: str, seed: int) -> None:
+    """Random weights give every sample reward 0, so GRPO's advantages and
+    the policy gradient are 0: rewrite the captured shards' advantages
+    with seeded, zero-mean +-1 per group, replay them through the CLI
+    (`debug_rollout_replay_from`), and require a nonzero gradient, a
+    nonzero policy loss, and parameters that moved beyond what weight
+    decay alone would move them."""
+    import numpy as np
+    from pathlib import Path
+    from unittest import mock
+
+    from xtuner_tpu_torch.engine.train_engine import TrainEngine
+
+    rng = np.random.default_rng(seed + 41)
+    for shard in sorted((Path(capture) / "rollout_traces").glob("step-*.jsonl")):
+        recs = [json.loads(x) for x in shard.read_text().splitlines() if x]
+        by_group: dict = {}
+        for r in recs:
+            by_group.setdefault(r["prompt_id"], []).append(r)
+        for group in by_group.values():
+            signs = rng.permutation([1.0, -1.0] * (len(group) // 2) + [0.0] * (len(group) % 2))
+            for r, a in zip(group, signs):
+                r["advantage"] = float(a)
+        shard.write_text("".join(json.dumps(r) + "\n" for r in recs))
+    snap = {}
+    orig = TrainEngine.train_step
+
+    def probed(self, batch, step, loss_fn=None):
+        if not snap:
+            snap["q0"] = self.params["layers"]["attn"]["q_proj"]["w"][0].detach().clone()
+            snap["emb"] = self.params["embed"]["w"][:4096].detach().clone()
+        return orig(self, batch, step, loss_fn)
+
+    with mock.patch.object(TrainEngine, "train_step", probed):
+        trainer, recs, _, _, wall = run_rl_cli(torch, RL_RECIPE, work, "rl_replay",
+                                               total_steps=RL_STEPS,
+                                               debug_rollout_replay_from=capture)
+    moved = max(float((trainer.engine.params["layers"]["attn"]["q_proj"]["w"][0]
+                       - snap["q0"]).abs().max()),
+                float((trainer.engine.params["embed"]["w"][:4096] - snap["emb"]).abs().max()))
+    say("rl_replay", wall_s=f"{wall:.3f}", max_param_move=f"{moved:.3e}", card=repr(smi))
+    say_rl_steps("rl_replay", recs, smi)
+    check_rl_recs("rl_replay", recs)
+    # decay alone moves a weight by lr * wd * |w| ~ 1e-6 * 0.01 * 0.1 per step
+    if not (all(r["grad_norm"] > 0 and r["pg_loss"] != 0 for r in recs) and moved > 1e-7):
+        raise AssertionError(f"rl_replay: grad_norm {[r['grad_norm'] for r in recs]}, "
+                             f"pg_loss {[r['pg_loss'] for r in recs]}, moved {moved}")
+    del trainer, snap
+
+
+def phase_rl_moe_r3(torch, work: str, smi: str) -> tuple:
+    """The rl CLI on `RL_R3_RECIPE` (Qwen3-30B-A3B's first 4 layers, R3) for
+    `RL_STEPS` steps. The training forward's `moe_mlp_forward` is probed:
+    wherever `rollout_routed_experts` is not -1 the router's ids must be
+    the recorded ones; beside them the share of response tokens whose
+    fresh routing (the router on the same input, unforced) differs from
+    the recorded set. #6 launches in the rollout (prefill and decode), #6
+    and #7 in the step. -> (rollout launches, step launches)."""
+    from unittest import mock
+
+    from xtuner_tpu_torch.model import moe as moe_mod
+    from xtuner_tpu_torch.module.router import route
+
+    stats = {"calls": 0, "forced_rows": 0, "forced_ok": True, "differ": 0}
+    orig = moe_mod.moe_mlp_forward
+
+    def probe(p, router_p, router_cfg, x, *, top_k, forced_topk_idx=None, **kw):
+        out = orig(p, router_p, router_cfg, x, top_k=top_k, forced_topk_idx=forced_topk_idx,
+                   **kw)
+        if forced_topk_idx is not None:
+            with torch.no_grad():
+                f = forced_topk_idx.long()
+                rec = (f >= 0).all(-1)
+                used = out[1].topk_idx.long()
+                fresh = route(router_p, router_cfg, x.reshape(-1, x.shape[-1]), top_k).topk_idx
+                stats["calls"] += 1
+                stats["forced_rows"] += int(rec.sum())
+                stats["forced_ok"] &= bool(torch.equal(used[rec], f[rec]))
+                stats["differ"] += int((fresh.long()[rec].sort(-1).values
+                                        != f[rec].sort(-1).values).any(-1).sum())
+        return out
+
+    with mock.patch.object(moe_mod, "moe_mlp_forward", probe):
+        trainer, recs, roll, step, wall = run_rl_cli(torch, RL_R3_RECIPE, work, "rl_moe_r3",
+                                                     total_steps=RL_STEPS)
+    share = stats["differ"] / max(stats["forced_rows"], 1)
+    say("rl_moe_r3", recipe=RL_R3_RECIPE, params=trainer.engine.num_params,
+        wall_s=f"{wall:.3f}", probed_calls=stats["calls"], forced_rows=stats["forced_rows"],
+        forced_used=stats["forced_ok"], fresh_differs_share=f"{share:.4f}", card=repr(smi))
+    say_rl_steps("rl_moe_r3", recs, smi)
+    say("rl_moe_r3", rollout_launches={k: v for k, v in roll.items() if v},
+        step_launches={k: v for k, v in step.items() if v})
+    check_rl_recs("rl_moe_r3", recs)
+    if not (stats["forced_ok"] and stats["forced_rows"] > 0):
+        raise AssertionError(f"rl_moe_r3: the training forward did not use the recorded "
+                             f"routing: {stats}")
+    if not (roll["grouped_gemm_nn"] > 0 and step["grouped_gemm_nt"] > 0
+            and step["grouped_gemm_dw"] > 0):
+        raise AssertionError(f"rl_moe_r3: #6/#7 not launched: rollout {roll}, step {step}")
+    del trainer
+    return roll, step
+
+
+def phase_rl_kernels(torch, seed: int, smi: str, segs) -> tuple[list[dict], dict]:
+    """The RL path's kernels against their plain versions at its own shapes:
+    #1 at the rollout prefill (the recipe's left-padded unique prompts,
+    B4 P128 Hq32/8 D128) and at the packed step (B32 L512, one document and
+    padding a row), the one-pass backward (#2 + #3) at the packed step;
+    `per_token_logprobs(mode="fused")` (#8-#10) against the chunk mode at
+    N16384 H2560 V151936 on a tied head, values and gradients, and each CE
+    kernel against its plain version there; the R3 recipe's expert GEMMs
+    (#6 nn at a decode step's and a prefill's routed rows, #6 nn/nt and #7
+    at the step's) at E128 H2048 F768. -> (rows, the fused-mode call's CE
+    launches)."""
+    import numpy as np
+
+    from xtuner_tpu_torch.loss.ce_loss import per_token_logprobs
+    from xtuner_tpu_torch.ops import fused_ce as fc
+    from xtuner_tpu_torch.ops.attention import flash as fl
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 43)
+    rng = np.random.default_rng(seed + 43)
+    src = "xtuner_tpu_torch/csrc/"
+    scale = RL_D ** -0.5
+    rows = []
+    roll_seg, pack_seg = (s.to(dev).contiguous() for s in segs)
+    for label, seg, path in (("rollout_prefill", roll_seg, "rl_grpo_rollout"),
+                             ("packed_step", pack_seg, "rl_grpo_step")):
+        b, l = seg.shape
+        q = torch.randn((b, l, RL_HQ, RL_D), generator=g, device=dev).bfloat16()
+        k, v, = (torch.randn((b, l, RL_HKV, RL_D), generator=g, device=dev).bfloat16()
+                 for _ in range(2))
+        valid = seg != 0
+        pairs = causal_pairs(torch, seg)
+        shape = f"B{b}xL{l}xHq{RL_HQ}xHkv{RL_HKV}xD{RL_D}, {int(valid.sum())} rows ({label})"
+        # the step's training forward takes qk-norm's proven bound (sqrt(D) at
+        # the init's unit norms): the max-free variant; the prefill takes none
+        free = label == "packed_step"
+        bound = torch.tensor(RL_D ** 0.5, device=dev) if free else None
+        name = "flash_fwd_max_free" if free else "flash_fwd"
+        (ro, rlse), plain = timed_once(torch, lambda: fl.flash_attention_plain(
+            q, k, v, seg, scale, max_free=free))
+        fl.reset_launches()
+        out, lse = fl.flash_attention(q, k, v, seg, max_logit=bound)
+        if fl.max_free_launches() != int(free):
+            raise AssertionError(f"#1 at the RL {label} shape took the wrong variant")
+        err = max(_abs(out[valid], ro[valid]), _abs(lse.transpose(1, 2)[valid],
+                                                    rlse.transpose(1, 2)[valid]))
+        ok = _abs(out[valid], ro[valid]) <= FLASH_OUT_ATOL and \
+            _abs(lse.transpose(1, 2)[valid], rlse.transpose(1, 2)[valid]) <= FLASH_LSE_ATOL
+        ms = cuda_ms(lambda: fl.flash_attention(q, k, v, seg, max_logit=bound), iters=10)
+        lib = sdpa_ms(torch, q, k, v, block_causal_mask(torch, seg))[0]
+        fb = least_ms(2 * pairs * RL_HQ * 2 * RL_D, flash_bytes(q, k), PEAK_BF16)
+        say("kernel", name=name, path=path, shape=shape, pairs=pairs, err=f"{err:.3e}",
+            ok=ok, ms=f"{ms:.4f}", plain_ms=f"{plain:.3f}", bound_ms=f"{fb['bound_ms']:.4f}",
+            bound_by=fb["bound_by"], share_of_bound=f"{fb['bound_ms'] / ms:.3f}",
+            sdpa_ms=lib, card=repr(smi))
+        if not ok:
+            raise AssertionError(f"#1 at the RL {label} shape disagrees: {err}")
+        rows.append({"name": name, "route": "cuda", "source": src + "flash_fwd.cu",
+                     "replaces": "xtuner_tpu/ops/attention/flash.py:82", "path": path,
+                     "shape": f"{shape}, {'max-free' if free else 'running max'}", "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain, **fb, "library_ms": lib,
+                     "library_is": "SDPA, block-causal dense mask"})
+        if label == "packed_step":
+            do = torch.randn_like(q)
+            delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+            args = (q, k, v, seg, lse, delta, do, scale)
+            want, bplain = timed_once(torch, lambda: fl.flash_bwd_plain(*args))
+            got = fl.flash_bwd(*args)
+            rels = [_rel(t[valid], w[valid]) for t, w in zip(got, want)]
+            berr = max(_abs(t[valid], w[valid]) for t, w in zip(got, want))
+            del want, got
+            bms = cuda_ms(lambda: fl.flash_bwd(*args), iters=10)
+            blib = sdpa_ms(torch, q, k, v, block_causal_mask(torch, seg), do)[0]
+            bnd = bwd_bound(q, k, pairs)
+            say("kernel", name="flash_bwd", path=path, shape=shape,
+                dq_dk_dv_rel=",".join(f"{x:.3e}" for x in rels), err=f"{berr:.3e}",
+                ms=f"{bms:.4f}", plain_ms=f"{bplain:.3f}", bound_ms=f"{bnd['bound_ms']:.4f}",
+                bound_by=bnd["bound_by"], share_of_bound=f"{bnd['bound_ms'] / bms:.3f}",
+                sdpa_bwd_ms=blib, card=repr(smi))
+            if max(rels) > FLASH_GRAD_RTOL:
+                raise AssertionError(f"the backward kernel at the RL packed shape: {rels}")
+            for row in bwd_rows(path, {"shape": shape, "max_abs_err": berr, "ms": bms,
+                                       "plain_ms": bplain, **bnd, "library_ms": blib,
+                                       "library_is": "SDPA backward, block-causal dense mask"}):
+                rows.append(row)
+            del do, delta, args
+        del q, k, v, out, lse, ro, rlse
+    fl.reset_launches()
+
+    # ---- per_token_logprobs: fused (#8-#10) against chunk at the step's N
+    b, l = pack_seg.shape
+    n, hd, vocab = b * l, RL_H, RL_V
+    h = torch.randn((b, l, hd), generator=g, device=dev).bfloat16()
+    emb = (torch.randn((vocab, hd), generator=g, device=dev) * 0.02).bfloat16()
+    labels = torch.randint(0, vocab, (b, l), generator=g, device=dev, dtype=torch.int32)
+    labels = torch.where(pack_seg != 0, labels, torch.full_like(labels, -100))
+    cot = torch.randn((b, l), generator=g, device=dev)
+    res, launches = {}, {}
+    for mode in ("chunk", "fused"):
+        hl, el = h.clone().requires_grad_(True), emb.clone().requires_grad_(True)
+
+        def fwd_bwd():
+            hl.grad = el.grad = None
+            lp = per_token_logprobs(hl, el.T, labels, 1024, mode=mode)
+            (lp * cot).sum().backward()
+            return lp.detach()
+
+        fc.reset_launches()
+        lp = fwd_bwd()
+        torch.cuda.synchronize()
+        launches[mode] = {"ce_fwd": fc.ce_fwd.launches, "ce_coeff": fc.ce_coeff.launches,
+                          "ce_dh": fc.ce_dh.launches, "ce_dw": fc.ce_dw.launches}
+        res[mode] = (lp, hl.grad.clone(), el.grad.clone(), cuda_ms(fwd_bwd, iters=3, warmup=1))
+        del hl, el
+    (lp_c, dh_c, de_c, ms_c), (lp_f, dh_f, de_f, ms_f) = res["chunk"], res["fused"]
+    lp_err = _abs(lp_f, lp_c)
+    dh_rel, de_rel = _rel(dh_f, dh_c), _rel(de_f, de_c)
+    chunks = ce_chunks(n, vocab)
+    say("kernel", name="per_token_logprobs_fused", shape=f"N{n} H{hd} V{vocab} tied",
+        logprob_err=f"{lp_err:.3e}", dh_rel=f"{dh_rel:.3e}", dembed_rel=f"{de_rel:.3e}",
+        fused_fwd_bwd_ms=f"{ms_f:.3f}", chunk_fwd_bwd_ms=f"{ms_c:.3f}",
+        launches=launches["fused"], card=repr(smi))
+    if not (lp_err <= RL_LOGPROB_ATOL and dh_rel <= GG_RTOL and de_rel <= GG_RTOL and
+            launches["fused"] == {"ce_fwd": 1, "ce_coeff": chunks, "ce_dh": 1, "ce_dw": 1}
+            and not any(launches["chunk"].values())):
+        raise AssertionError(f"per_token_logprobs fused vs chunk at N{n}: err {lp_err}, dh "
+                             f"{dh_rel}, dW {de_rel}, launches {launches}")
+    del res, lp_c, dh_c, de_c, lp_f, dh_f, de_f
+    # each CE kernel alone against its plain version (the rows of the table)
+    h2, safe = h.reshape(n, hd), torch.where(labels < 0, 0, labels).reshape(n)
+    ref_lse, ref_lab = fc.ce_fwd_plain(h2, emb, safe)
+    g_lse = torch.where(labels.reshape(n) >= 0, -cot.reshape(n), 0.0).contiguous()
+    g_lab = (-g_lse).contiguous()
+    args = (h2, emb, safe, ref_lse, g_lse, g_lab)
+    lse, lab = fc.ce_fwd(h2, emb, safe)
+    stat_err = max(_abs(lse, ref_lse), _abs(lab, ref_lab))
+    plan = fc.ce_chunk_plan(n, vocab)
+
+    def sweep(kernel: bool):
+        c = torch.empty((plan.rows, plan.v_pad), device=dev, dtype=torch.bfloat16)
+        for s0, r in plan.chunks:
+            sl = slice(s0, s0 + r)
+            part = (h2[sl], emb, safe[sl], ref_lse[sl], g_lse[sl], g_lab[sl], plan.v_pad)
+            if kernel:
+                fc.ce_coeff(*part, out=c[:r])
+            else:
+                c[:r] = fc.ce_coeff_plain(*part)
+        return c
+
+    c_err = _abs(sweep(True), sweep(False))
+    dh_err = _abs(fc.ce_dh(*args), fc.ce_dh_plain(*args))
+    dw_err = _abs(fc.ce_dw(*args), fc.ce_dw_plain(*args))
+    ins = 2 * n * hd + 2 * vocab * hd + 4 * n
+    timed = {"ce_fwd": (lambda: fc.ce_fwd(h2, emb, safe), lambda: fc.ce_fwd_plain(h2, emb, safe),
+                        stat_err, "xtuner_tpu/ops/fused_ce.py:47", 1, ins + 8 * n),
+             "ce_coeff": (lambda: sweep(True), lambda: sweep(False), c_err,
+                          "xtuner_tpu/ops/fused_ce.py:98", 1, ins + 12 * n + 2 * n * plan.v_pad),
+             "ce_dh": (lambda: fc.ce_dh(*args), lambda: fc.ce_dh_plain(*args), dh_err,
+                       "xtuner_tpu/ops/fused_ce.py:98", 2, ins + 12 * n + 2 * n * hd),
+             "ce_dw": (lambda: fc.ce_dw(*args), lambda: fc.ce_dw_plain(*args), dw_err,
+                       "xtuner_tpu/ops/fused_ce.py:123", 2, ins + 12 * n + 2 * vocab * hd)}
+    for name, (kern, plain_fn, err, replaces, mult, nbytes) in timed.items():
+        ms = cuda_ms(kern, iters=3, warmup=1)
+        pms = cuda_ms(plain_fn, iters=1, warmup=1)
+        flops = 2 * n * vocab * hd * mult
+        b_ = least_ms(flops, nbytes, PEAK_BF16)
+        say("kernel", name=name, path="rl_logprobs_fused", shape=f"N{n} H{hd} V{vocab}",
+            err=f"{err:.3e}", ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
+            bound_ms=f"{b_['bound_ms']:.4f}", share_of_bound=f"{b_['bound_ms'] / ms:.3f}",
+            card=repr(smi))
+        rows.append({"name": name, "route": "cuda", "source": src + "fused_ce.cu",
+                     "replaces": replaces, "path": "rl_logprobs_fused",
+                     "shape": f"N{n} H{hd} V{vocab} (per_token_logprobs)", "max_abs_err": err,
+                     "ms": ms, "plain_ms": pms, **b_, "library_ms": None})
+    del h, emb, labels, cot, h2, safe, ref_lse, ref_lab, g_lse, g_lab, args, lse, lab
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the R3 recipe's expert GEMMs
+    e, hid, f, topk = RL_R3_E, RL_R3_H, RL_R3_F, RL_R3_TOPK
+    w_gu = (torch.randn((e, hid, 2 * f), generator=g, device=dev) * 0.02).bfloat16()
+    w_dn = (torch.randn((e, f, hid), generator=g, device=dev) * 0.02).bfloat16()
+    for label, tokens, path, kinds in (("decode", 8, "rl_moe_r3_rollout", ("nn",)),
+                                       ("prefill", 2 * 128, "rl_moe_r3_rollout", ("nn",)),
+                                       ("step", 8 * 256, "rl_moe_r3_step", ("nn", "nt", "dw"))):
+        m = tokens * topk
+        sizes = routed_sizes(torch, rng, tokens, e, topk, e - 1, dev)
+        x = torch.randn((m, hid), generator=g, device=dev).bfloat16()
+        hmid = torch.randn((m, f), generator=g, device=dev).bfloat16()
+        dy_gu = torch.randn((m, 2 * f), generator=g, device=dev).bfloat16()
+        dy_dn = torch.randn((m, hid), generator=g, device=dev).bfloat16()
+        cases = grouped_cases(x, hmid, w_gu, w_dn, dy_gu, dy_dn, sizes, e, kinds=kinds)
+        touched = int((sizes > 0).sum())
+        if label != "step":  # the weights of the experts with rows, as serving counts them
+            cases = [(*c[:6], c[6] - 2 * (e - touched) * c[4][1].shape[1] * c[4][1].shape[2])
+                     for c in cases]
+        for row in grouped_rows(torch, path, cases, m, e, iters=10, plain_iters=2):
+            row["shape"] = f"{label} M{m} E{e} ({touched} with rows) H{hid} F{f}"
+            rows.append(row)
+        del x, hmid, dy_gu, dy_dn
+    del w_gu, w_dn
+    reset_train_launches()
+    return rows, launches["fused"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5897,6 +6414,24 @@ def main() -> int:
     release(torch, "serve_gpt_oss")
     launches["serve_qwen35"] = phase_serve_qwen35(torch, args.seed, smi)
     release(torch, "serve_qwen35")
+    # GRPO before serving too: its rollout's decode loop is host-bound
+    with tempfile.TemporaryDirectory(prefix="xt_rl_") as work:
+        cwd = os.getcwd()
+        os.chdir(work)  # the recipes write their prompt set under work_dirs/ here
+        try:
+            launches["rl_grpo_rollout"], launches["rl_grpo_step"], capture, rl_segs = \
+                phase_rl_grpo(torch, work, smi)
+            release(torch, "rl_grpo")
+            phase_rl_replay(torch, work, capture, smi, args.seed)
+            release(torch, "rl_replay")
+            launches["rl_moe_r3_rollout"], launches["rl_moe_r3_step"] = \
+                phase_rl_moe_r3(torch, work, smi)
+            release(torch, "rl_moe_r3")
+        finally:
+            os.chdir(cwd)
+    rows, launches["rl_logprobs_fused"] = phase_rl_kernels(torch, args.seed, smi, rl_segs)
+    kernels += rows
+    release(torch, "rl_kernels")
     kernels += phase_qwen35_kernels(torch, args.seed, smi)
     release(torch, "qwen35_kernels")
     launches["serve"] = phase_engine(torch, args.seed, smi)
@@ -5954,6 +6489,8 @@ def main() -> int:
     kernels += phase_vlm_kernels(torch, args.seed, smi, vlm_seg)
     release(torch, "vlm_kernels")
     phase_gpt_oss_profile(torch, args.seed)
+    release(torch, "gpt_oss_profile")
+    phase_rl_profile(torch, args.seed)
     for kern in kernels:
         kern["launches"] = launches[kern["path"]][kern["name"]]
         kern.pop("_bound_parts", None)

@@ -172,9 +172,11 @@ def test_cached_forward_unported_options_raise():
           for k_, v_ in p.items()}
     x = torch.zeros((1, 4, hidden))
     cos, sin = trope.rope_cos_sin(torch.zeros((1, 4), dtype=torch.int32), 128, 1e6)
-    c = torch.zeros((1, 8, 2, 128))
-    with pytest.raises(NotImplementedError, match="serve-rest"):
-        tattn.mha_cached_forward(tp, tattn.MHAConfig(**kw), x, cos, sin, c, c, 4)
+    ck, cv = torch.zeros((1, 8, 2, 128)), torch.zeros((1, 8, 2, 128))
+    # a non-empty cache is ported now (the dense decode; tests/test_torch_rl.py
+    # holds it to JAX): the chunk lands at slots [4, 8)
+    out, _, _ = tattn.mha_cached_forward(tp, tattn.MHAConfig(**kw), x, cos, sin, ck, cv, 4)
+    assert out.shape == (1, 4, hidden) and torch.all(ck[:, :4] == 0)
     # sinks and windows are ported at cache_len 0 (tests/test_torch_gpt_oss.py),
     # and so is gated attention (tests/test_torch_qwen35.py), in the training
     # forward too: `mha_qkv` returns the gate (tests/test_torch_qwen35_train.py

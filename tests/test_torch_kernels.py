@@ -1646,3 +1646,107 @@ def test_fused_moe_mlp_rejects_what_the_kernel_does_not_take(cuda):
     xs, gus, dns, gss = _moe_mlp(cuda, 64, 128, 1600, [30, 34])  # F past the kernel's limit
     with pytest.raises(ValueError, match="at most"):
         fm.fused_moe_mlp_fwd(xs, gus, dns, gss)
+
+
+# per-token logprobs: both modes read the same bf16 hidden and head; the
+# chunk mode's logits are f32 sums of bf16 products, the fused mode's (#8)
+# the same sums in another order, so logprobs agree within the CE
+# statistics' bound; the gradients round the coefficient and the results
+# to bf16 in #9/#10 (the grouped GEMMs' bound, relative to the largest entry)
+LOGPROB_ATOL = 2 * CE_STAT_ATOL
+
+
+@pytest.mark.parametrize("b,l,hd,v", [
+    (2, 2048, 2560, 151936),  # Qwen3-4B's width and tied vocab, 4096 rows
+    (3, 300, 256, 5000),      # N not a multiple of 128, a ragged vocab tail
+])
+def test_per_token_logprobs_fused_matches_chunk(cuda, b, l, hd, v):
+    """`per_token_logprobs(mode="fused")` (#8-#10) against the chunk mode on
+    the same tied head (`embed.T`, a view), values and both gradients, with
+    ignored labels; the fused run launches #8 once and the backward's
+    coefficient kernel once per row chunk."""
+    from xtuner_tpu_torch.loss.ce_loss import per_token_logprobs
+    from xtuner_tpu_torch.ops import fused_ce as fc
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    h = torch.randn((b, l, hd), generator=g, device=cuda).bfloat16()
+    emb = (torch.randn((v, hd), generator=g, device=cuda) * 0.02).bfloat16()
+    labels = torch.randint(0, v, (b, l), generator=g, device=cuda, dtype=torch.int32)
+    labels[:, :7] = -100
+    cot = torch.randn((b, l), generator=g, device=cuda)
+    out = {}
+    for mode in ("chunk", "fused"):
+        hl, el = h.clone().requires_grad_(True), emb.clone().requires_grad_(True)
+        fc.reset_launches()
+        lp = per_token_logprobs(hl, el.T, labels, 1024, mode=mode)
+        (lp * cot).sum().backward()
+        torch.cuda.synchronize()
+        out[mode] = (lp.detach(), hl.grad, el.grad,
+                     (fc.ce_fwd.launches, fc.ce_coeff.launches))
+    (lp_c, dh_c, de_c, n_c), (lp_f, dh_f, de_f, n_f) = out["chunk"], out["fused"]
+    assert n_c == (0, 0) and n_f == (1, len(fc.ce_chunk_plan(b * l, v).chunks))
+    assert torch.isfinite(lp_f).all() and (lp_f[:, :7] == 0).all()
+    assert (lp_f - lp_c).abs().max().item() <= LOGPROB_ATOL
+    assert _rel_err(dh_f, dh_c) <= GG_RTOL
+    assert _rel_err(de_f, de_c) <= GG_RTOL
+
+
+# one generate step: the prefill through #1 and the decode step's plain
+# cached attention in bf16 on the card, against the same step in f32 on the
+# CPU (the plain flash); logits relative to their largest entry
+GEN_STEP_RTOL = 3e-2
+
+
+def test_generate_step_matches_plain(cuda):
+    """`_forward_cached` as `generate` runs it on a tiny Qwen3 (2 layers,
+    4 / 2 heads of 128, qk-norm): a left-padded prefill (#1, one launch per
+    layer, segment ids from the pad mask) and one decode step over the
+    dense cache, on the card against the CPU's plain path on the same
+    weights; then `generate` itself, greedy, gives the CPU's first token."""
+    from xtuner_tpu_torch.model.generate import (GenerateConfig, _forward_cached,
+                                                 compute_copy, generate, init_cache)
+    from xtuner_tpu_torch.model.qwen import _qwen3_dense
+    from xtuner_tpu_torch.module.params import init_params
+
+    cfg = _qwen3_dense(256, 512, 2, 4, 2, vocab=512, tie=True)
+    model = cfg.build()
+    params = init_params(model.param_specs(), torch.Generator().manual_seed(0), "cpu",
+                         torch.float32)
+    p, n_pad = 64, 9
+    rng = np.random.default_rng(0)
+    ids = torch.full((2, p), 7, dtype=torch.int64)
+    ids[0, n_pad:] = torch.as_tensor(rng.integers(0, 512, p - n_pad))
+    ids[1] = torch.as_tensor(rng.integers(0, 512, p))
+    mask = ids != 7
+    pos = (mask.cumsum(1) - 1).clamp(min=0)
+    kv = torch.cat([mask, torch.zeros((2, 4), dtype=torch.bool)], dim=1)
+    nxt = torch.as_tensor(rng.integers(0, 512, (2, 1)))
+    logits = {}
+    for dev, dtype in ((cuda, torch.bfloat16), (torch.device("cpu"), torch.float32)):
+        prm = _to(compute_copy(params, dtype, copy=False), dev)
+        caches = init_cache(model, 2, p + 4, dtype, dev)
+        reset_launches()
+        l0, caches, _ = _forward_cached(model, prm, ids.to(dev), pos.to(dev), caches, 0, dtype,
+                                        kv.to(dev))
+        launches = flash_attention.launches
+        kv1 = kv.clone()
+        kv1[:, p] = True
+        l1, _, _ = _forward_cached(model, prm, nxt.to(dev), (pos[:, -1:] + 1).to(dev), caches,
+                                   p, dtype, kv1.to(dev))
+        logits[dev.type] = (l0[:, -1].float().cpu(), l1[:, 0].float().cpu(), launches)
+    (c0, c1, n_cuda), (p0, p1, _) = logits["cuda"], logits["cpu"]
+    assert n_cuda == 2  # one #1 launch per layer in the prefill, none in the decode
+    assert _rel_err(c0, p0) <= GEN_STEP_RTOL and _rel_err(c1, p1) <= GEN_STEP_RTOL
+    gcfg = GenerateConfig(max_new_tokens=2, do_sample=False, eos_token_id=1)
+    out = generate(model, _to(params, cuda), ids.numpy(), gcfg, pad_token_id=7,
+                   return_logprobs=True)
+    assert np.isfinite(out["logprobs"]).all()
+    top2 = torch.topk(p0, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 0.05  # rows whose greedy token bf16 cannot flip
+    assert (out["generated"][:, 0][clear.numpy()] == p0.argmax(-1)[clear].numpy()).all()
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)

@@ -32,7 +32,10 @@ MRoPE, the Gated DeltaNet backward by autograd and #2-#4 at head dim 256;
 (`model/qwen3_vl.py`: the ViT with #1-#4 non-causal at head dim 64, the
 deepstack mergers, `inputs_embeds` and deepstack injection in the text
 model; the data plane in `datasets/qwen_vl.py`; Qwen3-VL-4B whole through
-`recipes/sft_qwen3_vl_4b.py`). Every
+`recipes/sft_qwen3_vl_4b.py`); GRPO RL (`rl/`, the `rl` CLI, the dense
+`model/generate.py::generate` as the rollout, `per_token_logprobs`;
+Qwen3-4B whole through `recipes/rl_qwen3_4b_grpo.py`, rollout-routing
+replay through `recipes/rl_qwen3_moe_head_r3.py`). Every
 TPU kernel of the JAX package has its Hopper kernel. What is not ported raises
 `NotImplementedError` naming its ROADMAP.md item.
 """

@@ -42,8 +42,13 @@ need no gradient and are no optimizer params: no gradient, no moments,
 no update, no decay, and out of the grad norm (JAX's
 `freeze_stop_gradient` and `optax.set_to_zero`).
 
-Not ported yet: LoRA freezing ([lora]), custom loss functions, meshes and
-sharded batches (Queue 1, parallelism), HF load and save ([serve-rest]).
+`train_step(batch, step, loss_fn)` takes another loss, as JAX's
+`_build_step_fn(loss_fn)` does (the GRPO loss of `rl/trainer.py`); skip,
+clip and AdamW are the same, and `reduced_llm_loss` / `consumed_tokens`
+are reported only when the loss returns `sum_ce`.
+
+Not ported yet: LoRA freezing ([lora]), meshes and sharded batches
+(Queue 1, parallelism), HF load and save ([serve-rest]).
 """
 
 from __future__ import annotations
@@ -180,8 +185,40 @@ class TrainEngine:
     def _to_device(self, batch: dict) -> dict:
         return {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in batch.items()}
 
-    def train_step(self, batch: dict, step: int) -> dict:
-        """One optimizer step over a grad-accum batch of (A, B, L) arrays."""
+    def seq_ctx(self, mb: dict) -> SequenceContext:
+        """A micro-batch's SequenceContext: ids, segments, positions, the
+        replayed routing and the VLM keys it holds."""
+        return SequenceContext(
+            mb["input_ids"], mb["segment_ids"], mb["position_ids"],
+            mb.get("rollout_routed_experts"),
+            **{k: mb[k] for k in VLM_BATCH_KEYS if k in mb})
+
+    def default_loss(self, params, mb: dict, denom) -> tuple:
+        """The SFT loss of `train_step`: `model.loss` with the calibrated CE
+        -> (total loss, its metrics: sum_ce, num_tokens and the model's
+        extras)."""
+        out = self.model.loss(params, self.seq_ctx(mb), mb["shifted_labels"],
+                              mb["loss_weights"], denom, compute_dtype=self.compute_dtype,
+                              remat=self.remat)
+        mets = {"sum_ce": out.sum_ce.detach(), "num_tokens": out.num_tokens}
+        if out.expert_load is not None:
+            mets["expert_load"] = out.expert_load.float()
+        if out.mtp_expert_load is not None:
+            mets["mtp_expert_load"] = out.mtp_expert_load.float()
+        if out.dsa_index_loss is not None:
+            mets["dsa_index_loss"] = out.dsa_index_loss.detach()
+        if out.mtp_loss is not None:
+            mets["mtp_loss"] = out.mtp_loss.detach()
+        return out.total_loss(), mets
+
+    def train_step(self, batch: dict, step: int, loss_fn=None) -> dict:
+        """One optimizer step over a grad-accum batch of (A, B, L) arrays.
+        `loss_fn(params, mb, denom) -> (loss, dict of metrics)` replaces
+        the SFT loss (JAX `_build_step_fn(loss_fn)`): `params` is the
+        engine's training tree, `mb` a micro-batch's tensors on the device,
+        `denom` the batch's summed `loss_weights`; each metric is summed
+        over the micro-batches."""
+        loss_fn = loss_fn or self.default_loss
         dev = self._to_device(batch)
         denom = dev["loss_weights"].float().sum()
         for p in self._leaves:
@@ -189,26 +226,11 @@ class TrainEngine:
         sums: dict = {}
         for a in range(dev["input_ids"].shape[0]):
             mb = {k: v[a] for k, v in dev.items()}
-            seq_ctx = SequenceContext(
-                mb["input_ids"], mb["segment_ids"], mb["position_ids"],
-                mb.get("rollout_routed_experts"),
-                **{k: mb[k] for k in VLM_BATCH_KEYS if k in mb})
-            out = self.model.loss(self._train_tree, seq_ctx, mb["shifted_labels"],
-                                  mb["loss_weights"], denom, compute_dtype=self.compute_dtype,
-                                  remat=self.remat)
-            total = out.total_loss()
+            total, mets = loss_fn(self._train_tree, mb, denom)
             total.backward()
-            mets = {"total_loss": total.detach(), "sum_ce": out.sum_ce.detach(),
-                    "num_tokens": out.num_tokens}
-            if out.expert_load is not None:
-                mets["expert_load"] = out.expert_load.float()
-            if out.mtp_expert_load is not None:
-                mets["mtp_expert_load"] = out.mtp_expert_load.float()
-            if out.dsa_index_loss is not None:
-                mets["dsa_index_loss"] = out.dsa_index_loss.detach()
-            if out.mtp_loss is not None:
-                mets["mtp_loss"] = out.mtp_loss.detach()
+            mets = {"total_loss": total, **mets}
             for k, v in mets.items():
+                v = v.detach() if torch.is_tensor(v) else v
                 sums[k] = sums[k] + v if k in sums else v
 
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self._leaves]
@@ -227,7 +249,7 @@ class TrainEngine:
         for p in self._leaves:
             p.grad = None
         # the routed stacks' loads: the trunk's rows, then the MTP depths'
-        self.last_expert_load = {stack: sums[key] for stack, key in
+        self.last_expert_load = {stack: sums.pop(key) for stack, key in
                                  (("moe_layers", "expert_load"),
                                   ("mtp_layers", "mtp_expert_load")) if key in sums}
         if ok and self.noaux_speed is not None:
@@ -237,16 +259,17 @@ class TrainEngine:
                     load = load.sum(dim=0, keepdim=True)
                 update_noaux_bias(bias, load, self.noaux_speed)
 
-        metrics = {"total_loss": float(sums["total_loss"])}
+        metrics = {"total_loss": float(sums.pop("total_loss"))}
         if self.last_expert_load:
             load = torch.cat(list(self.last_expert_load.values()))
             metrics["maxvio"] = float(
                 (load.max(dim=-1).values / load.mean(dim=-1).clamp(min=1e-6)).mean())
-        for key in ("dsa_index_loss", "mtp_loss"):  # the port's tracker keys for these
-            if key in sums:
-                metrics[key] = float(sums[key])
-        n_tok = int(sums["num_tokens"])
-        metrics["reduced_llm_loss"] = float(sums["sum_ce"]) / max(n_tok, 1)
-        metrics["consumed_tokens"] = n_tok
+        ce = {}
+        if "sum_ce" in sums:  # JAX reports these only when the loss returns sum_ce
+            n_tok = int(sums.pop("num_tokens", 1))
+            ce = {"reduced_llm_loss": float(sums.pop("sum_ce")) / max(n_tok, 1),
+                  "consumed_tokens": n_tok}
+        metrics.update({k: float(v) for k, v in sums.items()})
+        metrics.update(ce)
         metrics.update(grad_norm=norm, lr=float(self.lr_schedule(step)), skipped=int(not ok))
         return metrics

@@ -127,18 +127,44 @@ def ce_loss(hidden: torch.Tensor, lm_head_w: torch.Tensor, shifted_labels: torch
     weights = loss_weights.reshape(n).float()
     if cfg.mode == "fused" and h % 128 == 0:
         ce = _fused_ce(hidden, lm_head_w, labels, cfg.ignore_idx)
-    elif cfg.mode == "eager" or n <= cfg.chunk_size:
+    elif cfg.mode == "eager":
         ce = _ce_from_logits(lm_logits(hidden, lm_head_w), labels, cfg.ignore_idx)
     else:
-        parts = []
-        for start in range(0, n, cfg.chunk_size):
-            sl = slice(start, start + cfg.chunk_size)
-            parts.append(checkpoint(_chunk_ce, hidden[sl], lm_head_w, labels[sl],
-                                    cfg.ignore_idx, use_reentrant=False))
-        ce = torch.cat(parts)
+        ce = _chunked_ce(hidden, lm_head_w, labels, cfg.chunk_size, cfg.ignore_idx)
     loss = (ce * weights).sum() / torch.as_tensor(global_denom, dtype=torch.float32,
                                                   device=ce.device).clamp(min=1e-8)
     valid = labels != cfg.ignore_idx
     sum_ce = (ce * valid).sum()
     num_tokens = valid.sum()
     return loss, sum_ce, num_tokens
+
+
+def _chunked_ce(hidden, lm_head_w, labels, chunk_size: int, ignore_idx: int):
+    """Per-token CE over row chunks of `chunk_size`, each checkpointed so
+    that its logits are recomputed in the backward (JAX's `@jax.checkpoint`
+    chunk body)."""
+    n = hidden.shape[0]
+    if n <= chunk_size:
+        return _ce_from_logits(lm_logits(hidden, lm_head_w), labels, ignore_idx)
+    return torch.cat([
+        checkpoint(_chunk_ce, hidden[s:s + chunk_size], lm_head_w, labels[s:s + chunk_size],
+                   ignore_idx, use_reentrant=False)
+        for s in range(0, n, chunk_size)])
+
+
+def per_token_logprobs(hidden: torch.Tensor, lm_head_w: torch.Tensor,
+                       shifted_labels: torch.Tensor, chunk_size: int = 1024,
+                       ignore_idx: int = IGNORE_IDX, mode: str = "chunk") -> torch.Tensor:
+    """(B, L) f32 log p(label_t | context), 0 at ignored labels;
+    differentiable in `hidden` and `lm_head_w`, the (tokens, vocab) logits
+    never held for the backward. `mode="fused"` at a hidden size that is a
+    multiple of 128 runs the fused CE statistics (#8-#10 on a card), as
+    JAX routes it; any other mode the checkpointed chunks."""
+    b, l, h = hidden.shape
+    hidden = hidden.reshape(b * l, h)
+    labels = shifted_labels.reshape(b * l)
+    if mode == "fused" and h % 128 == 0:
+        ce = _fused_ce(hidden, lm_head_w, labels, ignore_idx)
+    else:
+        ce = _chunked_ce(hidden, lm_head_w, labels, chunk_size, ignore_idx)
+    return -ce.reshape(b, l)

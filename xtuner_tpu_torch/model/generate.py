@@ -1,18 +1,30 @@
-"""Generation config, the dense prefill forward and sampling (counterpart:
-`xtuner_tpu/model/generate.py`).
+"""Generation config, the dense cached forward, sampling and the dense batch
+`generate` (counterpart: `xtuner_tpu/model/generate.py`).
 
 `GenerateConfig` keeps the JAX fields and defaults. `_forward_cached` is the
-prefill forward the paged engine runs (cache_len 0): a Python loop over the
-layers where the JAX package scans, dense and MoE layers (the routed
-experts of `module/moe_layer.py` and the shared expert), each with its
-sliding window (`layer_windows`, JAX `_layer_windows_py`: gpt-oss's
-`layer_window_pattern` over the MoE stack, or `sliding_window`), and with
-`record_routing` the (B, C, nL_moe, K) expert ids of every MoE layer, as
-JAX returns them. `_sample` / `_filter_logits` draw from a
-`torch.Generator` (JAX keys become generators, so sampled ids differ from
-`jax.random`; greedy ids do not). The dense batch `generate()` and its
-penalties / min_tokens / logit_bias / top_logprobs are not ported yet
-(ROADMAP item [serve-rest]).
+cached forward of a chunk of rows, the prefill (cache_len 0: the flash
+forward, #1 on a card) and the decode step (cache_len > 0: the plain
+cached attention of `module/attention.py`): a Python loop over the layers
+where the JAX package scans, dense and MoE layers (the routed experts of
+`module/moe_layer.py` and the shared expert), each with its sliding window
+(`layer_windows`, JAX `_layer_windows_py`: gpt-oss's `layer_window_pattern`
+over the MoE stack, or `sliding_window`), and with `record_routing` the
+(B, C, nL_moe, K) expert ids of every MoE layer, as JAX returns them.
+`_sample` / `_filter_logits` draw from a `torch.Generator` (JAX keys
+become generators, so sampled ids differ from `jax.random`; greedy ids do
+not).
+
+`generate` is JAX's dense batch generation, the rollout of the GRPO
+trainer (`rl/trainer.py`): left-padded prompts, positions from the mask's
+cumsum, a fresh dense cache per call; the prompts prefilled once per
+unique prompt with `prompt_group_size`, then the caches, last logits and
+routing repeated across the group; one decode step per new token, each
+unmasking only the generated slots; the raw log-softmax of each sampled
+token; stop ids, after which a row emits eos. The forward runs on
+`compute_copy` of the params, cast once per call where JAX casts each
+layer inside its jitted step (the same values). Not ported yet
+([serve-rest]): penalties, min_tokens, logit_bias and top_logprobs, the
+hybrid's `forward_cached`, MLA and DSA caches.
 """
 
 from __future__ import annotations
@@ -20,11 +32,12 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import not_ported
 from ..loss.ce_loss import lm_logits
-from ..module.attention import mha_cached_forward
+from ..module.attention import MHAConfig, mha_cached_forward
 from ..module.mlp import mlp_forward
 from ..module.moe_layer import moe_mlp_forward, shared_experts_forward
 from ..module.params import cast_tree, tree_map
@@ -199,3 +212,109 @@ def _sample(logits: torch.Tensor, generator: torch.Generator,
     if not gen_cfg.do_sample or gen_cfg.temperature == 0.0:
         return torch.argmax(logits, dim=-1)
     return categorical(_filter_logits(logits, gen_cfg), generator)
+
+
+def compute_copy(params: dict, dtype: torch.dtype, copy: bool = True) -> dict:
+    """The params as the forwards read them: the layer stacks (keys ending
+    in "layers"), the embedding and an untied head in `dtype`, every other
+    leaf (the final norm, read in f32) as it is. Every forward casts those
+    leaves to the compute dtype before it uses them, so this tree gives
+    the same values as `params`. With `copy` every leaf is a new tensor
+    (a frozen snapshot); without, leaves already in their dtype are
+    shared."""
+    def leaf(x, cast):
+        return x.detach().to(dtype if cast and x.is_floating_point() else x.dtype, copy=copy)
+
+    return {k: tree_map(lambda x, c=k.endswith("layers") or k in ("embed", "lm_head"):
+                        leaf(x, c), v) for k, v in params.items()}
+
+
+def _check_generate(model, gen_cfg: GenerateConfig) -> None:
+    if hasattr(model, "forward_cached"):
+        raise not_ported(f"generate on {type(model).__name__} (its forward_cached hook)",
+                         "serve-rest")
+    if not isinstance(model.cfg.attention, MHAConfig):
+        raise not_ported(f"the dense decode of {type(model.cfg.attention).__name__} "
+                         "attention", "serve-rest")
+    if gen_cfg.top_logprobs > 0:
+        raise not_ported("top_logprobs", "serve-rest")
+
+
+@torch.no_grad()
+def generate(model, params, prompt_ids, gen_cfg: GenerateConfig,
+             generator: Optional[torch.Generator] = None, compute_dtype=torch.bfloat16,
+             pad_token_id: int = 0, return_logprobs: bool = False,
+             record_routing: bool = False, prompt_group_size: int = 1) -> dict:
+    """prompt_ids: (B, P) ints, left-padded with `pad_token_id`; runs on
+    the params' device. Returns numpy `sequences` (B, P + N), `generated`
+    (B, N), `num_generated` N, with `return_logprobs` the (B, N) f32
+    log-softmax of each sampled token under the raw logits, and with
+    `record_routing` on an MoE model `routed_experts` (B, N, nL_moe, K):
+    the routing of the forward that sampled each token, i.e. of input
+    position P + j - 1 for response token j, the position token j takes
+    as a training input (R3 replay). Rows come in groups of
+    `prompt_group_size` identical prompts."""
+    _check_generate(model, gen_cfg)
+    cfg = model.cfg
+    dev = params["embed"]["w"].device
+    generator = generator or torch.Generator(device=dev).manual_seed(0)
+    prompt = torch.as_tensor(np.asarray(prompt_ids), dtype=torch.int64, device=dev)
+    b, p = prompt.shape
+    n_new = gen_cfg.max_new_tokens
+    max_len = p + n_new
+    eos = gen_cfg.eos_token_id if gen_cfg.eos_token_id is not None else cfg.eos_token_id
+    g = max(prompt_group_size, 1)
+    if b % g:
+        raise ValueError(f"generate: {b} rows are not groups of {g}")
+    stop_ids = sorted({eos, *gen_cfg.stop_token_ids} - {None})
+    params = compute_copy(params, compute_dtype, copy=False)
+
+    prompt_mask = prompt != pad_token_id
+    positions = (prompt_mask.cumsum(dim=1) - 1).clamp(min=0)
+    kv_mask0 = torch.cat([prompt_mask, torch.zeros((b, n_new), dtype=torch.bool, device=dev)],
+                         dim=1)
+    caches = init_cache(model, b // g, max_len, compute_dtype, dev)
+    logits, caches, routing = _forward_cached(
+        model, params, prompt[::g], positions[::g], caches, 0, compute_dtype, kv_mask0[::g],
+        record_routing)
+    last = logits[:, -1]
+    rout = routing[:, -1] if routing is not None else None  # (B / g, nL, K)
+    if g > 1:  # the shared prompt's KV, last logits and routing across the group
+        caches = [(ck.repeat_interleave(g, dim=1), cv.repeat_interleave(g, dim=1))
+                  for ck, cv in caches]
+        last = last.repeat_interleave(g, dim=0)
+        rout = rout.repeat_interleave(g, dim=0) if rout is not None else None
+
+    def sample(last):
+        tok = _sample(last, generator, gen_cfg)
+        lp = torch.log_softmax(last, dim=-1).gather(1, tok[:, None])[:, 0]
+        return tok, lp
+
+    tok, lp = sample(last)
+    toks, lps, routs = [tok], [lp], [rout]
+    done = torch.zeros(b, dtype=torch.bool, device=dev)
+    pos = positions[:, -1]
+    slots = torch.arange(max_len, device=dev)[None, :]
+    for i in range(n_new - 1):
+        cache_len = p + i
+        # unmask only the generated slots [p, cache_len]: the left pads stay out
+        kv_mask = kv_mask0 | ((slots >= p) & (slots < cache_len + 1))
+        logits, caches, routing = _forward_cached(
+            model, params, tok[:, None], (pos + 1)[:, None], caches, cache_len, compute_dtype,
+            kv_mask, record_routing)
+        new_tok, lp = sample(logits[:, -1])
+        for t in stop_ids:
+            done = done | (tok == t)
+        new_tok = torch.where(done, torch.full_like(new_tok, eos), new_tok)
+        toks.append(new_tok)
+        lps.append(lp)
+        routs.append(routing[:, 0] if routing is not None else None)
+        tok, pos = new_tok, pos + 1
+    gen = torch.stack(toks, dim=1)
+    out = {"sequences": torch.cat([prompt, gen], dim=1).cpu().numpy(),
+           "generated": gen.cpu().numpy(), "num_generated": n_new}
+    if return_logprobs:
+        out["logprobs"] = torch.stack(lps, dim=1).float().cpu().numpy()
+    if record_routing and routs[0] is not None:
+        out["routed_experts"] = torch.stack(routs, dim=1).to(torch.int32).cpu().numpy()
+    return out

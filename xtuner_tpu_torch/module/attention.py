@@ -11,13 +11,20 @@ projection. The model calls the three itself
 them apart or, under "save_out_lse", run the attention over `mha_qkv` and
 keep only the flash output and lse.
 
-`mha_cached_forward` is ported for the prefill the paged engine runs: a
-whole right-padded prompt at `cache_len = 0`. Its attention is causal over
-one segment with the padding masked out, which is what the flash forward
-computes with `segment_ids = kv_mask`, with the layer's sliding window and
-GPT-OSS sinks (JAX `mha_cached_forward`'s mask and sink softmax) passed to
-it. Query rows at padding get zeros there where the JAX einsum gives
-unused values; real rows agree.
+`mha_cached_forward` at `cache_len = 0` is the prefill of a fresh cache
+(the paged engine's right-padded prompts, the dense `generate`'s
+left-padded ones). Its attention is causal over one segment with the
+padding masked out, which is what the flash forward computes with
+`segment_ids = kv_mask`, with the layer's sliding window and GPT-OSS sinks
+(JAX `mha_cached_forward`'s mask and sink softmax) passed to it. Query
+rows at padding get zeros there where the JAX einsum gives unused values;
+real rows agree. At `cache_len > 0` (the dense decode of
+`model/generate.py`) C new rows attend the whole dense cache in plain
+PyTorch, as JAX does it in `jnp.einsum` with no Pallas kernel: GQA by head
+groups with no repeat of the cache, f32 logits from the cache-dtype
+operands, the causal, window and `kv_mask` masks, the sinks in the softmax
+denominator, probabilities cast to the cache dtype before the value
+product.
 
 Gated attention (`with_gate`, Qwen3.5 / Qwen3-Next): `q_proj` emits each
 head's q and its output gate side by side, (q_h | gate_h) per head, as JAX
@@ -34,8 +41,7 @@ enabled (`module/mlp.py::linear` -> `ops/float8.py::fp8_matmul`), as JAX's
 `lora_linear` does; the serving prefill stays in the compute dtype, as in
 JAX.
 
-Not ported yet: a non-zero `cache_len` (chunked prefill and the dense
-decode engine, [serve-rest]) and LoRA ([lora]).
+Not ported yet: LoRA ([lora]).
 """
 
 from __future__ import annotations
@@ -177,27 +183,63 @@ def mha_out(p: dict, cfg: MHAConfig, o, fp8_cfg=None, gate=None):
 def mha_cached_forward(p: dict, cfg: MHAConfig, x, cos, sin, cache_k, cache_v,
                        cache_len: int, window: Optional[int] = None,
                        kv_mask: Optional[torch.Tensor] = None):
-    """Prefill of a fresh cache. x: (B, C, H); cache_k/v: (B, S_max, Hkv, D)
-    with C <= S_max; kv_mask (B, S_max) bool, False = padding slot; window:
-    a sliding window (None or <= 0: full); the sinks are `p["sinks"]` when
-    present. Writes the chunk's K/V into cache[:, :C] IN PLACE (the JAX
-    function returns an updated copy) and returns (out (B, C, H), cache_k,
-    cache_v)."""
-    if cache_len != 0:
-        raise not_ported("attention over a non-empty dense cache (cache_len > 0)",
-                         "serve-rest")
+    """Incremental attention. x: (B, C, H) the new rows at cache slots
+    [cache_len, cache_len + C); cache_k/v: (B, S_max, Hkv, D); kv_mask
+    (B, S_max) bool, False = padding slot, never attended; window: a
+    sliding window (None or <= 0: full); the sinks are `p["sinks"]` when
+    present. Writes the chunk's K/V into cache[:, cache_len:cache_len + C]
+    IN PLACE (the JAX function returns an updated copy) and returns (out
+    (B, C, H), cache_k, cache_v)."""
     b, c, _ = x.shape
     q, k, v, gate = project_qkv(p, cfg, x, cos, sin)
-    cache_k[:, :c] = k
-    cache_v[:, :c] = v
-    if kv_mask is None:
-        seg = torch.ones((b, c), dtype=torch.int32, device=x.device)
-    else:
-        seg = kv_mask[:, :c].to(torch.int32).contiguous()
-    # at cache_len 0 causality keeps every slot past C out of reach, so
-    # attending the chunk's own K/V (in the cache dtype) is attending the cache
-    o, _ = flash_attention(q.to(cache_k.dtype), k.to(cache_k.dtype),
-                           v.to(cache_v.dtype), seg, scale=cfg.head_dim ** -0.5,
-                           window=window if window and window > 0 else None,
-                           sinks=p.get("sinks"))
+    cache_k[:, cache_len:cache_len + c] = k
+    cache_v[:, cache_len:cache_len + c] = v
+    win = window if window and window > 0 else None
+    if cache_len == 0:
+        if kv_mask is None:
+            seg = torch.ones((b, c), dtype=torch.int32, device=x.device)
+        else:
+            seg = kv_mask[:, :c].to(torch.int32).contiguous()
+        # at cache_len 0 causality keeps every slot past C out of reach, so
+        # attending the chunk's own K/V (in the cache dtype) is attending the cache
+        o, _ = flash_attention(q.to(cache_k.dtype), k.to(cache_k.dtype),
+                               v.to(cache_v.dtype), seg, scale=cfg.head_dim ** -0.5,
+                               window=win, sinks=p.get("sinks"))
+        return mha_out(p, cfg, o.to(x.dtype), gate=gate), cache_k, cache_v
+    o = cached_attention(q, cache_k, cache_v, cache_len, cfg.head_dim ** -0.5, win,
+                         kv_mask, p.get("sinks"))
     return mha_out(p, cfg, o.to(x.dtype), gate=gate), cache_k, cache_v
+
+
+def cached_attention(q, cache_k, cache_v, cache_len: int, scale: float,
+                     window: Optional[int] = None, kv_mask=None, sinks=None):
+    """q (B, C, Hq, D) at slots [cache_len, cache_len + C) over the whole
+    cache (B, S, Hkv, D) -> (B, C, Hq, D) f32 (JAX `mha_cached_forward`'s
+    einsum attention). The q heads of a group share their kv head, with no
+    repeat of the cache; the bf16 products are exact in f32, so the f32
+    operands give the f32-accumulated logits JAX asks for."""
+    b, c, hq, d = q.shape
+    s_max, hkv = cache_k.shape[1], cache_k.shape[2]
+    rep = hq // hkv
+    qg = q.reshape(b, c, hkv, rep, d).to(cache_k.dtype).float()
+    logits = torch.einsum("bcgrd,bsgd->bgrcs", qg, cache_k.float()) * scale
+    logits = logits.reshape(b, hq, c, s_max)
+    dev = q.device
+    kpos = torch.arange(s_max, device=dev)[None, :]
+    qpos = cache_len + torch.arange(c, device=dev)[:, None]
+    mask = kpos <= qpos  # causal over the cache
+    if window:
+        mask = mask & (qpos - kpos < window)
+    mask = mask[None, None]  # (1, 1, C, S)
+    if kv_mask is not None:
+        mask = mask & kv_mask[:, None, None, :].bool()
+    logits = logits.masked_fill(~mask, -1e30)
+    if sinks is not None:
+        sink = sinks.float()[None, :, None, None]
+        m = torch.maximum(logits.amax(dim=-1, keepdim=True), sink)
+        probs = torch.exp(logits - m)
+        probs = probs / (probs.sum(dim=-1, keepdim=True) + torch.exp(sink - m))
+    else:
+        probs = torch.softmax(logits, dim=-1)
+    pg = probs.reshape(b, hkv, rep, c, s_max).to(cache_v.dtype).float()
+    return torch.einsum("bgrcs,bsgd->bcgrd", pg, cache_v.float()).reshape(b, c, hq, d)
