@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path (Qwen3-8B, through the serve CLI
-from an HF export and through `PagedGenerator`, and gpt-oss-20b and
-Qwen3.5-35B-A3B whole),
+"""Drive the PyTorch port's serving path (Qwen3-8B at 12 of its 36 layers,
+through the serve CLI from an HF export and through `PagedGenerator`, and
+gpt-oss-20b and Qwen3.5-35B-A3B whole),
 its MoE SFT train step, its SFT entry point (in bf16, in tile-wise fp8 and
 with both kernel switches), bench.py's longctx_64k row, GLM-5.2's DSA head,
 DeepSeek-V3's MLA head, GLM-4.5-Air's noaux-routed MoE head, moe_heavy
 with MTP, gpt-oss-20b's two-layer head in training (with rollout-routing
 replay), Qwen3.5-35B-A3B's first period in training, Qwen3-VL-4B whole
-in training, Qwen3-4B whole in GRPO through the rl CLI (with R3 on
+in training, InternVL-8B (BASELINE config 3, its language model cut in
+depth) through the sft CLI from its own export and Qwen3-VL-8B whole in
+the alignment stage, Qwen3-4B at 12 of 36 layers in GRPO through the rl CLI (with R3 on
 Qwen3-30B-A3B's head), Qwen2.5-0.5B LoRA SFT (BASELINE config 1) and its
-merged export, a Qwen2.5-0.5B reward model, and Qwen3-8B whole under QLoRA
+merged export, a Qwen2.5-0.5B reward model, and Qwen3-8B at 12 of 36 layers under QLoRA
 (DPO, ORPO, SFT through the sft CLI, the merged export through the convert
 CLI, served), once on one NVIDIA card.
 
@@ -37,7 +39,8 @@ exits non-zero with no result line:
    (#5) at the serving shape and at a rollout (32 slots of 4096 cached
    tokens) prints its split count and the wrapper's ms beside the bytes
    bound, and holds two launches to the same bits;
-3s. serve_cli: Qwen3-8B whole (random bf16 weights from the seed) exported
+3s. serve_cli: Qwen3-8B at full width and 12 of its 36 layers (`with_depth`;
+   random bf16 weights from the seed) exported
    by `save_hf_checkpoint` (GiB, seconds), loaded back by
    `load_hf_checkpoint` into the card (every leaf bit-equal), then served
    through the serve CLI's own code (`build_worker(build_parser().
@@ -91,7 +94,8 @@ exits non-zero with no result line:
    rollout (32 slots of 4096); #6 (nn) at E256 H2048 F512 on a decode
    step's 32 rows and a 1000-token prefill's 8000;
 3e. rl_grpo: `python -m xtuner_tpu_torch.train.cli.rl` (in-process,
-   `rl.main`) on `recipes/rl_qwen3_4b_grpo.py`: Qwen3-4B whole (4.02 B
+   `rl.main`) on `recipes/rl_qwen3_4b_grpo.py`: Qwen3-4B at 12 of its 36
+   layers (`with_depth`; whole: 4.02 B
    params), 2 steps of 4 prompts x 8 rollouts of 384 tokens with the
    rollout captured; per step the rollout's, the teacher-forced logprobs'
    and the train step's seconds, rollout tokens/s, pg_loss, ratio_mean,
@@ -112,7 +116,8 @@ exits non-zero with no result line:
    the chunk mode at N16384 H2560 V151936 (values, both gradients) and
    each CE kernel against its plain version there, #6/#7 at the R3
    recipe's decode, prefill and step shapes;
-4. serving: `PagedGenerator.generate` on Qwen3-8B at full width and depth
+4. serving: `PagedGenerator.generate` on Qwen3-8B at full width, 12 of its
+   36 layers (`with_depth`),
    with random bf16 weights from the seed; 6 requests on 4 slots (one GRPO
    group of two); launch counters of its kernels; a teacher-forced re-check
    of the decoded logprobs; one sampled run; prefill and decode tokens/s;
@@ -294,6 +299,38 @@ exits non-zero with no result line:
    backward launches the same bits, padding rows zero, the forward's walk
    against `fwd_tile_plan(causal=False)`, times, the bound on the visible
    pairs, and SDPA with the block-diagonal mask as a dense mask;
+24f. internvl_sft (after 24): BASELINE config 3,
+   `recipes/sft_internvl_8b_vlm.py` (InternViT-300M frozen, the
+   projector, Qwen3-8B's language model at full width cut to 6 of its 36
+   layers: 8 layers do not fit one micro-batch of 8 x 16384), in a
+   temporary directory: the recipe's seeded random weights exported by
+   `save_hf_checkpoint` (GiB, s), then the literal `python -m
+   xtuner_tpu_torch.train.cli.sft --config ...` in-process from that
+   export, 4 steps, the final save skipped: CE, grad norm, step ms, tgs,
+   pack positions/s, peak; per micro-batch its tokens, real and padded
+   tiles and context tokens (the recipe's `MICRO_BATCHES`); every tower
+   leaf bit-equal to the export, the projector and text leaves moved; the
+   exact launches (per step the tower's #1 non-causal at 64/64 24, no
+   backward; the text layers' #1 twice a layer under "save_attn" and #2 +
+   #3 once); CE with the tower's tokens against them zeroed and against a
+   planted scatter shifted by one tile, each gap over VISION_CE_FLOOR;
+   the tower's forward alone; a profiled step; a two-pass step; the
+   export deleted;
+24g. internvl_kernels: #1 non-causal at 64/64 on the 48 tiles of 1025 as
+   segments of one row; #1-#4 at 128/128 (32 / 8 heads) on the first
+   micro-batch's 8 rows of 16384 (the plain versions a row and a group at
+   a time), beside SDPA and the bound;
+24h. vlm8b_align: `recipes/sft_qwen3_vl_8b_align.py` (Qwen3-VL-8B whole,
+   8.77 B params, the language model frozen) through `Trainer.fit`, 4
+   steps, no final save: per step CE, step ms, tgs, peak, the row's
+   images, patches and tokens; every language leaf bit-equal to its init,
+   every tower and merger leaf moved, step 1's row's CE lower after
+   training; the exact launches (#1 non-causal at 72/72 twice a block and
+   #2 + #3 once; the frozen text layers' #1 twice and #2 + #3 once); the
+   tower's forward and backward alone; a two-pass step;
+24i. vlm8b_kernels: #1-#4 non-causal at 72/72 (16 heads) on the recipe's
+   vision row and on segments of 1, 100 and 4097 (P4198), as 24 does at
+   64/64;
 24a. lora_sft: the sft CLI on `recipes/sft_qwen25_05b_lora.py`
    (`phase_lora_sft`): steps, CE, step time, peak, frozen leaves
    bit-unchanged, `lora_b` moved, then redrawn at a real size, the convert
@@ -301,7 +338,8 @@ exits non-zero with no result line:
    log-probs, and a merge without adapters or at scale 1 shown to fail;
 24b. reward: `recipes/reward_qwen25_05b.py` (`phase_reward`): loss,
    reward_acc, step time and peak per step;
-24c. dpo, orpo, qlora_sft, qlora_serve: Qwen3-8B whole under QLoRA from
+24c. dpo, orpo, qlora_sft, qlora_serve: Qwen3-8B (12 of its 36 layers,
+   `with_depth`) under QLoRA from
    its own HF export (`phase_qlora`): DPO (step 1 at ln 2, margin 0; step
    2 moved) and ORPO, 2 steps each; 4 SFT steps through the sft CLI, the
    codes on the card bit-equal to the host quantizer's, the adapter GEMMs
@@ -319,7 +357,7 @@ exits non-zero with no result line:
 25. gpt_oss_profile: gpt-oss-20b's engine made again, then torch.profiler
    windows of 4 prefills of 1000 tokens and of 16 decode steps (device
    time by kind: #5, the port's other kernels, cuBLAS, the rest);
-26. rl_profile: Qwen3-4B in bf16 made again, then one torch.profiler
+26. rl_profile: Qwen3-4B (12 layers) in bf16 made again, then one torch.profiler
    window of the GRPO rollout's `generate` at the recipe's shape (32 rows,
    4 prompts of 128) for 1 + 16 tokens: wall, device-busy share, kernels.
    These two last, since a profiler window slows every later host launch.
@@ -340,6 +378,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -462,6 +501,14 @@ SWITCHED_LOSS_ATOL = 2e-2
 # SERVE_SHORT tokens, long ones of SERVE_LONG (more than one chunk) that
 # share their first SERVE_PREFIX; SERVE_NEW new tokens each, greedy
 SERVE_MODEL = "qwen3-8b"
+# Depth cuts of earlier paths, made when the InternVL and Qwen3-VL-8B phases
+# (~190 s) took the whole script past its 1200 s limit (1,286 s in a run):
+# these presets run at full width and at 12 of their 36 layers while their
+# phases run (`with_depth`): Qwen3-8B in serve_cli and serve, Qwen3-4B in
+# rl_grpo, rl_replay and rl_profile, Qwen3-8B under QLoRA in qlora and
+# lora_profile. Their decode loops are host-bound per layer, and their
+# exports, loads and seeded inits scale with depth
+SERVE_LAYERS = QLORA_LAYERS = RL_LAYERS = 12
 SERVE_SHORT, SERVE_LONG, SERVE_PREFIX, SERVE_NEW = 200, 3000, 2048, 32
 # a prefix hit's first-token top-5 logprobs against the miss's: the hit
 # reads the miss's own bf16 KV for 23 of the prompt's 24 blocks and
@@ -484,7 +531,7 @@ SERVE_HIT_SEEDS = 3  # prompts whose hit-vs-miss reading shows the floor
 SERVE_PREFILL_CHUNK = 2048
 SERVE_PAGED_SHAPE = ([SERVE_LONG + SERVE_NEW // 2] * 4 + [SERVE_SHORT + SERVE_NEW // 2] * 7
                      + [0] * 5, 64)
-SERVE_HEALTH_S = 600  # the CLI's process loads the 16.4 GB export before /health
+SERVE_HEALTH_S = 600  # the CLI's process loads the export before /health
 # what may stay allocated between phases (the kernels' small device buffers)
 RELEASED_GIB = 1.0
 # the least time the card could take (NVIDIA H100 SXM data sheet, dense):
@@ -592,6 +639,34 @@ VLM_LOSS1 = (11.6, 13.4)
 VLM_TEXT_LAYERS, VLM_BLOCKS = 36, 24
 VLM_HQ, VLM_D = 16, 64  # the tower's heads (no GQA) and head dim
 VLM_ODD = [1, 100, 4097]  # vlm_kernels' odd row: P = 4198, not a multiple of 128
+# internvl_sft phase (recipes/sft_internvl_8b_vlm.py through the sft CLI):
+# InternViT-300M frozen over Qwen3-8B's language model at full width, 6 of
+# its 36 layers. Step-1 CE of a random untied head (std 0.02 against an
+# rms-1 final norm): ln(V) + sigma^2 / 2, sigma = 0.02 sqrt(4096): 11.93 +
+# 0.82 = 12.75. Per step the frozen tower runs #1 non-causal at 64/64 once
+# a block and no backward; each text layer #1 twice under "save_attn" and
+# #2 + #3 once. VISION_CE_FLOOR: the least |CE with the tower's tokens - CE
+# with them zeroed or shifted by a tile| the check accepts as power, in
+# nats (the mean CE over the documents that hold an image); two runs of
+# the same micro-batch must agree within a tenth of it
+INTERNVL_RECIPE = "xtuner_tpu_torch/recipes/sft_internvl_8b_vlm.py"
+INTERNVL_STEPS = 4
+INTERNVL_LOSS1 = (11.9, 13.6)
+INTERNVL_VIT_BLOCKS = 24
+INTERNVL_HQ, INTERNVL_D = 16, 64  # InternViT's heads
+INTERNVL_LLM_DIMS = (32, 8, 128)  # Qwen3-8B's q heads, kv heads, head dim
+VISION_CE_FLOOR = 1e-3
+# vlm8b_align phase (recipes/sft_qwen3_vl_8b_align.py through Trainer.fit):
+# Qwen3-VL-8B whole, the language model frozen; step-1 CE as above (untied,
+# hidden 4096): 12.75. Per step the 27 tower blocks run #1 non-causal at
+# 72/72 twice (remat "full") and #2 + #3 once; the 36 frozen text layers #1
+# twice and #2 + #3 once
+VLM8B_RECIPE = "xtuner_tpu_torch/recipes/sft_qwen3_vl_8b_align.py"
+VLM8B_STEPS = 4
+VLM8B_PARAMS = 8_767_123_696
+VLM8B_LOSS1 = (11.9, 13.6)
+VLM8B_TEXT_LAYERS, VLM8B_BLOCKS = 36, 27
+VLM8B_HQ, VLM8B_D = 16, 72
 # the times of the WMMA, mma.sync and CUDA-core kernels that #8's, #16's,
 # #12's, #13's, #5's and #11's redesigns replaced, as PERF.md §6 records them
 # (chip_smoke.py runs, NVIDIA H100 80GB HBM3, 700.00 W), printed beside the
@@ -607,6 +682,34 @@ PARENT_MS = {("ce_fwd", "sft"): "34.13-34.26", ("ce_fwd", "longctx"): "118.12-11
              # q + k + v + o at M16384
              ("paged_decode", "serve"): "0.0865-0.0883",
              ("fp8_gemm", "sft_fp8"): "1.16-1.19"}
+
+
+@contextlib.contextmanager
+def cut_depth(name: str, layers: int):
+    """While on, the registry's preset `name` has `layers` layers, every
+    width kept: a recipe or CLI of this process that resolves `name` builds
+    the cut model (an HF export records the cut in its config.json)."""
+    from unittest import mock
+
+    from xtuner_tpu_torch.model import registry
+
+    factory = registry.model_mapping[name]
+    cut = lambda: dataclasses.replace(factory(), num_hidden_layers=layers)  # noqa: E731
+    with mock.patch.dict(registry.model_mapping, {name: cut}):
+        yield
+
+
+def with_depth(name: str, layers: int):
+    """A phase decorator: the phase runs inside `cut_depth(name, layers)`."""
+    import functools
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*a, **kw):
+            with cut_depth(name, layers):
+                return fn(*a, **kw)
+        return run
+    return wrap
 
 
 def say(phase: str, **kv) -> None:
@@ -677,20 +780,26 @@ def phase_build() -> None:
     # 128/128, and the split dq <D, Dv, window> and dk/dv <D, Dv, two_pass,
     # window> at 192/128 and 64/64
     lib = cuda_lib.load()
-    flash = {r"flash_fwd(?:64)?_kernelILi(\d+)ELi(\d+)E(?:Lb(\d)E)?": "fwd",
+    dims = r"(?:Li(\d+)ELi(\d+)E)?"  # the tensors' head dims (72/72 on 128-column tiles)
+    flash = {r"flash_fwd(?:64)?_kernelILi(\d+)ELi(\d+)E(?:Lb(\d)E)?" + dims: "fwd",
              r"flash_bwd_kernelILb(\d)E": "bwd",
-             r"flash_dq_kernelILi(\d+)ELi(\d+)ELb(\d)E(?:Lb(\d)E)?": "dq",
-             r"flash_dkv_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E(?:Lb(\d)E)?": "dkv"}
+             r"flash_dq_kernelILi(\d+)ELi(\d+)ELb(\d)E(?:Lb(\d)E)?" + dims: "dq",
+             r"flash_dkv_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E(?:Lb(\d)E)?" + dims: "dkv"}
     for i, ln in enumerate(ptxas):
         for pattern, kind in flash.items():
             m = re.search(pattern, ln) if ln.startswith("kernel") else None
             if m is None:
                 continue
             g = [None if x is None else int(x) for x in m.groups()]
-            # the split kernels' and the forward's last template flag, CAUSAL
-            # (absent at 256/256's forward): 0 for the non-causal instantiations
+            # the tensors' head dims, then the split kernels' and the
+            # forward's last flag, CAUSAL (absent at 256/256's forward): 0
+            # for the non-causal instantiations
+            dvg, dg = (g.pop(), g.pop()) if kind != "bwd" else (None, None)
             causal = g.pop() if kind != "bwd" else None
             nc = ", non-causal" if causal == 0 else ""
+            if dg is not None and (dg, dvg) != (g[0], g[1]):
+                g[0], g[1] = dg, dvg  # name and size it by its head dims
+                nc += f", on {m.group(1)}-column tiles"
             if kind == "fwd":  # flash_fwd64_kernel at (256, 256): 64-key tiles
                 kern = "flash_fwd64_kernel" if "fwd64" in ln else "flash_fwd_kernel"
                 name, smem = f"{kern}<{g[0]}, {g[1]}{nc}>", lib.xt_flash_fwd_smem_bytes(*g)
@@ -2635,13 +2744,14 @@ def phase_mla_kernels(torch, seed: int, smi: str, recipe_seg) -> list[dict]:
     return rows
 
 
-def fit_recipe(torch, rel_recipe: str, steps=None, hooks=(), env=None):
+def fit_recipe(torch, rel_recipe: str, steps=None, hooks=(), env=None, cwd=None):
     """`Trainer.fit` on a recipe loaded as the `sft` CLI loads it
-    (`config_from_args`), in a temporary working directory, with `hooks`
-    added, `steps` in place of the recipe's total when given and `env` set
-    for the run; the final save is skipped (`Trainer._save` is a no-op
-    here: these runs are measured, not resumed). -> (trainer, its tracker
-    records, every kernel's launches, peak GiB, wall s)."""
+    (`config_from_args`), in a temporary working directory (or `cwd`,
+    where a recipe's `load_from` was written), with `hooks` added, `steps`
+    in place of the recipe's total when given and `env` set for the run;
+    the final save is skipped (`Trainer._save` is a no-op here: these runs
+    are measured, not resumed). -> (trainer, its tracker records, every
+    kernel's launches, peak GiB, wall s)."""
     import dataclasses
     import os
     import tempfile
@@ -2655,11 +2765,11 @@ def fit_recipe(torch, rel_recipe: str, steps=None, hooks=(), env=None):
     cfg = sft.config_from_args(sft.build_parser().parse_args(["--config", recipe]))
     cfg = dataclasses.replace(cfg, hooks=[*cfg.hooks, *hooks],
                               total_steps=steps or cfg.total_steps)
-    cwd = os.getcwd()
+    here = os.getcwd()
     with tempfile.TemporaryDirectory(prefix="xt_fit_") as tmp, \
             mock.patch.dict(os.environ, env or {}), \
             mock.patch.object(Trainer, "_save", lambda self, step, mgr=None: None):
-        os.chdir(tmp)
+        os.chdir(cwd or tmp)
         try:
             reset_train_launches()
             torch.cuda.synchronize()
@@ -2674,7 +2784,7 @@ def fit_recipe(torch, rel_recipe: str, steps=None, hooks=(), env=None):
             recs = [json.loads(x) for x in
                     (trainer.work_dir / "tracker.jsonl").read_text().splitlines()]
         finally:
-            os.chdir(cwd)
+            os.chdir(here)
     return trainer, recs, launches, peak, wall
 
 
@@ -5205,27 +5315,43 @@ def phase_vlm_train(torch, seed: int, smi: str) -> tuple[dict, dict, object]:
 def phase_vlm_kernels(torch, seed: int, smi: str, recipe_vseg) -> list[dict]:
     """#1-#4 non-causal at (64, 64) against their plain versions at the
     tower's shapes, 16 q heads over 16 kv heads: on the recipe's own vision
-    row (`recipe_vseg`, 32,768 patch rows: its images and a padded tail;
-    the plain versions in `PLAIN_CHUNK`-row chunks, `flash_plain_chunked`)
+    row (`recipe_vseg`, 32,768 patch rows: its images and a padded tail)
     and on an odd row (segments of 1, 100 and 4097 patches, P = 4198, not a
-    multiple of 128; the plain versions whole). Per row: the forward's out
-    and lse, its k tiles walked and walked unmasked against
-    `fwd_tile_plan(causal=False)` (a mismatch fails), both backward
-    instantiations (grouped #2 + #3, two-pass #2 + #4) with two launches
-    the same bits and padding rows zero; times, the plain versions' times,
-    the bound on the visible pairs, and SDPA's forward and backward with
-    the block-diagonal mask as a dense mask as the library time."""
+    multiple of 128), as `noncausal_rows` holds them."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 37)
+    return noncausal_rows(torch, g, smi, (("recipe", recipe_vseg.to(dev)),
+                                          ("odd", _segments(torch, VLM_ODD, sum(VLM_ODD), dev))),
+                          VLM_HQ, VLM_D, "vlm_train", "vlm_train_two_pass")
+
+
+def noncausal_rows(torch, g, smi: str, segs, hq: int, d: int, path: str, two_pass_path=None,
+                   fwd_only: bool = False) -> list[dict]:
+    """#1-#4 non-causal at (d, d) against their plain versions on each
+    (label, (1, P) segment ids) of `segs`, `hq` q heads over as many kv
+    heads (the towers have no GQA); rows longer than 8192 hold the plain
+    versions in `PLAIN_CHUNK`-row chunks (`flash_plain_chunked`). Per row:
+    the forward's out and lse, its k tiles walked and walked unmasked
+    against `fwd_tile_plan(causal=False)` (a mismatch fails); unless
+    `fwd_only` (a frozen tower runs no backward), both backward
+    instantiations (grouped #2 + #3 on `path`, two-pass #2 + #4 on
+    `two_pass_path`) with two launches the same bits and padding rows
+    zero; times, the plain versions' times, the bound on the visible pairs
+    (at the head dim, not at the 128-column tiles 72 runs on), and SDPA's
+    forward and backward with the block-diagonal mask as a dense mask as
+    the library time. The kernels line's names end in "_72" at head dim
+    72."""
     from xtuner_tpu_torch.ops.attention import flash as fl
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(seed + 37)
     src = "xtuner_tpu_torch/csrc/"
-    hq, d = VLM_HQ, VLM_D
+    sfx = "_72" if d == 72 else ""
+    tiles = ", on 128-column tiles" if d == 72 else ""
     scale = d ** -0.5
     heads_first = lambda t: t[0].transpose(0, 1)  # (B, L, H, X) -> (H, L, X)
     rows = []
-    for label, seg in (("recipe", recipe_vseg.to(dev)),
-                       ("odd", _segments(torch, VLM_ODD, sum(VLM_ODD), dev))):
+    for label, seg in segs:
+        seg = seg.to(dev).to(torch.int32).contiguous()
         l = seg.shape[1]
         chunked = l > 8192
         q, k, v, do = (torch.randn((1, l, hq, d), generator=g, device=dev).bfloat16()
@@ -5257,7 +5383,7 @@ def phase_vlm_kernels(torch, seed: int, smi: str, recipe_vseg) -> list[dict]:
         mask = (seg[:, :, None] == seg[:, None, :])[:, None]  # padding sees padding: no empty row
         lib_fwd, backend_fwd, how_fwd = sdpa_or_none(torch, q, k, v, mask)
         fwd_b = least_ms(2 * pairs * hq * (d + d), flash_bytes(q, k, dv=d), PEAK_BF16)
-        say("kernel", name="flash_fwd_noncausal", path="vlm_train", shape=shape, seq=label,
+        say("kernel", name="flash_fwd_noncausal" + sfx, path=path, shape=shape, seq=label,
             pairs=pairs, err=f"{fwd_err:.3e}", ok=fwd_ok, ms=f"{fwd_ms:.4f}",
             plain_ms=f"{fwd_plain:.1f}", bound_ms=f"{fwd_b['bound_ms']:.4f}",
             bound_by=fwd_b["bound_by"], share_of_bound=f"{fwd_b['bound_ms'] / fwd_ms:.3f}",
@@ -5265,16 +5391,21 @@ def phase_vlm_kernels(torch, seed: int, smi: str, recipe_vseg) -> list[dict]:
             tiles_full=full, plan_walked_full=f"{plan[0]},{plan[1]}", sdpa_ms=lib_fwd,
             sdpa_backend=backend_fwd, sdpa_how=repr(how_fwd), card=repr(smi))
         if not (fwd_ok and counted and (walked, full) == plan):
-            raise AssertionError(f"#1 non-causal at 64/64 ({label}): error {fwd_err} (ok "
+            raise AssertionError(f"#1 non-causal at {d}/{d} ({label}): error {fwd_err} (ok "
                                  f"{fwd_ok}), counted {counted}, walked {(walked, full)} "
                                  f"against the plan {plan}")
-        rows.append({"name": "flash_fwd_noncausal", "route": "cuda",
+        rows.append({"name": "flash_fwd_noncausal" + sfx, "route": "cuda",
                      "source": src + "flash_fwd.cu",
-                     "function": f"flash_fwd_kernel<{d}, {d}, non-causal>",
-                     "replaces": "xtuner_tpu/ops/attention/flash.py:82", "path": "vlm_train",
+                     "function": f"flash_fwd_kernel<{d}, {d}, non-causal{tiles}>",
+                     "replaces": "xtuner_tpu/ops/attention/flash.py:82", "path": path,
                      "shape": f"{shape}, running max", "seq": label, "max_abs_err": fwd_err,
                      "ms": fwd_ms, "plain_ms": fwd_plain, **fwd_b, "library_ms": lib_fwd,
                      "library_is": f"SDPA {backend_fwd}, block-diagonal dense mask, {how_fwd}"})
+        if fwd_only:
+            del q, k, v, do, out, lse, mask
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
         delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
         args = (q, k, v, seg, lse, delta, do, scale)
         res = {}
@@ -5310,8 +5441,8 @@ def phase_vlm_kernels(torch, seed: int, smi: str, recipe_vseg) -> list[dict]:
         for two_pass in (False, True):
             rels, err, same, zero, ms, plain_ms = res[two_pass]
             bnd = bwd_bound(q, k, pairs, two_pass)
-            name = "flash_bwd_two_pass_noncausal" if two_pass else "flash_bwd_noncausal"
-            say("kernel", name=name, path="vlm_train", shape=shape, seq=label, pairs=pairs,
+            name = ("flash_bwd_two_pass_noncausal" if two_pass else "flash_bwd_noncausal") + sfx
+            say("kernel", name=name, path=path, shape=shape, seq=label, pairs=pairs,
                 dq_dk_dv_rel=",".join(f"{x:.3e}" for x in rels), err=f"{err:.3e}",
                 same_bits=same, pad_rows_ok=zero, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.1f}",
                 bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"],
@@ -5321,11 +5452,11 @@ def phase_vlm_kernels(torch, seed: int, smi: str, recipe_vseg) -> list[dict]:
             for line in (199, 249 if two_pass else 303):
                 rows.append({
                     "name": name, "route": "cuda", "source": src + "flash_bwd.cu",
-                    "function": f"flash_dq_kernel<{d}, {d}, non-causal> + flash_dkv_kernel<"
-                                f"{d}, {d}, {'two_pass' if two_pass else 'grouped'}, "
-                                f"non-causal>",
+                    "function": f"flash_dq_kernel<{d}, {d}, non-causal{tiles}> + "
+                                f"flash_dkv_kernel<{d}, {d}, "
+                                f"{'two_pass' if two_pass else 'grouped'}, non-causal{tiles}>",
                     "replaces": f"xtuner_tpu/ops/attention/flash.py:{line}",
-                    "path": "vlm_train_two_pass" if two_pass else "vlm_train",
+                    "path": two_pass_path if two_pass else path,
                     "shape": shape, "seq": label, "max_abs_err": err, "ms": ms,
                     "plain_ms": plain_ms, **bnd, "library_ms": lib_bwd,
                     "library_is": f"SDPA backward {backend_bwd}, block-diagonal dense mask, "
@@ -5333,7 +5464,7 @@ def phase_vlm_kernels(torch, seed: int, smi: str, recipe_vseg) -> list[dict]:
                     "plain_is": "flash_plain_chunked" if chunked else "flash_bwd_plain"})
         worst = max(max(res[False][0]), max(res[True][0]))
         if not (worst <= FLASH_GRAD_RTOL and all(r[2] and r[3] for r in res.values())):
-            raise AssertionError(f"the non-causal backward kernels at 64/64 ({label}) disagree "
+            raise AssertionError(f"the non-causal backward kernels at {d}/{d} ({label}) disagree "
                                  f"with their plain versions: {res} (<= {FLASH_GRAD_RTOL}; two "
                                  f"launches the same bits and counted; padding rows zero)")
         del q, k, v, do, out, lse, delta, args
@@ -5341,6 +5472,528 @@ def phase_vlm_kernels(torch, seed: int, smi: str, recipe_vseg) -> list[dict]:
         torch.cuda.empty_cache()
     fl.reset_launches()
     return rows
+
+
+def tiles_of(np, pixel_values) -> int:
+    """The real tiles of a micro-batch's (T, 3, S, S) pixel_values: the
+    collator pads with all-zero tiles after the last real one."""
+    flat = np.abs(np.asarray(pixel_values)).reshape(len(pixel_values), -1)
+    return int(flat.max(axis=1).astype(bool).sum())
+
+
+def image_doc_weights(torch, mb: dict, ctx_id: int):
+    """A micro-batch's loss weights kept on the documents that hold an
+    image-context token (the rest zero), and their sum."""
+    seg, ids = mb["segment_ids"], mb["input_ids"]
+    keep = torch.zeros_like(seg, dtype=torch.bool)
+    for r in range(seg.shape[0]):
+        docs = torch.unique(seg[r][ids[r] == ctx_id])
+        keep[r] = torch.isin(seg[r], docs[docs != 0])
+    w = torch.where(keep, mb["loss_weights"], torch.zeros_like(mb["loss_weights"]))
+    return w, w.float().sum()
+
+
+def vision_injection(torch, eng, mb: dict, ctx_id: int, tpt: int) -> dict:
+    """CE (mean over the documents that hold an image) of one micro-batch
+    under the engine's params, no grad: with the vision tokens as the model
+    puts them (twice: the run-to-run noise), with the vision embeds zeroed,
+    and with a misaligned scatter planted (the k-th context position
+    takes vision token k + `tpt`, the next tile's)."""
+    model, params = eng.model, eng._train_tree
+    real = model.vision_embeds
+    w, denom = image_doc_weights(torch, mb, ctx_id)
+    seq = eng.seq_ctx(mb)
+
+    def ce(embeds_fn):
+        model.vision_embeds = embeds_fn
+        try:
+            with torch.no_grad():
+                out = model.loss(params, seq, mb["shifted_labels"], w, denom,
+                                 compute_dtype=eng.compute_dtype, remat="none")
+            return float(out.loss)
+        finally:
+            del model.vision_embeds  # back to the class's method
+
+    got = {"real": ce(real), "real_again": ce(real),
+           "zeroed": ce(lambda *a: real(*a) * 0),
+           "shifted_one_tile": ce(lambda *a: torch.roll(real(*a), -tpt, dims=0))}
+    got["supervised_tokens"] = int(denom)
+    return got
+
+
+def phase_internvl_sft(torch, seed: int, smi: str) -> tuple:
+    """BASELINE config 3: InternVL-8B (`recipes/sft_internvl_8b_vlm.py`:
+    InternViT-300M frozen, the projector, Qwen3-8B's language model at full
+    width cut to 6 layers) in a temporary working directory:
+    - export: the recipe's seeded random weights (bf16) written by the
+      port's `save_hf_checkpoint` (`write_export`): GiB and seconds;
+    - train: the literal `python -m xtuner_tpu_torch.train.cli.sft
+      --config recipes/sft_internvl_8b_vlm.py` (in-process, `sft.main`):
+      `load_from` loads the export, 4 steps of one micro-batch of 8 rows of
+      16384 tokens, the final save skipped (`Trainer._save` a no-op: it
+      would write ~31 GB). Per step CE, grad norm, step ms, tgs, pack
+      positions/s and the step's peak; per micro-batch its tokens, real and
+      padded tiles and image-context tokens (held to the recipe's
+      `MICRO_BATCHES`, and context tokens = real tiles x 256);
+    - checks: every tower leaf bit-equal to the export after the run, every
+      projector and text leaf moved; the exact launches a step (the
+      frozen tower's #1 non-causal at 64/64 once a block, no backward; a
+      text layer's #1 twice under "save_attn", the forward and its
+      re-run for lse, and #2 + #3 once); the vision injection has power:
+      CE with the tower's tokens against CE with them zeroed differs by
+      more than VISION_CE_FLOOR, and so does a planted scatter shifted by
+      one tile, while two runs of the same agree far inside it;
+    - timing: the tower's forward alone at the first micro-batch (ms, its
+      launches), one profiled step, then the recipe for 1 step under
+      `XTUNER_ATTN_BWD=two_pass` (#2 + #4 in the text layers), its step-1
+      CE within SWITCHED_LOSS_ATOL of the first run's.
+    The export is deleted at the end. -> (both runs' launches, the
+    tower's tile segment ids (1, 48 x 1025), the first micro-batch's
+    segment ids (8, 16384))."""
+    import runpy
+    from unittest import mock
+
+    import numpy as np
+
+    from xtuner_tpu_torch.checkpoint.hf import load_hf_checkpoint
+    from xtuner_tpu_torch.engine.train_engine import TrainEngine
+    from xtuner_tpu_torch.model import vision
+    from xtuner_tpu_torch.module.params import count_params, tree_paths
+    from xtuner_tpu_torch.ops.attention import flash as fl
+    from xtuner_tpu_torch.train.cli import sft
+    from xtuner_tpu_torch.train.trainer import Trainer
+
+    dev = torch.device("cuda")
+    recipe = str(Path(__file__).resolve().parent / INTERNVL_RECIPE)
+    micro, batches = [], []
+    step = TrainEngine.train_step
+
+    def spy(self, batch, i):  # each micro-batch's tiles, and the step's own peak
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = step(self, batch, i)
+        peak_s = torch.cuda.max_memory_allocated() / 2**30
+        for a in range(batch["input_ids"].shape[0]):
+            real = tiles_of(np, batch["pixel_values"][a])
+            micro.append({"step": i, "micro_batch": a,
+                          "tokens": int((batch["segment_ids"][a] != 0).sum()),
+                          "real_tiles": real,
+                          "padded_tiles": int(batch["pixel_values"][a].shape[0]) - real,
+                          "context_tokens": int((batch["input_ids"][a] == ctx_id).sum()),
+                          "step_peak_gib": peak_s})
+        if not batches:
+            batches.append(batch)
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="xt_internvl_") as work, in_dir(work):
+        ns = runpy.run_path(recipe)  # writes the demo set under work_dirs/
+        ctx_id, tpt = ns["model_cfg"].image_context_token_id, ns["model_cfg"].tokens_per_tile
+        t0 = time.perf_counter()
+        export = Path(ns["write_export"](seed)).resolve()
+        export_s = time.perf_counter() - t0
+        gib = sum(f.stat().st_size for f in export.glob("*.safetensors")) / 2**30
+        gc.collect()
+        torch.cuda.empty_cache()
+        say("internvl_sft", export=str(export.name), export_gib=f"{gib:.3f}",
+            export_s=f"{export_s:.3f}", dtype="bfloat16", seed=seed)
+
+        reset_train_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with mock.patch.object(TrainEngine, "train_step", spy), \
+                mock.patch.object(Trainer, "_save", lambda self, step, mgr=None: None):
+            trainer = sft.main(["--config", recipe])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = train_launches(torch)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        recs = tracker(trainer)
+        eng = trainer.engine
+        cfg = trainer.cfg.model_cfg
+        v, t, dl = cfg.vision_cfg, cfg.text_cfg, trainer.cfg.dataloader_cfg
+        n = eng.num_params
+        card_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+        say("internvl_sft", recipe=INTERNVL_RECIPE, params=n,
+            trainable=sum(p.numel() for p in eng._leaves),
+            vision=f"{v.num_hidden_layers}x{v.hidden_size} {v.num_attention_heads}x{v.head_dim} "
+                   f"tile {v.image_size}/{v.patch_size} frozen",
+            projector=f"{cfg.projector_cfg.in_dim}->{cfg.projector_cfg.out_dim}",
+            text=f"{t.num_hidden_layers} of 36 x{t.hidden_size} {t.attention.num_attention_heads}"
+                 f"/{t.attention.num_key_value_heads}x{t.attention.head_dim} mlp "
+                 f"{t.intermediate_size}", cut="language model depth 36 -> "
+                                               f"{t.num_hidden_layers}, every width kept",
+            rows=trainer.cfg.global_batch_rows, micro_rows=trainer.cfg.micro_batch_rows,
+            pack=dl.pack_max_length, max_tiles=dl.max_tiles, remat=eng.remat,
+            ce=t.lm_loss_cfg.mode, wall_s=f"{wall:.3f}", save="skipped (~31 GB)")
+        for r in recs:
+            say("internvl_sft", step=r["step"], ce=f"{r['reduced_llm_loss']:.5f}",
+                grad_norm=f"{r['grad_norm']:.5f}", lr=f"{r['lr']:.3e}",
+                tokens=int(r["consumed_tokens"]), step_ms=f"{1e3 * r['step_time']:.1f}",
+                tgs=f"{r['tgs']:.1f}",
+                pack_positions_s=f"{dl.pack_max_length * trainer.cfg.global_batch_rows / r['step_time']:.1f}",
+                data_ms=f"{1e3 * r['data_time']:.1f}", skipped=int(r["skipped"]),
+                step_peak_gib=f"{micro[r['step'] - 1]['step_peak_gib']:.3f}", card=repr(smi))
+        for m in micro:
+            say("internvl_sft", **{k_: v_ for k_, v_ in m.items() if k_ != "step_peak_gib"})
+        steady = recs[1:]
+        step_s = sum(r["step_time"] for r in steady) / len(steady)
+        per_step = {"flash_fwd_noncausal": INTERNVL_VIT_BLOCKS, "flash_bwd": t.num_hidden_layers}
+        want = {name: 0 for name in launches}
+        want.update({k_: INTERNVL_STEPS * v_ for k_, v_ in per_step.items()})
+        fwd = launches["flash_fwd"] + launches["flash_fwd_max_free"]
+        got = {k_: v_ for k_, v_ in launches.items()
+               if k_ not in ("flash_fwd", "flash_fwd_max_free")}
+        want_rest = {k_: v_ for k_, v_ in want.items() if k_ in got}
+        fwd_want = 2 * t.num_hidden_layers * INTERNVL_STEPS
+        say("internvl_sft", launches={k_: v_ for k_, v_ in launches.items() if v_ or want[k_]},
+            expected={**{k_: v_ for k_, v_ in want_rest.items() if v_},
+                      "flash_fwd causal (either variant)": fwd_want},
+            reruns="save_attn: a text layer's #1 runs twice a step (the forward, and the "
+                   "backward's re-run of the attention region for lse); it holds the layer's "
+                   "input and attention output (2 x 8 x 16384 x 4096 bf16)",
+            steady_step_ms=f"{1e3 * step_s:.1f}", peak_gib=f"{peak:.3f}",
+            card_gib=f"{card_gib:.3f}", card=repr(smi))
+        check_fit("internvl_sft", recs, INTERNVL_STEPS, INTERNVL_LOSS1)
+        if n != ns["PARAMS"] or n != count_params(cfg.build().param_specs()):
+            raise AssertionError(f"internvl_sft: {n} params, not the recipe's {ns['PARAMS']}")
+        if got != want_rest or fwd != fwd_want:
+            raise AssertionError(f"internvl_sft: kernel launches {launches} != what "
+                                 f"{INTERNVL_STEPS} steps imply {want} (causal flash forward "
+                                 f"{fwd_want})")
+        if not peak < card_gib:
+            raise AssertionError(f"internvl_sft: peak {peak:.3f} GiB >= the card's {card_gib}")
+        seen = tuple((m["tokens"], m["real_tiles"], m["context_tokens"]) for m in micro)
+        if seen != tuple(ns["MICRO_BATCHES"]) or any(
+                m["context_tokens"] != m["real_tiles"] * tpt or m["real_tiles"] > dl.max_tiles
+                for m in micro):
+            raise AssertionError(f"internvl_sft: micro-batches {micro} are not the recipe's "
+                                 f"{ns['MICRO_BATCHES']} (or tiles and context tokens disagree)")
+
+        # the tower frozen bit for bit, the projector and the text moved
+        init = load_hf_checkpoint(export, eng.specs, eng.model.hf_key_map(), "cpu",
+                                  torch.float32)
+        start = dict(tree_paths(init))
+        same = {"vision": [0, 0], "projector": [0, 0], "language": [0, 0]}
+        for path, p_ in tree_paths(eng.params):
+            same[path[0]][0] += 1
+            same[path[0]][1] += int(torch.equal(p_.cpu(), start[path]))
+        del init, start
+        say("internvl_sft", leaves_bit_equal_to_the_export={k_: f"{s_}/{n_}" for k_, (n_, s_) in
+                                                             same.items()})
+        if same["vision"][1] != same["vision"][0] or same["projector"][1] or \
+                same["language"][1]:
+            raise AssertionError(f"internvl_sft: a frozen tower leaf changed, or a trained "
+                                 f"leaf did not move: {same}")
+
+        # the vision injection has power, and a misaligned scatter shows
+        batch = batches[0]
+        mb = {k_: torch.as_tensor(np.asarray(v_[0])).to(dev) for k_, v_ in batch.items()}
+        inj = vision_injection(torch, eng, mb, ctx_id, tpt)
+        gaps = {"zeroed": abs(inj["real"] - inj["zeroed"]),
+                "shifted_one_tile": abs(inj["real"] - inj["shifted_one_tile"]),
+                "noise": abs(inj["real"] - inj["real_again"])}
+        say("internvl_sft", vision_injection={k_: f"{v_:.6f}" if isinstance(v_, float) else v_
+                                              for k_, v_ in inj.items()},
+            gaps={k_: f"{v_:.3e}" for k_, v_ in gaps.items()}, floor=VISION_CE_FLOOR)
+        if not (gaps["zeroed"] > VISION_CE_FLOOR and gaps["shifted_one_tile"] > VISION_CE_FLOOR
+                and gaps["noise"] < VISION_CE_FLOOR / 10):
+            raise AssertionError(f"internvl_sft: the vision-injection check has no power or "
+                                 f"misses a misaligned scatter: {gaps} (floor "
+                                 f"{VISION_CE_FLOOR})")
+
+        # the tower's forward alone at the first micro-batch
+        pix = mb["pixel_values"]
+        fl.reset_launches()
+        with torch.no_grad():
+            vision.vit_forward(eng._train_tree["vision"], v, pix, eng.compute_dtype)
+        tower_launches = fl.flash_attention.noncausal_launches
+        with torch.no_grad():
+            tower_ms = cuda_ms(lambda: vision.vit_forward(eng._train_tree["vision"], v, pix,
+                                                          eng.compute_dtype), iters=3, warmup=1)
+        tiles = int(pix.shape[0])
+        say("internvl_sft", run="tower_fwd", tiles=tiles, real_tiles=tiles_of(np, pix.cpu()),
+            rows=tiles * (v.num_patches + 1), ms=f"{tower_ms:.3f}",
+            launches=f"fwd {tower_launches}", card=repr(smi))
+        if tower_launches != INTERNVL_VIT_BLOCKS:
+            raise AssertionError(f"internvl_sft: the tower alone launched #1 {tower_launches} "
+                                 f"times, not {INTERNVL_VIT_BLOCKS}")
+        vit_seg = vision.tile_segments(tiles, v.num_patches + 1, "cpu")
+        llm_seg = torch.as_tensor(np.asarray(batch["segment_ids"][0])).to(torch.int32)
+        targets = {**MLA_TARGETS,
+                   "vit_block": [("xtuner_tpu_torch.model.vision", "_vit_block")],
+                   "text_attn_in": [("xtuner_tpu_torch.model.dense", "Dense._attn_in")],
+                   "text_post": [("xtuner_tpu_torch.model.dense", "Dense._dense_post")]}
+        with annotated(torch, targets):
+            profile_window(torch, "internvl_step",
+                           lambda: eng.train_step(batch, INTERNVL_STEPS + 1), top=12,
+                           annotations=tuple(targets))
+        loss1 = recs[0]["reduced_llm_loss"]
+        shutil.rmtree(trainer.work_dir)  # the next run's tracker starts empty
+        del trainer, eng, batch, batches, mb, pix
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the same recipe, export and data, one step under the two-pass dk/dv
+        trainer, trecs, tlaunches, tpeak, _ = fit_recipe(
+            torch, INTERNVL_RECIPE, steps=1, env={"XTUNER_ATTN_BWD": "two_pass"}, cwd=work)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        twant = {name: 0 for name in tlaunches}
+        twant.update(flash_fwd_noncausal=INTERNVL_VIT_BLOCKS,
+                     flash_bwd_two_pass=t.num_hidden_layers)
+        for key in ("flash_fwd", "flash_fwd_max_free"):
+            twant[key] = tlaunches[key]
+        tfwd = tlaunches["flash_fwd"] + tlaunches["flash_fwd_max_free"]
+        tdiff = abs(trecs[0]["reduced_llm_loss"] - loss1)
+        say("internvl_sft", run="two_pass", switches=repr({"attn_bwd": "two_pass"}),
+            loss1=f"{trecs[0]['reduced_llm_loss']:.5f}", grouped_loss1=f"{loss1:.5f}",
+            abs_diff=f"{tdiff:.3e}", tol=SWITCHED_LOSS_ATOL,
+            step_ms=f"{1e3 * trecs[0]['step_time']:.1f}", peak_gib=f"{tpeak:.3f}",
+            launches={k_: v_ for k_, v_ in tlaunches.items() if v_ or twant[k_]})
+        if not tdiff <= SWITCHED_LOSS_ATOL:
+            raise AssertionError(f"internvl_sft: the two-pass step-1 CE differs by {tdiff}")
+        if tlaunches != twant or tfwd != 2 * t.num_hidden_layers:
+            raise AssertionError(f"internvl_sft: the two-pass run's launches {tlaunches} != "
+                                 f"{twant}")
+        shutil.rmtree(export)
+        say("internvl_sft", export_deleted=str(export.name))
+    return launches, tlaunches, vit_seg, llm_seg
+
+
+def phase_internvl_kernels(torch, seed: int, smi: str, vit_seg, llm_seg) -> list[dict]:
+    """The kernels of the internvl_sft path against their plain versions at
+    its shapes: #1 non-causal at (64, 64), 16 heads, on the first
+    micro-batch's 48 tiles of 1025 tokens as segments of one row (the
+    frozen tower runs no backward); #1 (max-free) and the grouped and
+    two-pass backward at 128/128, 32 q over 8 kv heads, on the first
+    micro-batch's 8 rows of 16384 (the plain versions a row and a q-head
+    group at a time)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 43)
+    rows = noncausal_rows(torch, g, smi, (("internvit_tiles", vit_seg),), INTERNVL_HQ,
+                          INTERNVL_D, "internvl_sft", fwd_only=True)
+    hq, hkv, d = INTERNVL_LLM_DIMS
+    rows += flash_path_rows(torch, g, llm_seg, hq, hkv, d, "internvl_sft", "recipe rows", smi,
+                            True, "internvl_sft_two_pass", by_row=True)
+    return rows
+
+
+def same_as_init(torch, eng, seed: int, part: str) -> tuple:
+    """(leaves, those bit-equal to their init) of one part of an engine
+    whose masters `init_random(seed)` drew: the init redrawn leaf by leaf
+    in `init_params`'s order (every leaf consumes the generator in turn),
+    so no second copy of the model is held."""
+    from xtuner_tpu_torch.module.params import ParamSpec, init_params
+
+    gen = torch.Generator(device=eng.device).manual_seed(seed)
+    leaves = same = 0
+
+    def walk(spec, path):
+        nonlocal leaves, same
+        if not isinstance(spec, ParamSpec):
+            for k_, v_ in spec.items():
+                walk(v_, (*path, k_))
+            return
+        t = init_params(spec, gen, eng.device, torch.float32)
+        if path[0] == part:
+            node = eng.params
+            for k_ in path:
+                node = node[k_]
+            leaves += 1
+            same += int(torch.equal(node, t))
+        del t
+
+    walk(eng.specs, ())
+    return leaves, same
+
+
+def phase_vlm8b_align(torch, seed: int, smi: str) -> tuple:
+    """Qwen3-VL-8B whole (`recipes/sft_qwen3_vl_8b_align.py`, 8.77 B
+    params: a 27-block tower of 16 heads of 72 with deepstack, the merger
+    and 3 deepstack mergers, 36 frozen text layers) through `Trainer.fit`:
+    4 steps on the 4B recipe's rows (8192 tokens, 32,768 patch rows), no
+    final save (`fit_recipe`). Per step CE, grad norm, step ms, tgs, the
+    step's peak and its row's documents, images, patches and image tokens;
+    every language leaf bit-equal to its init, every tower and merger leaf
+    moved, step 1's row's CE lower under the trained params than at step
+    1; the exact launches (per step the tower's #1 non-causal at 72/72
+    twice a block, remat "full", and #2 + #3 once; the text layers' #1
+    twice and #2 + #3 once: the frozen model still carries the gradient to
+    its input embeddings). Then the tower's forward and backward alone at
+    the first row (ms, launches), and the recipe for 1 step under
+    `XTUNER_ATTN_BWD=two_pass` (#2 + #4 at 72/72 and in the text layers),
+    its step-1 CE within SWITCHED_LOSS_ATOL of the first run's. -> (both
+    runs' launches, the first row's vision segment ids (1, P))."""
+    from unittest import mock
+
+    import numpy as np
+
+    from xtuner_tpu_torch.data_proto import SequenceContext
+    from xtuner_tpu_torch.engine.train_engine import VLM_BATCH_KEYS, TrainEngine
+    from xtuner_tpu_torch.model import qwen3_vl
+    from xtuner_tpu_torch.module.params import count_params, tree_paths
+    from xtuner_tpu_torch.ops.attention import flash as fl
+
+    rows, batches, starts = [], [], {}
+    step = TrainEngine.train_step
+
+    def spy(self, batch, i):
+        vseg = batch["vision_segment_ids"][0]
+        if not starts:  # the trained leaves before step 1 (576 M params)
+            starts.update({p_: t_.detach().clone() for p_, t_ in tree_paths(self.params)
+                           if p_[0] != "language"})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = step(self, batch, i)
+        rows.append({"docs": int(batch["segment_ids"].max()), "images": int(vseg.max()),
+                     "patches": int((vseg != 0).sum()),
+                     "image_tokens": int(batch["image_token_mask"].sum()),
+                     "tokens": int((batch["segment_ids"] != 0).sum()),
+                     "step_peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        if not batches:
+            batches.append(batch)
+        return out
+
+    with mock.patch.object(TrainEngine, "train_step", spy):
+        trainer, recs, launches, peak, wall = fit_recipe(torch, VLM8B_RECIPE)
+    cfg = trainer.cfg.model_cfg
+    v, t, dl = cfg.vision_cfg, cfg.text_cfg, trainer.cfg.dataloader_cfg
+    eng = trainer.engine
+    n = eng.num_params
+    batch = batches[0]
+    trainer.dataloader.close()
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+    say("vlm8b_align", recipe=VLM8B_RECIPE, params=n, cut="none",
+        trainable=sum(p_.numel() for p_ in eng._leaves), frozen="language",
+        vision=f"{v.depth}x{v.hidden_size} {v.num_attention_heads}x{v.head_dim} "
+               f"mlp {v.intermediate_size} {v.hidden_act}", deepstack=v.deepstack_visual_indexes,
+        text=f"{t.num_hidden_layers}x{t.hidden_size} {t.attention.num_attention_heads}/"
+             f"{t.attention.num_key_value_heads}x{t.attention.head_dim} mlp "
+             f"{t.intermediate_size}", vocab=t.vocab_size, tied=t.tie_word_embeddings,
+        pack=dl.pack_max_length, max_patches=dl.max_patches, ce=t.lm_loss_cfg.mode,
+        remat=eng.remat, wall_s=f"{wall:.3f}", save="skipped")
+    for r, row in zip(recs, rows):
+        say("vlm8b_align", step=r["step"], loss=f"{r['reduced_llm_loss']:.5f}",
+            grad_norm=f"{r['grad_norm']:.5f}", lr=f"{r['lr']:.3e}",
+            tokens=int(r["consumed_tokens"]), step_ms=f"{1e3 * r['step_time']:.1f}",
+            tgs=f"{r['tgs']:.1f}", skipped=int(r["skipped"]),
+            step_peak_gib=f"{row['step_peak_gib']:.3f}", docs=row["docs"],
+            images=row["images"], patches=row["patches"], image_tokens=row["image_tokens"],
+            row_tokens=row["tokens"], card=repr(smi))
+    steady = recs[1:]
+    step_s = sum(r["step_time"] for r in steady) / len(steady)
+    tokens = sum(r["consumed_tokens"] for r in steady) / len(steady)
+    step_want = dict(flash_bwd=VLM8B_TEXT_LAYERS, flash_fwd_noncausal_72=2 * VLM8B_BLOCKS,
+                     flash_bwd_noncausal_72=VLM8B_BLOCKS)
+    want = {name: 0 for name in launches}
+    want.update({k_: VLM8B_STEPS * v_ for k_, v_ in step_want.items()})
+    fwd = launches["flash_fwd"] + launches["flash_fwd_max_free"]
+    got = {k_: v_ for k_, v_ in launches.items() if k_ not in ("flash_fwd", "flash_fwd_max_free")}
+    want_rest = {k_: v_ for k_, v_ in want.items() if k_ in got}
+    say("vlm8b_align", launches={k_: v_ for k_, v_ in launches.items() if v_ or want[k_]},
+        expected={**{k_: v_ for k_, v_ in want_rest.items() if v_},
+                  "flash_fwd causal (either variant)": 2 * VLM8B_TEXT_LAYERS * VLM8B_STEPS},
+        steady_step_ms=f"{1e3 * step_s:.1f}", steady_tgs=f"{tokens / step_s:.1f}",
+        pack_positions_s=f"{dl.pack_max_length / step_s:.1f}", peak_gib=f"{peak:.3f}",
+        card_gib=f"{card_gib:.3f}", card=repr(smi))
+    check_recs("vlm8b_align", recs, VLM8B_STEPS)
+    loss1 = recs[0]["reduced_llm_loss"]
+    if not VLM8B_LOSS1[0] <= loss1 <= VLM8B_LOSS1[1]:
+        raise AssertionError(f"vlm8b_align: step-1 CE {loss1} outside {VLM8B_LOSS1}")
+    if n != VLM8B_PARAMS or n != count_params(cfg.build().param_specs()):
+        raise AssertionError(f"vlm8b_align: {n} params, not the recipe's {VLM8B_PARAMS}")
+    if got != want_rest or fwd != 2 * VLM8B_TEXT_LAYERS * VLM8B_STEPS:
+        raise AssertionError(f"vlm8b_align: kernel launches {launches} != what {VLM8B_STEPS} "
+                             f"steps imply {want}")
+    if not peak < card_gib:
+        raise AssertionError(f"vlm8b_align: peak {peak:.3f} GiB >= the card's {card_gib:.3f}")
+
+    # the language model bit-unchanged, the tower and the mergers moved, and
+    # step 1's row's CE lower under the trained params
+    lang, lang_same = same_as_init(torch, eng, trainer.cfg.seed, "language")
+    moved = {part: [0, 0] for part in ("vision", "projector")}
+    for path, p_ in tree_paths(eng.params):
+        if path[0] in moved:
+            moved[path[0]][0] += 1
+            moved[path[0]][1] += int(not torch.equal(p_, starts[path]))
+    starts.clear()
+    dev = torch.device("cuda")
+    dbatch = {k_: torch.as_tensor(np.asarray(v_[0])).to(dev) for k_, v_ in batch.items()}
+    with torch.no_grad():
+        _, mets = eng.default_loss(eng._train_tree, dbatch, dbatch["loss_weights"].float().sum())
+    after = float(mets["sum_ce"]) / int(mets["num_tokens"])
+    say("vlm8b_align", language_leaves_bit_equal=f"{lang_same}/{lang}",
+        moved={k_: f"{m_}/{n_}" for k_, (n_, m_) in moved.items()},
+        row1_ce_step1=f"{loss1:.5f}", row1_ce_trained=f"{after:.5f}")
+    if lang_same != lang or any(m_ != n_ for n_, m_ in moved.values()) or not after < loss1:
+        raise AssertionError(f"vlm8b_align: language leaves bit-equal {lang_same}/{lang}, "
+                             f"moved {moved}, row-1 CE {loss1} -> {after}")
+
+    # ---- the tower alone, forward and backward, at the first row
+    seq = SequenceContext(dbatch["input_ids"], dbatch["segment_ids"], dbatch["position_ids"],
+                          **{k_: dbatch[k_] for k_ in VLM_BATCH_KEYS if k_ in dbatch})
+    vparams = eng._train_tree["vision"]
+
+    def tower():
+        final, ds = qwen3_vl.qwen3vl_vision_forward(vparams, v, seq, eng.compute_dtype)
+        loss = final.float().square().mean() + sum(d_.float().square().mean() for d_ in ds)
+        loss.backward()
+        for p_ in eng._leaves:
+            p_.grad = None
+
+    fl.reset_launches()
+    tower()
+    tower_launches = (fl.flash_attention.noncausal_by_dim.get(72, 0),
+                      fl.flash_bwd.noncausal_by_dim.get(("grouped", 72), 0))
+    tower_ms = cuda_ms(tower, iters=3, warmup=1)
+    vseg = dbatch["vision_segment_ids"]
+    say("vlm8b_align", run="tower_fwd_bwd", patches=int((vseg != 0).sum()),
+        rows=int(vseg.numel()), images=int(vseg.max()), ms=f"{tower_ms:.3f}",
+        launches=f"fwd {tower_launches[0]}, bwd {tower_launches[1]}", card=repr(smi))
+    if tower_launches != (2 * VLM8B_BLOCKS, VLM8B_BLOCKS):
+        raise AssertionError(f"vlm8b_align: the tower alone launched {tower_launches}")
+    vision_seg = vseg[None].to(torch.int32).cpu()
+    del trainer, eng, batch, batches, vparams, dbatch, seq
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same recipe, seed and data, one step under the two-pass dk/dv
+    trainer, trecs, tlaunches, tpeak, _ = fit_recipe(torch, VLM8B_RECIPE, steps=1,
+                                                     env={"XTUNER_ATTN_BWD": "two_pass"})
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    twant = {name: 0 for name in tlaunches}
+    twant.update(step_want, flash_bwd=0, flash_bwd_noncausal_72=0,
+                 flash_bwd_two_pass=VLM8B_TEXT_LAYERS,
+                 flash_bwd_two_pass_noncausal_72=VLM8B_BLOCKS)
+    tfwd = tlaunches["flash_fwd"] + tlaunches["flash_fwd_max_free"]
+    for key in ("flash_fwd", "flash_fwd_max_free"):
+        twant[key] = tlaunches[key]
+    tdiff = abs(trecs[0]["reduced_llm_loss"] - loss1)
+    say("vlm8b_align", run="two_pass", switches=repr({"attn_bwd": "two_pass"}),
+        loss1=f"{trecs[0]['reduced_llm_loss']:.5f}", grouped_loss1=f"{loss1:.5f}",
+        abs_diff=f"{tdiff:.3e}", tol=SWITCHED_LOSS_ATOL,
+        step_ms=f"{1e3 * trecs[0]['step_time']:.1f}", peak_gib=f"{tpeak:.3f}",
+        launches={k_: v_ for k_, v_ in tlaunches.items() if v_ or twant[k_]})
+    if not tdiff <= SWITCHED_LOSS_ATOL:
+        raise AssertionError(f"vlm8b_align: the two-pass step-1 CE differs by {tdiff}")
+    if tlaunches != twant or tfwd != 2 * VLM8B_TEXT_LAYERS:
+        raise AssertionError(f"vlm8b_align: the two-pass run's launches {tlaunches} != {twant}")
+    return launches, tlaunches, vision_seg
+
+
+def phase_vlm8b_kernels(torch, seed: int, smi: str, recipe_vseg) -> list[dict]:
+    """#1-#4 non-causal at (72, 72), 16 q over 16 kv heads, against their
+    plain versions on the align recipe's vision row and on segments of 1,
+    100 and 4097 (P4198), as `noncausal_rows` holds them."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 47)
+    return noncausal_rows(torch, g, smi, (("recipe", recipe_vseg),
+                                          ("odd", _segments(torch, VLM_ODD, sum(VLM_ODD), dev))),
+                          VLM8B_HQ, VLM8B_D, "vlm8b_align", "vlm8b_align_two_pass")
 
 
 def phase_gpt_oss_profile(torch, seed: int) -> None:
@@ -5377,6 +6030,7 @@ def phase_gpt_oss_profile(torch, seed: int) -> None:
                    lambda: [eng.tick(queue, results) for _ in range(16)])
 
 
+@with_depth("qwen3-4b", RL_LAYERS)
 def phase_rl_profile(torch, seed: int) -> None:
     """Where the GRPO rollout's time goes (torch.profiler): Qwen3-4B in bf16
     from the seed, `generate` on the recipe's shape (4 prompts of 128
@@ -5445,6 +6099,7 @@ def teacher_forced(torch, model, params, prompt: list, toks: list, extra_pad: in
     return lps.gather(1, torch.tensor(toks, device=dev)[:, None])[:, 0].cpu()
 
 
+@with_depth(SERVE_MODEL, SERVE_LAYERS)
 def phase_engine(torch, seed: int, smi: str) -> dict:
     import numpy as np
 
@@ -5625,6 +6280,7 @@ def check_choice(label: str, ch: dict, vocab: int, max_new: int) -> None:
                              f"{toks[:8]} {lps[:4]}")
 
 
+@with_depth(SERVE_MODEL, SERVE_LAYERS)
 def phase_serve_cli(torch, seed: int, smi: str) -> dict:
     """Qwen3-8B whole, exported in HF safetensors layout, served through
     the serve CLI's own code with its defaults (chunked prefill 2048, the
@@ -6031,15 +6687,21 @@ def train_launches(torch) -> dict:
     from xtuner_tpu_torch.ops.fused_moe_mlp import fused_moe_mlp_fwd
 
     nc, nc_bwd = fl.flash_attention.noncausal_launches, fl.flash_bwd.noncausal_launches
-    # the non-causal forward (Qwen3-VL's tower) takes no max-logit bound:
-    # the running-max variant
+    nc72 = fl.flash_attention.noncausal_by_dim.get(72, 0)
+    nc72_bwd = {k: fl.flash_bwd.noncausal_by_dim.get((k, 72), 0) for k in nc_bwd}
+    # the non-causal forward (the vision towers) takes no max-logit bound:
+    # the running-max variant; "_noncausal" counts 64/64 (Qwen3-VL-4B's and
+    # InternViT's heads), "_noncausal_72" 72/72 (Qwen3-VL-8B's)
     return {"flash_fwd": fl.flash_attention.launches - fl.max_free_launches() - nc,
             "flash_fwd_max_free": fl.max_free_launches(),
-            "flash_fwd_noncausal": nc,
+            "flash_fwd_noncausal": nc - nc72,
+            "flash_fwd_noncausal_72": nc72,
             "flash_bwd": fl.flash_bwd.launches["grouped"] - nc_bwd["grouped"],
             "flash_bwd_two_pass": fl.flash_bwd.launches["two_pass"] - nc_bwd["two_pass"],
-            "flash_bwd_noncausal": nc_bwd["grouped"],
-            "flash_bwd_two_pass_noncausal": nc_bwd["two_pass"],
+            "flash_bwd_noncausal": nc_bwd["grouped"] - nc72_bwd["grouped"],
+            "flash_bwd_two_pass_noncausal": nc_bwd["two_pass"] - nc72_bwd["two_pass"],
+            "flash_bwd_noncausal_72": nc72_bwd["grouped"],
+            "flash_bwd_two_pass_noncausal_72": nc72_bwd["two_pass"],
             "fused_moe_mlp": fused_moe_mlp_fwd.launches,
             "grouped_gemm_nn": grouped_gemm_bf16.launches["nn"],
             "grouped_gemm_nt": grouped_gemm_bf16.launches["nt"],
@@ -6113,8 +6775,9 @@ def phase_train(torch, seed: int, smi: str) -> dict:
     per = TRAIN_LAYERS * TRAIN_STEPS
     want = {"flash_fwd": 0, "flash_fwd_max_free": 2 * per, "flash_fwd_noncausal": 0,
             "flash_bwd": per, "flash_bwd_two_pass": 0, "flash_bwd_noncausal": 0,
-            "flash_bwd_two_pass_noncausal": 0, "fused_moe_mlp": 0,
-            "grouped_gemm_nn": 4 * per, "grouped_gemm_nt": 2 * per,
+            "flash_bwd_two_pass_noncausal": 0, "flash_fwd_noncausal_72": 0,
+            "flash_bwd_noncausal_72": 0, "flash_bwd_two_pass_noncausal_72": 0,
+            "fused_moe_mlp": 0, "grouped_gemm_nn": 4 * per, "grouped_gemm_nt": 2 * per,
             "grouped_gemm_dw": 2 * per, "ce_fwd": 0, "ce_coeff": 0, "ce_dh": 0, "ce_dw": 0,
             "fp8_gemm": 0, "fp8_grouped_gemm": 0, "fp8_grouped_dw": 0,
             "block_sparse_fwd": 0, "block_sparse_bwd": 0}
@@ -6235,7 +6898,8 @@ def _sft_run(torch, smi: str, breakdown: bool, fp8_ref_loss1, switched_ref):
         want = {"flash_fwd": 0, "flash_fwd_max_free": per, "flash_fwd_noncausal": 0,
                 "flash_bwd": 0 if switched else per,
                 "flash_bwd_two_pass": per if switched else 0, "flash_bwd_noncausal": 0,
-                "flash_bwd_two_pass_noncausal": 0,
+                "flash_bwd_two_pass_noncausal": 0, "flash_fwd_noncausal_72": 0,
+                "flash_bwd_noncausal_72": 0, "flash_bwd_two_pass_noncausal_72": 0,
                 "fused_moe_mlp": 2 * per if switched else 0,
                 "grouped_gemm_nn": 0 if fp8 or switched else 4 * per,
                 "grouped_gemm_nt": 0 if fp8 else 2 * per,
@@ -6478,8 +7142,8 @@ def profile_window(torch, name: str, fn, top: int = 8, annotations=()) -> None:
 RL_RECIPE = "xtuner_tpu_torch/recipes/rl_qwen3_4b_grpo.py"
 RL_R3_RECIPE = "xtuner_tpu_torch/recipes/rl_qwen3_moe_head_r3.py"
 RL_STEPS = 2
-RL_PARAMS = 4_022_468_096
-RL_LAYERS, RL_HQ, RL_HKV, RL_D, RL_H, RL_V = 36, 32, 8, 128, 2560, 151936
+RL_PARAMS = 1_600_128_512  # Qwen3-4B at 12 of its 36 layers (`with_depth`)
+RL_HQ, RL_HKV, RL_D, RL_H, RL_V = 32, 8, 128, 2560, 151936
 RL_R3_E, RL_R3_TOPK, RL_R3_H, RL_R3_F = 128, 8, 2048, 768
 # step 1's ratio_mean: the rollout's logprobs (the bf16 decode over the
 # dense cache) against the training forward's (bf16, flash, remat) on the
@@ -6573,6 +7237,7 @@ def rl_segments(torch, trainer, rows_from: list) -> tuple:
     return roll, packed
 
 
+@with_depth("qwen3-4b", RL_LAYERS)
 def phase_rl_grpo(torch, work: str, smi: str) -> tuple:
     """The rl CLI on `RL_RECIPE`, Qwen3-4B whole, `RL_STEPS` steps with the
     rollout captured: per step the split (rollout, teacher-forced logprobs,
@@ -6624,6 +7289,7 @@ def phase_rl_grpo(torch, work: str, smi: str) -> tuple:
     return roll, step, str(capture), segs
 
 
+@with_depth("qwen3-4b", RL_LAYERS)
 def phase_rl_replay(torch, work: str, capture: str, smi: str, seed: int) -> None:
     """Random weights give every sample reward 0, so GRPO's advantages and
     the policy gradient are 0: rewrite the captured shards' advantages
@@ -6940,7 +7606,7 @@ REWARD_RECIPE = "xtuner_tpu_torch/recipes/reward_qwen25_05b.py"
 QLORA_MODEL = "qwen3-8b"
 QLORA_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
 # the layers whose codes on the card are held to the host quantizer, bit for bit
-QLORA_CHECK_LAYERS = (0, 35)
+QLORA_CHECK_LAYERS = (0, QLORA_LAYERS - 1)
 # a merged export's teacher-forced log-probs against the unmerged model's,
 # both bf16 on the card (the merge folds an f32 delta into the bases; the
 # unmerged forward adds the adapters' bf16 products, and under QLoRA
@@ -7235,6 +7901,7 @@ def adapter_ms(torch, seed: int, rows: int, r: int, layers: int) -> float:
     return cuda_ms(one_layer, iters=5, warmup=2) * layers
 
 
+@with_depth(QLORA_MODEL, QLORA_LAYERS)
 def phase_qlora(torch, seed: int, smi: str) -> tuple:
     """Qwen3-8B whole under QLoRA, from its own HF export: DPO, ORPO, SFT
     through the sft CLI, the merged export through the convert CLI, served.
@@ -7414,7 +8081,8 @@ def phase_qlora(torch, seed: int, smi: str) -> tuple:
             ad_ms = adapter_ms(torch, seed, int(np.asarray(batch["input_ids"]).shape[-1]),
                                trainer.cfg.model_cfg.lora_cfg.r, cfg.num_hidden_layers)
             say("qlora_sft", adapter_gemms_ms_per_step=f"{ad_ms:.3f}",
-                how="timed alone: fwd x2 (forward, remat) + bwd, 7 projections x 36 layers")
+                how=f"timed alone: fwd x2 (forward, remat) + bwd, 7 projections x "
+                    f"{cfg.num_hidden_layers} layers")
             work_dir = trainer.work_dir
             del trainer, eng, batch
             release(torch, "qlora_sft")
@@ -7495,6 +8163,7 @@ def phase_qlora(torch, seed: int, smi: str) -> tuple:
     return launches, sft_seg, dpo_seg, served
 
 
+@with_depth(QLORA_MODEL, QLORA_LAYERS)
 def phase_lora_profile(torch, seed: int) -> None:
     """Where a fine-tuning step's time goes: the LoRA recipe's engine made
     again (random base from the seed), one step of its 8 rows as 8
@@ -7559,13 +8228,15 @@ def phase_lora_profile(torch, seed: int) -> None:
 
 
 def flash_path_rows(torch, g, seg, hq: int, hkv: int, d: int, path: str, label: str,
-                    smi: str, max_free: bool, two_pass_path=None) -> list[dict]:
+                    smi: str, max_free: bool, two_pass_path=None,
+                    by_row: bool = False) -> list[dict]:
     """#1 and the grouped backward (#2 + #3), and with `two_pass_path` the
     two-pass one (#2 + #4), against their plain versions (one kv head's
-    q-head group at a time) on one path's rows `seg` (B, L): errors, two
-    backward launches the same bits (required at 64/64), times, the bound
-    on the visible pairs and SDPA (dense block-causal mask) forward and
-    backward."""
+    q-head group at a time, and with `by_row` one batch row at a time: an
+    (L, L) slab per group and row) on one path's rows `seg` (B, L): errors,
+    two backward launches the same bits (required at 64/64), times, the
+    bound on the visible pairs and SDPA (dense block-causal mask) forward
+    and backward."""
     from xtuner_tpu_torch.ops.attention import flash as fl
 
     dev = torch.device("cuda")
@@ -7580,8 +8251,11 @@ def flash_path_rows(torch, g, seg, hq: int, hkv: int, d: int, path: str, label: 
     pairs = causal_pairs(torch, seg)
     shape = f"B{b}xL{l}xHq{hq}xHkv{hkv}xD{d}, {int(valid.sum())} rows ({label})"
     name = "flash_fwd_max_free" if max_free else "flash_fwd"
-    (ro, rlse), fwd_plain = timed_once(torch, lambda: flash_plain_by_group(
-        torch, q, k, v, seg, scale, None))
+    rowwise = (lambda fn, *ts: [torch.cat(x) for x in zip(*(fn(*(t[i:i + 1] for t in ts))
+                                                          for i in range(b)))]) \
+        if by_row else (lambda fn, *ts: fn(*ts))
+    (ro, rlse), fwd_plain = timed_once(torch, lambda: rowwise(
+        lambda *ts: flash_plain_by_group(torch, *ts, scale, None), q, k, v, seg))
     fl.reset_launches()
     out, lse = fl.flash_attention(q, k, v, seg, max_logit=bound)
     if fl.max_free_launches() != int(max_free):
@@ -7612,8 +8286,9 @@ def flash_path_rows(torch, g, seg, hq: int, hkv: int, d: int, path: str, label: 
     lib_bwd, backend_bwd, how_bwd = sdpa_or_none(torch, q, k, v, mask, do)
     del mask
     for two_pass in ((False, True) if two_pass_path else (False,)):
-        want, plain_ms = timed_once(torch, lambda: flash_bwd_plain_by_group(
-            torch, *args, None, two_pass))
+        want, plain_ms = timed_once(torch, lambda: rowwise(
+            lambda *ts: flash_bwd_plain_by_group(torch, *ts, scale, None, two_pass),
+            q, k, v, seg, lse, delta, do))
         fl.reset_launches()
         got = fl.flash_bwd(*args, two_pass)
         again = fl.flash_bwd(*args, two_pass)
@@ -7853,6 +8528,16 @@ def main() -> int:
     release(torch, "vlm_train")
     kernels += phase_vlm_kernels(torch, args.seed, smi, vlm_seg)
     release(torch, "vlm_kernels")
+    launches["internvl_sft"], launches["internvl_sft_two_pass"], vit_seg, llm_seg = \
+        phase_internvl_sft(torch, args.seed, smi)
+    release(torch, "internvl_sft")
+    kernels += phase_internvl_kernels(torch, args.seed, smi, vit_seg, llm_seg)
+    release(torch, "internvl_kernels")
+    launches["vlm8b_align"], launches["vlm8b_align_two_pass"], v8_seg = \
+        phase_vlm8b_align(torch, args.seed, smi)
+    release(torch, "vlm8b_align")
+    kernels += phase_vlm8b_kernels(torch, args.seed, smi, v8_seg)
+    release(torch, "vlm8b_kernels")
     # the fine-tuning paths (after every other training phase, before the
     # profile windows): LoRA, the reward model, QLoRA with DPO / ORPO
     launches["lora_sft"], lora_seg = phase_lora_sft(torch, args.seed, smi)

@@ -241,8 +241,8 @@ def test_kernel_checks_take_the_kernels_head_dims():
         v = torch.zeros((1, 64, hkv, dv), dtype=torch.bfloat16)
         return q, k, v, torch.ones((1, 64), dtype=torch.int32)
 
-    assert tflash.KERNEL_DIMS == ((128, 128), (192, 128), (64, 64), (256, 256))
-    assert tflash.BWD_KERNEL_DIMS == ((128, 128), (192, 128), (64, 64), (256, 256))
+    assert tflash.KERNEL_DIMS == ((128, 128), (192, 128), (64, 64), (256, 256), (72, 72))
+    assert tflash.BWD_KERNEL_DIMS == ((128, 128), (192, 128), (64, 64), (256, 256), (72, 72))
     for d, dv in tflash.KERNEL_DIMS:
         tflash._check_kernel_args(*tensors(d, dv))
     q, k, v, seg = tensors(64, 64)  # gpt-oss's pair: the backward takes it, with a window
@@ -276,8 +276,17 @@ def test_unported_options_raise():
     # the check itself reads only the shapes
     with pytest.raises(NotImplementedError, match="train-slice"):
         tflash._check_causal(_t(q), _t(v), None, False, "flash_attention")
+    for d, dv in ((192, 128), (256, 256)):  # the other pairs Queue 2 A1 keeps
+        with pytest.raises(NotImplementedError, match="non-causal flash_bwd"):
+            tflash._check_causal(torch.zeros(1, 8, 2, d), torch.zeros(1, 8, 2, dv), None, False,
+                                 "flash_bwd")
     with pytest.raises(NotImplementedError, match="window"):
         tflash._check_causal(_t(q)[..., :64], _t(v)[..., :64], 16, False, "flash_attention")
+    # (72, 72) is built non-causal only: a causal call there raises, a
+    # non-causal one passes the check
+    with pytest.raises(NotImplementedError, match="causal flash_attention at"):
+        tflash._check_causal(_t(q)[..., :72], _t(v)[..., :72], None, True, "flash_attention")
+    tflash._check_causal(_t(q)[..., :72], _t(v)[..., :72], None, False, "flash_attention")
     # the backward takes a window (tests/test_torch_gpt_oss_train.py holds
     # it to JAX); a window that is not positive raises
     tq = _t(q).requires_grad_(True)

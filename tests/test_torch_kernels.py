@@ -805,6 +805,133 @@ def test_flash_64_noncausal_autograd_matches_plain_autograd(cuda):
             assert _rel_err(got, want) <= FLASH_GRAD_RTOL
 
 
+# Qwen3-VL-8B's tower: 16 heads of 72, #1-#4 non-causal at (72, 72) on
+# 128-column tiles (columns 72-127 zero-filled by TMA, never stored); the
+# same tolerances as at 64/64 (the same bf16 roundings, sums over 72)
+NONCAUSAL_72_SHAPES = [
+    # b, l, hq, hkv, lens
+    (1, 8192, 16, 16, [4096, 3072, 1024]),  # the 8B recipe's kind of row (three images)
+    (1, 4198, 16, 16, [1, 100, 4097]),     # segments of 1, 100 and 4097; L % 128 != 0
+    (1, 2000, 16, 16, [1024, 256, 300]),   # a padded tail (420 patches of segment 0)
+    (1, 700, 8, 2, [5, 100, 17, 60, 1, 127, 300]),  # short segments, GQA 4
+    (2, 640, 8, 4, [256, 128, 128]),       # boundaries on tile edges, a padding tile
+    (1, 65, 4, 1, [40, 25]),               # L < 128: tiles past L
+]
+
+
+@pytest.mark.parametrize("b,l,hq,hkv,lens", NONCAUSAL_72_SHAPES)
+def test_flash_kernel_72_noncausal_matches_plain(cuda, b, l, hq, hkv, lens):
+    """#1 non-causal at (72, 72) against the plain version (scale 72^-0.5);
+    the kernel walks the tiles `fwd_tile_plan(causal=False)` says; padding
+    rows get out 0 and lse 1e30."""
+    q, k, v, seg = _packed(cuda, b, l, hq, hkv, 1, 0, d=72, dv=72)
+    seg = _with_lens(seg, lens)
+    reset_launches()
+    out, lse = flash_attention(q, k, v, seg, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == flash_attention.noncausal_launches == 1
+    assert out.shape == (b, l, hq, 72)
+    ref_out, ref_lse = flash_attention_plain(q, k, v, seg, 72 ** -0.5, causal=False)
+    _check_flash(out, lse, ref_out, ref_lse, seg)
+    pad = seg == 0
+    assert (out[pad] == 0).all() and (lse.transpose(1, 2)[pad] == 1e30).all()
+    walk, full = fwd_tile_plan(seg, causal=False)
+    assert fwd_tiles_walked() == (int(walk.sum()) * hq, int(full.sum()) * hq)
+
+
+@pytest.mark.parametrize("two_pass", [False, True])
+@pytest.mark.parametrize("b,l,hq,hkv,lens", NONCAUSAL_72_SHAPES)
+def test_flash_backward_72_noncausal_matches_plain(cuda, b, l, hq, hkv, lens, two_pass):
+    """#2 with #3 (grouped) or #4 (two-pass) non-causal at (72, 72) against
+    the plain version; padding rows exactly zero; two launches give the
+    same bits (a store past a head's 72 columns would land on the next
+    head's and show in the error)."""
+    q, k, v, seg, lse, delta, do, scale = _bwd_inputs(cuda, b, l, hq, hkv, 1, 0, lens=lens,
+                                                      d=72, dv=72, causal=False)
+    reset_launches()
+    got = flash_bwd(q, k, v, seg, lse, delta, do, scale, two_pass, causal=False)
+    again = flash_bwd(q, k, v, seg, lse, delta, do, scale, two_pass, causal=False)
+    torch.cuda.synchronize()
+    assert flash_bwd.noncausal_launches == {"grouped": 2 * int(not two_pass),
+                                            "two_pass": 2 * two_pass}
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    want = flash_bwd_plain(q, k, v, seg, lse, delta, do, scale, two_pass, causal=False)
+    heads = hq if two_pass else hkv
+    for t, w, shape in zip(got, want, (q.shape, (b, l, heads, 72), (b, l, heads, 72))):
+        assert t.shape == shape and t.dtype == torch.bfloat16
+        assert torch.isfinite(t.float()).all()
+        assert _rel_err(t, w) <= FLASH_GRAD_RTOL
+        assert (t[seg == 0] == 0).all()
+
+
+def test_flash_72_noncausal_autograd_matches_plain_autograd(cuda):
+    """Autograd through `flash_attention(causal=False)` at (72, 72), both
+    switches, against the plain forward's autograd."""
+    import os
+
+    q, k, v, seg = _packed(cuda, 1, 1500, 16, 16, 1, 0, seed=5, d=72, dv=72)
+    seg = _with_lens(seg, [1024, 300, 76])
+    co = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(6),
+                     device=cuda)
+    for bwd in ("grouped", "two_pass"):
+        os.environ["XTUNER_ATTN_BWD"] = bwd
+        try:
+            grads = []
+            for fn in (lambda *a: flash_attention(*a, causal=False)[0],
+                       lambda *a: flash_attention_plain(*a, 72 ** -0.5, causal=False)[0]):
+                leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                (fn(*leaves, seg).float() * co).sum().backward()
+                grads.append([t.grad for t in leaves])
+        finally:
+            del os.environ["XTUNER_ATTN_BWD"]
+        for got, want in zip(*grads):
+            assert _rel_err(got, want) <= FLASH_GRAD_RTOL
+
+
+def test_flash_kernel_64_noncausal_on_internvit_tiles(cuda):
+    """#1 non-causal at (64, 64) on InternViT's layout: tiles of 1025
+    tokens (the cls token and 32 x 32 patches) packed in one row, one
+    segment per tile, 16 heads."""
+    q, k, v, seg = _packed(cuda, 1, 4 * 1025, 16, 16, 1, 0, d=64, dv=64)
+    seg = _with_lens(seg, [1025] * 4)
+    out, lse = flash_attention(q, k, v, seg, causal=False)
+    ref_out, ref_lse = flash_attention_plain(q, k, v, seg, 64 ** -0.5, causal=False)
+    _check_flash(out, lse, ref_out, ref_lse, seg)
+
+
+def test_flash_128_on_internvl_rows_matches_plain(cuda):
+    """#1 (max-free) and #2 + #3 at 128/128 on InternVL's language rows:
+    8 rows of 16384, 32 q over 8 kv heads, 4-5 conversations a row and a
+    padded tail; the plain versions one row and one kv head's q-head group
+    at a time (an (L, L) f32 slab of 4 heads, 4.3 GB)."""
+    lens = [[3900, 3400, 2800, 3100, 2900], [5100, 4000, 3300, 3500], [2759] * 5,
+            [4400, 4300, 4200, 3000], [3385] * 4, [16384], [1, 100, 4097, 8000],
+            [5163, 5163, 5000]]
+    b, l, hq, hkv, d = 8, 16384, 32, 8, 128
+    q, k, v, seg = _packed(cuda, b, l, hq, hkv, 1, 0, seed=9)
+    for r, row in enumerate(lens):
+        _with_lens(seg[r:r + 1], row)
+    bound = torch.tensor(d ** 0.5, device=cuda)
+    out, lse = flash_attention(q, k, v, seg, max_logit=bound)
+    g = torch.Generator(device=cuda).manual_seed(10)
+    do = torch.randn(out.shape, generator=g, device=cuda).bfloat16()
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    got = flash_bwd(q, k, v, seg, lse, delta, do, d ** -0.5)
+    rep = hq // hkv
+    for r in range(b):
+        for h in range(hkv):
+            hs, rs = slice(h * rep, (h + 1) * rep), slice(r, r + 1)
+            args = (q[rs, :, hs], k[rs, :, h:h + 1], v[rs, :, h:h + 1], seg[rs])
+            ro, rl = flash_attention_plain(*args, d ** -0.5, max_free=True)
+            _check_flash(out[rs, :, hs], lse[rs, hs], ro, rl, seg[rs])
+            want = flash_bwd_plain(*args, lse[rs, hs].contiguous(),
+                                   delta[rs, hs].contiguous(), do[rs, :, hs], d ** -0.5)
+            # dk, dv of a group: the kernel's kv head h, the plain one's only head
+            assert _rel_err(got[0][rs, :, hs], want[0]) <= FLASH_GRAD_RTOL
+            assert _rel_err(got[1][rs, :, h:h + 1], want[1]) <= FLASH_GRAD_RTOL
+            assert _rel_err(got[2][rs, :, h:h + 1], want[2]) <= FLASH_GRAD_RTOL
+
+
 def test_flash_noncausal_refused_where_no_kernel_takes_it(cuda):
     """A non-causal call on a CUDA tensor at any pair but (64, 64), or with
     a window, raises: no fallback to the plain version."""
@@ -817,6 +944,16 @@ def test_flash_noncausal_refused_where_no_kernel_takes_it(cuda):
     q, k, v, seg = _packed(cuda, 1, 256, 4, 2, 2, 10, d=64, dv=64)
     with pytest.raises(NotImplementedError, match="window"):
         flash_attention(q, k, v, seg, causal=False, window=128)
+    # (72, 72) is built non-causal only, without a window
+    q, k, v, seg = _packed(cuda, 1, 256, 4, 2, 2, 10, d=72, dv=72)
+    with pytest.raises(NotImplementedError, match="causal flash_attention at"):
+        flash_attention(q, k, v, seg)
+    with pytest.raises(NotImplementedError, match="window"):
+        flash_attention(q, k, v, seg, causal=False, window=128)
+    for d in (128, 192, 256):  # the pairs Queue 2 A1 keeps
+        q, k, v, seg = _packed(cuda, 1, 256, 4, 2, 2, 10, d=d, dv=128 if d == 192 else d)
+        with pytest.raises(NotImplementedError, match="non-causal"):
+            flash_attention(q, k, v, seg, causal=False)
 
 
 def test_flash_autograd_matches_plain_autograd(cuda):

@@ -332,7 +332,7 @@ def test_save_out_lse_saves_no_q_k_or_v(remat, per_layer):
 def test_other_named_policies_still_raise():
     _, tcfg = _cfgs()
     params = params_from_numpy(_np_params(), tcfg, "cpu")
-    for remat in ("dots", "save_attn", "save_out_lse_moe"):
+    for remat in ("dots", "save_attn_residuals_moe", "save_out_lse_moe"):
         with pytest.raises(NotImplementedError, match="train-slice"):
             tcfg.build().loss(params, TSeq.from_input_ids(np.ones((1, 8), np.int32)),
                               torch.zeros(1, 8, dtype=torch.long), torch.ones(1, 8), 8.0,

@@ -391,6 +391,112 @@ def test_vision_forward_matches_jax():
         _close(got.numpy(), want, name)
 
 
+# Qwen3-VL-8B's tower at a tiny width: 2 heads of 72 (hidden 144), the
+# head dim whose non-causal kernels are #1-#4 at (72, 72) on the card
+VISION_72 = dict(VISION, hidden_size=144, intermediate_size=64)
+
+
+def test_vision_forward_at_head_dim_72_matches_jax():
+    """The tower with heads of 72 (its rotary over 18 frequencies per
+    axis): the final and both deepstack features against JAX's."""
+    jcfg, tcfg = _cfgs(False)
+    jcfg = jcfg.model_copy(update={"vision_cfg": jvl.Qwen3VLVisionConfig(**VISION_72)})
+    tcfg = dataclasses.replace(tcfg, vision_cfg=tvl.Qwen3VLVisionConfig(**VISION_72))
+    assert tcfg.vision_cfg.head_dim == jcfg.vision_cfg.head_dim == 72
+    tree = _tree(jcfg, seed=21)
+    batch = _batch(22, rows=2, per_row=2)
+    jfinal, jds = jax.jit(lambda p, seq: jvl.qwen3vl_vision_forward(
+        p, jcfg.vision_cfg, seq, compute_dtype=jnp.float32))(
+            jax.tree.map(jnp.asarray, tree["vision"]), _jseq(batch))
+    tparams = params_from_numpy(tree, tcfg, "cpu")
+    with torch.no_grad():
+        tfinal, tds = tvl.qwen3vl_vision_forward(tparams["vision"], tcfg.vision_cfg,
+                                                 _tseq(batch), torch.float32)
+    for got, want, name in ((tfinal, jfinal, "final"), *((a, b, f"ds{i}") for i, (a, b) in
+                                                          enumerate(zip(tds, jds)))):
+        _close(got.numpy(), want, name)
+
+
+@pytest.mark.parametrize("variant", ["grouped", "two_pass"])
+def test_noncausal_flash_at_72_matches_jax(monkeypatch, variant):
+    """The plain #1-#4 with `causal=False` at head dim 72 (what the wrapper
+    runs on a CPU tensor; the card's kernels are held to it) against JAX's
+    `_flash_forward` and `_flash_bwd_rule` in interpret mode, scale
+    72^-0.5, 4 q over 2 kv heads, segments of 3, 70 and 40 rows and a
+    padded tail."""
+    monkeypatch.setattr(jflash, "ATTN_BWD", variant)
+    d, l, hq, hkv = 72, 128, 4, 2
+    rng = np.random.default_rng(70)
+    q, g = (rng.standard_normal((1, l, hq, d), dtype=np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((1, l, hkv, d), dtype=np.float32) for _ in range(2))
+    seg = _packed_seg(l, [3, 70, 40])
+    scale = d ** -0.5
+    heads_first = lambda a: jnp.asarray(np.ascontiguousarray(a.transpose(0, 2, 1, 3)))
+    jq, jk, jv, jg = (heads_first(a) for a in (q, k, v, g))
+    out, lse = jflash._flash_forward(jq, jk, jv, jnp.asarray(seg), None, None, scale, False,
+                                     None, BLOCK, BLOCK, True)
+    want = jflash._flash_bwd_rule(scale, False, None, BLOCK, BLOCK, True, 0,
+                                  (jq, jk, jv, jnp.asarray(seg), None, out, lse), jg)[:3]
+    valid = seg != 0
+    tout, tlse = tflash.flash_attention_plain(_t(q), _t(k), _t(v), _t(seg), scale,
+                                              causal=False)
+    _close(tout.numpy()[valid], np.asarray(out).transpose(0, 2, 1, 3)[valid], "out")
+    _close(tlse.numpy().transpose(0, 2, 1)[valid],
+           np.asarray(lse).transpose(0, 2, 1)[valid], "lse")
+    do = _t(g)
+    delta = (do * _t(out).transpose(1, 2)).sum(-1).transpose(1, 2).contiguous()
+    got = tflash.flash_bwd(_t(q), _t(k), _t(v), _t(seg), _t(lse), delta, do, scale,
+                           variant == "two_pass", causal=False)
+    if variant == "two_pass":
+        got = tuple((got[0], *(tflash.group_sum(t, hkv, t.dtype) for t in got[1:])))
+    for t, w, name in zip(got, want, "qkv"):
+        _close(t.numpy(), np.asarray(w).transpose(0, 2, 1, 3), f"d{name}")
+        assert (t.numpy()[seg == 0] == 0).all(), name
+
+
+def test_qwen3_vl_8b_preset_matches_jax():
+    """`qwen3_vl_8b()` against JAX's Qwen3VLDense8BConfig field by field:
+    the tower (27 blocks, hidden 1152, 16 heads of 72, MLP 4304, deepstack
+    after 8, 16 and 24), the untied text model, the vision ids; the same
+    8,767,123,696 params in both packages."""
+    t, j = tvl.qwen3_vl_8b(), jvl.Qwen3VLDense8BConfig()
+    assert dataclasses.asdict(t.vision_cfg) == j.vision_cfg.model_dump()
+    v = t.vision_cfg
+    assert (v.depth, v.hidden_size, v.num_attention_heads, v.head_dim, v.intermediate_size,
+            v.deepstack_visual_indexes) == (27, 1152, 16, 72, 4304, [8, 16, 24])
+    for f in ("image_token_id", "video_token_id", "vision_start_token_id",
+              "vision_end_token_id", "freeze_vision", "freeze_projector", "freeze_language"):
+        assert getattr(t, f) == getattr(j, f), f
+    tt, jt = t.text_cfg, j.text_cfg
+    for f in ("vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
+              "max_position_embeddings", "rope_theta", "tie_word_embeddings", "eos_token_id",
+              "rms_norm_eps"):
+        assert getattr(tt, f) == getattr(jt, f), f
+    assert not tt.tie_word_embeddings
+    assert tt.rope_scaling_cfg.mrope_section == jt.rope_scaling_cfg.mrope_section == [24, 20, 20]
+    a = dataclasses.asdict(tt.attention)
+    assert a == {k_: v_ for k_, v_ in jt.attention.model_dump().items() if k_ in a}
+    n = count_params(t.build().param_specs())
+    assert n == j_count_params(j.build().param_specs()) == 8_767_123_696
+
+
+@pytest.mark.parametrize("model_type", ["qwen3_vl", "qwen3_vl_moe"])
+def test_qwen3_vl_from_hf_and_its_conv3d_key_still_raise(tmp_path, model_type):
+    """Still to port ([vlm], [serve-rest]): Qwen3-VL from an HF directory,
+    its HF key map and the Conv3d patch embedding's key transform."""
+    from xtuner_tpu_torch.checkpoint import hf as thf
+    from xtuner_tpu_torch.checkpoint.spec import HFKey
+    from xtuner_tpu_torch.model.registry import get_model_config
+
+    (tmp_path / "config.json").write_text(json.dumps({"model_type": model_type}))
+    with pytest.raises(NotImplementedError, match=r"\[vlm\]"):
+        get_model_config(str(tmp_path))
+    with pytest.raises(NotImplementedError, match=r"\[serve-rest\]"):
+        tvl.qwen3_vl_8b().build().hf_key_map()
+    with pytest.raises(NotImplementedError, match="Conv3d"):
+        thf._check_key(HFKey("model.visual.patch_embed.proj.weight", "conv3d:3,2,16,16"))
+
+
 NAMES = ("loss", "sum_ce", "balancing_loss", "z_loss")
 
 
@@ -532,7 +638,8 @@ def test_packed_data_plane_keeps_samples_whole(tmp_path):
     """`DataloaderConfig.build` with a "qwen3_vl" dataset: soft packs of
     whole samples (never split inside the image tokens), each batch's image
     tokens equal to its patches / merge^2, every VLM key with a leading A;
-    InternVL's `max_tiles` still raises."""
+    with InternVL's `max_tiles` set too, the patch collator still takes the
+    batch (`max_patches` first, as JAX's `Dataloader`)."""
     path = _write_demo(tmp_path, 12, seed=2)
     cfg = DataloaderConfig(datasets=[DatasetConfig(anno_path=str(path), class_name="qwen3_vl")],
                            pack_max_length=256, tokenize_num_proc=1, max_patches=1024,
@@ -549,8 +656,9 @@ def test_packed_data_plane_keeps_samples_whole(tmp_path):
             p = int((batch["vision_segment_ids"][a] != 0).sum())
             assert int(batch["image_token_mask"][a].sum()) * 4 == p > 0
     loader.close()
-    with pytest.raises(NotImplementedError, match="max_tiles"):
-        dataclasses.replace(cfg, max_tiles=4).build(TTok(VL_SPECIALS), 1, 1)
+    both = dataclasses.replace(cfg, max_tiles=4).build(TTok(VL_SPECIALS), 1, 1)
+    assert next(iter(both))["pixel_values"].shape == (1, 1024, 96)
+    both.close()
 
 
 def test_jax_toy_tokenizer_breaks_qwen3_vl_and_the_port_does_not():

@@ -36,7 +36,12 @@ MRoPE, the Gated DeltaNet backward by autograd and #2-#4 at head dim 256;
 (`model/qwen3_vl.py`: the ViT with #1-#4 non-causal at head dim 64, the
 deepstack mergers, `inputs_embeds` and deepstack injection in the text
 model; the data plane in `datasets/qwen_vl.py`; Qwen3-VL-4B whole through
-`recipes/sft_qwen3_vl_4b.py`); GRPO RL (`rl/`, the `rl` CLI, the dense
+`recipes/sft_qwen3_vl_4b.py`, Qwen3-VL-8B's tower of heads of 72 with #1-#4
+non-causal at (72, 72), Qwen3-VL-8B whole in the alignment stage through
+`recipes/sft_qwen3_vl_8b_align.py`); InternVL (BASELINE config 3: the ViT
+and projector in `model/vision.py`, the compose model in
+`model/compose.py`, the tile data plane in `datasets/vlm.py`, remat
+"save_attn"; `recipes/sft_internvl_8b_vlm.py`); GRPO RL (`rl/`, the `rl` CLI, the dense
 `model/generate.py::generate` as the rollout, `per_token_logprobs`;
 Qwen3-4B whole through `recipes/rl_qwen3_4b_grpo.py`, rollout-routing
 replay through `recipes/rl_qwen3_moe_head_r3.py`). Every

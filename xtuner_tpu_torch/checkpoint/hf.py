@@ -21,7 +21,11 @@ bytes, tensor after tensor with no gaps.
   the host and writes on one background thread, as JAX's does.
 
 A checkpoint written by either package loads in the other, and the
-`safetensors` package reads the port's files.
+`safetensors` package reads the port's files. Any model with an
+`hf_key_map` loads and saves here, InternVL's compose model included
+(`model/compose.py`: its patch embedding is a 2-D "linear" weight); a
+Conv3d key (`conv3d:` transforms, Qwen3-VL's patch embedding) raises
+([serve-rest]).
 
 LoRA and QLoRA on load: a `<random>` leaf (an adapter the checkpoint
 lacks) is drawn by `module/params.py::init_params` from the caller's

@@ -10,9 +10,13 @@
 // the kernels' walks skip the tiles wholly outside it and mark as full
 // only tiles wholly inside. The block-sparse kernels take no window, and
 // their instantiations (WINDOW = false) compile to what they were without.
-// Non-causal attention (the flash kernels' CAUSAL = false at 64/64: key m
-// counts for every query of its document) drops the position term of the
-// masks; CAUSAL defaults to true, so #15 compiles as before.
+// Non-causal attention (the flash kernels' CAUSAL = false at 64/64 and at
+// 72/72: key m counts for every query of its document) drops the position
+// term of the masks; CAUSAL defaults to true, so #15 compiles as before. At
+// head dim 72 the tiles are 128 columns wide (TMA zero-fills the columns
+// past 72), the products over the head dim (S, dP) run KD / KDV = 80 deep
+// and dK / dV store only the tensor's DG / DVG columns; every such argument
+// defaults to the tile width, so the other instantiations are unchanged.
 //
 // A dk/dv CTA's layout C: K (D columns) at 0, V (DV) at C::OFF_V; ring stage
 // s holds Q (C::KB bytes) then dO at C::OFF_RING + s C::SB, and the q rows'
@@ -73,8 +77,8 @@ __device__ __forceinline__ void dq_grad(const float (&s)[32], const float (&dp)[
 // lse2 (base 2) and dl: the rows' segment ids (by key position), ids,
 // positions, lse and delta; with WINDOW, `window` masks the items' tiles
 // that are not full; without CAUSAL, no position does.
-template <int D, int DV, typename C, bool WINDOW = false, bool CAUSAL = true, typename RefillK,
-          typename RefillV>
+template <int D, int DV, typename C, bool WINDOW = false, bool CAUSAL = true, int KD = D,
+          int KDV = DV, typename RefillK, typename RefillV>
 __device__ __forceinline__ void dq_body(unsigned char* smem, uint32_t sbase, uint32_t kf,
                                         uint32_t ke, uint32_t vf, uint32_t ve, uint32_t bar_q,
                                         const int4* meta, RefillK&& refill_k,
@@ -108,7 +112,7 @@ __device__ __forceinline__ void dq_body(unsigned char* smem, uint32_t sbase, uin
     float s[32], dp[32];
     if (run) {  // S = Q K^T
       wg_fence();
-      ss_nt<D>(s, sQ, 2 * BOX64, sK);
+      ss_nt<KD>(s, sQ, 2 * BOX64, sK);
       wg_commit();
     }
     if (t > 0) {
@@ -129,7 +133,7 @@ __device__ __forceinline__ void dq_body(unsigned char* smem, uint32_t sbase, uin
     mbar_wait(vf + 8 * vs, (t / SV) & 1);
     if (run) {  // dP = dO V^T
       wg_fence();
-      ss_nt<DV>(dp, sDO, 2 * BOX64, sV);
+      ss_nt<KDV>(dp, sDO, 2 * BOX64, sV);
       wg_commit();
       wg_wait0();
       reg_fence(s);
@@ -174,7 +178,7 @@ __device__ __forceinline__ void dq_body(unsigned char* smem, uint32_t sbase, uin
 // tensor (with BOUNDED, none at or past L). With WINDOW, P^T of the items
 // that are not full is masked by `window` too; without CAUSAL, not by position
 template <int D, int DV, typename C, bool BOUNDED, bool WINDOW = false, bool CAUSAL = true,
-          typename Args, typename Refill>
+          int KD = D, int DVG = DV, typename Args, typename Refill>
 __device__ __forceinline__ void dkv_p_role(unsigned char* smem, uint32_t sbase,
                                            uint32_t bar_full, uint32_t bar_empty,
                                            const int4* meta, Refill&& refill, const Args& a,
@@ -199,7 +203,7 @@ __device__ __forceinline__ void dkv_p_role(unsigned char* smem, uint32_t sbase,
     const uint32_t sQ = sbase + C::OFF_RING + stage * C::SB;
     const unsigned char* rows = smem + C::OFF_ROWS + stage * C::RB;
     wg_fence();
-    ss_nt<D>(s, sbase, BOX64, sQ);  // S^T = K Q^T (64 keys x 64 queries)
+    ss_nt<KD>(s, sbase, BOX64, sQ);  // S^T = K Q^T (64 keys x 64 queries)
     wg_commit();
     if (t > 0) {
       wg_wait<1>();  // the last dV product is done
@@ -249,12 +253,12 @@ __device__ __forceinline__ void dkv_p_role(unsigned char* smem, uint32_t sbase,
   wg_wait0();
   reg_fence(acc);
   named_sync(BAR_P_EMPTY, PAIR_THREADS);  // pairs warpgroup 1's last arrival
-  store_keys<DV, BOUNDED>(a.dv, acc, 1.f, b, k0, h, a.L, H, row0, tq);
+  store_keys<DV, BOUNDED, DVG>(a.dv, acc, 1.f, b, k0, h, a.L, H, row0, tq);
 }
 
 // warpgroup 1: dP^T = V dO^T, dS^T = P^T (dP^T - delta), dK += dS^T Q; dK
 // times scale goes to rows k0.. of head h of a (B, L, H, D) tensor
-template <int D, int DV, typename C, bool BOUNDED, typename Args>
+template <int D, int DV, typename C, bool BOUNDED, int KDV = DV, int DG = D, typename Args>
 __device__ __forceinline__ void dkv_ds_role(unsigned char* smem, uint32_t sbase,
                                             uint32_t bar_full, uint32_t bar_empty,
                                             const int4* meta, const Args& a, int b, int h, int H,
@@ -276,7 +280,7 @@ __device__ __forceinline__ void dkv_ds_role(unsigned char* smem, uint32_t sbase,
     const uint32_t sQ = sbase + C::OFF_RING + stage * C::SB;
     const unsigned char* rows = smem + C::OFF_ROWS + stage * C::RB;
     wg_fence();
-    ss_nt<DV>(dp, sbase + C::OFF_V, BOX64, sQ + C::KB);  // dP^T = V dO^T
+    ss_nt<KDV>(dp, sbase + C::OFF_V, BOX64, sQ + C::KB);  // dP^T = V dO^T
     wg_commit();
     if (t > 0) {
       wg_wait<1>();  // the last dK product is done
@@ -303,7 +307,7 @@ __device__ __forceinline__ void dkv_ds_role(unsigned char* smem, uint32_t sbase,
   }
   wg_wait0();
   reg_fence(acc);
-  store_keys<D, BOUNDED>(a.dk, acc, a.scale, b, k0, h, a.L, H, row0, tq);
+  store_keys<D, BOUNDED, DG>(a.dk, acc, a.scale, b, k0, h, a.L, H, row0, tq);
 }
 
 }  // namespace

@@ -4,7 +4,8 @@
 // at MLA's q/k dim 192 and v dim 128, at gpt-oss's 64 and 64 and at
 // Qwen3.5's gated attention, 256 and 256, a dq kernel and a dk/dv kernel
 // (the end of this file), which at 192/128 and 64/64 also take a sliding
-// window, and at 64/64 non-causal attention (Qwen3-VL's vision tower).
+// window, and at 64/64 and 72/72 non-causal attention (Qwen3-VL's vision
+// towers: 72/72 on 128-column tiles, below).
 //
 // Replaces three TPU kernels of xtuner_tpu/ops/attention/flash.py:
 // - _dq_kernel (the dq pallas_call in _flash_bwd_rule);
@@ -522,6 +523,17 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 // last, for each head of the group, so both walks cross the diagonal; a
 // tile whose rows and keys are one document skips the mask, the diagonal
 // tile too. The causal instantiations compile as before.
+// Non-causal at 72/72 (Qwen3-VL-8B's tower of 16 heads of 72): the 128/128
+// instantiation of both kernels over tensors of 72 columns (DG = DVG = 72),
+// read and written in place. Q, dO, K and V arrive as two 64-column boxes
+// each, the second at column 64, its columns 72-127 zero-filled by TMA
+// (the transaction counts the whole box); S = Q K^T, S^T = K Q^T and dP /
+// dP^T = dO V^T run k16(72) = 80 deep, 5 k16 steps; dQ, dK and dV keep
+// 64 x 128 f32 accumulators, whose columns 72-127 come out zero (K, Q and
+// dO are zero there) and are never stored: dQ's TMA store writes nothing
+// past the tensor's edge, and dK / dV store only 72 columns
+// (`store_keys<128, ..., 72>`). Per visible pair 2 (80 + 80 + 3 x 128)
+// flops for 2 (5 x 72) useful: 1.51 times the work, no padded copy.
 // chip_smoke.py's build phase prints every instantiation's registers,
 // spills and shared memory.
 
@@ -608,7 +620,9 @@ __device__ __forceinline__ void dq_load_v(const int4* meta, int n, uint32_t sbas
     tma_load(sbase + C::OFF_V + stage * C::VB + c * BOX64, tm_v, bar, 64 * c, g, k0, b);
 }
 
-template <int D, int DV, bool WINDOW, bool CAUSAL>
+// DG, DVG: the columns of q / k / dq and of v / do (the tile widths D, DV,
+// or fewer: head dim 72 on 128-column tiles)
+template <int D, int DV, bool WINDOW, bool CAUSAL, int DG, int DVG>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
                 const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
@@ -735,9 +749,9 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     lse2[r] = a.lse[o] * LOG2E;
     dl[r] = a.delta[o];
   }
-  dq_body<D, DV, C, WINDOW, CAUSAL>(smem, sbase, kf, ke, vf, ve, bar_q, meta, refill_k, refill_v,
-                                    seg, qs, qpos, lse2, dl, a.scale_log2e, a.scale, &tm_dq, h,
-                                    q0, b, a.L, a.window);
+  dq_body<D, DV, C, WINDOW, CAUSAL, k16(DG), k16(DVG)>(
+      smem, sbase, kf, ke, vf, ve, bar_q, meta, refill_k, refill_v, seg, qs, qpos, lse2, dl,
+      a.scale_log2e, a.scale, &tm_dq, h, q0, b, a.L, a.window);
 }
 
 template <int D, int DV>
@@ -819,7 +833,7 @@ __device__ __forceinline__ void kv_produce(KvWalk& w, int4* meta, int stage, uin
   bulk_load(rows + 2 * T64 * 4, a.seg + (int64_t)b * a.Lp + q0, T64 * 4, bar);
 }
 
-template <int D, int DV, bool TWO_PASS, bool WINDOW, bool CAUSAL>
+template <int D, int DV, bool TWO_PASS, bool WINDOW, bool CAUSAL, int DG, int DVG>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
                  const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
@@ -920,43 +934,43 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       kv_produce<D, DV, WINDOW, CAUSAL>(walk, meta, stage, sbase, bar_full, &tm_q, &tm_do, a,
                                         b);
     };
-    dkv_p_role<D, DV, C, true, WINDOW, CAUSAL>(smem, sbase, bar_full, bar_empty, meta, refill, a,
-                                               b, ho, heads, k0, kseg, kpos, row0, tq, lane,
-                                               a.window);
+    dkv_p_role<D, DV, C, true, WINDOW, CAUSAL, k16(DG), DVG>(
+        smem, sbase, bar_full, bar_empty, meta, refill, a, b, ho, heads, k0, kseg, kpos, row0,
+        tq, lane, a.window);
   } else {
-    dkv_ds_role<D, DV, C, true>(smem, sbase, bar_full, bar_empty, meta, a, b, ho, heads, k0,
-                                row0, tq, lane);
+    dkv_ds_role<D, DV, C, true, k16(DVG), DG>(smem, sbase, bar_full, bar_empty, meta, a, b, ho,
+                                              heads, k0, row0, tq, lane);
   }
 }
 
-template <int D, int DV, bool TWO_PASS, bool WINDOW, bool CAUSAL = true>
+template <int D, int DV, bool TWO_PASS, bool WINDOW, bool CAUSAL = true, int DG = D,
+          int DVG = DV>
 int launch_split_w(const void* q, const void* k, const void* v, const void* dout, void* dq,
                    const Args& a, cudaStream_t stream) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap tq128, tdo128, tk, tv, tdq, tq64, tdo64;
-  if (!make_map(&tq128, encode, q, a.B, a.L, a.Hq, 2 * T64, D) ||
-      !make_map(&tdo128, encode, dout, a.B, a.L, a.Hq, 2 * T64, DV) ||
-      !make_map(&tk, encode, k, a.B, a.L, a.Hkv, T64, D) ||
-      !make_map(&tv, encode, v, a.B, a.L, a.Hkv, T64, DV) ||
-      !make_map(&tdq, encode, dq, a.B, a.L, a.Hq, T64, D) ||
-      !make_map(&tq64, encode, q, a.B, a.L, a.Hq, T64, D) ||
-      !make_map(&tdo64, encode, dout, a.B, a.L, a.Hq, T64, DV))
+  if (!make_map(&tq128, encode, q, a.B, a.L, a.Hq, 2 * T64, DG) ||
+      !make_map(&tdo128, encode, dout, a.B, a.L, a.Hq, 2 * T64, DVG) ||
+      !make_map(&tk, encode, k, a.B, a.L, a.Hkv, T64, DG) ||
+      !make_map(&tv, encode, v, a.B, a.L, a.Hkv, T64, DVG) ||
+      !make_map(&tdq, encode, dq, a.B, a.L, a.Hq, T64, DG) ||
+      !make_map(&tq64, encode, q, a.B, a.L, a.Hq, T64, DG) ||
+      !make_map(&tdo64, encode, dout, a.B, a.L, a.Hq, T64, DVG))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(flash_dq_kernel<D, DV, WINDOW, CAUSAL>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto dq_kernel = flash_dq_kernel<D, DV, WINDOW, CAUSAL, DG, DVG>;
+  auto dkv_kernel = flash_dkv_kernel<D, DV, TWO_PASS, WINDOW, CAUSAL, DG, DVG>;
+  cudaError_t e = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)DqSmem<D, DV>::BYTES);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(flash_dkv_kernel<D, DV, TWO_PASS, WINDOW, CAUSAL>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DkvSmem<D, DV>::BYTES);
+  e = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)DkvSmem<D, DV>::BYTES);
   if (e != cudaSuccess) return (int)e;
-  flash_dq_kernel<D, DV, WINDOW, CAUSAL><<<(unsigned)(a.Lp / (2 * T64)) * a.Hq * a.B, NTHREADS,
-                                           DqSmem<D, DV>::BYTES, stream>>>(tq128, tdo128, tk,
-                                                                           tv, tdq, a);
+  dq_kernel<<<(unsigned)(a.Lp / (2 * T64)) * a.Hq * a.B, NTHREADS, DqSmem<D, DV>::BYTES,
+              stream>>>(tq128, tdo128, tk, tv, tdq, a);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)(a.Lp / T64) * (TWO_PASS ? a.Hq : a.Hkv) * a.B;
-  flash_dkv_kernel<D, DV, TWO_PASS, WINDOW, CAUSAL>
-      <<<grid, NTHREADS, DkvSmem<D, DV>::BYTES, stream>>>(tq64, tdo64, tk, tv, a);
+  dkv_kernel<<<grid, NTHREADS, DkvSmem<D, DV>::BYTES, stream>>>(tq64, tdo64, tk, tv, a);
   return (int)cudaGetLastError();
 }
 
@@ -979,7 +993,7 @@ int launch_split(const void* q, const void* k, const void* v, const void* dout, 
 // = 0), or (B, L, Hq, d / dv) per q head (two_pass = 1). window: key m
 // counts for query l only if l - m < window (0: full; 128/128 and 256/256
 // take none). causal: 0 for bidirectional attention within each document
-// (64/64, no window only).
+// (64/64 and 72/72, no window only; 72/72 takes nothing else).
 extern "C" int xt_flash_bwd_bf16(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse, const void* delta,
                                  const void* seg, const void* tiles, void* dq, void* dk,
@@ -989,7 +1003,8 @@ extern "C" int xt_flash_bwd_bf16(const void* q, const void* k, const void* v,
   if (Hkv <= 0 || Hq % Hkv != 0 || L <= 0 || B <= 0 || Lp % BK != 0 || Lp < L ||
       Lp - L >= BK || window < 0)
     return (int)cudaErrorInvalidValue;
-  if (!causal && (d != 64 || dv_dim != 64 || window > 0)) return (int)cudaErrorInvalidValue;
+  const bool nc_dims = (d == 64 && dv_dim == 64) || (d == 72 && dv_dim == 72);
+  if (!causal && (!nc_dims || window > 0)) return (int)cudaErrorInvalidValue;
   const Args a{static_cast<const float*>(lse), static_cast<const float*>(delta),
                static_cast<const int*>(seg), static_cast<const int4*>(tiles),
                static_cast<float*>(dq), static_cast<__nv_bfloat16*>(dk),
@@ -1015,12 +1030,16 @@ extern "C" int xt_flash_bwd_bf16(const void* q, const void* k, const void* v,
     return two_pass ? launch_split_w<256, 256, true, false>(q, k, v, dout, dq, a, st)
                     : launch_split_w<256, 256, false, false>(q, k, v, dout, dq, a, st);
   }
+  if (d == 72 && dv_dim == 72 && !causal)  // on 128-column tiles
+    return two_pass
+               ? launch_split_w<128, 128, true, false, false, 72, 72>(q, k, v, dout, dq, a, st)
+               : launch_split_w<128, 128, false, false, false, 72, 72>(q, k, v, dout, dq, a, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // the dynamic shared memory of one CTA (bytes): kernel 0 the one pass at
-// 128/128, 1 flash_dq_kernel and 2 flash_dkv_kernel at 192/128, 64/64 or
-// 256/256;
+// 128/128, 1 flash_dq_kernel and 2 flash_dkv_kernel at 192/128, 64/64,
+// 256/256 or 72/72 (on 128-column tiles);
 // 0 for a pair the kernel is not built for
 extern "C" int xt_flash_bwd_smem_bytes(int kernel, int d, int dv) {
   if (kernel == 0 && d == 128 && dv == 128) return (int)SMEM_BYTES;
@@ -1033,5 +1052,8 @@ extern "C" int xt_flash_bwd_smem_bytes(int kernel, int d, int dv) {
   if (d == 256 && dv == 256)
     return kernel == 1 ? (int)DqSmem<256, 256>::BYTES
                        : (kernel == 2 ? (int)DkvSmem<256, 256>::BYTES : 0);
+  if (d == 72 && dv == 72)
+    return kernel == 1 ? (int)DqSmem<128, 128>::BYTES
+                       : (kernel == 2 ? (int)DkvSmem<128, 128>::BYTES : 0);
   return 0;
 }

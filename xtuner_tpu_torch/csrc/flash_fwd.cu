@@ -90,7 +90,19 @@
 //   and P take the registers of D = 128; only the S product and the Q and
 //   K tiles grow; at 64/64 Q, K and V are one 64-column box each, O is 64
 //   x 64 (32 registers a thread) and PV runs on wgmma m64n64k16), causal,
-//   and non-causal at 64/64 (anything else returns an error).
+//   and non-causal at 64/64 and 72/72 (anything else returns an error).
+// - Head dim 72 (Qwen3-VL-8B's tower, non-causal only): the 128/128
+//   instantiation over tensors of 72 columns (DG = DVG = 72). A 72-column
+//   bf16 row is 144 bytes, a multiple of TMA's 16, so q, k, v and out are
+//   read and written in place, no padded copy: each tile is two 64-column
+//   boxes, the second at column 64, whose columns 72-127 lie outside the
+//   tensor and arrive as zeros (the transaction still counts the whole
+//   box). S = Q K^T runs k16(72) = 80 deep (5 k16 steps, not 8: columns
+//   80-127 would add zeros); O = P V stays 128 wide (the zero columns of V
+//   give zero columns of O, which the out store drops: a TMA store writes
+//   nothing past the tensor's edge). The scale is 72^-0.5 from the caller.
+//   Per visible pair that is 2 (80 + 128) flops for 2 (72 + 72) useful:
+//   1.44 times the work, the price of reusing the 128/128 kernel as it is.
 // - ptxas (nvcc -Xptxas -v, sm_90a, CUDA 12.9): one kernel holds both
 //   variants (the bound is read on the device): at 128/128 254 registers,
 //   0 bytes of spills, 164,936 bytes of dynamic shared memory (one CTA per
@@ -237,7 +249,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], uint32_t (&pa)[32],
   }
 }
 
-template <bool MAX_FREE, int D, int DV, bool CAUSAL>
+template <bool MAX_FREE, int D, int DV, bool CAUSAL, int DG>
 __device__ __forceinline__ void fwd_body(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
                                          const CUtensorMap* tm_v, const CUtensorMap* tm_o,
                                          const Args& a, unsigned char* smem) {
@@ -356,11 +368,11 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap* tm_q, const CUtensor
     const uint32_t sK = sbase + C::OFF_K + stage * C::KT;
     const uint32_t sV = sbase + C::OFF_V + stage * C::VT;
 
-    // S = Q K^T (64 q rows x 128 keys, over D)
+    // S = Q K^T (64 q rows x 128 keys, over the DG columns the tensors have)
     mbar_wait(bar_k + 8 * stage, phase);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < k16(DG) / 16; ++kk) {
       const uint32_t off = (kk / 4) * HALF + (kk % 4) * 32;
       wgmma_m64n128_ss<0, 0>(s, desc(sQ + off, 16, 1024), desc(sK + off, 16, 1024), kk > 0);
     }
@@ -452,7 +464,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap* tm_q, const CUtensor
   if (store) tma_store_wait();  // the stores have read the staging rows
 }
 
-template <int D, int DV, bool CAUSAL>
+template <int D, int DV, bool CAUSAL, int DG, int DVG>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
@@ -465,25 +477,27 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (max_free) {
     if (a.max_free_count != nullptr && threadIdx.x == 0 && blockIdx.x == 0)
       atomicAdd(a.max_free_count, 1);
-    fwd_body<true, D, DV, CAUSAL>(&tm_q, &tm_k, &tm_v, &tm_o, a, smem);
+    fwd_body<true, D, DV, CAUSAL, DG>(&tm_q, &tm_k, &tm_v, &tm_o, a, smem);
   } else {
-    fwd_body<false, D, DV, CAUSAL>(&tm_q, &tm_k, &tm_v, &tm_o, a, smem);
+    fwd_body<false, D, DV, CAUSAL, DG>(&tm_q, &tm_k, &tm_v, &tm_o, a, smem);
   }
 }
 
-template <int D, int DV, bool CAUSAL = true>
+// DG, DVG: the columns of q / k and of v / out (the tile widths D, DV, or
+// fewer: head dim 72 on 128-column tiles)
+template <int D, int DV, bool CAUSAL = true, int DG = D, int DVG = DV>
 int launch(const void* q, const void* k, const void* v, const void* seg, void* tiles, void* out,
            const Args& a, cudaStream_t stream) {
   using C = Smem<D, DV>;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
-  if (!make_map(&tm_q, encode, q, a.B, a.L, a.Hq, BM, D) ||
-      !make_map(&tm_k, encode, k, a.B, a.L, a.Hkv, BN, D) ||
-      !make_map(&tm_v, encode, v, a.B, a.L, a.Hkv, BN, DV) ||
-      !make_map(&tm_o, encode, out, a.B, a.L, a.Hq, 64, DV))
+  if (!make_map(&tm_q, encode, q, a.B, a.L, a.Hq, BM, DG) ||
+      !make_map(&tm_k, encode, k, a.B, a.L, a.Hkv, BN, DG) ||
+      !make_map(&tm_v, encode, v, a.B, a.L, a.Hkv, BN, DVG) ||
+      !make_map(&tm_o, encode, out, a.B, a.L, a.Hq, 64, DVG))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D, DV, CAUSAL>,
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D, DV, CAUSAL, DG, DVG>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)C::BYTES);
   if (e != cudaSuccess) return (int)e;
@@ -491,8 +505,8 @@ int launch(const void* q, const void* k, const void* v, const void* seg, void* t
                         stream);
   if (e != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)(a.Lp / BM) * a.Hq * a.B;
-  flash_fwd_kernel<D, DV, CAUSAL><<<grid, NTHREADS, C::BYTES, stream>>>(tm_q, tm_k, tm_v, tm_o,
-                                                                        a);
+  flash_fwd_kernel<D, DV, CAUSAL, DG, DVG><<<grid, NTHREADS, C::BYTES, stream>>>(
+      tm_q, tm_k, tm_v, tm_o, a);
   return (int)cudaGetLastError();
 }
 
@@ -842,11 +856,11 @@ int launch64(const void* q, const void* k, const void* v, const void* seg, void*
 }  // namespace
 
 // q (B, L, Hq, d), k (B, L, Hkv, d), v (B, L, Hkv, dv), out (B, L, Hq, dv)
-// bf16, (d, dv) = (128, 128), (192, 128), (64, 64) or (256, 256); seg (B, L) int32;
+// bf16, (d, dv) = (128, 128), (192, 128), (64, 64), (256, 256) or (72, 72); seg (B, L) int32;
 // tiles: scratch of (B, Lp / 64, 4) int32, Lp = L rounded up to 128; lse
 // (B, Hq, L) f32. window: > 0 a sliding window, 0 full attention. causal:
-// 0 for bidirectional attention within each document (64/64, no window
-// only). bound:
+// 0 for bidirectional attention within each document (64/64 and 72/72,
+// no window only; 72/72 takes nothing else). bound:
 // device f32 or null (always the running-max variant);
 // max_free_count: device int32 or null; tile_count: device uint64 [walked,
 // full] or null.
@@ -857,7 +871,8 @@ extern "C" int xt_flash_fwd_bf16(const void* q, const void* k, const void* v, co
                                  void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || L <= 0 || B <= 0 || window < 0)
     return (int)cudaErrorInvalidValue;
-  if (!causal && (d != 64 || dv != 64 || window > 0)) return (int)cudaErrorInvalidValue;
+  const bool nc_dims = (d == 64 && dv == 64) || (d == 72 && dv == 72);
+  if (!causal && (!nc_dims || window > 0)) return (int)cudaErrorInvalidValue;
   const Args a{static_cast<const int*>(seg), static_cast<const int4*>(tiles),
                static_cast<float*>(lse), static_cast<const float*>(bound),
                static_cast<int*>(max_free_count),
@@ -870,6 +885,8 @@ extern "C" int xt_flash_fwd_bf16(const void* q, const void* k, const void* v, co
     return causal ? launch<64, 64>(q, k, v, seg, tiles, out, a, st)
                   : launch<64, 64, false>(q, k, v, seg, tiles, out, a, st);
   if (d == 256 && dv == 256) return launch64<256, 256>(q, k, v, seg, tiles, out, a, st);
+  if (d == 72 && dv == 72 && !causal)
+    return launch<128, 128, false, 72, 72>(q, k, v, seg, tiles, out, a, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -880,5 +897,6 @@ extern "C" int xt_flash_fwd_smem_bytes(int d, int dv) {
   if (d == 192 && dv == 128) return (int)Smem<192, 128>::BYTES;
   if (d == 64 && dv == 64) return (int)Smem<64, 64>::BYTES;
   if (d == 256 && dv == 256) return (int)Smem64<256, 256>::BYTES;
+  if (d == 72 && dv == 72) return (int)Smem<128, 128>::BYTES;  // on 128-column tiles
   return 0;
 }

@@ -423,8 +423,8 @@ __device__ __forceinline__ void acc_rs(float (&acc)[N][32], const uint32_t (&a)[
                          desc(tile + n * BOX64 + kk * 2048, BOX64, 1024));
 }
 
-// s (64 x 64 f32) = A B^T over X columns: A, B K-major tiles of 64 rows in
-// 64-column boxes, box strides a_box and BOX64
+// s (64 x 64 f32) = A B^T over X columns (a multiple of 16): A, B K-major
+// tiles of 64 rows in 64-column boxes, box strides a_box and BOX64
 template <int X>
 __device__ __forceinline__ void ss_nt(float (&s)[32], uint32_t a, uint32_t a_box, uint32_t b) {
 #pragma unroll
@@ -453,25 +453,32 @@ __device__ __forceinline__ void stage_rows(unsigned char* buf, const float (&acc
 }
 
 // write one warpgroup's (64 key rows x X) accumulator, times mul, as bf16
-// rows of a (B, L, H, X) tensor; with BOUNDED, rows at or past L are not
-// written (without, the caller's tiles end at L)
-template <int X, bool BOUNDED = false>
+// rows of a (B, L, H, XG) tensor, its first XG columns (XG <= X, a multiple
+// of 8: a head dim the accumulator pads to X); with BOUNDED, rows at or past
+// L are not written (without, the caller's tiles end at L)
+template <int X, bool BOUNDED = false, int XG = X>
 __device__ __forceinline__ void store_keys(__nv_bfloat16* dst, const float (&acc)[X / 64][32],
                                            float mul, int b, int k0, int h, int L, int H,
                                            int row0, int tq) {
+  static_assert(XG <= X && XG % 8 == 0, "the tensor's columns fit the accumulator's");
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = k0 + row0 + 8 * r;
     if (BOUNDED && key >= L) continue;
-    const int64_t o = (((int64_t)b * L + key) * H + h) * X + 2 * tq;
+    const int64_t o = (((int64_t)b * L + key) * H + h) * XG + 2 * tq;
 #pragma unroll
     for (int n = 0; n < X / 64; ++n)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<uint32_t*>(dst + o + 64 * n + 8 * j) =
-            pack_bf16(acc[n][4 * j + 2 * r] * mul, acc[n][4 * j + 2 * r + 1] * mul);
+        if (64 * n + 8 * j < XG)
+          *reinterpret_cast<uint32_t*>(dst + o + 64 * n + 8 * j) =
+              pack_bf16(acc[n][4 * j + 2 * r] * mul, acc[n][4 * j + 2 * r + 1] * mul);
   }
 }
+
+// the depth of a product over a head dim of `d` columns in k16 steps: d
+// rounded up to 16 (the columns past d read as zeros)
+__host__ __device__ constexpr int k16(int d) { return (d + 15) / 16 * 16; }
 
 // exclusive prefix sum of v over a CTA of THREADS threads (a multiple of
 // 32); `total` gets the sum. wsum: THREADS / 32 ints of shared memory

@@ -3,9 +3,10 @@
 dataclasses, and `DataloaderConfig.build`, which assembles jsonl datasets
 -> packer -> sampler -> `Dataloader` as the JAX one does.
 
-The text classes ("openai_sft", "pretrain") and "qwen3_vl"
-(`datasets/qwen_vl.py`, with the `image_*` / `vision_*` fields and
-`max_patches`) are ported; "internvl" raises ([trainer-rest]).
+Every class is ported: the text classes ("openai_sft", "pretrain"),
+"qwen3_vl" (`datasets/qwen_vl.py`, with the `image_min/max_pixels` /
+`vision_*` fields and `max_patches`) and "internvl" (`datasets/vlm.py`,
+with `image_size`, `image_max_num`, `tokens_per_tile` and `max_tiles`).
 """
 
 from __future__ import annotations
@@ -14,13 +15,13 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Literal, Optional
 
-from .. import not_ported
 from .dataloader import Dataloader
 from .jsonl import JsonlDataset
 from .packing import HardPackDataset, SoftPackDataset
 from .qwen_vl import Qwen3VLTokenizeFn
 from .sampler import LengthGroupedSampler, ParallelSampler
 from .tokenize_fns import OpenaiSFTTokenizeFn, PretrainTokenizeFn
+from .vlm import InternVLTokenizeFn
 
 
 @dataclass
@@ -49,8 +50,8 @@ class DataloaderConfig:
     seed: int = 0
     shuffle: bool = True
     length_grouped: bool = False
-    # VLM fields: max_patches > 0 takes the Qwen3-VL collator; max_tiles
-    # (InternVL) > 0 raises
+    # VLM fields: max_patches > 0 takes the Qwen3-VL collator, max_tiles >
+    # 0 InternVL's
     max_tiles: int = 0
     tokens_per_tile: int = 256
     image_size: int = 448
@@ -72,13 +73,18 @@ class DataloaderConfig:
                     fn = OpenaiSFTTokenizeFn(tokenizer, ds_cfg.chat_template, ds_cfg.max_length)
                 elif ds_cfg.class_name == "pretrain":
                     fn = PretrainTokenizeFn(tokenizer, max_length=ds_cfg.max_length)
+                elif ds_cfg.class_name == "internvl":
+                    fn = InternVLTokenizeFn(
+                        tokenizer, ds_cfg.chat_template, image_size=self.image_size,
+                        max_num=self.image_max_num, tokens_per_tile=self.tokens_per_tile,
+                        max_length=ds_cfg.max_length)
                 elif ds_cfg.class_name == "qwen3_vl":
                     fn = Qwen3VLTokenizeFn(
                         tokenizer, ds_cfg.chat_template, patch_size=self.vision_patch_size,
                         merge_size=self.vision_merge_size, min_pixels=self.image_min_pixels,
                         max_pixels=self.image_max_pixels, max_length=ds_cfg.max_length)
                 else:
-                    raise not_ported(f"the {ds_cfg.class_name!r} dataset class", "trainer-rest")
+                    raise ValueError(f"unknown dataset class {ds_cfg.class_name!r}")
                 datasets.append(
                     JsonlDataset(f, fn, cache_dir=self.cache_dir,
                                  sample_ratio=ds_cfg.sample_ratio, name=ds_cfg.name or f.stem,

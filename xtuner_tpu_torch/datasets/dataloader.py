@@ -1,19 +1,19 @@
 """Dataloader: yields (A, B, L) numpy step-batches with resume state
-(counterpart: `xtuner_tpu/datasets/dataloader.py`, its text and Qwen3-VL
-paths).
+(counterpart: `xtuner_tpu/datasets/dataloader.py`, its text, InternVL and
+Qwen3-VL paths).
 
 One step batch feeds one optimizer step: A = grad-accum micro-batches x
 B = packed rows each, collated by `sft_llm_collator`, or with
 `max_patches` > 0 per micro-batch by `datasets/qwen_vl.py::qwen3vl_collator`
-(patch rows padded to `max_patches`, so every VLM key stacks to a leading
-A). With `num_workers`
+(patch rows padded to `max_patches`), or with `max_tiles` > 0 by
+`datasets/vlm.py::vlm_collator` (tiles padded to `max_tiles`), so every
+VLM key stacks to a leading A. With `num_workers`
 > 0 a background thread keeps `prefetch` batches ready, so host
 tokenization overlaps device compute. The sampler's state is the resume
 state; `get_state_dict` reports the position after the batches handed out
 (batches prefetched but not yet taken are not counted as consumed).
 
-Not ported: InternVL's tile collator (`max_tiles` raises [trainer-rest])
-and the per-process row split of a multihost run (`local_b_rows`,
+Not ported: the per-process row split of a multihost run (`local_b_rows`,
 [parallelism]).
 """
 
@@ -29,6 +29,7 @@ import numpy as np
 from .. import not_ported
 from .collator import sft_llm_collator
 from .qwen_vl import qwen3vl_collator
+from .vlm import vlm_collator
 
 
 class Dataloader:
@@ -40,8 +41,6 @@ class Dataloader:
                  pad_token_id: int = 0, local_b_rows: "Optional[list[int]]" = None):
         if global_batch_rows % micro_batch_rows != 0:
             raise ValueError("global_batch_rows must be divisible by micro_batch_rows")
-        if max_tiles > 0:
-            raise not_ported("InternVL's tile collator (max_tiles)", "trainer-rest")
         if local_b_rows is not None:
             raise not_ported("the multihost per-process row split (local_b_rows)",
                              "parallelism")
@@ -56,6 +55,7 @@ class Dataloader:
         self.prefetch = prefetch
         self.pad_token_id = pad_token_id
         self.max_patches = max_patches
+        self.max_tiles = max_tiles
         self.num_grid_per_side = num_grid_per_side
         self.merge_size = merge_size
         self._sampler_iter = iter(self.sampler)
@@ -78,6 +78,12 @@ class Dataloader:
                                       num_grid_per_side=self.num_grid_per_side,
                                       merge_size=self.merge_size,
                                       pad_token_id=self.pad_token_id)
+                     for i in range(a)]
+            return {k: np.stack([m[k] for m in micro]) for k in micro[0]}, state
+        if self.max_tiles > 0:
+            micro = [vlm_collator(rows[i * b:(i + 1) * b], self.pack_max_length,
+                                  self.loss_reduction, max_tiles=self.max_tiles,
+                                  pad_token_id=self.pad_token_id)
                      for i in range(a)]
             return {k: np.stack([m[k] for m in micro]) for k in micro[0]}, state
         batch = sft_llm_collator(rows, self.pack_max_length, self.loss_reduction,

@@ -7,8 +7,9 @@ The constructor takes what `Trainer` passes, as the JAX one does.
 `train_step(batch, step)` takes an (A, B, L) packed batch (with an
 optional (A, B, L, nL_moe, K) `rollout_routed_experts`, the recorded
 routing an MoE model replays, as JAX's RL loss passes it, and the VLM
-keys of JAX's `VLM_BATCH_KEYS`, each with a leading A: Qwen3-VL's patch
-rows, image-token mask, (3, L) MRoPE positions and ViT geometry): A micro-batches,
+keys of JAX's `VLM_BATCH_KEYS`, each with a leading A: InternVL's (T, 3,
+S, S) tiles, or Qwen3-VL's patch rows, image-token mask, (3, L) MRoPE
+positions and ViT geometry, both as `pixel_values`): A micro-batches,
 each one forward/backward with the loss denominator summed over the whole
 batch, gradients accumulated in f32; then the global-norm clip, AdamW
 (`config/optim.py`), and the JAX package's metrics, plus `dsa_index_loss`
@@ -31,16 +32,20 @@ Memory: masters are stored stacked like the JAX tree; the model trains on
 per-layer views of them that are autograd leaves, so each layer's gradient
 is a tensor of its own and the stacked master is never copied. AdamW
 updates the masters in place through those views, one layer at a time. A
-stack is any key ending in `layers`, or Qwen3-VL's `blocks` and
-`deepstack_mergers`, at any depth of the tree (a VLM's `vision.blocks`,
-`projector.deepstack_mergers`, `language.layers`); a hybrid's `pattern`
-tree gets the same per-period views for each of its slots.
+stack is any key ending in `layers`, or a vision tower's `blocks`
+(InternVL's and Qwen3-VL's) and Qwen3-VL's `deepstack_mergers`, at any
+depth of the tree (a VLM's `vision.blocks`, `projector.deepstack_mergers`,
+`language.layers`); a hybrid's `pattern` tree gets the same per-period
+views for each of its slots.
 
-Freezing: leaves a model's `param_labels` marks "freeze" (Qwen3-VL's
-`freeze_vision` / `freeze_projector` / `freeze_language`; under LoRA every
-leaf but the adapters) are views that need no gradient and are no
-optimizer params: no gradient, no moments, no update, no decay, and out of
-the grad norm (JAX's `freeze_stop_gradient` and `optax.set_to_zero`).
+Freezing: leaves a model's `param_labels` marks "freeze" (InternVL's and
+Qwen3-VL's `freeze_vision` / `freeze_projector` / `freeze_language`; under
+LoRA every leaf but the adapters) are views that need no gradient and are
+no optimizer params: no gradient, no moments, no update, no decay, and out
+of the grad norm (JAX's `freeze_stop_gradient` and `optax.set_to_zero`). A
+frozen tower on pixels records no autograd graph, so it has no backward
+(`model/vision.py`); a frozen language model still runs its backward for
+the gradient of its input embeddings, without weight gradients.
 QLoRA's NF4 codes stay uint8 and their scales f32 (`ParamSpec.dtype`).
 
 `train_step(batch, step, loss_fn)` takes another loss, as JAX's
@@ -48,7 +53,9 @@ QLoRA's NF4 codes stay uint8 and their scales f32 (`ParamSpec.dtype`).
 clip and AdamW are the same, and `reduced_llm_loss` / `consumed_tokens`
 are reported only when the loss returns `sum_ce`.
 
-HF checkpoints: `from_hf` loads f32 masters through `checkpoint/hf.py`
+HF checkpoints (a text model, or InternVL's `model/compose.py` with its
+`vision_tower.` / `multi_modal_projector.` / `language_model.` keys):
+`from_hf` loads f32 masters through `checkpoint/hf.py`
 (LoRA adapters drawn from the engine's seeded generator, QLoRA bases
 quantized on the device), `save_hf` / `async_save_hf` export them; a LoRA
 model is merged first and written with the plain key map (JAX
@@ -83,7 +90,7 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-# the keys of Qwen3-VL's stacks beside those ending in "layers"
+# the keys of the vision stacks beside those ending in "layers"
 VLM_STACKS = ("blocks", "deepstack_mergers")
 # optional batch keys handed into SequenceContext (JAX's VLM_BATCH_KEYS)
 VLM_BATCH_KEYS = ("pixel_values", "image_token_mask", "mrope_positions", "vision_segment_ids",

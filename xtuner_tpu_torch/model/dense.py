@@ -4,9 +4,9 @@ The parameter tree (`param_specs`), `lm_head_weight`, and the training
 `forward`/`loss`. Decoder layers are stored stacked with a leading L dim,
 as in the JAX tree; a layer stack may also be given as a list of per-layer
 dicts (what the engine trains on, so each layer's gradient is its own
-tensor). Remat "full", "none", "save_attn_residuals" and "save_out_lse"
-are ported (`remat_wrap`); the other selective policies raise
-([train-slice]).
+tensor). Remat "full", "none", "save_attn", "save_attn_residuals" and
+"save_out_lse" are ported (`remat_wrap`); the other selective policies
+raise ([train-slice]).
 The serving layer loop lives in `model/generate.py` and
 `model/paged_generate.py`.
 
@@ -89,7 +89,17 @@ def remat_wrap(pre, attend, post, remat: str):
       backward re-runs `pre` (q, k and v are recomputed, never saved) and
       never the flash forward. `post` is one checkpoint region, as under
       "save_attn_residuals". A gated attention raises here ([train-slice]):
-      its gate would be one more saved or recomputed input of `post`.
+      its gate would be one more saved or recomputed input of `post`;
+    - "save_attn": the layer's input and the attention's output before the
+      o-projection (JAX saves only `attn_out`, `module/attention.py:144`);
+      `pre` with the attention is one checkpoint region and `post` another.
+      The backward re-runs `pre` and the flash forward (#1, for lse), then
+      the backward kernels, then `post` from x and the saved out. JAX's
+      checkpoint re-runs its forward kernel too: its residuals
+      `attn_res_out` / `attn_lse` are not among the saved names (its
+      comment at `model/dense.py:36-37` says otherwise). Held per layer: x and out, (B, L, H) and (B, L, Hq Dv)
+      in the compute dtype. A gated attention raises ([train-slice]): its
+      gate is not among the saved names.
 
     The other named policies raise ([train-slice])."""
     def attend_qkv(q, k, v, max_logit, sinks):
@@ -121,6 +131,17 @@ def remat_wrap(pre, attend, post, remat: str):
                        *leaves)
             return checkpoint(post, x, o, lp, None, use_reentrant=False)
         return saving_out_lse
+    if remat == "save_attn":
+        def attn_only(x, lp):
+            *qkv, gate = pre(x, lp)
+            if gate is not None:
+                raise not_ported("gated attention under remat 'save_attn'", "train-slice")
+            return attend_qkv(*qkv)
+
+        def saving_attn(x, lp):
+            o = checkpoint(attn_only, x, lp, use_reentrant=False)
+            return checkpoint(post, x, o, lp, None, use_reentrant=False)
+        return saving_attn
     raise not_ported(f"remat policy {remat!r}", "train-slice")
 
 

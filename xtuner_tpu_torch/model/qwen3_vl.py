@@ -31,8 +31,8 @@ The training forward, as JAX's:
 leaves no gradient and no update (`engine/train_engine.py`).
 
 The host helpers `smart_resize`, `preprocess_image` and `vision_geometry`
-are numpy, as JAX's, with the port's own copy of the bilinear `_resize`
-(JAX `datasets/vlm.py`).
+are numpy, as JAX's; the bilinear `_resize` is InternVL's
+(`datasets/vlm.py`), as in JAX.
 
 Not ported yet: the HF key map and `qwen3vl_config_from_hf`
 ([serve-rest]).
@@ -51,6 +51,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .. import not_ported
+from ..datasets.vlm import _resize
 from ..module.attention import MHAConfig
 from ..module.params import ParamSpec, cast_tree, stack_specs, tree_map
 from ..module.rope import RopeScalingConfig
@@ -385,23 +386,6 @@ def smart_resize(height: int, width: int, factor: int = 32,
 
 CLIP_MEAN = np.asarray([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.asarray([0.26862954, 0.26130258, 0.27577711], np.float32)
-
-
-def _resize(img: np.ndarray, w: int, h: int) -> np.ndarray:
-    """Bilinear resize (H, W, C) uint8 or float -> (h, w, C) float32."""
-    src_h, src_w = img.shape[:2]
-    ys = np.linspace(0, src_h - 1, h)
-    xs = np.linspace(0, src_w - 1, w)
-    y0 = np.floor(ys).astype(int)
-    x0 = np.floor(xs).astype(int)
-    y1 = np.minimum(y0 + 1, src_h - 1)
-    x1 = np.minimum(x0 + 1, src_w - 1)
-    wy = (ys - y0)[:, None, None]
-    wx = (xs - x0)[None, :, None]
-    img = img.astype(np.float32)
-    top = img[y0][:, x0] * (1 - wx) + img[y0][:, x1] * wx
-    bot = img[y1][:, x0] * (1 - wx) + img[y1][:, x1] * wx
-    return top * (1 - wy) + bot * wy
 
 
 def preprocess_image(image: np.ndarray, patch_size: int = 16, merge_size: int = 2,

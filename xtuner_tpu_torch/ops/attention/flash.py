@@ -53,13 +53,18 @@ they walk without the per-element mask (`fwd_tiles_walked()`);
 
 Non-causal attention (`causal=False`: key m visible to query l iff
 seg[l] == seg[m] != 0, JAX `_tile_mask`), the bidirectional attention of
-Qwen3-VL's vision tower, runs in the kernels at (64, 64)
-(`NONCAUSAL_DIMS`): the forward's and dq's walks go from the first k
-tile that meets a q tile's segment range to the last, the dk/dv walk
-over the same span from the k tile's side, and a tile whose rows and
-keys are one document skips the mask on the diagonal too. Every other
-pair raises on a CUDA tensor (ROADMAP.md Queue 2 A1), as does a window
-with `causal=False`; the plain versions take both everywhere.
+the vision towers (Qwen3-VL-4B's and InternViT's heads of 64, Qwen3-VL-8B's
+of 72), runs in the kernels at (64, 64) and (72, 72) (`NONCAUSAL_DIMS`):
+the forward's and dq's walks go from the first k tile that meets a q
+tile's segment range to the last, the dk/dv walk over the same span from
+the k tile's side, and a tile whose rows and keys are one document skips
+the mask on the diagonal too. (72, 72) runs the 128/128 instantiations
+over 72-column tensors, in place: TMA zero-fills columns 72-127 of each
+tile and the stores drop them (`csrc/flash_fwd.cu`). It is a non-causal
+pair only (`NONCAUSAL_ONLY_DIMS`): a causal call there raises, as no
+preset needs one. Every other pair raises with `causal=False` on a CUDA
+tensor (ROADMAP.md Queue 2 A1), as does a window with `causal=False`; the
+plain versions take both everywhere.
 
 Not ported yet: a window in the backward at 128/128 and 256/256 (no
 preset trains with one).
@@ -77,11 +82,13 @@ from .reference import make_attention_mask
 
 NEG_INF = -1e30
 BIG_LSE = 1e30  # lse sentinel for rows that see no key (padding)
-KERNEL_DIMS = ((128, 128), (192, 128), (64, 64), (256, 256))  # the (D, Dv) pairs the forward takes
-BWD_KERNEL_DIMS = ((128, 128), (192, 128), (64, 64), (256, 256))  # and the backward
+# the (D, Dv) pairs the forward takes, and the backward
+KERNEL_DIMS = ((128, 128), (192, 128), (64, 64), (256, 256), (72, 72))
+BWD_KERNEL_DIMS = ((128, 128), (192, 128), (64, 64), (256, 256), (72, 72))
 ONE_PASS_DIMS = (128, 128)  # the backward pair that runs the one pass (no window)
 NO_WINDOW_BWD_DIMS = (ONE_PASS_DIMS, (256, 256))  # backward pairs built without a window
-NONCAUSAL_DIMS = ((64, 64),)  # the pairs whose kernels take causal=False
+NONCAUSAL_DIMS = ((64, 64), (72, 72))  # the pairs whose kernels take causal=False
+NONCAUSAL_ONLY_DIMS = ((72, 72),)  # and those that take nothing else
 # |scaled logit| bound at or below which the max-free forward is exact in
 # f32 (flash.py MAX_FREE_BOUND): exp(45) is far inside the f32 range
 MAX_FREE_BOUND = 45.0
@@ -266,8 +273,10 @@ def fwd_tiles_walked() -> tuple[int, int]:
 def reset_launches() -> None:
     """Zero the launch counters of the flash kernels."""
     flash_attention.launches = flash_attention.noncausal_launches = 0
+    flash_attention.noncausal_by_dim = {}
     flash_bwd.launches = {"grouped": 0, "two_pass": 0}
     flash_bwd.noncausal_launches = {"grouped": 0, "two_pass": 0}
+    flash_bwd.noncausal_by_dim = {}
     for c in (*_MAX_FREE_COUNT.values(), *_TILE_COUNT.values()):
         c.zero_()
 
@@ -349,8 +358,12 @@ def fwd_outputs(q: torch.Tensor, v: torch.Tensor):
 
 def _check_causal(q, v, window, causal: bool, name: str) -> None:
     """A CUDA call with `causal=False` needs a pair of `NONCAUSAL_DIMS` and
-    no window."""
+    no window; a causal one a pair outside `NONCAUSAL_ONLY_DIMS`."""
     if causal:
+        if (q.shape[3], v.shape[3]) in NONCAUSAL_ONLY_DIMS:
+            raise not_ported(f"causal {name} at (head_dim, v head_dim) "
+                             f"{(q.shape[3], v.shape[3])} (its kernels are built non-causal "
+                             f"only: no preset needs it)", "train-slice")
         return
     if (q.shape[3], v.shape[3]) not in NONCAUSAL_DIMS:
         raise not_ported(f"non-causal {name} at (head_dim, v head_dim) "
@@ -395,7 +408,9 @@ def flash_forward(q, k, v, segment_ids, scale: float,
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "xt_flash_fwd_bf16")
     flash_attention.launches += 1
-    flash_attention.noncausal_launches += not causal
+    if not causal:
+        flash_attention.noncausal_launches += 1
+        flash_attention.noncausal_by_dim[d] = flash_attention.noncausal_by_dim.get(d, 0) + 1
     return out, lse
 
 
@@ -439,14 +454,14 @@ def flash_bwd(q, k, v, segment_ids, lse, delta, do, scale: float, two_pass: bool
     (B, L, Hq, D / Dv) of each q head in q.dtype, not summed (`group_sum`
     sums them). With a `window` (> 0), key m counts for query l only if l
     - m < window; without `causal`, every key of l's document counts
-    (at (64, 64) only on a CUDA tensor). lse is the forward's, with any
-    sinks folded in. At head
+    (at (64, 64) and (72, 72) only on a CUDA tensor). lse is the
+    forward's, with any sinks folded in. At head
     dim 128 one pass adds dq into a zeroed f32 accumulator by bulk
     reduce-adds, so dq's summation order changes from run to run; dk and
-    dv's does not; it takes no window. At (192, 128), (64, 64) and (256,
-    256) a dq kernel and a dk/dv kernel write every output once (the same
-    bits run after run); the two launches count as one; 256/256 takes no
-    window."""
+    dv's does not; it takes no window. At (192, 128), (64, 64), (256, 256)
+    and (72, 72) a dq kernel and a dk/dv kernel write every output once
+    (the same bits run after run); the two launches count as one; 256/256
+    takes no window."""
     if window is not None and window <= 0:
         raise ValueError(f"flash_bwd: window {window} must be positive (None: full)")
     if q.device.type == "cpu":
@@ -476,9 +491,11 @@ def flash_bwd(q, k, v, segment_ids, lse, delta, do, scale: float, two_pass: bool
         float(scale), int(two_pass), int(window or 0), int(causal),
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "xt_flash_bwd_bf16")
-    flash_bwd.launches["two_pass" if two_pass else "grouped"] += 1
+    kind = "two_pass" if two_pass else "grouped"
+    flash_bwd.launches[kind] += 1
     if not causal:
-        flash_bwd.noncausal_launches["two_pass" if two_pass else "grouped"] += 1
+        flash_bwd.noncausal_launches[kind] += 1
+        flash_bwd.noncausal_by_dim[kind, d] = flash_bwd.noncausal_by_dim.get((kind, d), 0) + 1
     if not one_pass:
         return dq, dk, dv
     # the accumulator's blocks hold (b, h, q tile, column half, warp, j,
@@ -492,6 +509,7 @@ def flash_bwd(q, k, v, segment_ids, lse, delta, do, scale: float, two_pass: bool
 
 flash_bwd.launches = {"grouped": 0, "two_pass": 0}  # launches since the last reset
 flash_bwd.noncausal_launches = {"grouped": 0, "two_pass": 0}  # of which causal=False
+flash_bwd.noncausal_by_dim = {}  # those by (path, head dim)
 
 
 def attn_bwd() -> str:
@@ -592,7 +610,8 @@ def flash_attention_saving_out_lse(qkv_fn, inputs, segment_ids: torch.Tensor, *,
     return _FlashAttention.apply(qkv_fn, segment_ids, float(scale), window, True, *inputs)
 
 
-# forward kernel launches (either variant) since the last reset, and of
-# those the non-causal ones; counted by flash_forward, read under the public
-# entry's name
+# forward kernel launches (either variant) since the last reset, of those
+# the non-causal ones, and those by head dim; counted by flash_forward, read
+# under the public entry's name
 flash_attention.launches = flash_attention.noncausal_launches = 0
+flash_attention.noncausal_by_dim = {}

@@ -8,9 +8,14 @@ checkpoint save / resume, and `fit` logs the same step line and writes the
 same tracker keys as the JAX `fit`; a DSA model's indexer loss
 (`dsa_index_loss`) joins both, beside `reduced_llm_loss`. Without a
 `tokenizer_path` the tokenizer is the UTF-8 byte toy, with the three
-vision specials when a dataset is "qwen3_vl" (JAX's has none there, and
-its Qwen3-VL tokenize function then fails on every sample: ROADMAP.md,
-known faults in the reference).
+vision specials when a dataset is "qwen3_vl" and InternVL's `<img>`,
+`</img>` and `<IMG_CONTEXT>` when one is "internvl" (JAX's has none: its
+Qwen3-VL tokenize function then fails on every sample, and its InternVL
+one writes the context as bytes that no model id matches, so the vision
+embeds are dropped silently: ROADMAP.md, known faults in the reference).
+A model with an `image_context_token_id` (`model/compose.py`) trained on
+an "internvl" dataset must name the tokenizer's `<IMG_CONTEXT>` id, one
+token, or the trainer refuses it before it builds the data plane.
 
 `load_from` starts from an HF checkpoint's weights (`checkpoint/hf.py`);
 `hf_interval` N exports the masters to `<work_dir>/hf-step-N` every N
@@ -135,6 +140,7 @@ class Trainer:
         self._write_meta()
 
         self.tokenizer = self._build_tokenizer()
+        self._check_image_context()
         self._reconcile_config()
         self.dataloader = cfg.dataloader_cfg.build(
             self.tokenizer, cfg.global_batch_rows, cfg.micro_batch_rows
@@ -189,14 +195,38 @@ class Trainer:
         from .toy_tokenizer import UTF8ByteTokenizer
 
         logger.info("no tokenizer_path given; using UTF8ByteTokenizer toy tokenizer")
-        if any(d.class_name == "qwen3_vl" for d in self.cfg.dataloader_cfg.datasets):
+        classes = {d.class_name for d in self.cfg.dataloader_cfg.datasets}
+        specials = []
+        if "qwen3_vl" in classes:
             # the vision specials as single tokens: JAX's Trainer builds the toy
             # tokenizer without them, and Qwen3VLTokenizeFn then takes "<" for
             # the image pad and raises on every sample
             from ..datasets.qwen_vl import VL_SPECIALS
 
-            return UTF8ByteTokenizer(VL_SPECIALS)
-        return UTF8ByteTokenizer()
+            specials += VL_SPECIALS
+        if "internvl" in classes:
+            # and InternVL's: without them JAX's InternVLTokenizeFn writes
+            # <IMG_CONTEXT> as 13 bytes, which no image_context_token_id matches
+            from ..datasets.vlm import IMG_SPECIALS
+
+            specials += IMG_SPECIALS
+        return UTF8ByteTokenizer(specials)
+
+    def _check_image_context(self) -> None:
+        """An image-context model on an "internvl" dataset: its
+        `image_context_token_id` must be the tokenizer's one `<IMG_CONTEXT>`
+        id, or no position would take a vision token."""
+        want = getattr(self.cfg.model_cfg, "image_context_token_id", None)
+        if want is None or not any(d.class_name == "internvl"
+                                   for d in self.cfg.dataloader_cfg.datasets):
+            return
+        from ..datasets.vlm import IMG_CONTEXT
+
+        ids = self.tokenizer.encode(IMG_CONTEXT, add_special_tokens=False)
+        if list(ids) != [want]:
+            raise ValueError(f"image_context_token_id {want} is not the tokenizer's "
+                             f"{IMG_CONTEXT} (it encodes to {list(ids)[:16]}): the vision "
+                             f"embeds would reach no position")
 
     def _reconcile_config(self) -> None:
         """Config conflict resolution, as the JAX trainer: the dataloader
